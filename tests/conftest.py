@@ -49,6 +49,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "tpu: real-chip tier (PADDLE_TPU_TESTS_TPU=1 -m tpu)")
     config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's kernels); skips "
+        "without one")
+    config.addinivalue_line(
         "markers", "slow: forks real processes / long wall-clock; "
         "excluded from tier-1 (-m 'not slow'); fast in-process "
         "equivalents of each scenario live in tier-1")
