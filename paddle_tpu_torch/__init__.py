@@ -19,17 +19,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .framework.random import seed
+
 __all__ = ["seed", "default_device", "resolve_device", "to_tensor"]
 
 # the reference computes in float32: keep cuBLAS and cuDNN off TF32
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-
-
-def seed(s):
-    """paddle.seed: seed torch's default generator (the one modules
-    draw from when no explicit ``generator`` is passed) and return it."""
-    return torch.manual_seed(int(s))
 
 
 def default_device():

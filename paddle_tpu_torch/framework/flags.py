@@ -1,7 +1,8 @@
 """Runtime flags registry: set_flags / get_flags + FLAGS_* env.
 
-The serving subset of paddle_tpu's registry, with the same names and
-defaults. Unknown flags raise.
+The serving subset of paddle_tpu's registry plus the ERNIE head's
+`FLAGS_use_fused_lm_loss`, with the same names and defaults. Unknown
+flags raise.
 """
 
 from __future__ import annotations
@@ -58,6 +59,12 @@ _DEFS = {
         "per-tensor scale calibrated during warmup and the first steps "
         "(ops/lowp.py). Requires the int8-frozen tied head; ignored "
         "otherwise"),
+    "FLAGS_use_fused_lm_loss": (
+        True, bool,
+        "route the tied-decoder matmul + cross_entropy of the ERNIE/BERT "
+        "pretraining head through the fused chunked-vocab loss (kernels "
+        "B4-B6). Not ported yet: while it is on, ErniePretrainingHeads "
+        "raises NotImplementedError; set it off for the unfused head"),
 }
 
 _values: dict = {}

@@ -1,5 +1,10 @@
-"""Transformer model families ported so far: GPT."""
+"""Transformer model families ported so far: GPT, ERNIE / BERT."""
 
+from .ernie import (  # noqa: F401
+    BertConfig, BertForPretraining, BertModel, BertPretrainingCriterion,
+    ErnieConfig, ErnieForPretraining, ErnieModel, ErniePretrainingCriterion,
+    bert_config, ernie_config,
+)
 from .gpt import (  # noqa: F401
     GPTConfig, GPTForPretraining, GPTModel, gpt_config,
 )

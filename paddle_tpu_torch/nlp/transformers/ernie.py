@@ -1,0 +1,279 @@
+"""ERNIE / BERT encoder family (counterpart of
+paddle_tpu/nlp/transformers/ernie.py).
+
+Single-device only: ``use_parallel=True`` raises until the distributed
+slice lands, and so does ``recompute=True``. Parameter names and layouts
+equal ``paddle_tpu.engine.state_values`` one to one, so weights cross
+between the packages as numpy arrays (``paddle_tpu_torch.weights``).
+
+The MLM head is tied to ``ernie.embeddings.word_embeddings.weight``.
+The head reads that table through its owner at call time and never
+registers it, so the table is one parameter under one name, as in the
+reference's state dict. With ``FLAGS_use_fused_lm_loss`` on (the
+reference's default) the reference routes the head through the fused
+chunked-vocab loss (kernels B4-B6), which is not ported yet: the head
+raises until it is, and callers set the flag off for the plain tied
+``matmul_v2`` followed by ``cross_entropy``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ... import nn, resolve_device
+from ...framework.flags import flag
+from ...nn import functional as F
+
+__all__ = ["ErnieConfig", "ernie_config", "ErnieEmbeddings",
+           "ErnieSelfAttention", "ErnieEncoderLayer", "ErniePooler",
+           "ErnieModel", "ErniePretrainingHeads", "ErnieForPretraining",
+           "ErniePretrainingCriterion", "BertConfig", "BertModel",
+           "BertForPretraining", "BertPretrainingCriterion", "bert_config"]
+
+
+class ErnieConfig:
+    def __init__(self, vocab_size=18000, hidden_size=768, num_layers=12,
+                 num_heads=12, ffn_hidden_size=3072, max_seq_len=512,
+                 type_vocab_size=4, dropout=0.1, attn_dropout=0.1,
+                 layer_norm_eps=1e-12, initializer_range=0.02,
+                 use_parallel=False, sequence_parallel=False,
+                 recompute=False):
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.ffn_hidden_size = ffn_hidden_size
+        self.max_seq_len = max_seq_len
+        self.type_vocab_size = type_vocab_size
+        self.dropout = dropout
+        self.attn_dropout = attn_dropout
+        self.layer_norm_eps = layer_norm_eps
+        self.initializer_range = initializer_range
+        self.use_parallel = use_parallel
+        self.sequence_parallel = sequence_parallel
+        self.recompute = recompute
+
+
+_PRESETS = {
+    "ernie-1.0": dict(vocab_size=18000, hidden_size=768, num_layers=12,
+                      num_heads=12, ffn_hidden_size=3072),
+    "bert-base": dict(vocab_size=30522, hidden_size=768, num_layers=12,
+                      num_heads=12, ffn_hidden_size=3072,
+                      type_vocab_size=2),
+    "bert-large": dict(vocab_size=30522, hidden_size=1024, num_layers=24,
+                       num_heads=16, ffn_hidden_size=4096,
+                       type_vocab_size=2),
+}
+
+
+def ernie_config(name, **overrides):
+    cfg = dict(_PRESETS[name])
+    cfg.update(overrides)
+    return ErnieConfig(**cfg)
+
+
+class ErnieEmbeddings(nn.Layer):
+    def __init__(self, config: ErnieConfig, generator=None):
+        super().__init__()
+        init = nn.initializer.Normal(std=config.initializer_range)
+        self.word_embeddings = nn.Embedding(
+            config.vocab_size, config.hidden_size, weight_attr=init,
+            generator=generator)
+        self.position_embeddings = nn.Embedding(
+            config.max_seq_len, config.hidden_size, weight_attr=init,
+            generator=generator)
+        self.token_type_embeddings = nn.Embedding(
+            config.type_vocab_size, config.hidden_size, weight_attr=init,
+            generator=generator)
+        self.layer_norm = nn.LayerNorm(config.hidden_size,
+                                       epsilon=config.layer_norm_eps)
+        self.dropout = config.dropout
+
+    def forward(self, input_ids, token_type_ids=None, position_ids=None):
+        if position_ids is None:
+            position_ids = torch.arange(input_ids.shape[-1],
+                                        device=input_ids.device)
+        x = self.word_embeddings(input_ids) + \
+            self.position_embeddings(position_ids)
+        if token_type_ids is not None:
+            x = x + self.token_type_embeddings(token_type_ids)
+        x = self.layer_norm(x)
+        return F.dropout(x, self.dropout, training=self.training)
+
+
+class ErnieSelfAttention(nn.Layer):
+    def __init__(self, config: ErnieConfig, generator=None):
+        super().__init__()
+        h, nh = config.hidden_size, config.num_heads
+        self.num_heads = nh
+        self.head_dim = h // nh
+        self.attn_dropout = config.attn_dropout
+        init = nn.initializer.Normal(std=config.initializer_range)
+        self.qkv_proj = nn.Linear(h, 3 * h, weight_attr=init,
+                                  generator=generator)
+        self.out_proj = nn.Linear(h, h, weight_attr=init,
+                                  generator=generator)
+
+    def forward(self, x, attn_mask=None):
+        b, s, h = x.shape
+        # one packed [b, s, 3, nh, d] -> [3, b, nh, s, d] permute; the
+        # attention reads q, k, v through their strides
+        qkv = self.qkv_proj(x).reshape(
+            b, s, 3, self.num_heads, self.head_dim).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv.unbind(0)
+        out = F.scaled_dot_product_attention(
+            q, k, v, attn_mask=attn_mask,
+            dropout_p=self.attn_dropout if self.training else 0.0)
+        return self.out_proj(out.reshape(b, s, h))
+
+
+class ErnieEncoderLayer(nn.Layer):
+    """Post-LN encoder block (BERT convention)."""
+
+    def __init__(self, config: ErnieConfig, generator=None):
+        super().__init__()
+        init = nn.initializer.Normal(std=config.initializer_range)
+        self.self_attn = ErnieSelfAttention(config, generator)
+        self.norm1 = nn.LayerNorm(config.hidden_size,
+                                  epsilon=config.layer_norm_eps)
+        self.fc1 = nn.Linear(config.hidden_size, config.ffn_hidden_size,
+                             weight_attr=init, generator=generator)
+        self.fc2 = nn.Linear(config.ffn_hidden_size, config.hidden_size,
+                             weight_attr=init, generator=generator)
+        self.norm2 = nn.LayerNorm(config.hidden_size,
+                                  epsilon=config.layer_norm_eps)
+        self.dropout = config.dropout
+
+    def forward(self, x, attn_mask=None):
+        h = self.self_attn(x, attn_mask)
+        h = F.dropout(h, self.dropout, training=self.training)
+        x = self.norm1(x + h)
+        h = self.fc2(F.gelu(self.fc1(x), approximate=True))
+        h = F.dropout(h, self.dropout, training=self.training)
+        return self.norm2(x + h)
+
+
+class ErniePooler(nn.Layer):
+    def __init__(self, config: ErnieConfig, generator=None):
+        super().__init__()
+        self.dense = nn.Linear(config.hidden_size, config.hidden_size,
+                               generator=generator)
+
+    def forward(self, hidden):
+        return F.tanh(self.dense(hidden[:, 0]))
+
+
+class ErnieModel(nn.Layer):
+    def __init__(self, config: ErnieConfig, generator=None):
+        super().__init__()
+        if config.use_parallel:
+            raise NotImplementedError(
+                "use_parallel=True (tensor-parallel layers) is not ported "
+                "yet; build the config with use_parallel=False")
+        if config.recompute:
+            raise NotImplementedError("recompute is not ported yet")
+        self.config = config
+        self.embeddings = ErnieEmbeddings(config, generator)
+        self.encoder = nn.LayerList(
+            [ErnieEncoderLayer(config, generator)
+             for _ in range(config.num_layers)])
+        self.pooler = ErniePooler(config, generator)
+
+    def forward(self, input_ids, token_type_ids=None, position_ids=None,
+                attention_mask=None):
+        if attention_mask is not None and attention_mask.dim() == 2:
+            # [b, s] padding mask -> additive [b, 1, 1, s]
+            m = attention_mask.float()
+            attention_mask = (1.0 - m)[:, None, None, :] * -1e4
+        x = self.embeddings(input_ids, token_type_ids, position_ids)
+        for layer in self.encoder:
+            x = layer(x, attention_mask)
+        return x, self.pooler(x)
+
+
+class ErniePretrainingHeads(nn.Layer):
+    """MLM transform + tied decoder, and the NSP classifier.
+
+    `embedding_owner` is the module whose ``.weight`` is the tied
+    ``[vocab, hidden]`` table (read at call time, not registered here).
+    """
+
+    def __init__(self, config: ErnieConfig, embedding_owner,
+                 generator=None):
+        super().__init__()
+        self.transform = nn.Linear(config.hidden_size, config.hidden_size,
+                                   generator=generator)
+        self.layer_norm = nn.LayerNorm(config.hidden_size,
+                                       epsilon=config.layer_norm_eps)
+        # a plain attribute: torch would register a Module or Parameter
+        self.__dict__["_tied_owner"] = embedding_owner
+        self.seq_relationship = nn.Linear(config.hidden_size, 2,
+                                          generator=generator)
+        self.config = config
+
+    def forward(self, sequence_output, pooled_output):
+        h = self.layer_norm(F.gelu(self.transform(sequence_output)))
+        if flag("FLAGS_use_fused_lm_loss"):
+            raise NotImplementedError(
+                "FLAGS_use_fused_lm_loss routes the tied MLM head through "
+                "the fused chunked-vocab loss (kernels B4-B6), which is "
+                "not ported yet (port slice 3); set_flags({"
+                "'FLAGS_use_fused_lm_loss': False}) for the plain head")
+        logits = F.matmul(h, self._tied_owner.weight, transpose_y=True)
+        return logits, self.seq_relationship(pooled_output)
+
+
+class ErnieForPretraining(nn.Layer):
+    """ERNIE with the MLM + NSP heads, built on `device` (default cuda;
+    raises when no GPU is visible). Weights are drawn on the CPU from
+    `generator` (torch's default generator when None), so one seed
+    gives the same weights on every device."""
+
+    def __init__(self, config: ErnieConfig, device=None, generator=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.config = config
+        self.ernie = ErnieModel(config, generator)
+        self.cls = ErniePretrainingHeads(
+            config, embedding_owner=self.ernie.embeddings.word_embeddings,
+            generator=generator)
+        self.to(dev)
+
+    @property
+    def device(self):
+        return self.ernie.embeddings.word_embeddings.weight.device
+
+    def forward(self, input_ids, token_type_ids=None, position_ids=None,
+                attention_mask=None):
+        seq, pooled = self.ernie(input_ids, token_type_ids, position_ids,
+                                 attention_mask)
+        return self.cls(seq, pooled)
+
+
+class ErniePretrainingCriterion(nn.Layer):
+    """MLM + NSP loss: mean cross entropy over the non-ignored MLM rows,
+    plus the NSP cross entropy when its labels are given."""
+
+    def __init__(self, config: ErnieConfig = None, ignore_index=-100):
+        super().__init__()
+        if config is not None and config.use_parallel:
+            raise NotImplementedError(
+                "ParallelCrossEntropy (use_parallel=True) is not ported yet")
+        self.ignore_index = ignore_index
+
+    def forward(self, prediction_scores, seq_relationship_score,
+                masked_lm_labels, next_sentence_labels=None):
+        mlm = F.cross_entropy(prediction_scores, masked_lm_labels,
+                              ignore_index=self.ignore_index)
+        if next_sentence_labels is None:
+            return mlm
+        return mlm + F.cross_entropy(seq_relationship_score,
+                                     next_sentence_labels)
+
+
+# Bert aliases (same architecture)
+BertConfig = ErnieConfig
+BertModel = ErnieModel
+BertForPretraining = ErnieForPretraining
+BertPretrainingCriterion = ErniePretrainingCriterion
+bert_config = ernie_config

@@ -1,4 +1,6 @@
-"""The nn subset the GPT serving slice uses (ref paddle_tpu/nn)."""
+"""The nn subset of the ported slices (ref paddle_tpu/nn): torch's
+`Module` and `ModuleList` under paddle's names (their train/eval are
+paddle's), and paddle-layout layers."""
 
 from torch.nn import Module as Layer  # noqa: F401
 from torch.nn import ModuleList as LayerList  # noqa: F401

@@ -12,7 +12,8 @@ import torch
 from . import resolve_device
 from .quantization import dequantize_state, is_quantized_state
 
-__all__ = ["from_paddle_tpu_values", "to_numpy_values"]
+__all__ = ["from_paddle_tpu_values", "from_paddle_tpu_opt_state",
+           "to_numpy_values"]
 
 
 def from_paddle_tpu_values(values, model, device=None):
@@ -35,3 +36,28 @@ def to_numpy_values(model):
     """The model's state as ``OrderedDict[name, np.ndarray]``."""
     return OrderedDict((k, v.detach().cpu().numpy())
                        for k, v in model.state_dict().items())
+
+
+@torch.no_grad()
+def from_paddle_tpu_opt_state(opt_state, engine):
+    """Copy a paddle_tpu engine's optimizer state (``engine.state.
+    opt_state``: ``{param name: {"moment1": ..., "beta1_pow": ...}}``,
+    arrays) into the port's `engine`, in place, so a trajectory resumes
+    where the reference's left off. Raises on missing or unexpected
+    parameter or state names and on shape mismatches."""
+    mine = engine.state.opt_state
+    if set(opt_state) != set(mine):
+        raise KeyError(
+            f"optimizer state names differ: missing "
+            f"{sorted(set(mine) - set(opt_state))}, unexpected "
+            f"{sorted(set(opt_state) - set(mine))}")
+    for name, st in opt_state.items():
+        if set(st) != set(mine[name]):
+            raise KeyError(f"{name}: state keys {sorted(st)} != "
+                           f"{sorted(mine[name])}")
+        for key, val in st.items():
+            t = torch.as_tensor(np.array(val))
+            if tuple(t.shape) != tuple(mine[name][key].shape):
+                raise ValueError(f"{name}.{key}: shape {tuple(t.shape)} "
+                                 f"!= {tuple(mine[name][key].shape)}")
+            mine[name][key].copy_(t)

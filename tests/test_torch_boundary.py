@@ -66,9 +66,12 @@ def test_no_forbidden_import_in_source(path):
 def test_entry_points_default_to_cuda_and_raise_without_a_gpu(
         monkeypatch):
     import paddle_tpu_torch as pt
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.engine import Engine
+    from paddle_tpu_torch.nlp.transformers import ernie as ternie
     from paddle_tpu_torch.nlp.transformers import gpt as tgpt
     from paddle_tpu_torch.serving import Server, SlotEngine
-    from torch_parity import TINY
+    from torch_parity import ERNIE_TINY, TINY
 
     assert pt.default_device() == torch.device("cuda")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -83,3 +86,12 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pt.to_tensor([1, 2])
     assert SlotEngine(model, device="cpu").device.type == "cpu"
+    ecfg = ternie.ErnieConfig(**ERNIE_TINY)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ternie.ErnieForPretraining(ecfg)
+    ernie = ternie.ErnieForPretraining(ecfg, device="cpu")
+    opt = optimizer.AdamW(parameters=ernie.parameters())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(ernie, opt, lambda out, mlm: out[0].sum())
+    assert Engine(ernie, opt, lambda out, mlm: out[0].sum(),
+                  device="cpu").device.type == "cpu"

@@ -1,6 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: B7 `dequant_matmul` within rtol=atol=1e-5 (f32 sums in another
-order), B8 `w8a8_matmul` bitwise (exact int32 sums), each launch
+order), B8 `w8a8_matmul` bitwise (exact int32 sums), B1-B3 flash
+attention within 1e-5 (o) / 2e-4 (grads) in f32 and 2e-2 in bf16 (the
+plain version rounds p and ds to bf16 before its products, the kernels
+keep them f32), with the dropout mask equal bit for bit; each launch
 counted. Without a card every test skips.
 
 This file imports neither jax nor paddle_tpu, so it also runs on a
@@ -16,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.ops import lowp, quant_ops
+from paddle_tpu_torch.ops import fused_ops, lowp, quant_ops
 
 # the serving head's shape, then ragged ones (non-vector paths, M > 8,
 # K beyond one staged tile)
@@ -78,3 +81,77 @@ def test_w8a8_kernel_rounds_half_to_even():
     sb, sa = torch.tensor(0.05).cuda(), sa.cuda()
     assert torch.equal(lowp.w8a8_matmul(x, q.t(), sb, sa),
                        lowp._w8a8_plain(x, q.t(), sb, sa))
+
+
+# flash attention: (b, h, sq, sk, d) — ragged against the 64-row tiles,
+# sq != sk (bottom-right causal alignment), every supported head dim
+FLASH_SHAPES = [(1, 2, 70, 70, 32), (2, 3, 9, 21, 64), (1, 2, 21, 9, 64),
+                (2, 2, 130, 70, 128), (2, 3, 128, 128, 64)]
+
+
+def _flash_case(b, h, sq, sk, d, dtype, causal, dropout_p, seed=3):
+    gen = torch.Generator().manual_seed(b * 1000 + sq * 10 + sk + d)
+    q, k, v = (torch.randn((b, h, n, d), generator=gen).to(dtype).cuda()
+               for n in (sq, sk, sk))
+    do = torch.randn((b, h, sq, d), generator=gen).to(dtype).cuda()
+    sd = torch.tensor(seed, device="cuda")
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    before = dict(fused_ops.flash_attention.launches)
+    o = fused_ops.flash_attention(qg, kg, vg, sd, is_causal=causal,
+                                  dropout_p=dropout_p)
+    o.backward(do)
+    torch.cuda.synchronize()
+    after = fused_ops.flash_attention.launches
+    assert all(after[n] == before[n] + 1 for n in ("B1", "B2", "B3"))
+    scale = 1.0 / d ** 0.5
+    to3 = fused_ops._to3
+    o_p, lse_p = fused_ops._flash_fwd_plain(to3(q), to3(k), to3(v), sd,
+                                            scale, causal, dropout_p)
+    grads_p = fused_ops._flash_bwd_plain(
+        to3(q), to3(k), to3(v), o_p, lse_p, to3(do), sd, scale, causal,
+        dropout_p)
+    return (o, qg.grad, kg.grad, vg.grad), (o_p, *grads_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,h,sq,sk,d", FLASH_SHAPES)
+def test_flash_kernels_match_plain_f32(b, h, sq, sk, d, causal,
+                                       dropout_p):
+    _card()
+    got, want = _flash_case(b, h, sq, sk, d, torch.float32, causal,
+                            dropout_p)
+    for i, (g, w) in enumerate(zip(got, want)):
+        tol = 1e-5 if i == 0 else 2e-4
+        torch.testing.assert_close(g.reshape(w.shape), w, rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernels_match_plain_bf16(causal):
+    _card()
+    got, want = _flash_case(2, 3, 200, 200, 64, torch.bfloat16, causal,
+                            0.1)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.reshape(w.shape).float(), w.float(),
+                                   rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [0.1, 0.5])
+def test_flash_dropout_mask_bitwise(p):
+    _card()
+    seed = torch.tensor(987654321, device="cuda")
+    got = fused_ops._keep_mask_kernel(seed, 6, 70, 130, p)
+    want = fused_ops._keep_mask(seed, 6, 70, 130, p)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_rejects_unsupported_head_dim():
+    _card()
+    q = torch.randn((1, 1, 8, 48), device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        fused_ops.flash_attention(q, q, q)

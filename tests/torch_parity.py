@@ -1,6 +1,7 @@
 """Shared fixtures of the port's parity tests (tests/test_torch_*.py):
-one tiny GPT built in both packages with the same numpy weights, and a
-synchronous helper that runs an engine to completion.
+one tiny GPT and one tiny ERNIE built in both packages with the same
+numpy weights, and a synchronous helper that runs an engine to
+completion.
 
 Weights are drawn with numpy from a fixed seed at a larger scale than
 the models' own 0.02 init (which makes a tiny random GPT repeat one
@@ -52,6 +53,32 @@ def build_pair(seed=0, **overrides):
     vals = random_values(shapes, seed)
     jm.set_state_dict({k: paddle.to_tensor(v) for k, v in vals.items()})
     tm = tgpt.GPTForPretraining(tgpt.GPTConfig(**cfg), device="cpu")
+    weights.from_paddle_tpu_values(vals, tm)
+    return jm, tm, vals
+
+
+# a tiny ERNIE: every module of the full-width one at narrow widths
+ERNIE_TINY = dict(vocab_size=VOCAB, hidden_size=64, num_layers=2,
+                  num_heads=4, ffn_hidden_size=128, max_seq_len=32,
+                  dropout=0.0, attn_dropout=0.0, use_parallel=False)
+
+
+def build_ernie_pair(seed=0, **overrides):
+    """(jax model, torch model, numpy values) of the tiny ERNIE with the
+    same random weights in both packages (torch model on the CPU)."""
+    import paddle_tpu as paddle
+    from paddle_tpu.engine import state_values
+    from paddle_tpu.nlp.transformers import ErnieConfig, ErnieForPretraining
+
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.nlp.transformers import ernie as ternie
+
+    cfg = dict(ERNIE_TINY, **overrides)
+    jm = ErnieForPretraining(ErnieConfig(**cfg))
+    shapes = [(k, tuple(v.shape)) for k, v in state_values(jm).items()]
+    vals = random_values(shapes, seed)
+    jm.set_state_dict({k: paddle.to_tensor(v) for k, v in vals.items()})
+    tm = ternie.ErnieForPretraining(ternie.ErnieConfig(**cfg), device="cpu")
     weights.from_paddle_tpu_values(vals, tm)
     return jm, tm, vals
 
