@@ -33,14 +33,30 @@ Phases (any failure raises and the script exits non-zero):
    dropout mask bit for bit), then timed at the ERNIE shape in bf16
    beside the plain versions, torch SDPA (the yardstick, never called
    by the port) and the card's least time.
-7. The train step against its plain version: a tiny ERNIE on cuda and
-   on the CPU, same weights and seeds, attention dropout 0.1; three
+7. The fused LM-head loss: B4-B6 against their plain versions (f32 at
+   ragged shapes with vocab tails, heavy masking, every row ignored and
+   plain chunks that do not divide V, within 1e-5; the ERNIE shape
+   x [16384, 768], w [18000, 768] in bf16 within one bf16 ulp on dx and
+   dw and 1e-3 relative on the loss), then timed at the ERNIE shape
+   beside the plain versions, the unfused two-call composition (the
+   yardstick, never called by the port) and the card's least time.
+8. The train step against its plain version: a tiny ERNIE on cuda and
+   on the CPU, same weights and seeds, attention dropout 0.1,
+   FLAGS_use_fused_lm_loss on (the cuda run goes through B1-B6); three
    AdamW losses agree.
-8. Full width: ERNIE-1.0 pretraining as bench.py configures it (b32 x
-   s512, dropout 0.1, bf16 auto_cast, AdamW), FLAGS_use_fused_lm_loss
-   off; 10 timed steps with step time, tokens/s, MFU, peak memory and
-   12 launches per step of each of B1, B2, B3.
-9. Where a train step's time goes, from torch.profiler.
+9. Full width: ERNIE-1.0 pretraining as bench.py configures it (b32 x
+   s512, dropout 0.1, bf16 auto_cast, AdamW) with
+   FLAGS_use_fused_lm_loss on, its default; 10 timed steps with step
+   time, tokens/s, MFU, peak memory, 12 launches per step of each of
+   B1, B2, B3 and 1 of each of B4, B5, B6.
+10. Where a train step of that leg goes, from torch.profiler.
+11. The same at the same width with the flag off (the tied bf16 matmul
+    and an f32 cross_entropy over [16384, 18000] logits), for
+    comparison, profiled as in 10 (the device time of the two legs is
+    the comparison that repeats; the host clock varies between runs):
+    its peak memory must be above the fused leg's.
+12. recompute=True at full width, 3 steps: the losses equal the fused
+    leg's first three (same seeds), and its peak memory.
 
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line
 and ``{"ok": true, "device": {...}}``. Without a CUDA card, or outside a
@@ -602,6 +618,148 @@ def phase_flash(card):
     return rows_out
 
 
+def _lce_case(n, h, v, masked, dtype, gen, x_std=0.5, w_std=0.1):
+    """x [n, h], w [v, h] on the card, labels with a `masked` share of
+    -100 and g = 1 / #valid on the valid rows (a mean's gradient)."""
+    import torch
+
+    x = (torch.randn((n, h), generator=gen) * x_std).to(dtype).cuda()
+    w = (torch.randn((v, h), generator=gen) * w_std).to(dtype).cuda()
+    lbl = torch.randint(0, v, (n,), generator=gen)
+    lbl[torch.rand((n,), generator=gen) < masked] = -100
+    valid = (lbl != -100).float()
+    g = valid / valid.sum().clamp_min(1.0)
+    return x, w, lbl.cuda(), g.cuda()
+
+
+def _bf16_ulps(got, want):
+    """Largest |got - want| in bf16 ulps of each element (of the largest
+    element's 2^-8 near 0)."""
+    import torch
+
+    got, want = got.float(), want.float()
+    ulp = torch.maximum(want.abs(), want.abs().max() * 2 ** -8) * 2 ** -7
+    return float(((got - want).abs() / ulp).max())
+
+
+def phase_fused_loss(card):
+    """B4-B6 against their plain versions (f32 ragged shapes; the ERNIE
+    shape in bf16), then timed at the ERNIE shape as the train step runs
+    them: x the head's [16384, 768] bf16 hidden states, w the bf16 tied
+    table [18000, 768], MLM labels at 15%, g the mean's gradient."""
+    import torch
+
+    from paddle_tpu_torch.ops import fused_loss as fl
+
+    gen = torch.Generator().manual_seed(3)
+    # (n, h, v, masked share, plain chunk): ragged against the kernels'
+    # 16/32/64-row tiles, vocab tails, chunks that do not divide V
+    cases = [(37, 64, 301, 0.3, 128), (130, 128, 1000, 0.85, 100),
+             (300, 256, 777, 1.0, 128), (1000, 768, 18000, 0.85, 1000),
+             (70, 1024, 513, 0.5, 256)]
+    for n, h, v, masked, cv in cases:
+        x, w, lbl, g = _lce_case(n, h, v, masked, torch.float32, gen)
+        nll, lse = fl._fwd_kernel(x, w, lbl)
+        dx, dw = fl._bwd_kernel(x, w, lbl, lse, g)
+        nll_p, lse_p = fl._fwd_plain(x, w, lbl, cv)
+        dx_p, dw_p = fl._bwd_plain(x, w, lbl, lse_p, g, cv)
+        torch.cuda.synchronize()
+        errs = []
+        for got, want in ((nll, nll_p), (lse, lse_p), (dx, dx_p),
+                          (dw, dw_p)):
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            errs.append((got - want).abs().max().item())
+        print(json.dumps({"fused_loss_check": [n, h, v], "dtype": "f32",
+                          "masked": masked, "chunk": cv,
+                          "max_abs_err": errs}), flush=True)
+
+    # the ERNIE shape in bf16
+    n, h, v = ERNIE_BATCH * ERNIE_SEQ, ERNIE["hidden_size"], \
+        ERNIE["vocab_size"]
+    x, w, lbl, g = _lce_case(n, h, v, 0.85, torch.bfloat16, gen, 1.0, 0.02)
+    lbl32 = lbl.to(torch.int32)
+    nll, lse = fl._fwd_kernel(x, w, lbl)
+    dx, dw = fl._bwd_kernel(x, w, lbl, lse, g)
+    nll_p, lse_p = fl._fwd_plain(x, w, lbl, 1024)
+    dx_p, dw_p = fl._bwd_plain(x, w, lbl, lse_p, g, 1024)
+    torch.cuda.synchronize()
+    valid = lbl != -100
+    loss, loss_p = nll[valid].mean().item(), nll_p[valid].mean().item()
+    _check(abs(loss - loss_p) <= 1e-3 * abs(loss_p),
+           f"B4 loss {loss} vs plain {loss_p}")
+    # row by row: the mean alone would hide a wrong picked logit
+    torch.testing.assert_close(nll[valid], nll_p[valid], rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-4, atol=1e-4)
+    ulps = {"B5": _bf16_ulps(dx, dx_p), "B6": _bf16_ulps(dw, dw_p)}
+    _check(all(u <= 1.0 for u in ulps.values()),
+           f"B5/B6 beyond one bf16 ulp of the plain version: {ulps}")
+    errs = {"B4": max((nll - nll_p).abs().max().item(),
+                      (lse - lse_p).abs().max().item()),
+            "B5": (dx.float() - dx_p.float()).abs().max().item(),
+            "B6": (dw.float() - dw_p.float()).abs().max().item()}
+    print(json.dumps({"fused_loss_check": [n, h, v], "dtype": "bf16",
+                      "loss": loss, "plain_loss": loss_p, "ulps": ulps,
+                      "max_abs_err": errs}), flush=True)
+    del dx_p, dw_p
+
+    # the yardstick: the unfused two-call composition, forward and
+    # backward by autograd (timed here, never called by the port)
+    xl, wl = (t.detach().clone().requires_grad_(True) for t in (x, w))
+
+    def lib_fwd():
+        return torch.nn.functional.cross_entropy(
+            torch.matmul(xl, wl.t()).float(), lbl, ignore_index=-100)
+
+    lib_loss = lib_fwd()
+    flush = torch.empty(32 * 1024 * 1024, device="cuda")   # 128 MB
+    bw, _, _, bf16_peak = _peaks(card)
+    lib_fwd_ms = _time_ms(lambda: lib_fwd(), flush, n=20)
+    lib_bwd_ms = _time_ms(lambda: torch.autograd.grad(
+        lib_loss, (xl, wl), retain_graph=True), flush, n=20)
+    del lib_loss
+    plain_bwd_ms = _time_ms(lambda: fl._bwd_plain(x, w, lbl, lse, g, 1024),
+                            flush, n=5)
+    xh, wh, row = n * h * 2, v * h * 2, n * 4
+    flops = 2 * n * v * h               # one [N, V] x H product
+    library = "two-call composition: bf16 torch.matmul, F.cross_entropy " \
+        "of its f32 upcast"
+    rows_out = {
+        "B4": dict(
+            name="fused_lce_fwd",
+            replaces="paddle_tpu/ops/fused_loss.py:177 (_fwd_kernel)",
+            ms=_time_ms(lambda: fl._fwd_kernel(x, w, lbl), flush),
+            plain_ms=_time_ms(lambda: fl._fwd_plain(x, w, lbl, 1024),
+                              flush, n=5),
+            library_ms=lib_fwd_ms, library=library + " (forward)",
+            nbytes=xh + wh + row + 2 * row, ops=flops),
+        "B5": dict(
+            name="fused_lce_bwd_dx",
+            replaces="paddle_tpu/ops/fused_loss.py:234 (_bwd_dx_kernel)",
+            ms=_time_ms(lambda: fl._bwd_dx_kernel(x, w, lbl32, lse, g),
+                        flush),
+            plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
+            library=library + " (backward, dx and dw)",
+            nbytes=xh + wh + 3 * row + xh, ops=2 * flops),
+        "B6": dict(
+            name="fused_lce_bwd_dw",
+            replaces="paddle_tpu/ops/fused_loss.py:255 (_bwd_dw_kernel)",
+            ms=_time_ms(lambda: fl._bwd_dw_kernel(x, w, lbl32, lse, g),
+                        flush),
+            plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
+            library=library + " (backward, dx and dw)",
+            nbytes=xh + wh + 3 * row + wh, ops=2 * flops),
+    }
+    for key, row in rows_out.items():
+        t_bytes = row.pop("nbytes") / bw * 1e3
+        t_ops = row.pop("ops") / bf16_peak * 1e3
+        row.update(route="cuda", source="paddle_tpu_torch/csrc/fused_loss.cu",
+                   max_abs_err=errs[key], bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        print(json.dumps({"kernel": key, **row}), flush=True)
+    return rows_out
+
+
 def _ernie_batch(vocab, batch, seq, seed=0):
     """bench.py's batch: random ids, MLM labels at 15% (else -100)."""
     import numpy as np
@@ -636,13 +794,14 @@ def phase_train_slice():
     """The train step on cuda against the same step on the CPU (the
     kernels' plain versions): a tiny ERNIE (head dim 32), one seed for
     weights and dropout on both, hidden dropout 0 and attention dropout
-    0.1 (the shared mask drops the same elements on both), 3 AdamW steps
-    in f32; the losses agree within rtol 1e-4 (f32 sums in other
-    orders, magnified by Adam's normalised steps)."""
+    0.1 (the shared mask drops the same elements on both), the fused
+    LM-head loss on, 3 AdamW steps in f32; the losses agree within rtol
+    1e-4 (f32 sums in other orders, magnified by Adam's normalised
+    steps)."""
     import numpy as np
 
     from paddle_tpu_torch.nlp.transformers import ErnieConfig
-    from paddle_tpu_torch.ops import fused_ops
+    from paddle_tpu_torch.ops import fused_loss, fused_ops
 
     cfg = ErnieConfig(vocab_size=97, hidden_size=128, num_layers=2,
                       num_heads=4, ffn_hidden_size=256, max_seq_len=64,
@@ -651,31 +810,37 @@ def phase_train_slice():
     losses = {}
     for dev in ("cuda", "cpu"):
         eng = _ernie_engine(cfg, dev, 5, 7, 1e-3)
-        before = dict(fused_ops.flash_attention.launches)
+        before = {**fused_ops.flash_attention.launches,
+                  **fused_loss.launches}
         losses[dev] = [float(eng.train_batch(ids, labels)) for _ in range(3)]
         if dev == "cuda":
-            after = fused_ops.flash_attention.launches
-            _check(all(after[n] - before[n] == 6 for n in after),
-                   f"tiny ERNIE: flash launches {before} -> {after}")
+            after = {**fused_ops.flash_attention.launches,
+                     **fused_loss.launches}
+            want = dict(B1=6, B2=6, B3=6, B4=3, B5=3, B6=3)
+            _check(all(after[n] - before[n] == c for n, c in want.items()),
+                   f"tiny ERNIE: launches {before} -> {after}")
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
     _check(losses["cuda"][-1] < losses["cuda"][0], "tiny ERNIE: no descent")
     print(json.dumps({"train_slice_vs_plain": losses}), flush=True)
 
 
-def phase_train_full(card):
+def phase_train_full(card, fused, n=10, recompute=False, warm=2):
     """ERNIE-1.0 at full width as bench.py trains it: b32 x s512,
     dropout 0.1 / 0.1, bf16 auto_cast, AdamW lr 1e-4 wd 0.01, random
-    weights from seed 0, FLAGS_use_fused_lm_loss off. 2 warm-up steps,
-    then 10 steps timed on the host clock (each ends in a synchronise),
-    flash launch counts set to 0 just before them and read just after."""
+    weights from seed 0, FLAGS_use_fused_lm_loss as `fused`. `warm`
+    warm-up steps, then `n` steps timed on the host clock (each ends in
+    a synchronise), the peak memory and the launch counts of B1-B6 set
+    to 0 just before them and read just after."""
     import numpy as np
     import torch
 
     from paddle_tpu_torch import amp
+    from paddle_tpu_torch.framework.flags import set_flags
     from paddle_tpu_torch.nlp.transformers import ErnieConfig
-    from paddle_tpu_torch.ops import fused_ops
+    from paddle_tpu_torch.ops import fused_loss, fused_ops
 
-    cfg = ErnieConfig(**ERNIE)
+    set_flags({"FLAGS_use_fused_lm_loss": fused})
+    cfg = ErnieConfig(**ERNIE, recompute=recompute)
     eng = _ernie_engine(cfg, "cuda", 0, 0, 1e-4)
     ids, labels = _ernie_batch(cfg.vocab_size, ERNIE_BATCH, ERNIE_SEQ)
 
@@ -683,44 +848,52 @@ def phase_train_full(card):
         with amp.auto_cast(enable=True, dtype="bfloat16"):
             return eng.train_batch(ids, labels)
 
-    losses = [float(step()) for _ in range(2)]
+    losses = [float(step()) for _ in range(warm)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    n = 10
     times = []
     fused_ops.flash_attention.launches.update(B1=0, B2=0, B3=0)
+    fused_loss.launches.update(B4=0, B5=0, B6=0)
     for _ in range(n):
         t0 = time.perf_counter()
         loss = step()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(float(loss))
-    launches = dict(fused_ops.flash_attention.launches)
+    launches = {**fused_ops.flash_attention.launches, **fused_loss.launches}
     peak = torch.cuda.max_memory_allocated()
     _check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     _check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    _check(all(c == cfg.num_layers * n for c in launches.values()),
-           f"flash launches over {n} steps: {launches}")
+    # recompute reruns each block's forward (B1) in the backward
+    per_step = dict(B1=cfg.num_layers * (2 if recompute else 1),
+                    B2=cfg.num_layers, B3=cfg.num_layers,
+                    B4=int(fused), B5=int(fused), B6=int(fused))
+    _check(all(launches[k] == c * n for k, c in per_step.items()),
+           f"launches over {n} steps: {launches}")
     n_params = sum(p.numel() for p in eng.state.params.values())
     flops_tok = 6.0 * n_params + 12.0 * cfg.num_layers * cfg.hidden_size * \
         ERNIE_SEQ
     step_s = float(np.median(times))
     tok_s = ERNIE_BATCH * ERNIE_SEQ / step_s
     bf16_peak = _peaks(card)[3]
-    print(json.dumps({
-        "train": "ernie-1.0 b32 s512 bf16 dropout 0.1", "steps": n,
+    out = {
+        "train": "ernie-1.0 b32 s512 bf16 dropout 0.1",
+        "fused_lm_loss": fused, "recompute": recompute, "steps": n,
         "step_ms_p50": step_s * 1e3,
         "step_ms_p90": float(np.percentile(times, 90)) * 1e3,
         "tokens_per_s": tok_s, "params": n_params,
         "mfu": flops_tok * tok_s / bf16_peak,
         "peak_mem_bytes": peak, "losses": losses,
         "launches_per_step": {k: c / n for k, c in launches.items()},
-    }), flush=True)
-    return launches, eng, step
+    }
+    print(json.dumps(out), flush=True)
+    return out, eng, step
 
 
-def phase_train_profile(step):
-    """Where a train step's time goes: 3 steps under torch.profiler."""
+def phase_train_profile(step, leg):
+    """Where a train step's time goes: 3 steps under torch.profiler.
+    Returns the device time of a step (ms), which repeats between runs
+    where the host clock does not."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -745,7 +918,7 @@ def phase_train_profile(step):
     _check(busy_ms > 0, "the profiler saw no device time")
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
     print(json.dumps({
-        "profile": "ernie-1.0 train step (b32 s512 bf16)",
+        "profile": f"ernie-1.0 train step (b32 s512 bf16, {leg})",
         "step_ms": host_ms, "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / host_ms),
         "kernels_per_step": sum(r.count for r in kernels) / n,
@@ -754,6 +927,7 @@ def phase_train_profile(step):
         "top_kernels_ms_per_step": {r.key[:60]: dev_us(r) / 1e3 / n
                                     for r in top},
     }), flush=True)
+    return busy_ms
 
 
 def main():
@@ -803,15 +977,45 @@ def main():
     del model
     torch.cuda.empty_cache()
     rows.update(timed("flash", phase_flash, name))
+    rows.update(timed("fused_loss", phase_fused_loss, name))
 
-    # the training path runs the plain tied head: the fused LM-head loss
-    # (kernels B4-B6) is not ported yet
-    set_flags({"FLAGS_use_fused_lm_loss": False})
+    # the training path at the reference's default: the fused LM-head
+    # loss on (B4-B6), then the unfused and recompute legs beside it
+    set_flags({"FLAGS_use_fused_lm_loss": True})
     timed("train_slice", phase_train_slice)
-    train_launches, _eng, step = timed("train_full", phase_train_full, name)
-    timed("train_profile", phase_train_profile, step)
-    for key in ("B1", "B2", "B3"):
-        rows[key]["launches"] = train_launches[key]
+    fused_leg, eng, step = timed("train_full", phase_train_full, name, True)
+    fused_leg["device_busy_ms"] = timed("train_profile", phase_train_profile,
+                                        step, "fused loss")
+    for key in ("B1", "B2", "B3", "B4", "B5", "B6"):
+        rows[key]["launches"] = int(fused_leg["launches_per_step"][key] *
+                                    fused_leg["steps"])
+    del eng, step
+    torch.cuda.empty_cache()
+    plain_leg, eng, step = timed("train_unfused", phase_train_full, name,
+                                 False)
+    plain_leg["device_busy_ms"] = timed(
+        "train_unfused_profile", phase_train_profile, step, "unfused")
+    del eng, step
+    torch.cuda.empty_cache()
+    _check(fused_leg["peak_mem_bytes"] < plain_leg["peak_mem_bytes"],
+           "the fused LM-head loss did not lower the peak memory")
+    print(json.dumps({"fused_vs_unfused": {
+        k: [fused_leg[k], plain_leg[k]] for k in (
+            "step_ms_p50", "step_ms_p90", "tokens_per_s", "mfu",
+            "peak_mem_bytes", "device_busy_ms")}}), flush=True)
+    remat_leg, eng, step = timed("train_recompute", phase_train_full, name,
+                                 True, 3, True, 0)
+    del eng, step
+    torch.cuda.empty_cache()
+    want = fused_leg["losses"][:3]
+    _check(all(abs(a - b) <= 1e-5 * abs(b)
+               for a, b in zip(remat_leg["losses"], want)),
+           f"recompute changed the losses: {remat_leg['losses']} vs {want}")
+    print(json.dumps({"recompute_vs_plain": {
+        "losses": [round(v, 5) for v in remat_leg["losses"]],
+        "plain_losses": [round(v, 5) for v in want],
+        "peak_mem_bytes": [remat_leg["peak_mem_bytes"],
+                           fused_leg["peak_mem_bytes"]]}}), flush=True)
     for key, row in rows.items():
         _check(row["launches"] > 0, f"{key} never ran on the path")
     print(json.dumps({"total_s": time.monotonic() - t_start}), flush=True)

@@ -19,7 +19,7 @@ import threading
 
 import torch
 
-__all__ = ["auto_cast", "cast", "AMP_WHITE_LIST",
+__all__ = ["auto_cast", "cast", "policy", "policy_scope", "AMP_WHITE_LIST",
            "AMP_BLACK_LIST"]
 
 # paddle_tpu/core/dispatch.py:24-36
@@ -64,6 +64,25 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
         _tls.state = (_DTYPES[dtype],
                       AMP_WHITE_LIST | set(custom_white_list or ()),
                       AMP_BLACK_LIST | set(custom_black_list or ()))
+    try:
+        yield
+    finally:
+        _tls.state = prev
+
+
+def policy():
+    """This thread's current auto_cast policy (an opaque value for
+    `policy_scope`; None when auto_cast is off)."""
+    return _state()
+
+
+@contextlib.contextmanager
+def policy_scope(state):
+    """Run the block under a policy taken earlier with `policy` (the
+    recomputed forward of `recompute` replays its first run's casts,
+    whatever the policy around the backward is)."""
+    prev = _state()
+    _tls.state = state
     try:
         yield
     finally:

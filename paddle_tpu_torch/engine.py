@@ -3,11 +3,26 @@
 ``Engine(layer, optimizer, loss_fn).train_batch(inputs, labels)`` runs
 one step eagerly, in the reference's order: forward and loss (the loss
 in float32), backward, coupled weight decay, gradient clipping, then the
-optimizer's update (``engine.py:414-474`` of the reference). Dropout
+optimizer's update (``engine.py:414-520`` of the reference). Dropout
 draws from the engine's own `framework.random.RngState` on its device,
 installed for the forward with `rng_scope`. There is no compile
-step: PyTorch runs each op as it comes. The anomaly guard, loss
-scaling, meshes, ZeRO and buffer donation are not ported.
+step: PyTorch runs each op as it comes.
+
+``loss_scale`` (None, a float, "dynamic" or a dict of GradScaler knobs)
+scales the loss and unscales the gradients, and ``anomaly_guard``
+counts non-finite steps, both with the reference's semantics:
+finiteness is judged on the raw unscaled gradients before decay and
+clipping (the guard also counts the loss itself), and a bad step keeps
+the parameters, moments and buffers by a device-side ``torch.where``,
+with no host synchronisation: the optimizer writes ``where(keep, new,
+old)`` from the values it has loaded, and only the model's buffers
+(which the forward may update in place) are copied beforehand.
+The dynamic scale, its good / bad step counters and the guard's
+consecutive-bad-step counter are device scalars in ``state.buffers``
+under the reference's reserved names. The reference's rollback to a
+checkpoint after ``FLAGS_anomaly_max_bad_steps`` (a host read of the
+counter) waits for the port of ``distributed/checkpoint.py``; meshes,
+ZeRO and buffer donation are not ported.
 
 ``engine.state`` exposes the parameters (the layer's own, updated in
 place) and the optimizer state under the reference's names, keyed by
@@ -22,7 +37,26 @@ import torch
 from . import resolve_device
 from .framework import random as _random
 
-__all__ = ["Engine", "TrainState"]
+__all__ = ["Engine", "TrainState", "LOSS_SCALE_KEY", "GOOD_STEPS_KEY",
+           "BAD_STEPS_KEY", "ANOMALY_BAD_STEPS_KEY", "DEFAULT_SCALE_CONFIG"]
+
+# reserved buffer names of the reference (paddle_tpu/engine.py:273-283)
+LOSS_SCALE_KEY = "__loss_scale__"
+GOOD_STEPS_KEY = "__loss_scale_good_steps__"
+BAD_STEPS_KEY = "__loss_scale_bad_steps__"
+ANOMALY_BAD_STEPS_KEY = "__anomaly_bad_steps__"
+_RESERVED = (LOSS_SCALE_KEY, GOOD_STEPS_KEY, BAD_STEPS_KEY,
+             ANOMALY_BAD_STEPS_KEY)
+
+# paddle GradScaler defaults (as the reference's DEFAULT_SCALE_CONFIG)
+DEFAULT_SCALE_CONFIG = dict(
+    init_loss_scaling=2.0 ** 15, incr_ratio=2.0, decr_ratio=0.5,
+    incr_every_n_steps=1000, decr_every_n_nan_or_inf=2)
+
+
+def _all_finite(tensors):
+    """One device bool: every element of every tensor is finite."""
+    return torch.stack([torch.isfinite(t).all() for t in tensors]).all()
 
 
 class TrainState:
@@ -42,7 +76,8 @@ class Engine:
     attention elements."""
 
     def __init__(self, layer, optimizer, loss_fn, grad_clip=None,
-                 device=None, seed=None):
+                 device=None, seed=None, loss_scale=None,
+                 anomaly_guard=False):
         self.device = resolve_device(device)
         self.layer = layer.to(self.device)
         self.optimizer = optimizer
@@ -59,6 +94,34 @@ class Engine:
             seed = int(torch.randint(0, 2 ** 62, ()))
         self.rng = _random.RngState(seed, self.device)
         self._lr = (None, None)     # (value, its float32 device scalar)
+        self.loss_scale = loss_scale
+        self.anomaly_guard = anomaly_guard
+        self._scale_cfg = dict(DEFAULT_SCALE_CONFIG)
+        if isinstance(loss_scale, dict):
+            self._scale_cfg.update(loss_scale)
+        self._dynamic = loss_scale == "dynamic" or isinstance(loss_scale,
+                                                              dict)
+        bufs = self.state.buffers
+        if self._dynamic:
+            bufs[LOSS_SCALE_KEY] = torch.tensor(
+                float(self._scale_cfg["init_loss_scaling"]),
+                dtype=torch.float32, device=self.device)
+            bufs[GOOD_STEPS_KEY] = torch.zeros((), dtype=torch.int32,
+                                               device=self.device)
+            bufs[BAD_STEPS_KEY] = torch.zeros((), dtype=torch.int32,
+                                              device=self.device)
+        elif loss_scale is not None:
+            self._static_scale = torch.tensor(
+                float(loss_scale), dtype=torch.float32, device=self.device)
+        if anomaly_guard:
+            bufs[ANOMALY_BAD_STEPS_KEY] = torch.zeros(
+                (), dtype=torch.int32, device=self.device)
+
+    @property
+    def anomaly_bad_steps(self):
+        """Consecutive non-finite steps so far (an int32 device scalar;
+        reading it as a number waits for the card)."""
+        return self.state.buffers[ANOMALY_BAD_STEPS_KEY]
 
     def _tensor(self, x):
         t = torch.as_tensor(np.asarray(x)) if not isinstance(
@@ -77,25 +140,76 @@ class Engine:
         inputs = [self._tensor(x) for x in inputs]
         labels = [self._tensor(x) for x in labels]
         params = self.state.params
+        bufs = self.state.buffers
+        model_bufs = {k: b for k, b in bufs.items() if k not in _RESERVED}
+        keep = None
+        if self.anomaly_guard:
+            # the forward may update buffers in place (running stats)
+            old_bufs = {k: b.clone() for k, b in model_bufs.items()}
         for p in params.values():
             p.grad = None
         with _random.rng_scope(self.rng):
             loss = self.loss_fn(self.layer(*inputs), *labels).float()
-        loss.backward()
+        scale = None
+        if self._dynamic:
+            scale = bufs[LOSS_SCALE_KEY]
+        elif self.loss_scale is not None:
+            scale = self._static_scale
+        (loss * scale if scale is not None else loss).backward()
         # a parameter the loss does not reach has a zero gradient, as in
         # the reference (its moments still decay)
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
         for p in params.values():
             p.grad = None
+        # finiteness of the RAW unscaled gradients, before decay and
+        # clipping (a value clipper would map inf to finite values)
+        if scale is not None:
+            grads = {k: g / scale for k, g in grads.items()}
+            finite = keep = _all_finite(grads.values())
+        if self.anomaly_guard:
+            # the guard also counts the loss (a NaN loss with zero grads);
+            # guard_ok implies finite, so it alone decides the update
+            guard_ok = keep = (finite if scale is not None else _all_finite(
+                grads.values())) & torch.isfinite(loss)
         opt = self.optimizer
         grads = opt.decay_gradients(params, grads, self._metas)
         if self._grad_clip is not None:
             grads = self._grad_clip._clip_fn(grads)
-        if self._lr[0] != opt.get_lr():
-            self._lr = (opt.get_lr(), torch.tensor(
-                opt.get_lr(), dtype=torch.float32, device=self.device))
+        lr = opt.get_lr()
+        if self._lr[0] != lr:
+            # torch.full passes the value as a kernel argument: a new
+            # rate (an LR scheduler's) never waits for the card
+            self._lr = (lr, torch.full((), lr, dtype=torch.float32,
+                                       device=self.device))
         opt.apply_gradients(params, grads, self.state.opt_state,
-                            self._lr[1], self._metas)
+                            self._lr[1], self._metas, keep)
+        if self.anomaly_guard:
+            with torch.no_grad():
+                for k, b in model_bufs.items():
+                    b.copy_(torch.where(guard_ok, b, old_bufs[k]))
+            prev = bufs[ANOMALY_BAD_STEPS_KEY]
+            bufs[ANOMALY_BAD_STEPS_KEY] = torch.where(
+                guard_ok, torch.zeros_like(prev), prev + 1)
+        if self._dynamic:
+            self._update_scale(finite)
         self.state.step += 1
         return loss.detach()
+
+    def _update_scale(self, finite):
+        """The reference's in-graph GradScaler rule: grow the scale
+        after incr_every_n_steps consecutive finite steps, shrink it
+        after decr_every_n_nan_or_inf consecutive non-finite ones."""
+        cfg, bufs = self._scale_cfg, self.state.buffers
+        scale = bufs[LOSS_SCALE_KEY]
+        good, bad = bufs[GOOD_STEPS_KEY], bufs[BAD_STEPS_KEY]
+        zero = torch.zeros_like(good)
+        good_next = torch.where(finite, good + 1, zero)
+        bad_next = torch.where(finite, zero, bad + 1)
+        grow = finite & (good_next >= cfg["incr_every_n_steps"])
+        shrink = ~finite & (bad_next >= cfg["decr_every_n_nan_or_inf"])
+        bufs[LOSS_SCALE_KEY] = torch.where(
+            grow, scale * cfg["incr_ratio"],
+            torch.where(shrink, scale * cfg["decr_ratio"], scale))
+        bufs[GOOD_STEPS_KEY] = torch.where(grow, zero, good_next)
+        bufs[BAD_STEPS_KEY] = torch.where(shrink, zero, bad_next)

@@ -62,9 +62,9 @@ _DEFS = {
     "FLAGS_use_fused_lm_loss": (
         True, bool,
         "route the tied-decoder matmul + cross_entropy of the ERNIE/BERT "
-        "pretraining head through the fused chunked-vocab loss (kernels "
-        "B4-B6). Not ported yet: while it is on, ErniePretrainingHeads "
-        "raises NotImplementedError; set it off for the unfused head"),
+        "pretraining head through the fused chunked-vocab loss "
+        "(ops/fused_loss.py, kernels B4-B6) that never materializes the "
+        "[N, V] logits; off = the plain tied matmul_v2 + cross_entropy"),
 }
 
 _values: dict = {}

@@ -22,7 +22,8 @@ import threading
 
 import torch
 
-__all__ = ["seed", "RngState", "rng_scope", "generator_for", "next_seed"]
+__all__ = ["seed", "RngState", "rng_scope", "installed", "generator_for",
+           "next_seed"]
 
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -51,6 +52,16 @@ class RngState:
         self.calls += 1
         return s
 
+    def snapshot(self):
+        """Where both streams stand: the generator's state and the seed
+        counter (a replay from here draws the same masks)."""
+        return self.generator.get_state(), self.calls
+
+    def restore(self, snap):
+        state, calls = snap
+        self.generator.set_state(state)
+        self.calls = calls
+
 
 @contextlib.contextmanager
 def rng_scope(state):
@@ -62,6 +73,11 @@ def rng_scope(state):
         yield state
     finally:
         _tls.state = prev
+
+
+def installed():
+    """The `RngState` installed in this thread, or None."""
+    return getattr(_tls, "state", None)
 
 
 def _installed(device):

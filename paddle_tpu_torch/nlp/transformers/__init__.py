@@ -2,7 +2,8 @@
 
 from .ernie import (  # noqa: F401
     BertConfig, BertForPretraining, BertModel, BertPretrainingCriterion,
-    ErnieConfig, ErnieForPretraining, ErnieModel, ErniePretrainingCriterion,
+    ErnieConfig, ErnieForPretraining, ErnieForSequenceClassification,
+    ErnieModel, ErniePretrainingCriterion,
     bert_config, ernie_config,
 )
 from .gpt import (  # noqa: F401

@@ -2,18 +2,22 @@
 paddle_tpu/nlp/transformers/ernie.py).
 
 Single-device only: ``use_parallel=True`` raises until the distributed
-slice lands, and so does ``recompute=True``. Parameter names and layouts
-equal ``paddle_tpu.engine.state_values`` one to one, so weights cross
-between the packages as numpy arrays (``paddle_tpu_torch.weights``).
+slice lands. ``recompute=True`` reruns each encoder block in the
+backward (`distributed.fleet.utils.recompute`, which replays the same
+dropout masks). Parameter names and layouts equal
+``paddle_tpu.engine.state_values`` one to one, so weights cross between
+the packages as numpy arrays (``paddle_tpu_torch.weights``).
 
 The MLM head is tied to ``ernie.embeddings.word_embeddings.weight``.
 The head reads that table through its owner at call time and never
 registers it, so the table is one parameter under one name, as in the
 reference's state dict. With ``FLAGS_use_fused_lm_loss`` on (the
-reference's default) the reference routes the head through the fused
-chunked-vocab loss (kernels B4-B6), which is not ported yet: the head
-raises until it is, and callers set the flag off for the plain tied
-``matmul_v2`` followed by ``cross_entropy``.
+default, as in the reference) the head returns a `DeferredLMHead`
+(hidden states and the tied table) in place of ``[b, s, V]`` logits,
+and the criterion consumes it through the fused chunked-vocab loss
+(`F.fused_linear_cross_entropy`: kernels B4-B6 on CUDA). With the flag
+off the head is the plain tied ``matmul_v2`` and the criterion a
+``cross_entropy`` over the logits.
 """
 
 from __future__ import annotations
@@ -21,13 +25,16 @@ from __future__ import annotations
 import torch
 
 from ... import nn, resolve_device
+from ...distributed.fleet.utils.recompute import recompute
 from ...framework.flags import flag
 from ...nn import functional as F
+from ...ops.fused_loss import DeferredLMHead
 
 __all__ = ["ErnieConfig", "ernie_config", "ErnieEmbeddings",
            "ErnieSelfAttention", "ErnieEncoderLayer", "ErniePooler",
            "ErnieModel", "ErniePretrainingHeads", "ErnieForPretraining",
-           "ErniePretrainingCriterion", "BertConfig", "BertModel",
+           "ErniePretrainingCriterion", "ErnieForSequenceClassification",
+           "DeferredLMHead", "BertConfig", "BertModel",
            "BertForPretraining", "BertPretrainingCriterion", "bert_config"]
 
 
@@ -170,8 +177,6 @@ class ErnieModel(nn.Layer):
             raise NotImplementedError(
                 "use_parallel=True (tensor-parallel layers) is not ported "
                 "yet; build the config with use_parallel=False")
-        if config.recompute:
-            raise NotImplementedError("recompute is not ported yet")
         self.config = config
         self.embeddings = ErnieEmbeddings(config, generator)
         self.encoder = nn.LayerList(
@@ -187,7 +192,12 @@ class ErnieModel(nn.Layer):
             attention_mask = (1.0 - m)[:, None, None, :] * -1e4
         x = self.embeddings(input_ids, token_type_ids, position_ids)
         for layer in self.encoder:
-            x = layer(x, attention_mask)
+            if self.config.recompute:
+                # rematerialise the block in backward: O(layers) fewer
+                # saved activations for one more forward of each block
+                x = recompute(layer, x, attention_mask)
+            else:
+                x = layer(x, attention_mask)
         return x, self.pooler(x)
 
 
@@ -211,15 +221,21 @@ class ErniePretrainingHeads(nn.Layer):
                                           generator=generator)
         self.config = config
 
+    def _fuse_lm_loss(self):
+        """The reference's plainness predicate: a tied table, no vocab
+        sharding, and the flag on."""
+        return (self._tied_owner is not None
+                and not self.config.use_parallel
+                and flag("FLAGS_use_fused_lm_loss"))
+
     def forward(self, sequence_output, pooled_output):
         h = self.layer_norm(F.gelu(self.transform(sequence_output)))
-        if flag("FLAGS_use_fused_lm_loss"):
-            raise NotImplementedError(
-                "FLAGS_use_fused_lm_loss routes the tied MLM head through "
-                "the fused chunked-vocab loss (kernels B4-B6), which is "
-                "not ported yet (port slice 3); set_flags({"
-                "'FLAGS_use_fused_lm_loss': False}) for the plain head")
-        logits = F.matmul(h, self._tied_owner.weight, transpose_y=True)
+        if self._fuse_lm_loss():
+            # the criterion takes (h, W) through the fused loss, so the
+            # [b, s, V] logits are never written
+            logits = DeferredLMHead(h, self._tied_owner.weight)
+        else:
+            logits = F.matmul(h, self._tied_owner.weight, transpose_y=True)
         return logits, self.seq_relationship(pooled_output)
 
 
@@ -263,12 +279,43 @@ class ErniePretrainingCriterion(nn.Layer):
 
     def forward(self, prediction_scores, seq_relationship_score,
                 masked_lm_labels, next_sentence_labels=None):
-        mlm = F.cross_entropy(prediction_scores, masked_lm_labels,
-                              ignore_index=self.ignore_index)
+        if isinstance(prediction_scores, DeferredLMHead):
+            mlm = F.fused_linear_cross_entropy(
+                prediction_scores.hidden, prediction_scores.weight,
+                masked_lm_labels, ignore_index=self.ignore_index)
+        else:
+            mlm = F.cross_entropy(prediction_scores, masked_lm_labels,
+                                  ignore_index=self.ignore_index)
         if next_sentence_labels is None:
             return mlm
         return mlm + F.cross_entropy(seq_relationship_score,
                                      next_sentence_labels)
+
+
+class ErnieForSequenceClassification(nn.Layer):
+    """ERNIE with a classifier on the pooled output, built on `device`
+    (default cuda) from `generator`, as `ErnieForPretraining`."""
+
+    def __init__(self, config: ErnieConfig, num_classes=2, dropout=None,
+                 device=None, generator=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.ernie = ErnieModel(config, generator)
+        self.dropout = nn.Dropout(dropout if dropout is not None
+                                  else config.dropout)
+        self.classifier = nn.Linear(config.hidden_size, num_classes,
+                                    generator=generator)
+        self.to(dev)
+
+    @property
+    def device(self):
+        return self.classifier.weight.device
+
+    def forward(self, input_ids, token_type_ids=None, position_ids=None,
+                attention_mask=None):
+        _, pooled = self.ernie(input_ids, token_type_ids, position_ids,
+                               attention_mask)
+        return self.classifier(self.dropout(pooled))
 
 
 # Bert aliases (same architecture)

@@ -2,7 +2,8 @@
 
 Ops that the reference dispatches under an AMP-listed name read the
 port's `amp` policy for their inputs (`linear` and `matmul` as
-``matmul_v2``, `cross_entropy`, `layer_norm`, `flash_attention`), so
+``matmul_v2``, `cross_entropy`, `layer_norm`, `flash_attention`,
+`fused_linear_cross_entropy`), so
 under ``amp.auto_cast`` they see the dtypes the reference's ops see.
 Random ops draw from the generator that `framework.random.rng_scope`
 installs (an engine's), else from torch's default one.
@@ -17,10 +18,11 @@ import torch.nn.functional as tF
 
 from ... import amp
 from ...framework import random as _random
-from ...ops import fused_ops
+from ...ops import fused_loss, fused_ops
 
 __all__ = ["linear", "matmul", "gelu", "tanh", "dropout", "layer_norm",
-           "cross_entropy", "scaled_dot_product_attention"]
+           "cross_entropy", "fused_linear_cross_entropy",
+           "scaled_dot_product_attention"]
 
 # additive mask value of the reference's attention paths (a large finite
 # negative, not -inf, so a fully masked row cannot turn into NaN)
@@ -88,6 +90,19 @@ def cross_entropy(input, label, ignore_index=-100, reduction="mean"):
     if reduction == "sum":
         return loss.sum()
     return loss.sum() / valid.float().sum().clamp_min(1.0)
+
+
+def fused_linear_cross_entropy(hidden, weight, label, ignore_index=-100,
+                               reduction="mean", chunk_v=0):
+    """cross_entropy(hidden @ weight.T, label) as one streaming op that
+    never forms the ``[N, V]`` logits (`ops.fused_loss`: kernels B4-B6
+    on CUDA tensors). AMP white list: under bf16 auto_cast the hidden
+    states and the table enter as bf16, and the table's gradient comes
+    back to the f32 parameter through the cast's own backward."""
+    hidden, weight = amp.cast("fused_linear_cross_entropy", hidden, weight)
+    return fused_loss.fused_linear_cross_entropy(
+        hidden, weight, label, ignore_index=ignore_index,
+        reduction=reduction, chunk_v=chunk_v)
 
 
 def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,

@@ -1,5 +1,7 @@
 """Optimizers (counterpart of paddle_tpu/optimizer): the base class,
-`Adam` and `AdamW`, driven by `paddle_tpu_torch.engine.Engine`.
+`Adam` and `AdamW`, driven by `paddle_tpu_torch.engine.Engine`, and the
+LR schedulers of `lr` (a scheduler passed as ``learning_rate`` is read
+by `get_lr`; the caller steps it).
 
 Each optimizer is a per-parameter rule over a state dict with the
 reference's names (``moment1``, ``moment2``, ``beta1_pow``,
@@ -7,7 +9,10 @@ reference's names (``moment1``, ``moment2``, ``beta1_pow``,
 name for name (``weights.from_paddle_tpu_opt_state``). The update is the
 reference's arithmetic in float32, with the learning rate a float32
 device scalar, and it writes the parameter and its state IN PLACE (the
-reference returns new arrays).
+reference returns new arrays). Given ``keep``, a device bool, the writes
+are ``where(keep, new, old)``: a skipped step (the engine's loss scaling
+and anomaly guard) leaves parameter and state bit for bit, with no copy
+of them taken beforehand and no host synchronisation.
 
 Parameters are known by their structured (state-dict) names: the
 engine passes them, and `AdamW`'s ``apply_decay_param_fun`` is called
@@ -20,12 +25,24 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["Optimizer", "Adam", "AdamW", "L2Decay"]
+from . import lr  # noqa: F401
+from .lr import LRScheduler
+
+__all__ = ["Optimizer", "Adam", "AdamW", "L2Decay", "LRScheduler", "lr"]
 
 
 class L2Decay:
     def __init__(self, coeff):
         self.coeff = float(coeff)
+
+
+def _write(keep, op, dst, *args):
+    """``dst <- op(*args)`` in place; where the device bool `keep` is
+    false, `dst` keeps its value."""
+    if keep is None:
+        op(*args, out=dst)
+    else:
+        torch.where(keep, op(*args), dst, out=dst)
 
 
 def _as_decay(wd):
@@ -38,17 +55,21 @@ class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None,
                  multi_precision=False):
-        if not isinstance(learning_rate, (int, float)):
-            raise NotImplementedError(
-                "LR schedulers are not ported yet; pass a float")
-        self._learning_rate = float(learning_rate)
+        self._learning_rate = learning_rate \
+            if isinstance(learning_rate, LRScheduler) \
+            else float(learning_rate)
         self._weight_decay = _as_decay(weight_decay)
         self._grad_clip = grad_clip
 
     def get_lr(self):
+        if isinstance(self._learning_rate, LRScheduler):
+            return float(self._learning_rate())
         return self._learning_rate
 
     def set_lr(self, value):
+        if isinstance(self._learning_rate, LRScheduler):
+            raise RuntimeError(
+                "can't set_lr when learning rate is an LRScheduler")
         self._learning_rate = float(value)
 
     def _init_state(self, param):
@@ -68,7 +89,7 @@ class Optimizer:
             not self._decoupled_weight_decay() else 0.0
         return {"coeff": coeff}
 
-    def _rule(self, param, grad, state, lr, **hyper):
+    def _rule(self, param, grad, state, lr, keep, **hyper):
         raise NotImplementedError
 
     def decay_gradients(self, params, grads, metas):
@@ -78,16 +99,17 @@ class Optimizer:
                 if metas[k]["coeff"] else g for k, g in grads.items()}
 
     @torch.no_grad()
-    def apply_gradients(self, params, grads, states, lr, metas):
+    def apply_gradients(self, params, grads, states, lr, metas, keep=None):
         """Update every parameter of the ``{name: Parameter}`` dict in
         place from its gradient and state; `lr` is a float32 scalar
-        tensor on the parameters' device."""
+        tensor on the parameters' device, and `keep` (a device bool, or
+        None for always) says whether the update takes effect."""
         hyper = self._hyper()
         for k, p in params.items():
             h = hyper
             if "decoupled_coeff" in metas[k]:
                 h = dict(hyper, coeff=metas[k]["decoupled_coeff"])
-            self._rule(p, grads[k], states[k], lr, **h)
+            self._rule(p, grads[k], states[k], lr, keep, **h)
 
 
 class Adam(Optimizer):
@@ -113,20 +135,27 @@ class Adam(Optimizer):
         return {"beta1": self._beta1, "beta2": self._beta2,
                 "epsilon": self._epsilon}
 
-    def _rule(self, param, grad, state, lr, *, beta1, beta2, epsilon):
+    def _rule(self, param, grad, state, lr, keep, *, beta1, beta2, epsilon,
+              base=None):
+        """`base` is the parameter's value the update starts from (the
+        decoupled-decayed one for AdamW; `param` itself by default)."""
         g = grad.float()
         m, v = state["moment1"], state["moment2"]
-        m.mul_(beta1).add_((1 - beta1) * g)
-        v.mul_(beta2).add_((1 - beta2) * g * g)
-        b1p = state["beta1_pow"].mul_(beta1)
-        b2p = state["beta2_pow"].mul_(beta2)
+        b1p, b2p = state["beta1_pow"], state["beta2_pow"]
+        # on a skipped step m, v and the powers keep their old values and
+        # the update below, computed from them, is discarded by the where
+        _write(keep, torch.add, m, m * beta1, (1 - beta1) * g)
+        _write(keep, torch.add, v, v * beta2, (1 - beta2) * g * g)
+        _write(keep, torch.mul, b1p, b1p, beta1)
+        _write(keep, torch.mul, b2p, b2p, beta2)
         # the reference's folded bias correction: one param-sized divide
         #   m/(1-b1p) / (sqrt(v/(1-b2p)) + eps)
         #   == sqrt(1-b2p)/(1-b1p) * m / (sqrt(v) + eps*sqrt(1-b2p))
         corr2 = torch.sqrt(1.0 - b2p)
         lr_t = lr * corr2 / (1.0 - b1p)
         upd = lr_t * (m / (torch.sqrt(v) + epsilon * corr2))
-        param.copy_(param.float() - upd)
+        base = param if base is None else base
+        _write(keep, torch.sub, param, base.float(), upd)
 
 
 class AdamW(Adam):
@@ -155,8 +184,8 @@ class AdamW(Adam):
             meta["decoupled_coeff"] = 0.0
         return meta
 
-    def _rule(self, param, grad, state, lr, *, beta1, beta2, epsilon, coeff):
+    def _rule(self, param, grad, state, lr, keep, *, beta1, beta2, epsilon,
+              coeff):
         # decoupled decay applied to the param before the adam update
-        param.mul_(1.0 - lr * coeff)
-        super()._rule(param, grad, state, lr, beta1=beta1, beta2=beta2,
-                      epsilon=epsilon)
+        super()._rule(param, grad, state, lr, keep, beta1=beta1, beta2=beta2,
+                      epsilon=epsilon, base=param * (1.0 - lr * coeff))

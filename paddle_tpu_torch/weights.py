@@ -1,6 +1,8 @@
 """Weights across the package boundary, as numpy arrays under
 ``paddle_tpu.engine.state_values`` names (the two packages' parameter
-names and layouts are equal one to one)."""
+names and layouts are equal one to one: GPT, ERNIE pretraining and
+``ErnieForSequenceClassification``, whose ``classifier.weight`` is
+``[hidden, classes]`` as the reference's ``Linear``)."""
 
 from __future__ import annotations
 

@@ -23,7 +23,16 @@ both sides. Dropout is 0: the two packages draw different random bits.
 - a port engine resumed from the reference's parameters and AdamW state
   after step 2 (``weights.from_paddle_tpu_opt_state``) continues the
   reference's trajectory within the f32 tolerances;
-- with ``FLAGS_use_fused_lm_loss`` on, the port's head raises.
+- with ``FLAGS_use_fused_lm_loss`` on (the default) on both sides: the
+  head returns a ``DeferredLMHead`` in both packages, the eval loss
+  agrees within 1e-5 and the 3-step f32 and bf16 trajectories within
+  the tolerances above; the port's fused and unfused trajectories agree
+  within the f32 ones;
+- ``recompute=True``: with dropout 0.1 the port's losses, gradients and
+  parameters equal those without recompute bit for bit (the replay
+  restores the engine's dropout streams), and with dropout 0 its
+  trajectory follows the reference's ``recompute=True`` one;
+- ``ErnieForSequenceClassification`` logits within the eval tolerance.
 
 The key third of each ``qkv_proj.bias`` is held only to the most that
 two Adam trajectories can part, 2 lr a step: its gradient is zero up to
@@ -44,6 +53,7 @@ from paddle_tpu.clip import ClipGradByGlobalNorm as JClip
 from paddle_tpu.engine import Engine as JEngine
 from paddle_tpu.framework import flags as jflags
 from paddle_tpu.nlp.transformers import ErniePretrainingCriterion as JCrit
+from paddle_tpu.ops.fused_loss import DeferredLMHead as JDeferred
 
 from paddle_tpu_torch import amp as tamp
 from paddle_tpu_torch import optimizer as topt
@@ -51,8 +61,9 @@ from paddle_tpu_torch import weights
 from paddle_tpu_torch.clip import ClipGradByGlobalNorm as TClip
 from paddle_tpu_torch.engine import Engine as TEngine
 from paddle_tpu_torch.framework import flags as tflags
+from paddle_tpu_torch.framework import random as trandom
 from paddle_tpu_torch.nlp.transformers import ernie as ternie
-from torch_parity import ERNIE_TINY, VOCAB, build_ernie_pair
+from torch_parity import ERNIE_TINY, VOCAB, build_ernie_pair, random_values
 
 FLAG = "FLAGS_use_fused_lm_loss"
 LR, STEPS, RESUME_AT = 1e-3, 3, 2
@@ -85,6 +96,18 @@ def unfused():
     tflags.set_flags({FLAG: prev[1]})
 
 
+@pytest.fixture
+def fused():
+    """FLAGS_use_fused_lm_loss on (its default) on both sides for one
+    test, whatever the module fixture set."""
+    prev = (jflags.get_flags(FLAG)[FLAG], tflags.get_flags(FLAG)[FLAG])
+    jflags.set_flags({FLAG: True})
+    tflags.set_flags({FLAG: True})
+    yield
+    jflags.set_flags({FLAG: prev[0]})
+    tflags.set_flags({FLAG: prev[1]})
+
+
 def _split_key_bias(name, a):
     """(the parameter without the key bias, the key bias or None)."""
     if not name.endswith("qkv_proj.bias"):
@@ -103,10 +126,10 @@ def _assert_params_close(got, want, steps):
             assert np.abs(g_key - w_key).max() <= 2 * LR * steps * 1.01, k
 
 
-def _jax_run(amp_on, steps):
+def _jax_run(amp_on, steps, **cfg):
     """Losses of `steps` reference steps, the parameters and AdamW state
     after step RESUME_AT, and the final parameters (numpy)."""
-    jm, _, vals = build_ernie_pair(seed=0)
+    jm, _, vals = build_ernie_pair(seed=0, **cfg)
     crit = JCrit()
     opt = paddle.optimizer.AdamW(
         learning_rate=LR, parameters=jm.parameters(), weight_decay=0.01,
@@ -128,16 +151,16 @@ def _jax_run(amp_on, steps):
     return vals, losses, mid, final
 
 
-def _torch_engine(vals):
-    tm = ternie.ErnieForPretraining(ternie.ErnieConfig(**ERNIE_TINY),
-                                    device="cpu")
+def _torch_engine(vals, seed=None, **cfg):
+    tm = ternie.ErnieForPretraining(
+        ternie.ErnieConfig(**dict(ERNIE_TINY, **cfg)), device="cpu")
     weights.from_paddle_tpu_values(vals, tm)
     crit = ternie.ErniePretrainingCriterion()
     opt = topt.AdamW(learning_rate=LR, parameters=tm.parameters(),
                      weight_decay=0.01, apply_decay_param_fun=_no_decay)
     return TEngine(tm, opt, lambda out, mlm, nsp: crit(out[0], out[1], mlm,
                                                        nsp),
-                   grad_clip=TClip(1.0), device="cpu")
+                   grad_clip=TClip(1.0), device="cpu", seed=seed)
 
 
 def _torch_run(eng, amp_on, steps):
@@ -216,14 +239,176 @@ def test_bf16_auto_cast_trajectory_matches(unfused):
             assert np.abs(g_key - w_key).max() <= 2 * LR * STEPS * 1.01, k
 
 
-def test_fused_lm_loss_flag_raises_until_ported():
+def test_fused_head_returns_the_handle_in_both_packages(fused):
+    jm, tm, _ = build_ernie_pair(seed=2)
+    jm.eval()
+    tm.eval()
+    (ids, types), _ = _batch(seed=5)
+    jl, _ = jm(paddle.to_tensor(ids), paddle.to_tensor(types))
+    with torch.no_grad():
+        tl, _ = tm(torch.from_numpy(ids).long(),
+                   torch.from_numpy(types).long())
+    assert isinstance(jl, JDeferred)
+    assert isinstance(tl, ternie.DeferredLMHead)
+    assert tl.weight is tm.ernie.embeddings.word_embeddings.weight
+    np.testing.assert_allclose(tl.materialize().detach().numpy(),
+                               np.asarray(jl.materialize()._value),
+                               rtol=1e-5, atol=5e-5)
+
+
+def test_fused_eval_loss_matches(fused):
+    jm, tm, _ = build_ernie_pair(seed=1)
+    jm.eval()
+    tm.eval()
+    (ids, types), (mlm, nsp) = _batch(seed=4)
+    jl, jn = jm(paddle.to_tensor(ids), paddle.to_tensor(types))
+    jloss = JCrit()(jl, jn, paddle.to_tensor(mlm), paddle.to_tensor(nsp))
+    with torch.no_grad():
+        tl, tn = tm(torch.from_numpy(ids).long(),
+                    torch.from_numpy(types).long())
+        tloss = ternie.ErniePretrainingCriterion()(
+            tl, tn, torch.from_numpy(mlm).long(),
+            torch.from_numpy(nsp).long())
+    np.testing.assert_allclose(float(tloss), float(np.asarray(jloss._value)),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_fused_f32_adamw_trajectory_matches(fused):
+    vals, jlosses, _, jfinal = _jax_run(False, STEPS)
+    tlosses, tfinal = _torch_run(_torch_engine(vals), False, STEPS)
+    np.testing.assert_allclose(tlosses, jlosses, rtol=1e-4, atol=1e-6)
+    assert tlosses[-1] < tlosses[0]
+    _assert_params_close(tfinal, jfinal, STEPS)
+
+
+def test_fused_bf16_auto_cast_trajectory_matches(fused):
+    vals, jlosses, _, jfinal = _jax_run(True, STEPS)
+    tlosses, tfinal = _torch_run(_torch_engine(vals), True, STEPS)
+    np.testing.assert_allclose(tlosses, jlosses, rtol=2e-2)
+    for k, v in jfinal.items():
+        (g, g_key), (w, w_key), (v0, _) = (
+            _split_key_bias(k, a) for a in (tfinal[k], v, vals[k]))
+        moved = np.linalg.norm(w - v0)
+        assert np.linalg.norm((g - v0) - (w - v0)) <= 0.1 * moved, k
+        if w_key is not None:
+            assert np.abs(g_key - w_key).max() <= 2 * LR * STEPS * 1.01, k
+
+
+def test_port_fused_and_unfused_trajectories_agree():
+    _, _, vals = build_ernie_pair(seed=0)
     prev = tflags.get_flags(FLAG)[FLAG]
-    tflags.set_flags({FLAG: True})
+    runs = []
     try:
-        tm = ternie.ErnieForPretraining(ternie.ErnieConfig(**ERNIE_TINY),
-                                        device="cpu")
-        ids = torch.from_numpy(_batch()[0][0]).long()
-        with pytest.raises(NotImplementedError, match="B4-B6"):
-            tm(ids)
+        for on in (True, False):
+            tflags.set_flags({FLAG: on})
+            runs.append(_torch_run(_torch_engine(vals), False, STEPS))
     finally:
         tflags.set_flags({FLAG: prev})
+    (fl, fp), (ul, up) = runs
+    np.testing.assert_allclose(fl, ul, rtol=1e-5, atol=1e-6)
+    _assert_params_close(fp, up, STEPS)
+
+
+def _dropout_grads(vals, recompute):
+    """Loss and gradients of one training forward / backward with
+    dropout 0.1 under an installed RngState (seed 11)."""
+    cfg = dict(ERNIE_TINY, dropout=0.1, attn_dropout=0.1,
+               recompute=recompute)
+    tm = ternie.ErnieForPretraining(ternie.ErnieConfig(**cfg), device="cpu")
+    weights.from_paddle_tpu_values(vals, tm)
+    (ids, types), (mlm, nsp) = _batch()
+    with trandom.rng_scope(trandom.RngState(11, "cpu")):
+        out = tm(torch.from_numpy(ids).long(), torch.from_numpy(types).long())
+        loss = ternie.ErniePretrainingCriterion()(
+            *out, torch.from_numpy(mlm).long(), torch.from_numpy(nsp).long())
+    loss.backward()
+    return loss.item(), {k: p.grad.clone() for k, p in tm.named_parameters()}
+
+
+def test_recompute_with_dropout_replays_the_same_masks():
+    _, _, vals = build_ernie_pair(seed=0)
+    loss, grads = _dropout_grads(vals, False)
+    rloss, rgrads = _dropout_grads(vals, True)
+    assert rloss == loss
+    for k, g in grads.items():
+        assert torch.equal(rgrads[k], g), k
+    # dropout really fired
+    _, tm, _ = build_ernie_pair(seed=0)
+    (ids, types), (mlm, nsp) = _batch()
+    out = tm(torch.from_numpy(ids).long(), torch.from_numpy(types).long())
+    plain = ternie.ErniePretrainingCriterion()(
+        *out, torch.from_numpy(mlm).long(), torch.from_numpy(nsp).long())
+    assert plain.item() != loss
+    # and a whole engine trajectory repeats bit for bit
+    finals = []
+    for rc in (False, True):
+        eng = _torch_engine(vals, seed=3, dropout=0.1, attn_dropout=0.1,
+                            recompute=rc)
+        finals.append(_torch_run(eng, False, STEPS))
+    assert finals[0][0] == finals[1][0]
+    for k, v in finals[0][1].items():
+        assert np.array_equal(finals[1][1][k], v), k
+
+
+def test_recompute_trajectory_matches_reference_recompute(fused):
+    vals, jlosses, _, jfinal = _jax_run(False, STEPS, recompute=True)
+    tlosses, tfinal = _torch_run(_torch_engine(vals, recompute=True), False,
+                                 STEPS)
+    np.testing.assert_allclose(tlosses, jlosses, rtol=1e-4, atol=1e-6)
+    _assert_params_close(tfinal, jfinal, STEPS)
+
+
+def test_recompute_sequential_replays_dropout():
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.distributed.fleet.utils import RecomputeSequential
+
+    torch.manual_seed(0)
+    layers = [tnn.Linear(8, 8), tnn.Dropout(0.5), tnn.Linear(8, 8),
+              tnn.Dropout(0.5)]
+    x = torch.randn(4, 8)
+    results = []
+    for segments in (None, 2):
+        xi = x.clone().requires_grad_(True)
+        with trandom.rng_scope(trandom.RngState(9, "cpu")):
+            if segments is None:
+                out = xi
+                for layer in layers:
+                    out = layer(out)
+            else:
+                out = RecomputeSequential(layers, segments)(xi)
+        out.square().sum().backward()
+        results.append((out.detach(), xi.grad,
+                        [p.grad.clone() for layer in layers
+                         for p in layer.parameters()]))
+        for layer in layers:
+            for p in layer.parameters():
+                p.grad = None
+    (o0, g0, p0), (o1, g1, p1) = results
+    assert torch.equal(o0, o1) and torch.equal(g0, g1)
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+    assert bool((o0 == 0).any())        # dropout fired
+
+
+def test_sequence_classification_logits_match():
+    from paddle_tpu.engine import state_values
+    from paddle_tpu.nlp.transformers.ernie import (
+        ErnieConfig as JConfig, ErnieForSequenceClassification as JSeq,
+    )
+
+    jm = JSeq(JConfig(**ERNIE_TINY), num_classes=3)
+    vals = random_values([(k, tuple(v.shape))
+                          for k, v in state_values(jm).items()], seed=6)
+    jm.set_state_dict({k: paddle.to_tensor(v) for k, v in vals.items()})
+    tm = ternie.ErnieForSequenceClassification(
+        ternie.ErnieConfig(**ERNIE_TINY), num_classes=3, device="cpu")
+    weights.from_paddle_tpu_values(vals, tm)
+    jm.eval()
+    tm.eval()
+    (ids, types), _ = _batch(seed=7)
+    jout = jm(paddle.to_tensor(ids), paddle.to_tensor(types))
+    with torch.no_grad():
+        tout = tm(torch.from_numpy(ids).long(),
+                  torch.from_numpy(types).long())
+    assert tout.shape == (ids.shape[0], 3)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout._value),
+                               rtol=1e-5, atol=5e-5)

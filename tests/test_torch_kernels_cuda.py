@@ -3,8 +3,12 @@ card: B7 `dequant_matmul` within rtol=atol=1e-5 (f32 sums in another
 order), B8 `w8a8_matmul` bitwise (exact int32 sums), B1-B3 flash
 attention within 1e-5 (o) / 2e-4 (grads) in f32 and 2e-2 in bf16 (the
 plain version rounds p and ds to bf16 before its products, the kernels
-keep them f32), with the dropout mask equal bit for bit; each launch
-counted. Without a card every test skips.
+keep them f32), with the dropout mask equal bit for bit; B4-B6 (the
+fused LM-head loss) within 1e-5 in f32 at ragged shapes (vocab tails,
+heavy masking, every row ignored) and within one bf16 ulp in bf16
+(the plain version's f32 scores are summed in another order, which can
+move d across a bf16 rounding boundary), repeating bit for bit; each
+launch counted. Without a card every test skips.
 
 This file imports neither jax nor paddle_tpu, so it also runs on a
 machine that has only the port's dependencies:
@@ -19,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.ops import fused_ops, lowp, quant_ops
+from paddle_tpu_torch.ops import fused_loss, fused_ops, lowp, quant_ops
 
 # the serving head's shape, then ragged ones (non-vector paths, M > 8,
 # K beyond one staged tile)
@@ -155,3 +159,84 @@ def test_flash_rejects_unsupported_head_dim():
     q = torch.randn((1, 1, 8, 48), device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         fused_ops.flash_attention(q, q, q)
+
+
+# fused LM-head loss: (n, h, v, masked share) — ragged against the 32-
+# and 64-row tiles, vocab tails, heavy masking, every row ignored
+LCE_SHAPES = [(37, 64, 301, 0.3), (130, 128, 1000, 0.85),
+              (300, 256, 777, 0.5), (64, 768, 2000, 1.0)]
+
+
+def _lce_case(n, h, v, masked, dtype, seed=0):
+    rng = np.random.RandomState(seed + n + h + v)
+    x = torch.from_numpy(rng.randn(n, h).astype(np.float32) * 0.5)
+    w = torch.from_numpy(rng.randn(v, h).astype(np.float32) * 0.1)
+    lbl = rng.randint(0, v, n)
+    lbl[rng.rand(n) < masked] = -100
+    g = torch.from_numpy(rng.rand(n).astype(np.float32))
+    g[torch.from_numpy(lbl) == -100] = 0.0
+    return (x.to(dtype).cuda(), w.to(dtype).cuda(),
+            torch.from_numpy(lbl).cuda(), g.cuda())
+
+
+def _lce_both(x, w, lbl, g):
+    before = dict(fused_loss.launches)
+    nll, lse = fused_loss._fwd_kernel(x, w, lbl)
+    dx, dw = fused_loss._bwd_kernel(x, w, lbl, lse, g)
+    torch.cuda.synchronize()
+    assert all(fused_loss.launches[k] == before[k] + 1
+               for k in ("B4", "B5", "B6"))
+    nll_p, lse_p = fused_loss._fwd_plain(x, w, lbl, 128)
+    dx_p, dw_p = fused_loss._bwd_plain(x, w, lbl, lse_p, g, 128)
+    return (nll, lse, dx, dw), (nll_p, lse_p, dx_p, dw_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,v,masked", LCE_SHAPES)
+def test_fused_loss_kernels_match_plain_f32(n, h, v, masked):
+    _card()
+    got, want = _lce_both(*_lce_case(n, h, v, masked, torch.float32))
+    for gt, wt in zip(got, want):
+        torch.testing.assert_close(gt, wt, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,v", [(333, 768, 18000), (70, 64, 301)])
+def test_fused_loss_kernels_match_plain_bf16(n, h, v):
+    _card()
+    got, want = _lce_both(*_lce_case(n, h, v, 0.85, torch.bfloat16))
+    for gt, wt in zip(got[:2], want[:2]):
+        torch.testing.assert_close(gt, wt, rtol=1e-4, atol=1e-4)
+    for gt, wt in zip(got[2:], want[2:]):
+        gt, wt = gt.float(), wt.float()
+        # one bf16 ulp of each element (of the largest one near 0)
+        ulp = torch.maximum(wt.abs(), wt.abs().max() * 2 ** -8) * 2 ** -7
+        assert bool(((gt - wt).abs() <= ulp).all()), \
+            float(((gt - wt).abs() / ulp).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_loss_kernels_repeat_bitwise(dtype):
+    _card()
+    x, w, lbl, g = _lce_case(257, 128, 3001, 0.5, dtype)
+    first = _lce_both(x, w, lbl, g)[0]
+    second = _lce_both(x, w, lbl, g)[0]
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_fused_loss_op_all_rows_ignored_and_rejects_bad_hidden():
+    _card()
+    x, w, lbl, _ = _lce_case(40, 64, 301, 1.0, torch.float32)
+    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    loss = fused_loss.fused_linear_cross_entropy(xg, wg, lbl)
+    loss.backward()
+    assert float(loss) == 0.0
+    assert float(xg.grad.abs().max()) == 0.0
+    assert float(wg.grad.abs().max()) == 0.0
+    with pytest.raises(ValueError, match="hidden size"):
+        fused_loss._fwd_kernel(torch.zeros((4, 96), device="cuda"),
+                               torch.zeros((9, 96), device="cuda"),
+                               torch.zeros((4,), dtype=torch.long,
+                                           device="cuda"))
