@@ -57,6 +57,26 @@ Phases (any failure raises and the script exits non-zero):
     its peak memory must be above the fused leg's.
 12. recompute=True at full width, 3 steps: the losses equal the fused
     leg's first three (same seeds), and its peak memory.
+13. B10, the fused conv: the distinct convs of one ResNet-50 training
+    step and one eval forward at batch 128 (bf16 under O1; the forward
+    with the moments epilogue, the dx parity planes with none, the eval
+    forward with the affine one, with and without the residual), each
+    against its plain version (bf16 y within one bf16 ulp, the moments
+    within 1e-4; f32 at three of them, within 1e-5 of the largest
+    element, K up to 4608), then timed beside the plain version, cuDNN's
+    bf16 F.conv2d on the same NCHW operands (the yardstick, never
+    called by the port) and the bound; summed over a step's launches.
+14. A tiny ResNet-18 and a narrow bottleneck ResNet-50 on cuda against
+    the same models on the CPU: eval logits, one Momentum step's loss,
+    and each parameter's and running stat's change over the step.
+15. Full width: ResNet-50 as bench.py trains it (s2d stem, b128 x 224,
+    bf16 auto_cast, Momentum 0.1 / 0.9, weight decay 1e-4, bench's
+    synthetic batch), 2 warm-up and 10 timed steps: finite losses and
+    exactly the B10 launches derived from the model (114 a step), step
+    time, images/s, MFU (bench.py's FLOP count), peak memory.
+16. Where that step's time goes, from torch.profiler.
+17. model.eval() forwards at b128: the affine epilogue, 53 B10 launches
+    a forward, images/s.
 
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line
 and ``{"ok": true, "device": {...}}``. Without a CUDA card, or outside a
@@ -192,6 +212,7 @@ def phase_kernels(card):
     w_f32 = quant_ops.dequant_int8(q, s)        # yardstick's operand only
     flush = torch.empty(32 * 1024 * 1024, device="cuda")   # 128 MB
     table_t = q.t()
+    lib_w8a8, lib_note = _int_mm_yardstick(x, table_t, sb, sa_c)
     rows = {
         "B7": dict(
             name="dequant_matmul", source="paddle_tpu_torch/csrc/quant_ops.cu",
@@ -211,7 +232,8 @@ def phase_kernels(card):
                         flush),
             plain_ms=_time_ms(lambda: lowp._w8a8_plain(
                 x, table_t, sb, sa_c), flush),
-            library_ms=None,
+            library_ms=_time_ms(lib_w8a8, flush) if lib_w8a8 else None,
+            library=lib_note,
             nbytes=m * k * 4 + n * k + 8 + m * n * 4,
             ops=2 * m * n * k, peak=int8_peak),
     }
@@ -224,6 +246,41 @@ def phase_kernels(card):
         row["kernel_ms"] = row["ms"]
         print(json.dumps({"kernel": key, **row}), flush=True)
     return rows
+
+
+def _int_mm_yardstick(x, table_t, sb, sa):
+    """B8's library yardstick: the same w8a8 function through
+    ``torch._int_mm`` (cuBLASLt int8, which needs M > 16): the
+    activations quantized as B8 does, zero-padded from M rows to 32,
+    the int32 product, its first M rows scaled by sa * sb / 127^2.
+    Returns (callable, note); the callable's result must equal the plain
+    version bit for bit. (None, reason) when no such call runs here."""
+    import torch
+
+    from paddle_tpu_torch.ops import lowp
+    from paddle_tpu_torch.ops.quant_ops import true_div
+
+    m, k = x.shape
+    pad = torch.zeros((32 - m, k), dtype=torch.int8, device=x.device)
+    scale = true_div(sa * sb, 127.0 * 127.0)
+    want = lowp._w8a8_plain(x, table_t, sb, sa)
+    reasons = []
+    for table in (table_t, table_t.contiguous()):
+        def run(table=table):
+            xq = torch.cat([lowp.quant_int8(x, sa), pad])
+            return torch._int_mm(xq, table)[:m].to(torch.float32) * scale
+        try:
+            got = run()
+        except RuntimeError as e:    # a layout cuBLASLt refuses
+            reasons.append(str(e).splitlines()[0][:120])
+            continue
+        _check(torch.equal(got, want),
+               "torch._int_mm yardstick differs from the plain w8a8")
+        layout = "column-major table" if table is table_t else \
+            "row-major copy of the table"
+        return run, (f"torch._int_mm, M padded 8 -> 32, {layout}, with "
+                     "the activation quantization and the scale")
+    return None, "torch._int_mm refused both layouts: " + "; ".join(reasons)
 
 
 def _tiny_values(model, seed):
@@ -890,7 +947,7 @@ def phase_train_full(card, fused, n=10, recompute=False, warm=2):
     return out, eng, step
 
 
-def phase_train_profile(step, leg):
+def phase_train_profile(step, label):
     """Where a train step's time goes: 3 steps under torch.profiler.
     Returns the device time of a step (ms), which repeats between runs
     where the host clock does not."""
@@ -916,18 +973,493 @@ def phase_train_profile(step, leg):
                if r.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(dev_us(r) for r in kernels) / 1e3 / n
     _check(busy_ms > 0, "the profiler saw no device time")
-    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    # summed by name prefix: kernels whose names share the printed
+    # prefix (torch's elementwise templates) are one entry
+    by_name = {}
+    for r in kernels:
+        by_name[r.key[:90]] = by_name.get(r.key[:90], 0.0) + dev_us(r)
+    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:8]
+    # device time by kind, from the kernels' names (the port's kernels by
+    # their own names; cuDNN's weight gradients carry "wgrad")
+    kinds = (("B10", ("tc_conv", "f32_conv")),
+             ("flash B1-B3", ("fwd_kernel", "dq_kernel", "dkv_kernel")),
+             ("fused loss B4-B6", ("tc_kernel", "f32_kernel")),
+             ("conv weight grad (cuDNN)", ("wgrad",)),
+             ("gemm", ("gemm", "Gemm", "sm90_xmma")),
+             ("elementwise", ("elementwise",)), ("reduce", ("reduce",)),
+             ("host-device copy", ("Memcpy",)))
+    groups = {}
+    for name, us in by_name.items():
+        kind = next((k for k, keys in kinds if any(t in name for t in keys)),
+                    "other")
+        groups[kind] = groups.get(kind, 0.0) + us / 1e3 / n
     print(json.dumps({
-        "profile": f"ernie-1.0 train step (b32 s512 bf16, {leg})",
+        "profile": label,
         "step_ms": host_ms, "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / host_ms),
         "kernels_per_step": sum(r.count for r in kernels) / n,
         "launch_calls_per_step": sum(
             r.count for r in rows if r.key.startswith("cudaLaunchKernel")) / n,
-        "top_kernels_ms_per_step": {r.key[:60]: dev_us(r) / 1e3 / n
-                                    for r in top},
+        "top_kernels_ms_per_step": {k: us / 1e3 / n for k, us in top},
+        "ms_per_step_by_kind": groups,
     }), flush=True)
     return busy_ms
+
+
+# ResNet-50 training as bench.py:184-214 runs it
+RESNET_BATCH, RESNET_HW = 128, 224
+
+
+def _resnet50_fwd_flops(hw=224, num_classes=1000):
+    """bench.py's analytic forward FLOPs of one ResNet-50 image (convs
+    as 2*Kh*Kw*Cin*Cout*Hout*Wout, the vanilla 7x7 stem, the fc; BN,
+    ReLU and pooling left out): 8.18e9 at 224."""
+    f = 0.0
+    h = hw // 2
+    f += 2 * 7 * 7 * 3 * 64 * h * h
+    h //= 2
+    inplanes = 64
+    for planes, blocks, stride in ((64, 3, 1), (128, 4, 2),
+                                   (256, 6, 2), (512, 3, 2)):
+        hin, h = h, h // stride
+        width, out_c = planes, planes * 4
+        f += 2 * inplanes * width * hin * hin
+        f += 2 * 9 * width * width * h * h
+        f += 2 * width * out_c * h * h
+        f += 2 * inplanes * out_c * h * h
+        inplanes = out_c
+        for _ in range(blocks - 1):
+            f += 2 * inplanes * width * h * h
+            f += 2 * 9 * width * width * h * h
+            f += 2 * width * out_c * h * h
+    f += 2 * 512 * 4 * num_classes
+    return f
+
+
+def _b10_per_step(model):
+    """B10 launches of one training step and of one eval forward,
+    derived from the model: one forward launch per conv on the fused
+    path, and in the backward one per input-parity plane that has taps
+    (none for the stem, whose input, the images, needs no gradient)."""
+    from paddle_tpu_torch.nn.layer.conv import Conv2D
+    from paddle_tpu_torch.ops import fused_conv
+    from paddle_tpu_torch.vision.models.resnet import SpaceToDepthStem
+
+    stem = model.conv1.conv if isinstance(model.conv1, SpaceToDepthStem) \
+        else model.conv1
+    fwd = bwd = 0
+    for conv in model.modules():
+        if not isinstance(conv, Conv2D):
+            continue
+        _check(conv._is_plain_for_fusion(), f"{conv} is off the fused path")
+        fwd += 1
+        if conv is stem:
+            continue
+        s = conv._stride
+        k, p = conv._kernel_size[0], conv._padding
+        bwd += sum(fused_conv._taps_1d(k, s, a, p) is not None
+                   and fused_conv._taps_1d(k, s, b, p) is not None
+                   for a in range(s) for b in range(s))
+    return fwd + bwd, fwd
+
+
+class _ConvRecorder:
+    """Records the distinct convs that reach B10 (the NCHW operands'
+    shapes, stride, pads and epilogue) and how often each runs, by
+    wrapping `fused_conv._fwd` while it is on."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops import fused_conv
+
+        self._orig = orig = fused_conv._fwd
+
+        def rec(x, w, s, pads, *, g=None, b=None, res=None,
+                act="identity", moments=False):
+            epi = "moments" if moments else (
+                "affine" + ("+res" if res is not None else "") + f"+{act}"
+                if g is not None else "none")
+            key = (tuple(x.shape), tuple(w.shape), s,
+                   tuple(map(tuple, pads)), epi)
+            self.calls[key] = self.calls.get(key, 0) + 1
+            return orig(x, w, s, pads, g=g, b=b, res=res, act=act,
+                        moments=moments)
+
+        fused_conv._fwd = rec
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.ops import fused_conv
+
+        fused_conv._fwd = self._orig
+
+
+def _resnet_model(device, depth=50, **kw):
+    import torch
+
+    from paddle_tpu_torch.vision.models import resnet as tresnet
+
+    block = tresnet.BottleneckBlock if depth >= 50 else tresnet.BasicBlock
+    return tresnet.ResNet(block, depth, device=device,
+                          generator=torch.Generator().manual_seed(0), **kw)
+
+
+def _resnet_values(model, seed):
+    """numpy weights for the parity models: He-scaled conv / fc weights,
+    BN scales near 1, small biases, running means near 0 and variances
+    in [0.5, 1.5] (as tests/test_torch_resnet.py draws them)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    vals = {}
+    for name, t in model.state_dict().items():
+        shape = tuple(t.shape)
+        if name.endswith("_variance"):
+            v = rng.uniform(0.5, 1.5, shape)
+        elif name.endswith("_mean"):
+            v = 0.1 * rng.randn(*shape)
+        elif len(shape) >= 2:
+            fan = np.prod(shape[1:]) if len(shape) == 4 else shape[0]
+            v = rng.randn(*shape) * np.sqrt(2.0 / fan)
+        elif name.endswith("weight"):
+            v = 1.0 + 0.1 * rng.randn(*shape)
+        else:
+            v = 0.05 * rng.randn(*shape)
+        vals[name] = v.astype(np.float32)
+    return vals
+
+
+def _resnet_engine(model, device, lr=0.1):
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.engine import Engine
+
+    crit = nn.CrossEntropyLoss()
+    opt = optimizer.Momentum(learning_rate=lr, momentum=0.9,
+                             parameters=model.parameters(), weight_decay=1e-4)
+    return Engine(model, opt, lambda logits, labels: crit(logits, labels),
+                  device=device, seed=0)
+
+
+def _resnet_batch(batch, hw, classes=1000, seed=0):
+    """bench.py's synthetic batch: rng.rand images, random labels."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return (rng.rand(batch, 3, hw, hw).astype(np.float32),
+            rng.randint(0, classes, (batch,)).astype(np.int32))
+
+
+def phase_conv(card):
+    """B10 against its plain version at every distinct conv of the
+    ResNet-50 path at batch 128 (bf16 under O1): the training forward
+    (moments epilogue), the dx parity planes (none), the eval forward
+    (affine, with and without the residual, ReLU or identity), recorded
+    from one training step and one eval forward of the real model; f32
+    at three of them. Each timed with CUDA events (L2 flushed) beside
+    the plain version, cuDNN's bf16 F.conv2d on the same NCHW operands
+    (the yardstick, never called by the port) and the bound. Returns
+    the B10 row summed over one training step's launches."""
+    import torch
+    import torch.nn.functional as tF
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops import fused_conv
+    from paddle_tpu_torch.ops.nn_ops import pad2d
+
+    model = _resnet_model("cuda", space_to_depth_stem=True)
+    eng = _resnet_engine(model, "cuda")
+    imgs, labels = _resnet_batch(RESNET_BATCH, RESNET_HW)
+    with _ConvRecorder() as train_rec, \
+            amp.auto_cast(enable=True, dtype="bfloat16"):
+        eng.train_batch(imgs, labels)
+    model.eval()
+    x_img = torch.from_numpy(imgs).cuda()
+    with _ConvRecorder() as eval_rec, torch.no_grad(), \
+            amp.auto_cast(enable=True, dtype="bfloat16"):
+        model(x_img)
+    del eng, model, x_img
+    torch.cuda.empty_cache()
+
+    bw, _, _, bf16_peak = _peaks(card)
+    flush = torch.empty(32 * 1024 * 1024, device="cuda")   # 128 MB
+    gen = torch.Generator().manual_seed(10)
+    shapes, step = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+                            bound_ms=0.0)
+    err = ulps_max = 0.0
+    keys = sorted(set(train_rec.calls) | set(eval_rec.calls))
+    f32_keys = {max(keys, key=lambda k_: k_[1][1] * k_[1][2] * k_[1][3]),
+                keys[0], keys[-1]}
+    for key in keys:
+        xs, ws, s, pads, epi = key
+        per_step = train_rec.calls.get(key, 0)
+        for dtype in ([torch.bfloat16, torch.float32] if key in f32_keys
+                      else [torch.bfloat16]):
+            x = torch.randn(xs, generator=gen).to(dtype).cuda()
+            w = (torch.randn(ws, generator=gen) /
+                 (ws[1] * ws[2] * ws[3]) ** 0.5).to(dtype).cuda()
+            plan = fused_conv._plan(xs, ws, (s, s), pads)
+            xp, wk = fused_conv._lower(x, w, plan)
+            kw = dict(moments=epi == "moments")
+            if epi.startswith("affine"):
+                kw.update(g=torch.rand((ws[0],), generator=gen).cuda() + 0.5,
+                          b=torch.randn((ws[0],), generator=gen).cuda() * 0.1,
+                          act=epi.rsplit("+", 1)[1])
+                if "+res" in epi:
+                    kw["res"] = torch.randn(
+                        (xs[0], plan.ho, plan.wo, ws[0]),
+                        generator=gen).to(dtype).cuda()
+            got = fused_conv._conv_kernel(xp, wk, plan, **kw)
+            want = fused_conv._conv_plain(xp, wk, plan, **kw)
+            torch.cuda.synchronize()
+            y, yw = got[0].float(), want[0].float()
+            if dtype == torch.bfloat16:
+                ulps = _bf16_ulps(y, yw)
+                _check(ulps <= 1.0, f"B10 {key}: {ulps} bf16 ulps off plain")
+                ulps_max = max(ulps_max, ulps)
+                err = max(err, (y - yw).abs().max().item())
+                mtol = 1e-4
+            else:
+                torch.testing.assert_close(
+                    y, yw, rtol=1e-5, atol=1e-5 * float(yw.abs().max()))
+                mtol = 1e-5
+            for gm, wm in zip(got[1:], want[1:]):
+                torch.testing.assert_close(
+                    gm, wm, rtol=mtol, atol=mtol * float(wm.abs().max()))
+            if dtype == torch.float32:
+                print(json.dumps({"conv_check_f32": list(key),
+                                  "max_abs_err": (y - yw).abs().max().item()}),
+                      flush=True)
+                continue
+            ms = _time_ms(lambda: fused_conv._conv_kernel(xp, wk, plan, **kw),
+                          flush, n=20)
+            plain_ms = _time_ms(
+                lambda: fused_conv._conv_plain(xp, wk, plan, **kw), flush,
+                n=5)
+            xpad = pad2d(x, pads)
+            lib_ms = _time_ms(lambda: tF.conv2d(xpad, w, stride=s), flush,
+                              n=20)
+            m, o = xs[0] * plan.ho * plan.wo, ws[0]
+            real = 2.0 * m * o * ws[1] * ws[2] * ws[3]
+            lowered = 2.0 * m * o * wk.shape[0] * wk.shape[1]
+            nbytes = (xp.numel() + wk.numel() + m * o) * 2 + \
+                (m * o * 2 if "res" in kw else 0) + \
+                (2 * o * 4 if epi != "none" else 0)
+            t_bytes, t_ops = nbytes / bw * 1e3, real / bf16_peak * 1e3
+            row = dict(x=list(xs), w=list(ws), stride=s, pads=list(pads),
+                       epilogue=epi, launches_per_step=per_step,
+                       eval_launches=eval_rec.calls.get(key, 0), ms=ms,
+                       plain_ms=plain_ms, cudnn_ms=lib_ms,
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       real_gflop=real / 1e9, lowered_gflop=lowered / 1e9,
+                       ulps=ulps)
+            shapes.append(row)
+            print(json.dumps({"conv_shape": row}), flush=True)
+            for k_, v in (("ms", ms), ("plain_ms", plain_ms),
+                          ("library_ms", lib_ms),
+                          ("bound_ms", row["bound_ms"])):
+                step[k_] += per_step * v
+            del x, w, xp, wk, got, want
+    t_bytes = sum(r["launches_per_step"] * r["bound_ms"] for r in shapes
+                  if r["bound_by"] == "bytes")
+    t_ops = step["bound_ms"] - t_bytes
+    per_step_total = sum(train_rec.calls.values())
+    print(json.dumps({"b10_per_step": step, "launches": per_step_total,
+                      "distinct_shapes": len(keys),
+                      "max_bf16_ulps": ulps_max}), flush=True)
+    return dict(
+        name="fused_conv2d_bn_act",
+        route="cuda", source="paddle_tpu_torch/csrc/fused_conv.cu",
+        replaces="paddle_tpu/ops/fused_conv.py:232 (_conv_kernel)",
+        max_abs_err=err, ms=step["ms"], plain_ms=step["plain_ms"],
+        library_ms=step["library_ms"], bound_ms=step["bound_ms"],
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library="cuDNN bf16 F.conv2d on the NCHW operands, no epilogue",
+        per="one training step's launches, summed")
+
+
+SLICE_MODELS = ((18, 64), (50, 16))     # (depth, width)
+# (loss, change) gates of phase_resnet_slice. The CPU against itself,
+# input moved by 1e-6 over 8 draws: loss 8.3e-6 / 1.58e-4 relative, a
+# leaf's change 0.019 / 0.111 of its norm; with conv dx zeroed a leaf's
+# change reads 1.0 in both models. ResNet-18's loss gate stays 1e-5; the
+# others are about twice the spread.
+SLICE_GATES = {(18, 64): (1e-5, 0.05), (50, 16): (3e-4, 0.3)}
+
+
+def resnet_slice_step(depth, width, dev, imgs, labels):
+    """One slice model (s2d stem, 4 classes, _resnet_values(model, 0)) on
+    `dev`: its eval logits, B10's launches in that forward, then one
+    Momentum step (lr 1e-3, f32): the loss and each parameter's and
+    running stat's change over the step (host tensors)."""
+    import torch
+
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.ops import fused_conv
+
+    model = _resnet_model(dev, depth, width=width, num_classes=4,
+                          space_to_depth_stem=True)
+    vals = _resnet_values(model, 0)
+    weights.from_paddle_tpu_values(vals, model)
+    model.eval()
+    before = fused_conv.LAUNCHES
+    with torch.no_grad():
+        logits = model(torch.from_numpy(imgs).to(dev)).cpu()
+    fwd_launches = fused_conv.LAUNCHES - before
+    model.train()
+    eng = _resnet_engine(model, dev, lr=1e-3)
+    loss = float(eng.train_batch(imgs, labels))
+    after = {**eng.state.params, **eng.state.buffers}
+    delta = {k: after[k].detach().cpu() - torch.from_numpy(v)
+             for k, v in vals.items()}
+    return logits, loss, delta, fwd_launches, model
+
+
+def slice_delta_err(got, want):
+    """The worst leaf's |got - want| / |want| over one step's changes, L2
+    norms over each leaf, and its name."""
+    errs = {k: float((got[k] - w).norm() / w.norm().clamp_min(1e-30))
+            for k, w in want.items()}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def phase_resnet_slice():
+    """A tiny ResNet-18 and a narrow bottleneck ResNet-50 (width 16) on
+    cuda against the same models on the CPU (B10's plain version), with
+    the same random weights and running stats, f32, batch 4 x 3 x 64 x
+    64: the eval logits within 1e-4 of their scale, then one Momentum
+    step (lr 1e-3): the loss, and each parameter's and running stat's
+    change over the step, in L2 norm relative to that change's own norm.
+    The gates lie between the CPU's own spread when its input moves by
+    1e-6 (8 draws) and the reading of a planted fault (conv dx zeroed on
+    the CPU), both measured by `python tests/test_torch_resnet.py chip`:
+    the gradient is discontinuous at every ReLU, and f32 noise flips the
+    masks of pre-activations within ~5e-6 of 0. SLICE_GATES holds (loss,
+    change) per model."""
+    import torch
+
+    imgs, labels = _resnet_batch(4, 64, classes=4, seed=4)
+    for depth, width in SLICE_MODELS:
+        loss_tol, delta_tol = SLICE_GATES[(depth, width)]
+        lc, loss_c, dc, nc, model = resnet_slice_step(depth, width, "cuda",
+                                                      imgs, labels)
+        lp, loss_p, dp, npl, _ = resnet_slice_step(depth, width, "cpu",
+                                                   imgs, labels)
+        _check(nc == _b10_per_step(model)[1] and npl == 0,
+               f"resnet{depth}: eval forward launched B10 {nc}x / {npl}x")
+        torch.testing.assert_close(lc, lp, rtol=1e-4,
+                                   atol=1e-4 * float(lp.abs().max()))
+        loss_rel = abs(loss_c - loss_p) / abs(loss_p)
+        worst, leaf = slice_delta_err(dc, dp)
+        print(json.dumps({"resnet_slice_vs_plain": f"resnet{depth} w{width}",
+                          "max_logit_diff": float((lc - lp).abs().max()),
+                          "loss": [loss_c, loss_p], "loss_rel": loss_rel,
+                          "worst_change_rel": worst, "worst_leaf": leaf,
+                          "gates": [loss_tol, delta_tol]}), flush=True)
+        _check(loss_rel <= loss_tol,
+               f"resnet{depth}: loss {loss_c} vs {loss_p}")
+        _check(worst <= delta_tol,
+               f"resnet{depth}: {leaf}'s change off by {worst} of its norm")
+
+
+def phase_resnet_full(card, n=10, warm=2):
+    """ResNet-50 as bench.py trains it: resnet50(num_classes=1000,
+    space_to_depth_stem=True), CrossEntropyLoss, Momentum(0.1, 0.9,
+    weight_decay=1e-4), batch 128 x 3 x 224 x 224 rand images and
+    random labels from RandomState(0), the same batch every step, bf16
+    auto_cast O1. `warm` steps, then `n` timed on the host clock (each
+    ending in a synchronise) with B10's launch count set to 0 just
+    before them and read just after."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops import fused_conv
+
+    model = _resnet_model("cuda", space_to_depth_stem=True)
+    eng = _resnet_engine(model, "cuda")
+    imgs, labels = _resnet_batch(RESNET_BATCH, RESNET_HW)
+    per_step, per_fwd = _b10_per_step(model)
+
+    def step():
+        with amp.auto_cast(enable=True, dtype="bfloat16"):
+            return eng.train_batch(imgs, labels)
+
+    losses = [float(step()) for _ in range(warm)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    fused_conv.LAUNCHES = 0
+    for _ in range(n):
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = fused_conv.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    _check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    _check(launches == per_step * n,
+           f"B10 ran {launches}x in {n} steps, derived {per_step} a step")
+    step_s = float(np.median(times))
+    img_s = RESNET_BATCH / step_s
+    out = {
+        "train": "resnet-50 s2d b128 224 bf16 Momentum", "steps": n,
+        "step_ms_p50": step_s * 1e3,
+        "step_ms_p90": float(np.percentile(times, 90)) * 1e3,
+        "images_per_s": img_s,
+        "mfu": img_s * 3.0 * _resnet50_fwd_flops(RESNET_HW) / _peaks(card)[3],
+        "peak_mem_bytes": peak, "losses": losses,
+        "b10_launches_per_step": launches / n, "derived_per_step": per_step,
+    }
+    print(json.dumps(out), flush=True)
+    return out, eng, model, step, per_fwd
+
+
+def phase_resnet_eval(model, per_fwd, n=10, warm=2):
+    """model.eval() forwards at batch 128 under bf16 auto_cast: the
+    affine epilogue (BN folded into the conv); B10's launches per
+    forward must equal the derived count."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops import fused_conv
+
+    model.eval()
+    imgs, _ = _resnet_batch(RESNET_BATCH, RESNET_HW)
+    x = torch.from_numpy(imgs).cuda()
+
+    def fwd():
+        with torch.no_grad(), amp.auto_cast(enable=True, dtype="bfloat16"):
+            return model(x)
+
+    for _ in range(warm):
+        fwd()
+    torch.cuda.synchronize()
+    fused_conv.LAUNCHES = 0
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        logits = fwd()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = fused_conv.LAUNCHES
+    _check(launches == per_fwd * n,
+           f"eval: B10 ran {launches}x in {n} forwards, derived {per_fwd}")
+    _check(bool(torch.isfinite(logits).all()) and
+           tuple(logits.shape) == (RESNET_BATCH, 1000),
+           "eval logits malformed")
+    step_s = float(np.median(times))
+    out = {"eval": "resnet-50 s2d b128 224 bf16", "forwards": n,
+           "forward_ms_p50": step_s * 1e3,
+           "images_per_s": RESNET_BATCH / step_s,
+           "b10_launches_per_forward": launches / n}
+    print(json.dumps(out), flush=True)
+    return out
 
 
 def main():
@@ -984,8 +1516,9 @@ def main():
     set_flags({"FLAGS_use_fused_lm_loss": True})
     timed("train_slice", phase_train_slice)
     fused_leg, eng, step = timed("train_full", phase_train_full, name, True)
-    fused_leg["device_busy_ms"] = timed("train_profile", phase_train_profile,
-                                        step, "fused loss")
+    fused_leg["device_busy_ms"] = timed(
+        "train_profile", phase_train_profile, step,
+        "ernie-1.0 train step (b32 s512 bf16, fused loss)")
     for key in ("B1", "B2", "B3", "B4", "B5", "B6"):
         rows[key]["launches"] = int(fused_leg["launches_per_step"][key] *
                                     fused_leg["steps"])
@@ -994,7 +1527,8 @@ def main():
     plain_leg, eng, step = timed("train_unfused", phase_train_full, name,
                                  False)
     plain_leg["device_busy_ms"] = timed(
-        "train_unfused_profile", phase_train_profile, step, "unfused")
+        "train_unfused_profile", phase_train_profile, step,
+        "ernie-1.0 train step (b32 s512 bf16, unfused)")
     del eng, step
     torch.cuda.empty_cache()
     _check(fused_leg["peak_mem_bytes"] < plain_leg["peak_mem_bytes"],
@@ -1016,6 +1550,22 @@ def main():
         "plain_losses": [round(v, 5) for v in want],
         "peak_mem_bytes": [remat_leg["peak_mem_bytes"],
                            fused_leg["peak_mem_bytes"]]}}), flush=True)
+
+    # ResNet-50 training as bench.py runs it, on B10
+    rows["B10"] = timed("conv", phase_conv, name)
+    timed("resnet_slice", phase_resnet_slice)
+    resnet_leg, eng, model, step, per_fwd = timed("resnet_full",
+                                                  phase_resnet_full, name)
+    rows["B10"]["launches"] = int(resnet_leg["b10_launches_per_step"] *
+                                  resnet_leg["steps"])
+    resnet_leg["device_busy_ms"] = timed(
+        "resnet_profile", phase_train_profile, step,
+        "resnet-50 train step (b128 224 s2d bf16, Momentum)")
+    del eng, step
+    torch.cuda.empty_cache()
+    timed("resnet_eval", phase_resnet_eval, model, per_fwd)
+    del model
+    torch.cuda.empty_cache()
     for key, row in rows.items():
         _check(row["launches"] > 0, f"{key} never ran on the path")
     print(json.dumps({"total_s": time.monotonic() - t_start}), flush=True)

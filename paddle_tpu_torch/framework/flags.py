@@ -1,8 +1,8 @@
 """Runtime flags registry: set_flags / get_flags + FLAGS_* env.
 
 The serving subset of paddle_tpu's registry plus the ERNIE head's
-`FLAGS_use_fused_lm_loss`, with the same names and defaults. Unknown
-flags raise.
+`FLAGS_use_fused_lm_loss` and the ResNet convs' `FLAGS_use_pallas_conv`,
+with the same names and defaults. Unknown flags raise.
 """
 
 from __future__ import annotations
@@ -59,6 +59,11 @@ _DEFS = {
         "per-tensor scale calibrated during warmup and the first steps "
         "(ops/lowp.py). Requires the int8-frozen tied head; ignored "
         "otherwise"),
+    "FLAGS_use_pallas_conv": (
+        True, bool,
+        "route eligible convs through the fused-conv kernel B10 "
+        "(ops/fused_conv.py; CPU tensors take its plain version); off = "
+        "the reference's lax path, torch's convolution"),
     "FLAGS_use_fused_lm_loss": (
         True, bool,
         "route the tied-decoder matmul + cross_entropy of the ERNIE/BERT "

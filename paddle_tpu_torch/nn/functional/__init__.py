@@ -3,10 +3,15 @@
 Ops that the reference dispatches under an AMP-listed name read the
 port's `amp` policy for their inputs (`linear` and `matmul` as
 ``matmul_v2``, `cross_entropy`, `layer_norm`, `flash_attention`,
-`fused_linear_cross_entropy`), so
-under ``amp.auto_cast`` they see the dtypes the reference's ops see.
-Random ops draw from the generator that `framework.random.rng_scope`
-installs (an engine's), else from torch's default one.
+`fused_linear_cross_entropy`, `conv2d`, `batch_norm`), so
+under ``amp.auto_cast`` they see the dtypes the reference's ops see;
+`fused_conv2d_bn_act` applies its own cast rule. Random ops draw from
+the generator that `framework.random.rng_scope` installs (an engine's),
+else from torch's default one.
+
+The batch-norm ops return y and write the new running stats into the
+given buffers in place under ``no_grad`` (the reference's
+``set_value``), in training unless `use_global_stats`.
 """
 
 from __future__ import annotations
@@ -18,11 +23,13 @@ import torch.nn.functional as tF
 
 from ... import amp
 from ...framework import random as _random
-from ...ops import fused_loss, fused_ops
+from ...ops import fused_conv, fused_loss, fused_ops, nn_ops
 
-__all__ = ["linear", "matmul", "gelu", "tanh", "dropout", "layer_norm",
-           "cross_entropy", "fused_linear_cross_entropy",
-           "scaled_dot_product_attention"]
+__all__ = ["linear", "matmul", "gelu", "tanh", "relu", "dropout",
+           "layer_norm", "cross_entropy", "fused_linear_cross_entropy",
+           "scaled_dot_product_attention", "conv2d", "max_pool2d",
+           "adaptive_avg_pool2d", "batch_norm", "fused_bn_act",
+           "fused_conv2d_bn_act", "pad"]
 
 # additive mask value of the reference's attention paths (a large finite
 # negative, not -inf, so a fully masked row cannot turn into NaN)
@@ -51,6 +58,10 @@ def gelu(x, approximate=False):
 
 def tanh(x):
     return torch.tanh(x)
+
+
+def relu(x, name=None):
+    return torch.relu(x)
 
 
 def dropout(x, p=0.5, training=True):
@@ -134,3 +145,120 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
     probs = torch.softmax(s, dim=-1).to(q.dtype)
     probs = dropout(probs, p, training=use_dropout)
     return torch.matmul(probs, v).transpose(1, 2)
+
+
+# -- conv, pooling, batch norm (the ResNet slice) ---------------------------
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW", name=None):
+    """AMP white list; the bias is added outside the op (it promotes a
+    low-precision conv to float32, as in the reference)."""
+    x, weight = amp.cast("conv2d", x, weight)
+    out = nn_ops.conv2d(x, weight, stride=stride, padding=padding,
+                        dilation=dilation, groups=groups,
+                        data_format=data_format)
+    if bias is not None:
+        shape = [1, -1, 1, 1] if data_format == "NCHW" else [1, 1, 1, -1]
+        out = out + bias.reshape(shape)
+    return out
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, data_format="NCHW", name=None):
+    if return_mask:
+        raise NotImplementedError("max_pool2d(return_mask=True) is not "
+                                  "ported yet")
+    return nn_ops.pool2d(x, ksize=kernel_size, stride=stride,
+                         padding=padding, ceil_mode=ceil_mode,
+                         pooling_type="max", data_format=data_format)
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
+    return nn_ops.pool2d(x, ksize=output_size, adaptive=True,
+                         pooling_type="avg", data_format=data_format)
+
+
+def _write_stats(running_mean, running_var, new_mean, new_var):
+    with torch.no_grad():
+        running_mean.copy_(new_mean)
+        running_var.copy_(new_var)
+
+
+def batch_norm(x, running_mean, running_var, weight, bias, training=False,
+               momentum=0.9, epsilon=1e-5, data_format="NCHW",
+               use_global_stats=None, name=None):
+    """AMP black list: every tensor enters in float32."""
+    if use_global_stats is None:
+        use_global_stats = not training
+    xs, w, b, mean, var = amp.cast("batch_norm", x, weight, bias,
+                                   running_mean, running_var)
+    y, (new_mean, new_var) = nn_ops.batch_norm(
+        xs, w, b, mean, var, momentum=momentum, epsilon=epsilon,
+        is_test=not training, data_format=data_format,
+        use_global_stats=use_global_stats)
+    if training and not use_global_stats:
+        _write_stats(running_mean, running_var, new_mean, new_var)
+    return y
+
+
+def fused_bn_act(x, running_mean, running_var, weight, bias,
+                 residual=None, act="relu", training=False, momentum=0.9,
+                 epsilon=1e-5, data_format="NCHW", use_global_stats=None,
+                 name=None):
+    """act(batch_norm(x) [+ residual]) through the minimal-residual VJP
+    (`ops.nn_ops._BnActCore`): the backward recomputes the normalised
+    activation instead of saving y or a mask."""
+    if use_global_stats is None:
+        use_global_stats = not training
+    y, (new_mean, new_var) = nn_ops.fused_bn_act(
+        x, weight, bias, running_mean, running_var, residual,
+        momentum=momentum, epsilon=epsilon, act=act, is_test=not training,
+        data_format=data_format, use_global_stats=use_global_stats)
+    if training and not use_global_stats:
+        _write_stats(running_mean, running_var, new_mean, new_var)
+    return y
+
+
+def fused_conv2d_bn_act(x, weight, running_mean, running_var, bn_weight,
+                        bn_bias, residual=None, act="relu", training=False,
+                        momentum=0.9, epsilon=1e-5, stride=1, padding=0,
+                        dilation=1, groups=1, data_format="NCHW",
+                        use_global_stats=None, name=None):
+    """act(batch_norm(conv2d(x, weight)) [+ residual]) through the
+    fused-epilogue conv (`ops.fused_conv`, kernel B10 on CUDA tensors):
+    eval folds the BN into the conv's epilogue, training takes the BN
+    moments from the conv's accumulator."""
+    if use_global_stats is None:
+        use_global_stats = not training
+    y, (new_mean, new_var) = fused_conv.fused_conv2d_bn_act(
+        x, weight, bn_weight, bn_bias, running_mean, running_var, residual,
+        stride=stride, padding=padding, dilation=dilation, groups=groups,
+        momentum=momentum, epsilon=epsilon, act=act, is_test=not training,
+        data_format=data_format, use_global_stats=use_global_stats)
+    if training and not use_global_stats:
+        _write_stats(running_mean, running_var, new_mean, new_var)
+    return y
+
+
+def pad(x, pad, mode="constant", value=0.0, data_format="NCHW", name=None):
+    """paddle's pad: a full ``[lo, hi]`` per dim (2 * ndim entries), or
+    pairs for the trailing spatial dims in `data_format` order, the
+    first pair on the first spatial dim."""
+    if len(pad) == 2 * x.dim():
+        paddings = list(pad)
+    else:
+        spatial = len(pad) // 2
+        lead = [0, 0] * (x.dim() - spatial)
+        if data_format.startswith("NC"):
+            paddings = lead + list(pad)
+        else:
+            paddings = [0, 0] + list(pad) + [0, 0]
+    # torch lists the pairs from the last dim back
+    tpad = []
+    for i in reversed(range(x.dim())):
+        tpad += [int(paddings[2 * i]), int(paddings[2 * i + 1])]
+    if mode not in ("constant", "reflect", "replicate", "circular"):
+        raise ValueError(f"pad: unknown mode {mode!r}")
+    return tF.pad(x, tpad, mode=mode,
+                  value=value if mode == "constant" else None)

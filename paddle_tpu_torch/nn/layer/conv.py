@@ -1,0 +1,84 @@
+"""Convolution layers (ref paddle_tpu/nn/layer/conv.py): the weight is
+``[out, in / groups, kh, kw]``, KaimingUniform over ``fan_in = in /
+groups * kh * kw``; the bias U(-1/sqrt(fan_in), 1/sqrt(fan_in)), none
+with ``bias_attr=False``. Parameters are made on the CPU from the given
+generator (the default generator when None); the owning model moves
+them."""
+
+from __future__ import annotations
+
+import math
+
+from torch import nn
+
+from .. import functional as F
+from .. import initializer as I
+
+__all__ = ["Conv2D"]
+
+
+def _pair(v):
+    return tuple(v) if isinstance(v, (list, tuple)) else (v, v)
+
+
+class _ConvNd(nn.Module):
+    def __init__(self, in_channels, out_channels, kernel_size, stride,
+                 padding, dilation, groups, weight_attr, bias_attr,
+                 data_format, ndim, generator=None):
+        super().__init__()
+        self._in_channels = in_channels
+        self._out_channels = out_channels
+        ks = kernel_size if isinstance(kernel_size, (list, tuple)) \
+            else (kernel_size,) * ndim
+        self._kernel_size = tuple(ks)
+        self._stride = stride
+        self._padding = padding
+        self._dilation = dilation
+        self._groups = groups
+        self._data_format = data_format
+        wshape = [out_channels, in_channels // groups, *self._kernel_size]
+        fan_in = (in_channels // groups) * math.prod(self._kernel_size)
+        init = weight_attr or I.KaimingUniform(fan_in=fan_in)
+        self.weight = nn.Parameter(init(wshape, generator))
+        if bias_attr is False:
+            self.bias = None
+        else:
+            bound = 1.0 / math.sqrt(fan_in)
+            self.bias = nn.Parameter(
+                I.Uniform(-bound, bound)([out_channels], generator))
+
+    def extra_repr(self):
+        return (f"{self._in_channels}, {self._out_channels}, "
+                f"kernel_size={list(self._kernel_size)}, "
+                f"stride={self._stride}")
+
+
+class Conv2D(_ConvNd):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, dilation=1, groups=1, padding_mode="zeros",
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 generator=None):
+        if padding_mode != "zeros":
+            raise NotImplementedError(
+                f"padding_mode={padding_mode!r} is not ported yet")
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, groups, weight_attr, bias_attr,
+                         data_format, 2, generator)
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight, self.bias, self._stride,
+                        self._padding, self._dilation, self._groups,
+                        self._data_format)
+
+    def _is_plain_for_fusion(self):
+        """True when this layer's forward is exactly the stock bias-free
+        F.conv2d above: the conv half of a fusable Conv->BN->act chain
+        (vision.models.resnet._conv_bn_act). Subclass forwards, hooks,
+        bias, groups and dilation keep the composed path."""
+        return (type(self).forward is Conv2D.forward
+                and self.bias is None
+                and self._groups == 1
+                and self._data_format == "NCHW"
+                and _pair(self._dilation) == (1, 1)
+                and not self._forward_pre_hooks
+                and not self._forward_hooks)

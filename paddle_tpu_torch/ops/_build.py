@@ -30,7 +30,7 @@ __all__ = ["SOURCES", "build_all", "load"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("quant_ops", "lowp", "flash_attn", "fused_loss")
+SOURCES = ("quant_ops", "lowp", "flash_attn", "fused_loss", "fused_conv")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 

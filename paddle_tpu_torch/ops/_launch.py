@@ -24,6 +24,13 @@ def route(x):
     raise ValueError(f"no kernel for device {x.device}")
 
 
+def aligned(t):
+    """`t` contiguous with a 16-byte aligned base (the kernels read rows
+    in 16-byte vectors)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def same_device(name, ref, *tensors):
     for t in tensors:
         if t.device != ref.device:

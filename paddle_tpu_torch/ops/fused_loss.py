@@ -99,13 +99,6 @@ def _bwd_plain(x, w, labels, lse, g, cv):
 # -- kernels -----------------------------------------------------------------
 
 
-def _aligned(t):
-    """`t` contiguous with a 16-byte aligned base (the kernels read
-    rows in 16-byte vectors)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _check(x, w, labels):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(
@@ -159,7 +152,7 @@ def _labels32(labels):
 def _fwd_kernel(x, w, labels):
     """B4: ``(nll, lse)`` f32 ``[N]``."""
     _check(x, w, labels)
-    x, w = _aligned(x), _aligned(w)
+    x, w = _launch.aligned(x), _launch.aligned(w)
     n = x.shape[0]
     nll = torch.empty((n,), dtype=torch.float32, device=x.device)
     lse = torch.empty((n,), dtype=torch.float32, device=x.device)
@@ -185,7 +178,7 @@ def _bwd_dw_kernel(x, w, labels32, lse, g):
 def _bwd_kernel(x, w, labels, lse, g):
     _check(x, w, labels)
     _launch.same_device("fused_linear_cross_entropy backward", x, lse, g)
-    x, w = _aligned(x), _aligned(w)
+    x, w = _launch.aligned(x), _launch.aligned(w)
     if x.shape[0] == 0:
         return torch.empty_like(x), torch.zeros_like(w)
     lbl = _labels32(labels)

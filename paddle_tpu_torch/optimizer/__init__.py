@@ -1,11 +1,11 @@
 """Optimizers (counterpart of paddle_tpu/optimizer): the base class,
-`Adam` and `AdamW`, driven by `paddle_tpu_torch.engine.Engine`, and the
+`Momentum`, `Adam` and `AdamW`, driven by `paddle_tpu_torch.engine.Engine`, and the
 LR schedulers of `lr` (a scheduler passed as ``learning_rate`` is read
 by `get_lr`; the caller steps it).
 
 Each optimizer is a per-parameter rule over a state dict with the
-reference's names (``moment1``, ``moment2``, ``beta1_pow``,
-``beta2_pow``), so a state carried over from paddle_tpu's engine loads
+reference's names (``velocity``; ``moment1``, ``moment2``,
+``beta1_pow``, ``beta2_pow``), so a state carried over from paddle_tpu's engine loads
 name for name (``weights.from_paddle_tpu_opt_state``). The update is the
 reference's arithmetic in float32, with the learning rate a float32
 device scalar, and it writes the parameter and its state IN PLACE (the
@@ -28,7 +28,8 @@ import torch
 from . import lr  # noqa: F401
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "Adam", "AdamW", "L2Decay", "LRScheduler", "lr"]
+__all__ = ["Optimizer", "Momentum", "Adam", "AdamW", "L2Decay",
+           "LRScheduler", "lr"]
 
 
 class L2Decay:
@@ -110,6 +111,32 @@ class Optimizer:
             if "decoupled_coeff" in metas[k]:
                 h = dict(hyper, coeff=metas[k]["decoupled_coeff"])
             self._rule(p, grads[k], states[k], lr, keep, **h)
+
+
+class Momentum(Optimizer):
+    """Heavy-ball momentum, ``v = momentum * v + g`` then ``p -= lr * v``
+    (Nesterov: ``p -= lr * (g + momentum * v)``); a float
+    ``weight_decay`` is coupled L2, folded into the gradient."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=False, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _init_state(self, param):
+        return {"velocity": torch.zeros_like(param)}
+
+    def _hyper(self):
+        return {"momentum": self._momentum, "nesterov": self._use_nesterov}
+
+    def _rule(self, param, grad, state, lr, keep, *, momentum, nesterov):
+        g = grad.to(param.dtype)
+        v = state["velocity"]
+        _write(keep, torch.add, v, v * momentum, g)
+        step = g + momentum * v if nesterov else v
+        _write(keep, torch.sub, param, param, lr * step)
 
 
 class Adam(Optimizer):

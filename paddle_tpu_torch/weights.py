@@ -2,7 +2,9 @@
 ``paddle_tpu.engine.state_values`` names (the two packages' parameter
 names and layouts are equal one to one: GPT, ERNIE pretraining and
 ``ErnieForSequenceClassification``, whose ``classifier.weight`` is
-``[hidden, classes]`` as the reference's ``Linear``)."""
+``[hidden, classes]`` as the reference's ``Linear``; the ResNet family,
+whose state also holds the batch norms' ``_mean`` / ``_variance``
+running stats, loaded as buffers)."""
 
 from __future__ import annotations
 

@@ -71,6 +71,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(
     from paddle_tpu_torch.nlp.transformers import ernie as ternie
     from paddle_tpu_torch.nlp.transformers import gpt as tgpt
     from paddle_tpu_torch.serving import Server, SlotEngine
+    from paddle_tpu_torch.vision.models import resnet18
     from torch_parity import ERNIE_TINY, TINY
 
     assert pt.default_device() == torch.device("cuda")
@@ -95,3 +96,6 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(
         Engine(ernie, opt, lambda out, mlm: out[0].sum())
     assert Engine(ernie, opt, lambda out, mlm: out[0].sum(),
                   device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resnet18(num_classes=4)
+    assert resnet18(num_classes=4, device="cpu").device.type == "cpu"

@@ -7,8 +7,14 @@ keep them f32), with the dropout mask equal bit for bit; B4-B6 (the
 fused LM-head loss) within 1e-5 in f32 at ragged shapes (vocab tails,
 heavy masking, every row ignored) and within one bf16 ulp in bf16
 (the plain version's f32 scores are summed in another order, which can
-move d across a bf16 rounding boundary), repeating bit for bit; each
-launch counted. Without a card every test skips.
+move d across a bf16 rounding boundary), repeating bit for bit; B10
+(the fused conv) with every epilogue (none, moments, affine with and
+without a residual, ReLU and identity) at ragged pixel counts, channel
+counts (12 as the space-to-depth stem, odd ones) and output widths,
+through the stride-2 lowering and the dx parity planes: f32 within
+rtol 1e-5 and 1e-5 of the largest element (sums in another order), bf16
+y within one bf16 ulp and the moments within 1e-4 relative, repeating
+bit for bit; each launch counted. Without a card every test skips.
 
 This file imports neither jax nor paddle_tpu, so it also runs on a
 machine that has only the port's dependencies:
@@ -23,7 +29,8 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.ops import fused_loss, fused_ops, lowp, quant_ops
+from paddle_tpu_torch.ops import fused_conv, fused_loss, fused_ops, lowp, \
+    quant_ops
 
 # the serving head's shape, then ragged ones (non-vector paths, M > 8,
 # K beyond one staged tile)
@@ -240,3 +247,113 @@ def test_fused_loss_op_all_rows_ignored_and_rejects_bad_hidden():
                                torch.zeros((9, 96), device="cuda"),
                                torch.zeros((4,), dtype=torch.long,
                                            device="cuda"))
+
+
+# B10: (n, c, h, w, o, k, s, pad) — ragged pixel counts against the
+# 128-pixel tiles, Ce 12 (the s2d stem) and odd (element loads), O odd
+# and past one 64-wide tile, 1x1 / 3x3 / 4x4 / 7x7 at stride 1 and 2
+CONV_SHAPES = [(2, 64, 9, 11, 128, 1, 1, 0), (3, 12, 17, 15, 64, 4, 1, 0),
+               (2, 5, 9, 10, 10, 3, 1, 1), (1, 24, 13, 11, 72, 3, 2, 1),
+               (2, 3, 15, 14, 67, 7, 2, 3), (2, 40, 8, 9, 200, 1, 2, 0)]
+
+
+def _conv_case(n, c, h, w, o, k, s, pad, dtype, seed=0):
+    gen = torch.Generator().manual_seed(seed + n + c + h + o + k)
+    x = torch.randn((n, c, h, w), generator=gen).to(dtype)
+    wt = (torch.randn((o, c, k, k), generator=gen) / (c * k * k) ** 0.5
+          ).to(dtype)
+    plan = fused_conv._plan(x.shape, wt.shape, (s, s), ((pad, pad),) * 2)
+    xp, wk = fused_conv._lower(x.cuda(), wt.cuda(), plan)
+    g = torch.rand((o,), generator=gen).cuda() + 0.5
+    b = torch.randn((o,), generator=gen).cuda() * 0.1
+    res = torch.randn((n, plan.ho, plan.wo, o), generator=gen).to(
+        dtype).cuda()
+    return plan, xp, wk, g, b, res
+
+
+def _assert_conv_close(got, want, bf16):
+    got, want = got.float(), want.float()
+    if bf16:
+        ulp = torch.maximum(want.abs(), want.abs().max() * 2 ** -8) * 2 ** -7
+        assert bool(((got - want).abs() <= ulp).all()), \
+            float(((got - want).abs() / ulp).max())
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,h,w,o,k,s,pad", CONV_SHAPES)
+def test_conv_kernel_epilogues_match_plain(n, c, h, w, o, k, s, pad,
+                                           dtype):
+    _card()
+    plan, xp, wk, g, b, res = _conv_case(n, c, h, w, o, k, s, pad, dtype)
+    bf16 = dtype == torch.bfloat16
+    legs = [dict(), dict(moments=True), dict(g=g, b=b, act="relu"),
+            dict(g=g, b=b, res=res, act="identity"),
+            dict(g=g, b=b, res=res, act="relu")]
+    for leg in legs:
+        before = fused_conv.LAUNCHES
+        got = fused_conv._conv_kernel(xp, wk, plan, **leg)
+        torch.cuda.synchronize()
+        assert fused_conv.LAUNCHES == before + 1
+        want = fused_conv._conv_plain(xp, wk, plan, **leg)
+        _assert_conv_close(got[0], want[0], bf16)
+        if leg.get("moments"):
+            for gm, wm in zip(got[1:], want[1:]):
+                torch.testing.assert_close(
+                    gm, wm, rtol=1e-4 if bf16 else 1e-5,
+                    atol=(1e-4 if bf16 else 1e-5) * float(wm.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,h,w,o,k,s,pad", CONV_SHAPES[2:])
+def test_conv_grads_through_parity_planes_match_plain(n, c, h, w, o, k, s,
+                                                      pad, dtype):
+    """_ConvCore forward and backward on the card (B10 for z and for
+    every dx plane) against the same on the CPU (the plain version)."""
+    _card()
+    gen = torch.Generator().manual_seed(k * 7 + s)
+    x = torch.randn((n, c, h, w), generator=gen).to(dtype)
+    wt = (torch.randn((o, c, k, k), generator=gen) / (c * k * k) ** 0.5
+          ).to(dtype)
+    cfg = (s, pad, pad, pad, pad)
+    plan = fused_conv._plan(x.shape, wt.shape, (s, s), ((pad, pad),) * 2)
+    dz = torch.randn((n, o, plan.ho, plan.wo), generator=gen).to(dtype)
+    outs, launched = {}, {}
+    for dev in ("cuda", "cpu"):
+        xl = x.to(dev).requires_grad_(True)
+        wl = wt.to(dev).requires_grad_(True)
+        before = fused_conv.LAUNCHES
+        z = fused_conv._ConvCore.apply(xl, wl, cfg, False)
+        z.backward(dz.to(dev))
+        torch.cuda.synchronize()
+        launched[dev] = fused_conv.LAUNCHES - before
+        outs[dev] = [t.detach().cpu() for t in (z, xl.grad)]
+    planes = sum(
+        fused_conv._taps_1d(k, s, a, pad) is not None
+        and fused_conv._taps_1d(k, s, bb, pad) is not None
+        for a in range(s) for bb in range(s))
+    assert launched == {"cuda": 1 + planes, "cpu": 0}
+    bf16 = dtype == torch.bfloat16
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        _assert_conv_close(got, want, bf16)
+
+
+@pytest.mark.cuda
+def test_conv_launch_count_and_bitwise_repeat():
+    _card()
+    plan, xp, wk, g, b, res = _conv_case(2, 64, 14, 14, 128, 3, 1, 1,
+                                         torch.bfloat16)
+    first = fused_conv._conv_kernel(xp, wk, plan, moments=True)
+    second = fused_conv._conv_kernel(xp, wk, plan, moments=True)
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+    x = torch.randn((2, 24, 13, 11), device="cuda").requires_grad_(True)
+    w = torch.randn((40, 24, 3, 3), device="cuda").requires_grad_(True)
+    before = fused_conv.LAUNCHES
+    z = fused_conv._ConvCore.apply(x, w, (2, 1, 1, 1, 1), False)
+    z.sum().backward()
+    # one forward launch, four parity planes of dx
+    assert fused_conv.LAUNCHES == before + 5
