@@ -57,7 +57,25 @@ Phases (any failure raises and the script exits non-zero):
     its peak memory must be above the fused leg's.
 12. recompute=True at full width, 3 steps: the losses equal the fused
     leg's first three (same seeds), and its peak memory.
-13. B10, the fused conv: the distinct convs of one ResNet-50 training
+13. Low-precision training against its plain version: the tiny ERNIE
+    of 8 under FLAGS_lowp_matmul int8 and fp8, cuda against the CPU:
+    losses within 2e-3 / 1e-2, the ScaleState's scales within 1e-3 /
+    2e-2 and its counters equal, exactly the derived B9 launches.
+14. Full width under FLAGS_lowp_matmul int8 and fp8 (delayed scaling):
+    the leg of 9 with every Linear and every loss score chunk on B9;
+    exactly the B9 launches derived from the model (69 a step), none of
+    B4, 12 of each of B1-B3 and 1 of B5 / B6; every loss within rtol
+    0.2 of the flag-off leg's (bench.py --lowp's gate); the ScaleState's
+    clip rate and updates; the int8 leg profiled as in 10.
+15. B9 against its plain version at every distinct call of that step
+    (recorded from the int8 leg) and at ragged shapes, int8 bit for bit
+    and fp8 within 4 K 2^-24 of the sum of the absolute products, then
+    timed beside the plain version, the library yardstick (torch._int_mm
+    or torch._scaled_mm with the same quantization; never called by the
+    port) and the bound; summed over a step's calls.
+16. The fused leg again with the flag off: its first three losses equal
+    the fused leg's, and no lowp stat moved.
+17. B10, the fused conv: the distinct convs of one ResNet-50 training
     step and one eval forward at batch 128 (bf16 under O1; the forward
     with the moments epilogue, the dx parity planes with none, the eval
     forward with the affine one, with and without the residual), each
@@ -66,16 +84,16 @@ Phases (any failure raises and the script exits non-zero):
     element, K up to 4608), then timed beside the plain version, cuDNN's
     bf16 F.conv2d on the same NCHW operands (the yardstick, never
     called by the port) and the bound; summed over a step's launches.
-14. A tiny ResNet-18 and a narrow bottleneck ResNet-50 on cuda against
+18. A tiny ResNet-18 and a narrow bottleneck ResNet-50 on cuda against
     the same models on the CPU: eval logits, one Momentum step's loss,
     and each parameter's and running stat's change over the step.
-15. Full width: ResNet-50 as bench.py trains it (s2d stem, b128 x 224,
+19. Full width: ResNet-50 as bench.py trains it (s2d stem, b128 x 224,
     bf16 auto_cast, Momentum 0.1 / 0.9, weight decay 1e-4, bench's
     synthetic batch), 2 warm-up and 10 timed steps: finite losses and
     exactly the B10 launches derived from the model (114 a step), step
     time, images/s, MFU (bench.py's FLOP count), peak memory.
-16. Where that step's time goes, from torch.profiler.
-17. model.eval() forwards at b128: the affine epilogue, 53 B10 launches
+20. Where that step's time goes, from torch.profiler.
+21. model.eval() forwards at b128: the affine epilogue, 53 B10 launches
     a forward, images/s.
 
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line
@@ -881,52 +899,91 @@ def phase_train_slice():
     print(json.dumps({"train_slice_vs_plain": losses}), flush=True)
 
 
-def phase_train_full(card, fused, n=10, recompute=False, warm=2):
+def phase_train_full(card, fused, n=10, recompute=False, warm=2,
+                     lowp="off", record=False):
     """ERNIE-1.0 at full width as bench.py trains it: b32 x s512,
     dropout 0.1 / 0.1, bf16 auto_cast, AdamW lr 1e-4 wd 0.01, random
-    weights from seed 0, FLAGS_use_fused_lm_loss as `fused`. `warm`
-    warm-up steps, then `n` steps timed on the host clock (each ends in
-    a synchronise), the peak memory and the launch counts of B1-B6 set
-    to 0 just before them and read just after."""
+    weights from seed 0, FLAGS_use_fused_lm_loss as `fused` and
+    FLAGS_lowp_matmul as `lowp` (latched by the engine). `warm` warm-up
+    steps (with `record`, the first one records the distinct B9 calls),
+    then `n` steps timed on the host clock (each ends in a synchronise),
+    the peak memory and the launch counts of B1-B6 and B9 set to 0 just
+    before them and read just after. A flag-off leg must move no lowp
+    stat."""
     import numpy as np
     import torch
 
     from paddle_tpu_torch import amp
+    from paddle_tpu_torch.engine import LOWP_SCALE_KEY
+    from paddle_tpu_torch.framework import monitor
     from paddle_tpu_torch.framework.flags import set_flags
     from paddle_tpu_torch.nlp.transformers import ErnieConfig
     from paddle_tpu_torch.ops import fused_loss, fused_ops
+    from paddle_tpu_torch.ops import lowp as lowp_ops
+    from paddle_tpu_torch.quantization import publish_scale_state
 
-    set_flags({"FLAGS_use_fused_lm_loss": fused})
+    set_flags({"FLAGS_use_fused_lm_loss": fused, "FLAGS_lowp_matmul": lowp})
     cfg = ErnieConfig(**ERNIE, recompute=recompute)
     eng = _ernie_engine(cfg, "cuda", 0, 0, 1e-4)
     ids, labels = _ernie_batch(cfg.vocab_size, ERNIE_BATCH, ERNIE_SEQ)
+    stats0 = monitor.stats("lowp.")
 
     def step():
         with amp.auto_cast(enable=True, dtype="bfloat16"):
             return eng.train_batch(ids, labels)
 
-    losses = [float(step()) for _ in range(warm)]
+    calls = None
+    if record:
+        with _SmmRecorder() as rec:
+            losses = [float(step())]
+        calls = rec.calls
+        losses += [float(step()) for _ in range(warm - 1)]
+    else:
+        losses = [float(step()) for _ in range(warm)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
     fused_ops.flash_attention.launches.update(B1=0, B2=0, B3=0)
     fused_loss.launches.update(B4=0, B5=0, B6=0)
+    lowp_ops.scaled_matmul.launches = 0
     for _ in range(n):
         t0 = time.perf_counter()
         loss = step()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(float(loss))
-    launches = {**fused_ops.flash_attention.launches, **fused_loss.launches}
+    launches = {**fused_ops.flash_attention.launches, **fused_loss.launches,
+                "B9": lowp_ops.scaled_matmul.launches}
     peak = torch.cuda.max_memory_allocated()
     _check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     _check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    # recompute reruns each block's forward (B1) in the backward
+    # recompute reruns each block's forward (B1) in the backward; the
+    # low-precision forward bypasses B4 for B9's score chunks
+    b9 = _b9_per_step(eng.layer) if lowp != "off" else 0
     per_step = dict(B1=cfg.num_layers * (2 if recompute else 1),
                     B2=cfg.num_layers, B3=cfg.num_layers,
-                    B4=int(fused), B5=int(fused), B6=int(fused))
+                    B4=int(fused and lowp == "off"), B5=int(fused),
+                    B6=int(fused), B9=b9)
     _check(all(launches[k] == c * n for k, c in per_step.items()),
-           f"launches over {n} steps: {launches}")
+           f"launches over {n} steps: {launches}, derived {per_step}")
+    scale_state = None
+    if lowp == "off":
+        _check(monitor.stats("lowp.") == stats0,
+               f"a flag-off leg moved lowp stats: {monitor.stats('lowp.')}")
+    else:
+        if calls is not None:
+            _check(sum(calls.values()) == b9,
+                   f"recorded {sum(calls.values())} B9 calls, derived {b9}")
+        st = eng.state.buffers[LOWP_SCALE_KEY]
+        scale_state = {
+            "clip_rate": publish_scale_state(st),
+            "scale_updates": int(st.updates), "step": int(st.step),
+            "slots_bound": int((st.history.amax(1) > 0).sum()),
+            "matmul_calls": monitor.stat_get(f"lowp.matmuls_{lowp}") -
+            stats0.get(f"lowp.matmuls_{lowp}", 0)}
+        _check(scale_state["step"] == warm + n and
+               scale_state["scale_updates"] == warm + n,
+               f"ScaleState schedule: {scale_state}")
     n_params = sum(p.numel() for p in eng.state.params.values())
     flops_tok = 6.0 * n_params + 12.0 * cfg.num_layers * cfg.hidden_size * \
         ERNIE_SEQ
@@ -935,15 +992,19 @@ def phase_train_full(card, fused, n=10, recompute=False, warm=2):
     bf16_peak = _peaks(card)[3]
     out = {
         "train": "ernie-1.0 b32 s512 bf16 dropout 0.1",
-        "fused_lm_loss": fused, "recompute": recompute, "steps": n,
+        "fused_lm_loss": fused, "recompute": recompute, "lowp": lowp,
+        "steps": n,
         "step_ms_p50": step_s * 1e3,
         "step_ms_p90": float(np.percentile(times, 90)) * 1e3,
         "tokens_per_s": tok_s, "params": n_params,
         "mfu": flops_tok * tok_s / bf16_peak,
         "peak_mem_bytes": peak, "losses": losses,
         "launches_per_step": {k: c / n for k, c in launches.items()},
+        "scale_state": scale_state,
     }
     print(json.dumps(out), flush=True)
+    if calls is not None:
+        out["b9_calls"] = calls
     return out, eng, step
 
 
@@ -981,7 +1042,8 @@ def phase_train_profile(step, label):
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:8]
     # device time by kind, from the kernels' names (the port's kernels by
     # their own names; cuDNN's weight gradients carry "wgrad")
-    kinds = (("B10", ("tc_conv", "f32_conv")),
+    kinds = (("B9", ("qmm_gemm", "quant_rows", "quant_cols")),
+             ("B10", ("tc_conv", "f32_conv")),
              ("flash B1-B3", ("fwd_kernel", "dq_kernel", "dkv_kernel")),
              ("fused loss B4-B6", ("tc_kernel", "f32_kernel")),
              ("conv weight grad (cuDNN)", ("wgrad",)),
@@ -1004,6 +1066,313 @@ def phase_train_profile(step, label):
         "ms_per_step_by_kind": groups,
     }), flush=True)
     return busy_ms
+
+
+def _b9_per_step(model):
+    """B9 launches of one low-precision training step, derived from the
+    model: one per Linear (each runs once in the forward) and one per
+    vocab chunk of the fused loss's forward."""
+    from paddle_tpu_torch.nn.layer.common import Linear
+    from paddle_tpu_torch.ops import fused_loss
+
+    linears = sum(isinstance(m, Linear) for m in model.modules())
+    v = model.config.vocab_size
+    cv = min(fused_loss._CHUNK_V, fused_loss._round_up(v, 128))
+    return linears + -(-v // cv)
+
+
+class _SmmRecorder:
+    """Records the distinct calls that reach B9 (a's shape, dtype and
+    row stride, b's shape, dtype and layout: a Linear weight [in, out]
+    or a transposed vocab chunk) and how often each runs, by wrapping
+    `lowp._smm` while it is on."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops import lowp
+
+        self._orig = orig = lowp._smm
+
+        def rec(a, b, sa, sb, qdtype):
+            layout = "chunk" if b.stride(0) == 1 and b.shape[1] > 1 \
+                else "weight"
+            key = (a.shape[0], a.shape[1], b.shape[1], str(a.dtype)[6:],
+                   a.stride(0), str(b.dtype)[6:], layout)
+            self.calls[key] = self.calls.get(key, 0) + 1
+            return orig(a, b, sa, sb, qdtype)
+
+        lowp._smm = rec
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.ops import lowp
+
+        lowp._smm = self._orig
+
+
+# tolerances of the low-precision phase (cuda against the CPU): the
+# quantized products are exact given their codes, but f32 noise between
+# the matmuls (other sum orders on the two devices) can flip a code
+# that sits on a rounding boundary; int8's flips move losses by < 1e-3
+# and fp8's (3 mantissa bits) by < 1e-2 in the CPU tests against the
+# reference (tests/test_torch_lowp_training.py). A scale is one
+# activation's abs-max after two Adam steps, so it carries that
+# element's f32 noise undamped: 1.6e-4 between the card and the CPU in
+# int8 on an H100 (first run), held to 1e-3
+LOWP_RTOL = {"int8": (2e-3, 1e-3), "fp8": (1e-2, 2e-2)}   # (loss, scale)
+
+
+def phase_lowp_slice():
+    """Low-precision training on cuda against the CPU: the tiny ERNIE of
+    phase_train_slice under FLAGS_lowp_matmul int8 and fp8, 3 AdamW
+    steps in f32 with the fused loss on. The cuda run goes through B9
+    (exactly the derived launches, none of B4); losses and the
+    ScaleState's scales within LOWP_RTOL, its step, updates and element
+    count equal."""
+    import numpy as np
+
+    from paddle_tpu_torch.engine import LOWP_SCALE_KEY
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.nlp.transformers import ErnieConfig
+    from paddle_tpu_torch.ops import fused_loss, lowp
+
+    cfg = ErnieConfig(vocab_size=97, hidden_size=128, num_layers=2,
+                      num_heads=4, ffn_hidden_size=256, max_seq_len=64,
+                      dropout=0.0, attn_dropout=0.1)
+    ids, labels = _ernie_batch(97, 2, 64, seed=3)
+    out = {}
+    try:
+        for mode in ("int8", "fp8"):
+            set_flags({"FLAGS_lowp_matmul": mode})
+            losses, states = {}, {}
+            for dev in ("cuda", "cpu"):
+                eng = _ernie_engine(cfg, dev, 5, 7, 1e-3)
+                b9, b4 = lowp.scaled_matmul.launches, fused_loss.launches["B4"]
+                losses[dev] = [float(eng.train_batch(ids, labels))
+                               for _ in range(3)]
+                st = eng.state.buffers[LOWP_SCALE_KEY]
+                states[dev] = {k: v.cpu().numpy()
+                               for k, v in st._asdict().items()}
+                if dev == "cuda":
+                    want = 3 * _b9_per_step(eng.layer)
+                    got = lowp.scaled_matmul.launches - b9
+                    _check(got == want and fused_loss.launches["B4"] == b4,
+                           f"tiny ERNIE {mode}: {got} B9 launches, derived "
+                           f"{want}; B4 {fused_loss.launches['B4'] - b4}")
+            loss_rtol, scale_rtol = LOWP_RTOL[mode]
+            np.testing.assert_allclose(losses["cuda"], losses["cpu"],
+                                       rtol=loss_rtol)
+            _check(losses["cuda"][-1] < losses["cuda"][0],
+                   f"tiny ERNIE {mode}: no descent")
+            c, p = states["cuda"], states["cpu"]
+            for k in ("step", "updates", "total"):
+                _check(c[k] == p[k], f"{mode} ScaleState.{k}: {c[k]} {p[k]}")
+            np.testing.assert_allclose(c["scale"], p["scale"],
+                                       rtol=scale_rtol)
+            out[mode] = {"losses": losses,
+                         "clipped": [float(c["clipped"]),
+                                     float(p["clipped"])],
+                         "scale_max_rel_diff": float(np.max(
+                             np.abs(c["scale"] - p["scale"]) /
+                             np.abs(p["scale"])))}
+    finally:
+        set_flags({"FLAGS_lowp_matmul": "off"})
+    print(json.dumps({"lowp_slice_vs_plain": out}), flush=True)
+
+
+def _fp8_tol(a, b, sa, sb):
+    """B9's fp8 tolerance against its plain version, per element: 4 K
+    2^-24 of the sum of the absolute products, times the epilogue."""
+    from paddle_tpu_torch.ops import lowp
+
+    qa = lowp._quant_f8(a, sa).double().abs()
+    qb = lowp._quant_f8(b, sb).double().abs()
+    return 4 * a.shape[1] * 2.0 ** -24 * (qa @ qb) * (
+        float(sa) * float(sb) / 448.0 ** 2)
+
+
+def _smm_yardstick(a, b, sa, sb, qdtype, want, tol):
+    """B9's library yardstick: the same function through one library
+    GEMM: the operands quantized as B9 does, then ``torch._int_mm``
+    (cuBLASLt int8) and the epilogue for int8, or ``torch._scaled_mm``
+    (cuBLASLt e4m3, per-tensor scales s / 448) for fp8; M padded to 32
+    and N to 16 with zero rows / columns where the library needs it.
+    Returns (callable, note); the callable's result must equal the plain
+    version (int8) or lie within `tol` of it (fp8). (None, reason) when
+    the library refuses every layout."""
+    import torch
+
+    from paddle_tpu_torch.ops import lowp
+    from paddle_tpu_torch.ops.quant_ops import true_div
+
+    m, n = a.shape[0], b.shape[1]
+    pm, pn = max(32, -(-m // 16) * 16) - m, -(-n // 16) * 16 - n
+    reasons = []
+    for col_major in (b.stride(0) == 1, not b.stride(0) == 1):
+        def run(col_major=col_major):
+            if qdtype == "int8":
+                qa, qb = lowp.quant_int8(a, sa), lowp.quant_int8(b, sb)
+            else:
+                qa, qb = lowp._quant_f8(a, sa), lowp._quant_f8(b, sb)
+            if pm:
+                qa = torch.cat([qa, torch.zeros((pm, qa.shape[1]),
+                                                dtype=qa.dtype,
+                                                device=qa.device)])
+            if pn:
+                qb = torch.cat([qb, torch.zeros((qb.shape[0], pn),
+                                                dtype=qb.dtype,
+                                                device=qb.device)], 1)
+            if col_major and qb.stride(0) != 1:
+                qb = qb.t().contiguous().t()
+            elif not col_major and qb.stride(1) != 1:
+                qb = qb.contiguous()
+            if qdtype == "int8":
+                acc = torch._int_mm(qa.contiguous(), qb)[:m, :n]
+                return acc.to(torch.float32) * true_div(sa * sb, 127.0 ** 2)
+            return torch._scaled_mm(
+                qa.contiguous(), qb, scale_a=true_div(sa, 448.0),
+                scale_b=true_div(sb, 448.0),
+                out_dtype=torch.float32)[:m, :n]
+        try:
+            got = run()
+        except RuntimeError as e:      # a layout the library refuses
+            reasons.append(str(e).splitlines()[0][:120])
+            continue
+        if qdtype == "int8":
+            _check(torch.equal(got, want),
+                   "torch._int_mm yardstick differs from the plain B9")
+        else:
+            # the library applies the two scales one after the other
+            _check(bool(((got.double() - want.double()).abs() <=
+                         tol + 4 * 2.0 ** -24 * want.double().abs()).all()),
+                   "torch._scaled_mm yardstick beyond the fp8 tolerance")
+        name = "torch._int_mm" if qdtype == "int8" else "torch._scaled_mm"
+        layout = "column-major" if col_major else "row-major"
+        return run, (f"{name}, {layout} b, with both quantizations and "
+                     "the epilogue")
+    return None, "library refused both layouts: " + "; ".join(reasons)
+
+
+# ragged B9 checks beside the recorded shapes: (m, k, n, a dtype,
+# b dtype, b layout) — every dtype pair and both layouts of b
+B9_RAGGED = [(1, 100, 2, "float32", "float32", "weight"),
+             (7, 100, 3, "bfloat16", "float32", "weight"),
+             (33, 100, 333, "float32", "bfloat16", "chunk"),
+             (33, 768, 333, "bfloat16", "bfloat16", "chunk"),
+             (7, 768, 3, "bfloat16", "bfloat16", "weight"),
+             (1, 3072, 333, "float32", "float32", "chunk")]
+
+
+def _b9_operands(m, k, n, a_dtype, lda, b_dtype, layout, gen):
+    """a [m, k] with row stride lda (a view of a wider buffer, as the
+    pooler's first-token rows), b [k, n] as a Linear weight or as the
+    transpose of a [n, k] vocab chunk, on the card."""
+    import torch
+
+    a = (torch.randn((m, lda), generator=gen) * 2.0).to(
+        getattr(torch, a_dtype)).cuda()[:, :k]
+    if layout == "chunk":
+        b = (torch.randn((n, k), generator=gen) * 0.05).to(
+            getattr(torch, b_dtype)).cuda().t()
+    else:
+        b = (torch.randn((k, n), generator=gen) * 0.05).to(
+            getattr(torch, b_dtype)).cuda()
+    return a, b
+
+
+def phase_lowp_kernels(card, calls):
+    """B9 against its plain version, in int8 and fp8, at every distinct
+    call of the full-width low-precision step (`calls`, recorded from
+    the int8 leg's first step with its operands' dtypes, a's row stride
+    and b's layout) and at B9_RAGGED: int8 bit for bit (with the
+    abs-max scale and with one that clips), fp8 within `_fp8_tol`. Then
+    each recorded shape timed in both modes (CUDA events, L2 flushed)
+    beside the plain version, the library yardstick (never called by
+    the port) and the bound; summed over a step's calls. Returns the B9
+    row (int8 in the main fields, fp8 beside them)."""
+    import torch
+
+    from paddle_tpu_torch.ops import lowp
+
+    bw, _, int8_peak, _ = _peaks(card)   # the fp8 dense peak equals int8's
+    flush = torch.empty(32 * 1024 * 1024, device="cuda")   # 128 MB
+    gen = torch.Generator().manual_seed(21)
+    err = {"int8": 0.0, "fp8": 0.0}
+    ragged = [(m, k, n, ad, k, bd, lay) for m, k, n, ad, bd, lay in B9_RAGGED]
+    step = {q: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                    bound_bytes_ms=0.0) for q in ("int8", "fp8")}
+    lib_notes = {}
+    for key in sorted(calls) + ragged:
+        m, k, n, a_dt, lda, b_dt, layout = key
+        per_step = calls.get(key, 0)
+        a, b = _b9_operands(*key, gen)
+        sa, sb = lowp.amax_of(a), lowp.amax_of(b)
+        for s in (sa, sa * 0.7):
+            got = lowp._smm_kernel(a, b, s, sb, "int8")
+            _check(torch.equal(got, lowp._smm_plain(a, b, s, sb, "int8")),
+                   f"B9 int8 differs from its plain version at {key}")
+        got = lowp._smm_kernel(a, b, sa, sb, "fp8").double()
+        want = lowp._smm_plain(a, b, sa, sb, "fp8").double()
+        tol = _fp8_tol(a, b, sa, sb)
+        diff = (got - want).abs()
+        _check(bool((diff <= tol + 1e-30).all()),
+               f"B9 fp8 beyond 4 K 2^-24 of sum |q q| at {key}: "
+               f"{float((diff / (tol + 1e-30)).max())} of the bound")
+        err["fp8"] = max(err["fp8"], float(diff.max()))
+        row = dict(m=m, k=k, n=n, a=a_dt, a_row_stride=lda, b=b_dt,
+                   b_layout=layout, calls_per_step=per_step,
+                   fp8_err_of_bound=float((diff / (tol + 1e-30)).max()))
+        if not per_step:
+            print(json.dumps({"b9_check": row}), flush=True)
+            continue
+        nbytes = m * k * a.element_size() + k * n * b.element_size() + \
+            m * n * 4
+        t_bytes, t_ops = nbytes / bw * 1e3, 2.0 * m * n * k / int8_peak * 1e3
+        for q in ("int8", "fp8"):
+            want = lowp._smm_plain(a, b, sa, sb, q)
+            lib, note = _smm_yardstick(a, b, sa, sb, q, want,
+                                       _fp8_tol(a, b, sa, sb) if q == "fp8"
+                                       else None)
+            lib_notes.setdefault(q, set()).add(note)
+            ms = _time_ms(lambda: lowp._smm_kernel(a, b, sa, sb, q), flush,
+                          n=20)
+            plain_ms = _time_ms(lambda: lowp._smm_plain(a, b, sa, sb, q),
+                                flush, n=3)
+            lib_ms = _time_ms(lib, flush, n=20) if lib else None
+            row[q] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms)
+            st = step[q]
+            st["ms"] += per_step * ms
+            st["plain_ms"] += per_step * plain_ms
+            st["library_ms"] += per_step * (lib_ms or 0.0)
+            st["bound_ms"] += per_step * max(t_bytes, t_ops)
+            if t_bytes >= t_ops:
+                st["bound_bytes_ms"] += per_step * t_bytes
+            del want
+        row.update(bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        print(json.dumps({"b9_shape": row}), flush=True)
+        del a, b, got
+    launches = sum(calls.values())
+    print(json.dumps({"b9_per_step": step, "launches": launches,
+                      "distinct_calls": len(calls),
+                      "library": {q: sorted(v) for q, v in
+                                  lib_notes.items()}}), flush=True)
+    i8, f8 = step["int8"], step["fp8"]
+    return dict(
+        name="scaled_matmul", route="cuda",
+        source="paddle_tpu_torch/csrc/lowp.cu",
+        replaces="paddle_tpu/ops/lowp.py:227 (_qmm_kernel)",
+        max_abs_err=max(err.values()), fp8_max_abs_err=err["fp8"],
+        ms=i8["ms"], plain_ms=i8["plain_ms"], library_ms=i8["library_ms"],
+        bound_ms=i8["bound_ms"],
+        bound_by="bytes" if 2 * i8["bound_bytes_ms"] >= i8["bound_ms"]
+        else "operations",              # the side that binds most of it
+        fp8_ms=f8["ms"], fp8_plain_ms=f8["plain_ms"],
+        fp8_library_ms=f8["library_ms"],
+        library="; ".join(sorted(lib_notes.get("int8", ()))),
+        per="one int8 training step's calls, summed (fp8_* the fp8 step's)")
 
 
 # ResNet-50 training as bench.py:184-214 runs it
@@ -1493,9 +1862,9 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"{src}: {line.strip()}", flush=True)
 
-    def timed(label, fn, *args):
+    def timed(label, fn, *args, **kwargs):
         t0 = time.monotonic()
-        out = fn(*args)
+        out = fn(*args, **kwargs)
         print(json.dumps({f"phase_{label}_s": time.monotonic() - t0}),
               flush=True)
         return out
@@ -1550,6 +1919,51 @@ def main():
         "plain_losses": [round(v, 5) for v in want],
         "peak_mem_bytes": [remat_leg["peak_mem_bytes"],
                            fused_leg["peak_mem_bytes"]]}}), flush=True)
+
+    # low-precision training on B9: the tiny model against the CPU, the
+    # int8 and fp8 legs at full width beside the fused flag-off leg
+    # (bench.py --lowp's gate: every loss within rtol 0.2), B9 against its
+    # plain version at the calls the int8 leg recorded, then a flag-off
+    # leg that must repeat the fused leg's first losses
+    timed("lowp_slice", phase_lowp_slice)
+    lowp_legs = {}
+    for mode in ("int8", "fp8"):
+        leg, eng, step = timed(f"train_{mode}", phase_train_full, name, True,
+                               lowp=mode, record=mode == "int8")
+        if mode == "int8":
+            leg["device_busy_ms"] = timed(
+                "train_int8_profile", phase_train_profile, step,
+                "ernie-1.0 train step (b32 s512 bf16, lowp int8)")
+        del eng, step
+        torch.cuda.empty_cache()
+        dev = max(abs(a - b) / abs(b)
+                  for a, b in zip(leg["losses"], fused_leg["losses"]))
+        _check(dev <= 0.2, f"{mode} losses {leg['losses']} beyond rtol 0.2 "
+               f"of the flag-off {fused_leg['losses']}")
+        leg["max_rel_dev_vs_flag_off"] = dev
+        lowp_legs[mode] = leg
+    print(json.dumps({"lowp_vs_fused": {
+        k: [lowp_legs["int8"].get(k), lowp_legs["fp8"].get(k),
+            fused_leg.get(k)]
+        for k in ("step_ms_p50", "step_ms_p90", "tokens_per_s", "mfu",
+                  "peak_mem_bytes", "device_busy_ms",
+                  "max_rel_dev_vs_flag_off")}}), flush=True)
+    rows["B9"] = timed("lowp_kernels", phase_lowp_kernels, name,
+                       lowp_legs["int8"].pop("b9_calls"))
+    for mode, key in (("int8", "launches"), ("fp8", "fp8_launches")):
+        leg = lowp_legs[mode]
+        rows["B9"][key] = int(leg["launches_per_step"]["B9"] * leg["steps"])
+    off_leg, eng, step = timed("train_flag_off_again", phase_train_full,
+                               name, True, 1, False, 2)
+    del eng, step
+    torch.cuda.empty_cache()
+    want = fused_leg["losses"][:3]
+    _check(all(abs(a - b) <= 1e-5 * abs(b)
+               for a, b in zip(off_leg["losses"], want)),
+           f"flag off after the lowp legs: {off_leg['losses']} vs {want}")
+    print(json.dumps({"flag_off_after_lowp": {
+        "losses": off_leg["losses"], "fused_losses": want,
+        "bitwise": off_leg["losses"] == want}}), flush=True)
 
     # ResNet-50 training as bench.py runs it, on B10
     rows["B10"] = timed("conv", phase_conv, name)

@@ -14,10 +14,13 @@ default generators, while the port's dropout draws from the installed
 and attention dropout from its seed counter (``next_seed``). A plain
 checkpoint would replay with other masks and silently give wrong
 gradients. So the first run notes where both streams stand (and the
-amp policy in force), and the replay restores them, reinstalls the
-state and the policy, and afterwards puts the streams back where the
-replay found them. Outside autograd (no grad, or no input needing
-one) `function` simply runs.
+amp policy in force, and whether an engine step's low-precision routing
+is on), and the replay restores them, reinstalls the state, the policy
+and the routing, and afterwards puts the streams back where the replay
+found them. Both runs hide the low-precision delayed-scaling region
+(`ops.lowp.suppress_region`), as the reference's checkpointed
+sub-traces do: their matmuls quantize with dynamic scales. Outside
+autograd (no grad, or no input needing one) `function` simply runs.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .... import amp
 from ....framework import random as _random
+from ....ops import lowp as _lowp
 
 __all__ = ["recompute", "RecomputeSequential"]
 
@@ -39,18 +43,21 @@ def recompute(function, *args, **kwargs):
         return function(*args, **kwargs)
     state = _random.installed()
     policy = amp.policy()
+    routed = _lowp.in_engine_scope()
     first = {"snap": None}
 
     def run(*a):
         if first["snap"] is None:
             first["snap"] = state.snapshot() if state is not None else ()
-            return function(*a, **kwargs)
-        # the replay in backward: the first run's masks and casts
+            with _lowp.suppress_region():
+                return function(*a, **kwargs)
+        # the replay in backward: the first run's masks, casts and routing
         here = state.snapshot() if state is not None else None
         if state is not None:
             state.restore(first["snap"])
         try:
-            with _random.rng_scope(state), amp.policy_scope(policy):
+            with _random.rng_scope(state), amp.policy_scope(policy), \
+                    _lowp.engine_scope(routed), _lowp.suppress_region():
                 return function(*a, **kwargs)
         finally:
             if state is not None:

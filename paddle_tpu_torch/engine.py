@@ -19,10 +19,20 @@ old)`` from the values it has loaded, and only the model's buffers
 (which the forward may update in place) are copied beforehand.
 The dynamic scale, its good / bad step counters and the guard's
 consecutive-bad-step counter are device scalars in ``state.buffers``
-under the reference's reserved names. The reference's rollback to a
-checkpoint after ``FLAGS_anomaly_max_bad_steps`` (a host read of the
-counter) waits for the port of ``distributed/checkpoint.py``; meshes,
-ZeRO and buffer donation are not ported.
+under the reference's reserved names.
+
+``FLAGS_lowp_matmul`` is latched at construction, as in the reference:
+when it is on, ``state.buffers[LOWP_SCALE_KEY]`` holds a
+`quantization.scaling.ScaleState` and each forward runs inside
+`ops.lowp.engine_scope` (routed linears quantize on kernel B9) and
+`ops.lowp.scale_region` (their operands take delayed scales from the
+state's slots, in call order); the updated state replaces it after the
+step, and a step the guard rejects keeps the previous one.
+
+The reference's rollback to a checkpoint after
+``FLAGS_anomaly_max_bad_steps`` (a host read of the counter) waits for
+the port of ``distributed/checkpoint.py``; meshes, ZeRO and buffer
+donation are not ported.
 
 ``engine.state`` exposes the parameters (the layer's own, updated in
 place) and the optimizer state under the reference's names, keyed by
@@ -36,17 +46,20 @@ import torch
 
 from . import resolve_device
 from .framework import random as _random
+from .ops import lowp as _lowp
 
 __all__ = ["Engine", "TrainState", "LOSS_SCALE_KEY", "GOOD_STEPS_KEY",
-           "BAD_STEPS_KEY", "ANOMALY_BAD_STEPS_KEY", "DEFAULT_SCALE_CONFIG"]
+           "BAD_STEPS_KEY", "ANOMALY_BAD_STEPS_KEY", "LOWP_SCALE_KEY",
+           "DEFAULT_SCALE_CONFIG"]
 
 # reserved buffer names of the reference (paddle_tpu/engine.py:273-283)
 LOSS_SCALE_KEY = "__loss_scale__"
 GOOD_STEPS_KEY = "__loss_scale_good_steps__"
 BAD_STEPS_KEY = "__loss_scale_bad_steps__"
 ANOMALY_BAD_STEPS_KEY = "__anomaly_bad_steps__"
+LOWP_SCALE_KEY = "__lowp_scale__"
 _RESERVED = (LOSS_SCALE_KEY, GOOD_STEPS_KEY, BAD_STEPS_KEY,
-             ANOMALY_BAD_STEPS_KEY)
+             ANOMALY_BAD_STEPS_KEY, LOWP_SCALE_KEY)
 
 # paddle GradScaler defaults (as the reference's DEFAULT_SCALE_CONFIG)
 DEFAULT_SCALE_CONFIG = dict(
@@ -116,6 +129,10 @@ class Engine:
         if anomaly_guard:
             bufs[ANOMALY_BAD_STEPS_KEY] = torch.zeros(
                 (), dtype=torch.int32, device=self.device)
+        if _lowp.mode() != "off":
+            from .quantization.scaling import init_scale_state
+
+            bufs[LOWP_SCALE_KEY] = init_scale_state(device=self.device)
 
     @property
     def anomaly_bad_steps(self):
@@ -148,8 +165,13 @@ class Engine:
             old_bufs = {k: b.clone() for k, b in model_bufs.items()}
         for p in params.values():
             p.grad = None
-        with _random.rng_scope(self.rng):
+        lowp_prev = bufs.get(LOWP_SCALE_KEY)
+        lowp_next = None
+        with _random.rng_scope(self.rng), _lowp.engine_scope(), \
+                _lowp.scale_region(lowp_prev) as lowp_rec:
             loss = self.loss_fn(self.layer(*inputs), *labels).float()
+            if lowp_rec is not None:
+                lowp_next = lowp_rec.updated()
         scale = None
         if self._dynamic:
             scale = bufs[LOSS_SCALE_KEY]
@@ -191,6 +213,14 @@ class Engine:
             prev = bufs[ANOMALY_BAD_STEPS_KEY]
             bufs[ANOMALY_BAD_STEPS_KEY] = torch.where(
                 guard_ok, torch.zeros_like(prev), prev + 1)
+            if lowp_next is not None:
+                # a bad step keeps the previous scales: its amaxes may be
+                # the very poison being skipped
+                lowp_next = type(lowp_next)(*(
+                    torch.where(guard_ok, new, old)
+                    for new, old in zip(lowp_next, lowp_prev)))
+        if lowp_next is not None:
+            bufs[LOWP_SCALE_KEY] = lowp_next
         if self._dynamic:
             self._update_scale(finite)
         self.state.step += 1

@@ -1,8 +1,9 @@
 """Runtime flags registry: set_flags / get_flags + FLAGS_* env.
 
 The serving subset of paddle_tpu's registry plus the ERNIE head's
-`FLAGS_use_fused_lm_loss` and the ResNet convs' `FLAGS_use_pallas_conv`,
-with the same names and defaults. Unknown flags raise.
+`FLAGS_use_fused_lm_loss`, the ResNet convs' `FLAGS_use_pallas_conv`
+and the low-precision training flags (`FLAGS_lowp_*`), with the same
+names and defaults. Unknown flags raise.
 """
 
 from __future__ import annotations
@@ -59,6 +60,38 @@ _DEFS = {
         "per-tensor scale calibrated during warmup and the first steps "
         "(ops/lowp.py). Requires the int8-frozen tied head; ignored "
         "otherwise"),
+    "FLAGS_lowp_matmul": (
+        "off", str,
+        "low precision: route eligible matmuls (nn.Linear, the fused "
+        "LM-head loss chunks) through the ops/lowp.py scaled-matmul "
+        "family (kernel B9 on CUDA). 'int8' quantizes operands "
+        "per-tensor to int8 with int32 accumulation; 'fp8' to e4m3 with "
+        "f32 accumulation; 'off' keeps every path bitwise-unchanged. "
+        "Backward always runs in bf16 (lowp forward, high-precision "
+        "backward). Single-card Engine only: the mp layers, the "
+        "overlap ring and the hybrid tied head are not ported"),
+    "FLAGS_lowp_amax_history": (
+        16, int,
+        "low precision: length H of each tensor slot's abs-max history "
+        "ring in quantization.scaling.ScaleState — the delayed scale is "
+        "max over the ring, so a transient outlier keeps its headroom "
+        "for H steps (fp8-recipe amax_history_len)"),
+    "FLAGS_lowp_amax_margin": (
+        0, int,
+        "low precision: power-of-two headroom M added to the delayed "
+        "scale (scale = ring-max * 2**M); >0 trades resolution for "
+        "fewer clipped outliers between scale updates"),
+    "FLAGS_lowp_scale_interval": (
+        1, int,
+        "low precision: recompute the delayed scales from the amax "
+        "history every N steps (1 = every step); between updates the "
+        "stale scale keeps the step free of any host sync"),
+    "FLAGS_lowp_slots": (
+        128, int,
+        "low precision: per-tensor slot capacity of the ScaleState "
+        "carried through the train step; call sites beyond the "
+        "capacity fall back to dynamic (current-step abs-max) scaling "
+        "with a one-time warning"),
     "FLAGS_use_pallas_conv": (
         True, bool,
         "route eligible convs through the fused-conv kernel B10 "

@@ -1,6 +1,16 @@
 """Named stat registry (ref paddle/fluid/platform/monitor.h:77 — the
 STAT_ADD int64 counters). Host-side, thread-safe; exported for
-user/runtime instrumentation."""
+user/runtime instrumentation.
+
+The low-precision path keeps the reference's ``lowp.*`` stats:
+``lowp.matmuls_int8`` / ``lowp.matmuls_fp8`` count quantized matmuls,
+``lowp.slot_overflow`` operands past the ScaleState capacity, and
+`quantization.scaling.publish_scale_state` sets
+``lowp.scale_updates``, ``lowp.clipped_elems``,
+``lowp.quantized_elems``, ``lowp.amax_history_depth`` and
+``lowp.clip_rate_ppm``. The port runs eagerly, so the matmul counters count CALLS (one a
+routed linear or a fused-loss forward, every step), where the reference
+counts the instances traced into its compiled programs."""
 
 from __future__ import annotations
 

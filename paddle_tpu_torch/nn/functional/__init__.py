@@ -23,7 +23,7 @@ import torch.nn.functional as tF
 
 from ... import amp
 from ...framework import random as _random
-from ...ops import fused_conv, fused_loss, fused_ops, nn_ops
+from ...ops import fused_conv, fused_loss, fused_ops, lowp, nn_ops
 
 __all__ = ["linear", "matmul", "gelu", "tanh", "relu", "dropout",
            "layer_norm", "cross_entropy", "fused_linear_cross_entropy",
@@ -47,8 +47,13 @@ def matmul(x, y, transpose_y=False):
 def linear(x, weight, bias=None):
     """y = x @ W + b with W in paddle's [in, out] layout: a ``matmul_v2``
     then an add outside the AMP lists, so under bf16 auto_cast a bf16
-    product plus an f32 bias promotes to f32, as in the reference."""
-    y = matmul(x, weight)
+    product plus an f32 bias promotes to f32, as in the reference.
+    With ``FLAGS_lowp_matmul`` on, `ops.lowp.maybe_linear` is asked
+    first: a routed product reads the raw operands (no amp cast) and
+    comes back in their promoted dtype."""
+    y = lowp.maybe_linear(x, weight)
+    if y is None:
+        y = matmul(x, weight)
     return y if bias is None else y + bias
 
 

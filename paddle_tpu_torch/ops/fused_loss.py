@@ -25,16 +25,22 @@ is ``ignore_index`` or -1 picks nothing (its finite nll is dropped
 outside the op by a ``where``), ``lse = m + log(l)``; the backward's
 ``d = (softmax - onehot) * g`` is rounded to the operands' dtype before
 both products, which accumulate in f32, and ``dx`` / ``dw`` come back
-in that dtype. The low-precision forward of the reference
-(``_fwd_lax_lowp``) belongs to the low-precision slice and is not
-ported.
+in that dtype.
+
+With ``FLAGS_lowp_matmul`` on, the forward is the reference's
+``_fwd_lax_lowp`` (`_fwd_lowp`), whatever the device: B4 is bypassed and
+each vocab chunk's scores are a quantized product on kernel B9
+(`ops.lowp`), with dynamic scales (x's abs-max, each chunk's abs-max)
+and the same online statistics. The backward stays on B5 / B6 at full
+precision against the low-precision lse.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _launch
+from ..framework import monitor
+from . import _launch, lowp
 
 __all__ = ["fused_linear_cross_entropy", "DeferredLMHead", "launches"]
 
@@ -51,19 +57,17 @@ def _round_up(a, b):
 # -- plain versions (the reference's lax path) -------------------------------
 
 
-def _fwd_plain(x, w, labels, cv):
-    """``_fwd_lax``: an online max / sum-exp / picked logit over vocab
-    chunks; returns ``(nll, lse)`` in f32."""
+def _online_lse(x, w, labels, cv, scores):
+    """The online max / sum-exp / picked logit over vocab chunks of
+    ``cv`` rows, ``scores(off)`` giving chunk ``off``'s f32 ``[N, c]``
+    scores; returns ``(nll, lse)``."""
     n, v = x.shape[0], w.shape[0]
-    xf = x.float()
     lbl = labels.long()
     m = torch.full((n,), -1e30, dtype=torch.float32, device=x.device)
     l = torch.zeros((n,), dtype=torch.float32, device=x.device)
     picked = torch.zeros((n,), dtype=torch.float32, device=x.device)
     for off in range(0, v, cv):
-        # f32 products of the (possibly bf16) operands: torch's bf16
-        # matmul would round the scores to bf16
-        s = torch.matmul(xf, w[off:off + cv].float().t())
+        s = scores(off)
         col = torch.arange(off, off + s.shape[1], device=x.device)
         m_new = torch.maximum(m, s.amax(-1))
         l = l * torch.exp(m - m_new) + torch.exp(s - m_new[:, None]).sum(-1)
@@ -72,6 +76,34 @@ def _fwd_plain(x, w, labels, cv):
         m = m_new
     lse = m + torch.log(l)
     return lse - picked, lse
+
+
+def _fwd_plain(x, w, labels, cv):
+    """``_fwd_lax``: f32 scores of the (possibly bf16) operands (torch's
+    bf16 matmul would round them to bf16)."""
+    xf = x.float()
+
+    def scores(off):
+        return torch.matmul(xf, w[off:off + cv].float().t())
+
+    return _online_lse(x, w, labels, cv, scores)
+
+
+def _fwd_lowp(x, w, labels, cv, qdtype):
+    """``_fwd_lax_lowp``: each chunk's scores the quantized product of x
+    (one scale, its abs-max) and the chunk (its own abs-max), through
+    `lowp._smm` (B9 on CUDA tensors; the chunk's transposed view read
+    through its strides). The reference pads the last chunk with zero
+    rows and masks their columns; here they are never formed. Counts one
+    ``lowp.matmuls_<qdtype>`` call."""
+    monitor.stat_add(f"lowp.matmuls_{qdtype}")
+    sx = lowp.amax_of(x)
+
+    def scores(off):
+        wk = w[off:off + cv]
+        return lowp._smm(x, wk.t(), sx, lowp.amax_of(wk), qdtype)
+
+    return _online_lse(x, w, labels, cv, scores)
 
 
 def _bwd_plain(x, w, labels, lse, g, cv):
@@ -188,6 +220,9 @@ def _bwd_kernel(x, w, labels, lse, g):
 
 
 def _fwd(x, w, labels, cv):
+    qdtype = lowp.mode()
+    if qdtype != "off":
+        return _fwd_lowp(x, w, labels, cv, qdtype)
     if _launch.route(x) == "kernel":
         return _fwd_kernel(x, w, labels)
     return _fwd_plain(x, w, labels, cv)

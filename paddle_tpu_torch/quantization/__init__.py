@@ -8,15 +8,21 @@ Every 2-D float leaf freezes per tensor:
 ``scale = max(abs(w).max(), 1e-9)``; dequant is always
 ``q_f32 * (scale / 127.0)`` in exactly that order (`dequant_int8`).
 Both are IEEE-exact elementwise formulas, so the results are bitwise
-equal to the reference's on any device.
+equal to the reference's on any device. `scaling` holds the delayed
+scaling state of the low-precision training path.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .scaling import (
+    ScaleState, init_scale_state, publish_scale_state, update_scale_state,
+)
+
 __all__ = ["SCALE_SUFFIX", "quantize_state_int8", "is_quantized_state",
-           "dequantize_state"]
+           "dequantize_state", "ScaleState", "init_scale_state",
+           "update_scale_state", "publish_scale_state"]
 
 SCALE_SUFFIX = "@scale"
 

@@ -4,7 +4,9 @@ names and layouts are equal one to one: GPT, ERNIE pretraining and
 ``ErnieForSequenceClassification``, whose ``classifier.weight`` is
 ``[hidden, classes]`` as the reference's ``Linear``; the ResNet family,
 whose state also holds the batch norms' ``_mean`` / ``_variance``
-running stats, loaded as buffers)."""
+running stats, loaded as buffers), and the engine state that a resumed
+trajectory needs: the optimizer's moments and the low-precision
+ScaleState."""
 
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from . import resolve_device
 from .quantization import dequantize_state, is_quantized_state
 
 __all__ = ["from_paddle_tpu_values", "from_paddle_tpu_opt_state",
-           "to_numpy_values"]
+           "from_paddle_tpu_scale_state", "to_numpy_values"]
 
 
 def from_paddle_tpu_values(values, model, device=None):
@@ -65,3 +67,34 @@ def from_paddle_tpu_opt_state(opt_state, engine):
                 raise ValueError(f"{name}.{key}: shape {tuple(t.shape)} "
                                  f"!= {tuple(mine[name][key].shape)}")
             mine[name][key].copy_(t)
+
+
+def from_paddle_tpu_scale_state(scale_state, engine):
+    """Install a paddle_tpu engine's low-precision ScaleState
+    (``engine.state.buffers["__lowp_scale__"]``: a NamedTuple, or a
+    dict, of arrays under the fields of `quantization.ScaleState`) in
+    the port's `engine`, so a low-precision trajectory resumes with the
+    reference's amax history and scales. The engine must have been built
+    with ``FLAGS_lowp_matmul`` on; raises on missing or unexpected
+    fields and on shape mismatches."""
+    from .engine import LOWP_SCALE_KEY
+    from .quantization.scaling import ScaleState
+
+    mine = engine.state.buffers.get(LOWP_SCALE_KEY)
+    if mine is None:
+        raise KeyError("the engine carries no ScaleState: FLAGS_lowp_matmul "
+                       "was off when it was built")
+    leaves = scale_state._asdict() if hasattr(scale_state, "_asdict") \
+        else dict(scale_state)
+    if set(leaves) != set(ScaleState._fields):
+        raise KeyError(f"ScaleState fields {sorted(leaves)} != "
+                       f"{sorted(ScaleState._fields)}")
+    new = {}
+    for name in ScaleState._fields:
+        t = torch.as_tensor(np.array(leaves[name]))
+        ref = getattr(mine, name)
+        if tuple(t.shape) != tuple(ref.shape):
+            raise ValueError(f"ScaleState.{name}: shape {tuple(t.shape)} "
+                             f"!= {tuple(ref.shape)}")
+        new[name] = t.to(device=ref.device, dtype=ref.dtype)
+    engine.state.buffers[LOWP_SCALE_KEY] = ScaleState(**new)

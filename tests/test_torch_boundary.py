@@ -70,6 +70,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(
     from paddle_tpu_torch.engine import Engine
     from paddle_tpu_torch.nlp.transformers import ernie as ternie
     from paddle_tpu_torch.nlp.transformers import gpt as tgpt
+    from paddle_tpu_torch.quantization import init_scale_state
     from paddle_tpu_torch.serving import Server, SlotEngine
     from paddle_tpu_torch.vision.models import resnet18
     from torch_parity import ERNIE_TINY, TINY
@@ -99,3 +100,6 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu(
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resnet18(num_classes=4)
     assert resnet18(num_classes=4, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_scale_state()
+    assert init_scale_state(device="cpu").scale.device.type == "cpu"

@@ -1,6 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: B7 `dequant_matmul` within rtol=atol=1e-5 (f32 sums in another
-order), B8 `w8a8_matmul` bitwise (exact int32 sums), B1-B3 flash
+order), B8 `w8a8_matmul` bitwise (exact int32 sums), B9 `scaled_matmul`
+int8 bitwise and fp8 within 4 K 2^-24 of the sum of the absolute
+products (f32 sums in another order; its e4m3 codes bitwise through an
+identity operand), with f32 and bf16 operands, a Linear weight and a
+transposed vocab chunk as b, at ragged shapes, B1-B3 flash
 attention within 1e-5 (o) / 2e-4 (grads) in f32 and 2e-2 in bf16 (the
 plain version rounds p and ds to bf16 before its products, the kernels
 keep them f32), with the dropout mask equal bit for bit; B4-B6 (the
@@ -92,6 +96,98 @@ def test_w8a8_kernel_rounds_half_to_even():
     sb, sa = torch.tensor(0.05).cuda(), sa.cuda()
     assert torch.equal(lowp.w8a8_matmul(x, q.t(), sb, sa),
                        lowp._w8a8_plain(x, q.t(), sb, sa))
+
+
+# B9: (m, k, n) ragged against its 128 x 128 x 64 tiles, ERNIE-like ones
+SMM_SHAPES = [(1, 100, 2), (7, 100, 3), (33, 768, 333), (130, 768, 2304),
+              (300, 3072, 768), (256, 768, 1024)]
+
+
+def _smm_case(m, k, n, a_dtype, b_dtype, chunk_view):
+    gen = torch.Generator().manual_seed(m * 7 + k + n)
+    a = (torch.randn((m, k), generator=gen) * 2.0).to(a_dtype).cuda()
+    if chunk_view:      # the loss's [cv, H] chunk read as [H, cv]
+        b = (torch.randn((n, k), generator=gen) * 0.05).to(b_dtype).cuda().t()
+    else:               # a Linear weight [in, out]
+        b = (torch.randn((k, n), generator=gen) * 0.05).to(b_dtype).cuda()
+    return a, b, lowp.amax_of(a), lowp.amax_of(b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_view", [False, True])
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("m,k,n", SMM_SHAPES)
+def test_scaled_matmul_kernel_int8_bitwise(m, k, n, dtypes, chunk_view):
+    _card()
+    a, b, sa, sb = _smm_case(m, k, n, *dtypes, chunk_view)
+    for s in (sa, sa * 0.7):        # the abs-max, and a delayed one that clips
+        launches = lowp.scaled_matmul.launches
+        got = lowp._smm_kernel(a, b, s, sb, "int8")
+        assert lowp.scaled_matmul.launches == launches + 1
+        assert torch.equal(got, lowp._smm_plain(a, b, s, sb, "int8"))
+
+
+def _fp8_tol(a, b, sa, sb):
+    qa = lowp._quant_f8(a, sa).double().abs()
+    qb = lowp._quant_f8(b, sb).double().abs()
+    epi = float(sa) * float(sb) / 448.0 ** 2
+    return 4 * a.shape[1] * 2.0 ** -24 * (qa @ qb) * epi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_view", [False, True])
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("m,k,n", SMM_SHAPES)
+def test_scaled_matmul_kernel_fp8_within_tolerance(m, k, n, dtypes,
+                                                   chunk_view):
+    _card()
+    a, b, sa, sb = _smm_case(m, k, n, *dtypes, chunk_view)
+    got = lowp._smm_kernel(a, b, sa, sb, "fp8").double()
+    want = lowp._smm_plain(a, b, sa, sb, "fp8").double()
+    assert bool(((got - want).abs() <= _fp8_tol(a, b, sa, sb) + 1e-30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", ["int8", "fp8"])
+def test_scaled_matmul_kernel_codes_bitwise(qdtype):
+    """An identity b (its code is qmax, exact) leaves one exact product
+    per output: the kernel's quantization of a, at the rounding ties
+    of both formats, at saturation and in e4m3's subnormals, bit for
+    bit."""
+    _card()
+    k = 256
+    sa = torch.tensor(3.7)
+    ties = (torch.arange(-127, 129) + 0.5) * sa / 127.0
+    f8 = torch.tensor([2.0 ** -9, 3 * 2.0 ** -10, 1.0625, 1.1875, 300.0,
+                       -460.0, 449.0, 1e-7, 0.0, -0.0])
+    x = torch.cat([ties[:k - f8.numel()], f8 * sa / 448.0]).repeat(3, 1)
+    x[1] *= -1
+    x[2] = torch.randn(k, generator=torch.Generator().manual_seed(1)) * 4
+    a, eye, sa = x.cuda(), torch.eye(k).cuda(), sa.cuda()
+    one = torch.tensor(1.0).cuda()
+    got = lowp._smm_kernel(a, eye, sa, one, qdtype)
+    assert torch.equal(got, lowp._smm_plain(a, eye, sa, one, qdtype))
+    got = lowp._smm_kernel(a.bfloat16(), eye, sa, one, qdtype)
+    assert torch.equal(got, lowp._smm_plain(a.bfloat16(), eye, sa, one,
+                                            qdtype))
+
+
+@pytest.mark.cuda
+def test_scaled_matmul_routes_cuda_tensors_to_the_kernel():
+    _card()
+    a = torch.randn(5, 64).cuda().requires_grad_(True)
+    b = torch.randn(64, 9).cuda().requires_grad_(True)
+    launches = lowp.scaled_matmul.launches
+    out = lowp.scaled_matmul(a, b, qdtype="fp8")
+    out.sum().backward()
+    assert lowp.scaled_matmul.launches == launches + 1
+    assert a.grad.shape == a.shape and b.grad.shape == b.shape
+    with pytest.raises(TypeError, match="bfloat16"):
+        lowp._smm_kernel(a.detach().half(), b.detach(), lowp.amax_of(a),
+                         lowp.amax_of(b), "int8")
 
 
 # flash attention: (b, h, sq, sk, d) — ragged against the 64-row tiles,
