@@ -27,12 +27,14 @@ Phases (any failure raises and the script exits non-zero):
    are set to 0 just before each leg and read just after it.
 5. Where a decode step's time goes: host step time, device kernel time
    and launches per step of the w8a8 engine, from torch.profiler.
-6. Flash attention: B1-B3 against their plain versions (f32 at ragged
-   shapes, sq != sk, head dims 32 / 64 / 128, causal and not; the ERNIE
-   shape [32, 12, 512, 64] in f32 and bf16 with dropout 0.1; the
-   dropout mask bit for bit), then timed at the ERNIE shape in bf16
-   beside the plain versions, torch SDPA (the yardstick, never called
-   by the port) and the card's least time.
+6. Flash attention: B1-B3 against their plain versions (f32 and bf16 at
+   ragged shapes, sq != sk, head dims 32 / 64 / 128, causal and not; the
+   ERNIE shape [32, 12, 512, 64] in f32 and bf16 with dropout 0.1; the
+   dropout mask bit for bit; in bf16 B1 and B3 run on the tensor cores),
+   the registers and blocks per SM of every pass, then timed at the
+   ERNIE shape in bf16 beside the plain versions, torch SDPA at dropout
+   0 and 0.1 (the yardstick, never called by the port; the backend it
+   ran is printed) and the card's least time.
 7. The fused LM-head loss: B4-B6 against their plain versions (f32 at
    ragged shapes with vocab tails, heavy masking, every row ignored and
    plain chunks that do not divide V, within 1e-5; the ERNIE shape
@@ -142,13 +144,15 @@ def _card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_ms(fn, flush, n=50):
+def _time_ms(fn, flush, n=50, spin=200_000):
     """Median device time of `fn` over `n` launches (CUDA events around
     each). Before every launch the 50 MB L2 is flushed by reading a
     128 MB buffer (in the serving step the layers between two heads
-    evict the table), and the card then spins ~0.1 ms so that the host
-    has enqueued the launch before the start event fires: the events
-    time the device, not the wrapper's Python."""
+    evict the table), and the card then spins `spin` cycles (~0.1 ms by
+    default) so that the host has enqueued the launch before the start
+    event fires: the events time the device, not the wrapper's Python.
+    A call through autograd needs a longer spin (`AUTOGRAD_SPIN`): its
+    host dispatch outlasts 0.1 ms, and the events then time the host."""
     import torch
 
     for _ in range(3):
@@ -157,7 +161,7 @@ def _time_ms(fn, flush, n=50):
     events = []
     for _ in range(n):
         flush.sum()
-        torch.cuda._sleep(200_000)
+        torch.cuda._sleep(spin)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -167,6 +171,9 @@ def _time_ms(fn, flush, n=50):
     torch.cuda.synchronize()
     times = sorted(s.elapsed_time(e) for s, e in events)
     return times[len(times) // 2]
+
+
+AUTOGRAD_SPIN = 4_000_000     # ~2 ms of spinning
 
 
 def _table(n, k, gen):
@@ -579,6 +586,25 @@ def _flash_vs_plain(q, k, v, do, causal, p, seed):
             [w.float() for w in (o_p, *grads_p)])
 
 
+def _sdpa_backend(fn):
+    """The SDPA backend that one call of `fn` ran (flash, efficient,
+    cudnn or math), from the names of its kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [r.key for r in prof.key_averages()
+             if r.device_type == torch.autograd.DeviceType.CUDA]
+    for backend, keys in (("cudnn", ("cudnn",)), ("flash", ("flash",)),
+                          ("efficient", ("fmha", "efficient", "cutlass"))):
+        if any(k in n.lower() for n in names for k in keys):
+            return backend
+    return "math"
+
+
 def phase_flash(card):
     """B1-B3 against their plain versions (f32 ragged shapes, then the
     ERNIE shape in bf16 and f32 with dropout, the mask bit for bit),
@@ -596,6 +622,11 @@ def phase_flash(card):
     cases += [((2, 2, 21, 9, 128), True, 0.1), ((1, 2, 70, 70, 128), False,
                                                 0.0)]
     b, h, s, d = ERNIE_BATCH, ERNIE["num_heads"], ERNIE_SEQ, 64
+    # bf16 (B1 and B3 on the tensor cores) at ragged shapes, sq != sk
+    # both ways (fully masked rows when sq > sk and causal)
+    cases += [((1, 2, 70, 70, 32), True, 0.1, torch.bfloat16),
+              ((2, 3, 9, 21, 64), False, 0.0, torch.bfloat16),
+              ((2, 2, 21, 9, 128), True, 0.1, torch.bfloat16)]
     cases += [((b, h, s, s, d), False, 0.1, torch.float32),
               ((b, h, s, s, d), False, 0.1, torch.bfloat16)]
     for case in cases:
@@ -630,9 +661,18 @@ def phase_flash(card):
     del keep_k, keep_p
     print(json.dumps({"flash_mask_bitwise": True, "keep_rate": keep_rate}),
           flush=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        for hd in fused_ops._HEAD_DIMS:
+            for pass_, key in enumerate(("B1", "B2", "B3")):
+                print(json.dumps({"flash_occupancy": key, "dtype": str(dtype),
+                                  "head_dim": hd,
+                                  **fused_ops._occupancy(pass_, dtype, hd)}),
+                      flush=True)
 
     # timed as the train step runs them: bf16, dropout 0.1, q/k/v views
     # of the packed projection, the output gradient in [b, s, h, d]
+    # (`dropout0_ms`: the same launch without dropout, for the hash's
+    # share)
     bw, _, _, bf16_peak = _peaks(card)
     p, scale = 0.1, 1.0 / d ** 0.5
     q, k, v = _packed_qkv(b, h, s, d, torch.bfloat16, gen)
@@ -645,13 +685,26 @@ def phase_flash(card):
     to3 = fused_ops._to3
     q3, k3, v3, o3, do3 = (to3(t) for t in (q, k, v, o, do))
     lse3 = to3(lse)
+    # the library yardstick: SDPA at dropout 0 and at the step's 0.1 (the
+    # same work as B1-B3, with its own random bits)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     lq, lk, lv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
-    o_lib = torch.nn.functional.scaled_dot_product_attention(lq, lk, lv)
+    o_lib = {dp: sdpa(lq, lk, lv, dropout_p=dp) for dp in (0.0, p)}
     flush = torch.empty(32 * 1024 * 1024, device="cuda")   # 128 MB
     plain_bwd_ms = _time_ms(lambda: fused_ops._flash_bwd_plain(
         q3, k3, v3, o3, lse3, do3, seed, scale, False, p), flush, n=10)
-    lib_bwd_ms = _time_ms(lambda: torch.autograd.grad(
-        o_lib, (lq, lk, lv), do, retain_graph=True), flush)
+    lib_bwd_ms = {dp: _time_ms(lambda: torch.autograd.grad(
+        o_lib[dp], (lq, lk, lv), do, retain_graph=True), flush,
+        spin=AUTOGRAD_SPIN) for dp in (0.0, p)}
+    lib_fwd_ms = {dp: _time_ms(lambda: sdpa(q, k, v, dropout_p=dp), flush)
+                  for dp in (0.0, p)}
+    print(json.dumps({"sdpa_backend": {
+        f"{what}@{dp}": _sdpa_backend(fn) for dp in (0.0, p)
+        for what, fn in (
+            ("fwd", lambda: sdpa(q, k, v, dropout_p=dp)),
+            ("bwd", lambda: torch.autograd.grad(
+                o_lib[dp], (lq, lk, lv), do, retain_graph=True)))}}),
+          flush=True)
     n_el, rows = b * h * s * d, b * h * s
     flops = 2 * b * h * s * s * d        # one [s, s] x d product
     rows_out = {
@@ -660,11 +713,11 @@ def phase_flash(card):
             replaces="paddle_tpu/ops/fused_ops.py:184 (_fwd_kernel)",
             ms=_time_ms(lambda: fused_ops._flash_fwd_kernel(
                 q, k, v, seed, scale, False, p), flush),
+            dropout0_ms=_time_ms(lambda: fused_ops._flash_fwd_kernel(
+                q, k, v, seed, scale, False, 0.0), flush),
             plain_ms=_time_ms(lambda: fused_ops._flash_fwd_plain(
                 q3, k3, v3, seed, scale, False, p), flush, n=10),
-            library_ms=_time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v), flush),
+            library_ms=lib_fwd_ms[0.0], library_dropout_ms=lib_fwd_ms[p],
             nbytes=4 * n_el * 2 + rows * 4, ops=2 * flops),
         "B2": dict(
             name="flash_attention_bwd_dq",
@@ -672,7 +725,11 @@ def phase_flash(card):
             ms=_time_ms(lambda: fused_ops._launch_pass(
                 1, q, k, v, do, dq, None, None, lse, delta, seed, scale,
                 False, p), flush),
-            plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
+            dropout0_ms=_time_ms(lambda: fused_ops._launch_pass(
+                1, q, k, v, do, dq, None, None, lse, delta, seed, scale,
+                False, 0.0), flush),
+            plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms[0.0],
+            library_dropout_ms=lib_bwd_ms[p],
             nbytes=5 * n_el * 2 + 2 * rows * 4, ops=3 * flops),
         "B3": dict(
             name="flash_attention_bwd_dkv",
@@ -680,7 +737,11 @@ def phase_flash(card):
             ms=_time_ms(lambda: fused_ops._launch_pass(
                 2, q, k, v, do, dk, dv, None, lse, delta, seed, scale,
                 False, p), flush),
-            plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
+            dropout0_ms=_time_ms(lambda: fused_ops._launch_pass(
+                2, q, k, v, do, dk, dv, None, lse, delta, seed, scale,
+                False, 0.0), flush),
+            plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms[0.0],
+            library_dropout_ms=lib_bwd_ms[p],
             nbytes=6 * n_el * 2 + 2 * rows * 4, ops=4 * flops),
     }
     for key, row in rows_out.items():

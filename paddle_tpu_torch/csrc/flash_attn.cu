@@ -6,28 +6,47 @@
 // attention dropout.
 //
 // Replaces the Pallas TPU kernels of paddle_tpu/ops/fused_ops.py:
-//   B1 `_fwd_kernel`      -> fwd_kernel: o and lse = m + log(l)
-//   B2 `_bwd_dq_kernel`   -> dq_kernel:  dq = scale * sum_k ds * k
-//   B3 `_bwd_dkv_kernel`  -> dkv_kernel: dv = pd^T do, dk = scale * ds^T q
+//   B1 `_fwd_kernel` (:184)      -> fwd_kernel_mma (bf16), fwd_kernel (f32):
+//                                   o and lse = m + log(l)
+//   B2 `_bwd_dq_kernel` (:319)   -> dq_kernel:  dq = scale * sum_k ds * k
+//   B3 `_bwd_dkv_kernel` (:363)  -> dkv_kernel_mma (bf16), dkv_kernel (f32):
+//                                   dv = pd^T do, dk = scale * ds^T q
 // with p recomputed from lse, ds = p * (dp * keep/(1-p) - delta), delta
 // = rowsum(do * o) computed by the wrapper.
 //
-// Bound: at the ERNIE shape (b*h = 384, s = 512, d = 64, bf16) the work
-// is 26-52 GFLOP per call against ~100-150 MB of operands: operations,
-// not bytes. These first kernels compute on the CUDA cores in f32 (bf16
-// operands are converted once on their way into shared memory), so f32
-// stays full f32 (no TF32) and both dtypes share one code path. Design:
-// one block of 256 threads per (64-row tile, b*h); the tile's resident
-// operands sit in shared memory as f32, the streamed ones are staged one
-// 64-row tile at a time; each thread owns a 4x4 block of the 64x64 score
-// tile (row group = tid / 16, column group = tid % 16) and 4 rows x d/16
-// columns of the output tile, so every inner step is two 16-byte
-// shared-memory loads feeding 16 FMAs. Row max and row sum reduce over
-// the 16 lanes of a row group with shuffles. All accumulation is f32 in
-// registers; dq needs no atomics (B2 owns a q tile and walks the k
-// tiles, B3 owns a k tile and walks the q tiles), so results are
-// deterministic. Tiles wholly above the causal diagonal are skipped when
-// sk >= sq (no fully masked rows exist then).
+// Bound: at the ERNIE shape (b*h = 384, s = 512, d = 64, bf16) B1
+// moves 101 MB for 25.8 GFLOP (bytes: 0.030 ms at 3.35 TB/s, the
+// products 0.026 ms at 989 TFLOP/s), B3 151 MB for 51.5 GFLOP
+// (operations: 0.052 ms). Next to the products every score costs an exp
+// and, with dropout, a murmur3 hash (~12 integer operations) on the
+// CUDA cores, ~100 M of each a pass.
+//
+// bf16 (the train step under O1) runs B1 and B3 on the tensor cores:
+// mma.sync m16n8k16 bf16 -> f32 with ldmatrix fragments (.trans for the
+// [k][n] operands), operands staged as bf16 by a two-stage cp.async
+// ring, scores, softmax and gradients in f32 registers (see the section
+// below). B1 rounds p to bf16 before its value product as the
+// reference's kernel does (there divided by the running sum, so a row
+// within one tile sees exactly the plain version's probabilities); B3
+// rounds p * keep/(1-p) and ds to bf16 as the plain version does. The
+// dropout hash is split: the (seed, bh) and (seed, bh, q) rounds are
+// hoisted, each column's k word is mixed once a tile, and each tile's
+// keep bits are hashed while its copy is in flight.
+//
+// f32 keeps the first design, in full f32 on the CUDA cores (no TF32),
+// as does B2 in both dtypes: one block of 256 threads per (64-row tile,
+// b*h); resident operands in shared memory as f32, streamed ones staged
+// one 64-row tile at a time; each thread owns a 4x4 block of the 64x64
+// score tile (row group = tid / 16, column group = tid % 16) and 4 rows
+// x d/16 columns of the output tile, so every inner step is two 16-byte
+// shared-memory loads feeding 16 FMAs; row max and row sum reduce over
+// the 16 lanes of a row group with shuffles.
+//
+// Every kernel owns its output tile (B2 a q tile walking the k tiles, B3
+// a k tile walking the q tiles), accumulates in f32 registers and needs
+// no atomics, so results are deterministic. Tiles wholly above the
+// causal diagonal are skipped when sk >= sq (no fully masked rows exist
+// then).
 //
 // Masking follows the reference: an in-range masked score is -1e30 (not
 // -inf), so a fully masked row averages every key as in the jnp path;
@@ -90,11 +109,15 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
 }
-__device__ __forceinline__ uint32_t mm3_round(uint32_t h, uint32_t w) {
+// a round's word mix, which depends on the word alone (the tensor-core
+// kernels compute the k words once per tile and share them over rows)
+__device__ __forceinline__ uint32_t mm3_word(uint32_t w) {
   w *= 0xcc9e2d51u;
   w = rotl32(w, 15);
-  w *= 0x1b873593u;
-  h ^= w;
+  return w * 0x1b873593u;
+}
+__device__ __forceinline__ uint32_t mm3_round(uint32_t h, uint32_t w) {
+  h ^= mm3_word(w);
   h = rotl32(h, 13);
   return h * 5u + 0xe6546b64u;
 }
@@ -431,7 +454,9 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
           const float pij = expf(x - lse[i]);
           const float dpv =
               p.dropout ? dp[i][j] * drop_scale(qh[i], col, p) : dp[i][j];
-          ds = pij * (dpv - delta[i]);
+          // rounded to the input dtype before its product, as the plain
+          // version and the reference's `_bwd_dq_kernel` round it
+          ds = to_f32(from_f32<T>(pij * (dpv - delta[i])));
         }
         s[i][j] = ds;
       }
@@ -557,6 +582,526 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Params p) {
   }
 }
 
+// ---------------------------------------------------------------------
+// bf16 on the tensor cores: B1 (fwd_kernel_mma) and B3 (dkv_kernel_mma)
+// ---------------------------------------------------------------------
+// Four warps a block; each owns 16 rows of the block's 64-row tile (B1:
+// queries, B3: keys) and multiplies with mma.sync m16n8k16 (bf16 in, f32
+// accumulators). Operand tiles sit in shared memory as bf16 [64][D + 8]:
+// the 16-byte row pad puts the 8 row addresses of every ldmatrix phase
+// in 8 distinct 16-byte bank groups. The streamed tiles come through a
+// two-stage cp.async ring (tile i + 1 is copied while tile i computes);
+// rows past sq / sk are zero-filled by the copy itself. (Eight warps and
+// 128-row blocks were tried on the H100 and were no faster.)
+
+constexpr int kThreadsTc = 128;
+constexpr int kNt = kTile / 8;  // n8 tiles across a 64-wide score tile
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// 16 (or 4) bytes global -> shared; zeros when !valid (src is not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// every group but the newest has landed (in this thread's view)
+__device__ __forceinline__ void cp_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 -> f32
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The A operand of a k16 step of a product whose left factor is the f32
+// accumulator tile x [16][64] of the previous product (columns 16 kk ..
+// 16 kk + 15): the m16n8 accumulator layout of n-tiles 2 kk and 2 kk + 1
+// is the m16k16 A layout, so each lane repacks its own values.
+__device__ __forceinline__ void acc_to_a(const float (&x)[kNt][4], int kk,
+                                         uint32_t (&a)[4]) {
+  a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+  a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+  a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+  a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+}
+
+// keep bit of the element whose (seed, bh, q) prefix is qh and whose k
+// word mix is kw (mm3_word(k)): drop_scale's hash, split so that the
+// k half is computed once a column
+__device__ __forceinline__ bool keep_bit(uint32_t qh, uint32_t kw,
+                                         uint32_t thresh) {
+  uint32_t h = rotl32(qh ^ kw, 13) * 5u + 0xe6546b64u;
+  return mm3_final(h) < thresh;
+}
+
+// rows [r0, r0 + kTile) of x (row stride ss, 16-byte aligned rows; rows
+// >= n zero-filled) into the bf16 tile [kTile][D + 8] at shared dst
+template <int D>
+__device__ __forceinline__ void cp_tile(uint32_t dst, const bf16* x,
+                                        long long ss, int r0, int n) {
+  constexpr int kCh = D / 8;  // 16-byte chunks a row
+#pragma unroll
+  for (int it = 0; it < kTile * kCh / kThreadsTc; ++it) {
+    const int i = it * kThreadsTc + threadIdx.x;
+    const int r = i / kCh, c = i % kCh;
+    const bool ok = r0 + r < n;
+    const bf16* src = x + (ok ? static_cast<long long>(r0 + r) * ss + c * 8
+                              : 0);
+    cp_async16(dst + (r * (D + 8) + c * 8) * 2, src, ok);
+  }
+}
+
+// This lane's byte offsets inside a [kTile][D + 8] tile for ldmatrix x4:
+// a_off addresses rows lane % 16, columns 8 (lane / 16): an A fragment
+// (16 rows x k16) or, with .trans, a B fragment of two n8 tiles from a
+// [k][n] row-major tile; b_off addresses rows 8 (lane / 16) + lane % 8,
+// columns 8 ((lane / 8) % 2): a B fragment of two n8 tiles (16 rows) x
+// k16 from an [n][k] row-major tile.
+template <int D>
+__device__ __forceinline__ uint32_t a_off(int lane) {
+  return ((lane & 15) * (D + 8) + (lane >> 4) * 8) * 2;
+}
+template <int D>
+__device__ __forceinline__ uint32_t b_off(int lane) {
+  return (((lane >> 4) * 8 + (lane & 7)) * (D + 8) + ((lane >> 3) & 1) * 8) *
+         2;
+}
+template <int D>
+__host__ __device__ constexpr uint32_t tile_bytes() {
+  return kTile * (D + 8) * 2;
+}
+
+// s[16 x 64] += A[16 x D] B^T, A the warp's rows of tile `a_s`, B all 64
+// rows of tile `b_s` (both [kTile][D + 8])
+template <int D>
+__device__ __forceinline__ void mm_abt(uint32_t a_s, uint32_t b_s, int warp,
+                                       int lane, float (&s)[kNt][4]) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    uint32_t a[4];
+    ldsm4(a_s + (warp * 16 * (D + 8) + ks * 16) * 2 + a_off<D>(lane), a);
+#pragma unroll
+    for (int jj = 0; jj < kNt / 2; ++jj) {
+      uint32_t bb[4];
+      ldsm4(b_s + (jj * 16 * (D + 8) + ks * 16) * 2 + b_off<D>(lane), bb);
+      mma(s[2 * jj], a, bb[0], bb[1]);
+      mma(s[2 * jj + 1], a, bb[2], bb[3]);
+    }
+  }
+}
+
+// acc[16 x D] += X[16 x 64] B, X a register tile (rounded to bf16 by
+// acc_to_a), B the 64 x D tile `b_s`
+template <int D>
+__device__ __forceinline__ void mm_xb(const float (&x)[kNt][4], uint32_t b_s,
+                                      int lane, float (&acc)[D / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kNt / 2; ++kk) {
+    uint32_t a[4];
+    acc_to_a(x, kk, a);
+#pragma unroll
+    for (int dd = 0; dd < D / 16; ++dd) {
+      uint32_t bb[4];
+      ldsm4_t(b_s + (kk * 16 * (D + 8) + dd * 16) * 2 + a_off<D>(lane), bb);
+      mma(acc[2 * dd], a, bb[0], bb[1]);
+      mma(acc[2 * dd + 1], a, bb[2], bb[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int D>
+constexpr size_t fwd_mma_smem() {
+  return 5 * tile_bytes<D>();  // Q, K x 2 stages, V x 2 stages
+}
+
+// B1 in bf16. Lane (g = lane / 4, t = lane % 4) of warp w holds rows
+// q0 + 16 w + g (+ 8) and, of every n8 tile j, columns 8 j + 2 t (+ 1).
+// Scores live in the log2 domain (x2 = s * scale * log2 e, so exp is one
+// ex2); the masked score is -1e30 in natural units.
+// Register budget: 128 at d <= 64 (four blocks an SM; on the H100
+// faster than three blocks at 148 registers), 255 at d = 128 (two).
+template <int D>
+__global__ void __launch_bounds__(kThreadsTc, D <= 64 ? 4 : 2)
+    fwd_kernel_mma(const Params p) {
+  constexpr int NO = D / 8;
+  constexpr uint32_t TB = tile_bytes<D>();
+  extern __shared__ float4 smem4[];
+  const uint32_t q_s = smem_addr(smem4);
+  const uint32_t k_s = q_s + TB;       // two stages
+  const uint32_t v_s = k_s + 2 * TB;   // two stages
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kTile, bh = blockIdx.y;
+  const int b = bh / p.H, h = bh - b * p.H;
+  const bf16* q = head<bf16>(p.q, p.st[kQ], b, h);
+  const bf16* k = head<bf16>(p.k, p.st[kK], b, h);
+  const bf16* v = head<bf16>(p.v, p.st[kV], b, h);
+  const int off = p.sk - p.sq;
+  const int n_k = k_tiles(p, q0);
+  const int row0 = q0 + warp * 16 + g;
+  const float scale2 = p.scale * kLog2e;
+  const float masked2 = kNegInf * kLog2e;
+
+  cp_tile<D>(q_s, q, p.st[kQ][2], q0, p.sq);
+  cp_tile<D>(k_s, k, p.st[kK][2], 0, p.sk);
+  cp_tile<D>(v_s, v, p.st[kV][2], 0, p.sk);
+  cp_commit();
+
+  uint32_t qh[2] = {0u, 0u};
+  if (p.dropout) {
+    const uint32_t hb = mm3_round(static_cast<uint32_t>(*p.seed), bh);
+    qh[0] = mm3_round(hb, static_cast<uint32_t>(row0));
+    qh[1] = mm3_round(hb, static_cast<uint32_t>(row0 + 8));
+  }
+  float m[2] = {masked2, masked2}, l[2] = {0.f, 0.f};
+  float acc[NO][4];
+#pragma unroll
+  for (int c = 0; c < NO; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int k0 = kt * kTile;
+    const uint32_t cur = (kt & 1) * TB;
+    if (kt + 1 < n_k) {
+      const uint32_t nxt = TB - cur;
+      cp_tile<D>(k_s + nxt, k, p.st[kK][2], k0 + kTile, p.sk);
+      cp_tile<D>(v_s + nxt, v, p.st[kV][2], k0 + kTile, p.sk);
+    }
+    cp_commit();
+    // the tile's keep bits (bit 4 j + e) need no shared memory: hashed
+    // while the copy is in flight, each column's k word once for both rows
+    uint32_t keep = ~0u;
+    if (p.dropout) {
+      keep = 0u;
+#pragma unroll
+      for (int j = 0; j < kNt; ++j) {
+        const int col = k0 + j * 8 + 2 * t;
+        const uint32_t kw[2] = {mm3_word(static_cast<uint32_t>(col)),
+                                mm3_word(static_cast<uint32_t>(col + 1))};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          keep |= static_cast<uint32_t>(
+                      keep_bit(qh[e >> 1], kw[e & 1], p.thresh))
+                  << (j * 4 + e);
+      }
+    }
+    cp_wait_prev();
+    __syncthreads();
+
+    float s[kNt][4];
+#pragma unroll
+    for (int j = 0; j < kNt; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    mm_abt<D>(q_s, k_s + cur, warp, lane, s);
+#pragma unroll
+    for (int j = 0; j < kNt; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= scale2;
+    if (k0 + kTile > p.sk || (p.causal && q0 + off < k0 + kTile - 1)) {
+#pragma unroll
+      for (int j = 0; j < kNt; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = row0 + (e >> 1) * 8;
+          const int col = k0 + j * 8 + 2 * t + (e & 1);
+          if (col >= p.sk)
+            s[j][e] = -INFINITY;  // past the keys: contributes nothing
+          else if (p.causal && row + off < col)
+            s[j][e] = masked2;
+        }
+    }
+    // online softmax over the quad of lanes that shares a row
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kNt; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    float alpha[2], lsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = ex2(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < kNt; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = ex2(s[j][e] - m[e >> 1]);
+        lsum[e >> 1] += s[j][e];
+      }
+    // p is rounded to bf16 divided by the running sum l (the undropped
+    // p's, >= 1 since the row's maximum contributes 1), and the output
+    // carried in the same units: in a row within one tile the values see
+    // exactly the plain version's probabilities
+    float f[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      lsum[i] += __shfl_xor_sync(0xffffffffu, lsum[i], 1);
+      lsum[i] += __shfl_xor_sync(0xffffffffu, lsum[i], 2);
+      const float carried = l[i] * alpha[i];
+      l[i] = carried + lsum[i];
+      const float inv = 1.f / l[i];
+      f[i] = p.inv_keep * inv;
+      const float r = carried * inv;
+#pragma unroll
+      for (int c = 0; c < NO; ++c) {
+        acc[c][2 * i] *= r;
+        acc[c][2 * i + 1] *= r;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kNt; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = (keep >> (j * 4 + e)) & 1u ? s[j][e] * f[e >> 1] : 0.f;
+    mm_xb<D>(s, v_s + cur, lane, acc);
+    __syncthreads();  // every warp is done with stage `cur` before refill
+  }
+
+  bf16* o = const_cast<bf16*>(head<bf16>(p.o, p.st[kO], b, h));
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= p.sq) continue;
+    bf16* orow = o + row * p.st[kO][2] + 2 * t;
+#pragma unroll
+    for (int c = 0; c < NO; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(orow + c * 8) =
+          __floats2bfloat162_rn(acc[c][2 * i], acc[c][2 * i + 1]);
+    // a fully masked row keeps lse at exactly -1e30 (log l is below its
+    // ulp), as the plain version's m + log(l)
+    if (t == 0)
+      p.lse[static_cast<long long>(bh) * p.sq + row] =
+          (m[i] == masked2 ? kNegInf : m[i] * kLn2) + logf(l[i]);
+  }
+}
+
+template <int D>
+constexpr size_t dkv_mma_smem() {
+  // K, V, Q x 2 stages, dO x 2 stages, then per stage lse, delta and the
+  // dropout hash prefixes of the tile's 64 queries
+  return 6 * tile_bytes<D>() + 2 * 3 * kTile * sizeof(float);
+}
+
+// B3 in bf16: the block owns 64 keys and walks the q tiles. Lane (g, t)
+// of warp w holds key rows k0 + 16 w + g (+ 8) and, of every n8 tile j,
+// query columns 8 j + 2 t (+ 1) of the transposed score tile.
+// Register budget: 255, two blocks an SM (a three-block budget of 168
+// spills and was slower on the H100); d = 128 spills 32 bytes.
+template <int D>
+__global__ void __launch_bounds__(kThreadsTc, 2)
+    dkv_kernel_mma(const Params p) {
+  constexpr int NO = D / 8;
+  constexpr uint32_t TB = tile_bytes<D>();
+  extern __shared__ float4 smem4[];
+  const uint32_t k_s = smem_addr(smem4);
+  const uint32_t v_s = k_s + TB;
+  const uint32_t q_s = v_s + TB;        // two stages
+  const uint32_t do_s = q_s + 2 * TB;   // two stages
+  float* rows_s = reinterpret_cast<float*>(
+      reinterpret_cast<char*>(smem4) + 6 * TB);  // [2][3][kTile]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * kTile, bh = blockIdx.y;
+  const int b = bh / p.H, h = bh - b * p.H;
+  const bf16* q = head<bf16>(p.q, p.st[kQ], b, h);
+  const bf16* k = head<bf16>(p.k, p.st[kK], b, h);
+  const bf16* v = head<bf16>(p.v, p.st[kV], b, h);
+  const bf16* dout = head<bf16>(p.dout, p.st[kDo], b, h);
+  const int off = p.sk - p.sq;
+  const int krow0 = k0 + warp * 16 + g;
+  const long long row_base = static_cast<long long>(bh) * p.sq;
+  const float scale2 = p.scale * kLog2e;
+  const uint32_t hb =
+      p.dropout ? mm3_round(static_cast<uint32_t>(*p.seed), bh) : 0u;
+
+  // q tile qt into ring slot `slot`: Q, dO and the lse / delta rows
+  // (zeros past sq) by cp.async, the queries' hash prefixes stored
+  auto fill = [&](int qt, int slot) {
+    const int r0 = qt * kTile;
+    cp_tile<D>(q_s + slot * TB, q, p.st[kQ][2], r0, p.sq);
+    cp_tile<D>(do_s + slot * TB, dout, p.st[kDo][2], r0, p.sq);
+    float* rs = rows_s + slot * 3 * kTile;
+    const int r = r0 + (tid & (kTile - 1));
+    const bool ok = r < p.sq;
+    const float* src =
+        (tid < kTile ? p.lse_in : p.delta) + (ok ? row_base + r : 0);
+    cp_async4(smem_addr(rs + tid), src, ok);  // lse [0, 64), delta [64, 128)
+    if (p.dropout && tid < kTile)
+      reinterpret_cast<uint32_t*>(rs)[2 * kTile + tid] =
+          mm3_round(hb, static_cast<uint32_t>(r));
+  };
+
+  const int n_q = (p.sq + kTile - 1) / kTile;
+  const int qt0 = (p.causal && off >= 0) ? max(0, k0 - off) / kTile : 0;
+  cp_tile<D>(k_s, k, p.st[kK][2], k0, p.sk);
+  cp_tile<D>(v_s, v, p.st[kV][2], k0, p.sk);
+  fill(qt0, 0);
+  cp_commit();
+  __syncthreads();  // the first tile's hash prefixes
+
+  uint32_t kw[2] = {0u, 0u};
+  if (p.dropout) {
+    kw[0] = mm3_word(static_cast<uint32_t>(krow0));
+    kw[1] = mm3_word(static_cast<uint32_t>(krow0 + 8));
+  }
+  float dk[NO][4], dv[NO][4];
+#pragma unroll
+  for (int c = 0; c < NO; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[c][e] = dv[c][e] = 0.f;
+
+  for (int qt = qt0; qt < n_q; ++qt) {
+    const int q0 = qt * kTile, slot = (qt - qt0) & 1;
+    if (qt + 1 < n_q) fill(qt + 1, slot ^ 1);
+    cp_commit();
+    const float* lse_t = rows_s + slot * 3 * kTile;
+    const float* delta_t = lse_t + kTile;
+    // the tile's keep bits (bit 4 j + e), hashed while the copy is in
+    // flight from prefixes stored before the last barrier
+    uint32_t keep = ~0u;
+    if (p.dropout) {
+      const uint32_t* qh_t =
+          reinterpret_cast<const uint32_t*>(lse_t + 2 * kTile);
+      keep = 0u;
+#pragma unroll
+      for (int j = 0; j < kNt; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          keep |= static_cast<uint32_t>(keep_bit(qh_t[j * 8 + 2 * t + (e & 1)],
+                                                 kw[e >> 1], p.thresh))
+                  << (j * 4 + e);
+    }
+    cp_wait_prev();
+    __syncthreads();
+    const uint32_t qs = q_s + slot * TB, dos = do_s + slot * TB;
+
+    // P^T = exp(scale K Q^T - lse)
+    float s[kNt][4];
+#pragma unroll
+    for (int j = 0; j < kNt; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    mm_abt<D>(k_s, qs, warp, lane, s);
+    const bool edge = p.causal && q0 + off < k0 + kTile - 1;
+#pragma unroll
+    for (int j = 0; j < kNt; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cc = j * 8 + 2 * t + e;
+        const float lse = lse_t[cc], lse2 = lse * kLog2e;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float x = fmaf(s[j][2 * i + e], scale2, -lse2);
+          // a masked score is -1e30: exp(-1e30 - lse), 1 in a fully
+          // masked row (lse = -1e30) as in the plain version
+          if (edge && q0 + cc + off < krow0 + i * 8)
+            x = (kNegInf - lse) * kLog2e;
+          s[j][2 * i + e] = ex2(x);
+        }
+      }
+
+    // dV += P_d^T dO with P_d = P keep / (1 - p), rounded to bf16
+    {
+      float pd[kNt][4];
+#pragma unroll
+      for (int j = 0; j < kNt; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pd[j][e] =
+              (keep >> (j * 4 + e)) & 1u ? s[j][e] * p.inv_keep : 0.f;
+      mm_xb<D>(pd, dos, lane, dv);
+    }
+
+    // dP^T = V dO^T, then dS^T = P^T (dP^T keep / (1 - p) - delta)
+    float ds[kNt][4];
+#pragma unroll
+    for (int j = 0; j < kNt; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[j][e] = 0.f;
+    mm_abt<D>(v_s, dos, warp, lane, ds);
+#pragma unroll
+    for (int j = 0; j < kNt; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float dpv =
+            (keep >> (j * 4 + e)) & 1u ? ds[j][e] * p.inv_keep : 0.f;
+        ds[j][e] = s[j][e] * (dpv - delta_t[j * 8 + 2 * t + (e & 1)]);
+      }
+    // dK += dS^T Q (dS rounded to bf16; scaled at the end)
+    mm_xb<D>(ds, qs, lane, dk);
+    __syncthreads();  // every warp is done with slot `slot` before refill
+  }
+
+  bf16* dkp = const_cast<bf16*>(head<bf16>(p.o, p.st[kO], b, h));
+  bf16* dvp = const_cast<bf16*>(head<bf16>(p.o2, p.st[kO2], b, h));
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = krow0 + 8 * i;
+    if (row >= p.sk) continue;
+    bf16* dkr = dkp + row * p.st[kO][2] + 2 * t;
+    bf16* dvr = dvp + row * p.st[kO2][2] + 2 * t;
+#pragma unroll
+    for (int c = 0; c < NO; ++c) {
+      *reinterpret_cast<__nv_bfloat162*>(dkr + c * 8) = __floats2bfloat162_rn(
+          dk[c][2 * i] * p.scale, dk[c][2 * i + 1] * p.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvr + c * 8) =
+          __floats2bfloat162_rn(dv[c][2 * i], dv[c][2 * i + 1]);
+    }
+  }
+}
+
 // the keep mask itself, for checking the hash against the plain version
 __global__ void keep_mask_kernel(uint8_t* out, int BH, int sq, int sk,
                                  uint32_t thresh, const long long* seed) {
@@ -576,28 +1121,37 @@ __global__ void keep_mask_kernel(uint8_t* out, int BH, int sq, int sk,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(int pass, const Params& p, int B, cudaStream_t stream) {
-  const int tiles = ((pass == 2 ? p.sk : p.sq) + kTile - 1) / kTile;
-  const dim3 grid(tiles, B * p.H);
-  void (*kern)(const Params);
+// the kernel, dynamic shared memory and block size of a pass
+struct Kernel {
+  void (*fn)(const Params);
   size_t bytes;
-  if (pass == 0) {
-    kern = fwd_kernel<T, D>;
-    bytes = fwd_smem<D>();
-  } else if (pass == 1) {
-    kern = dq_kernel<T, D>;
-    bytes = dq_smem<D>();
+  int threads;
+};
+
+template <typename T, int D>
+Kernel pick(int pass) {
+  if (pass == 1) return {dq_kernel<T, D>, dq_smem<D>(), kThreads};
+  if constexpr (sizeof(T) == 2) {  // bf16: B1 and B3 on the tensor cores
+    if (pass == 0) return {fwd_kernel_mma<D>, fwd_mma_smem<D>(), kThreadsTc};
+    return {dkv_kernel_mma<D>, dkv_mma_smem<D>(), kThreadsTc};
   } else {
-    kern = dkv_kernel<T, D>;
-    bytes = dkv_smem<D>();
+    if (pass == 0) return {fwd_kernel<T, D>, fwd_smem<D>(), kThreads};
+    return {dkv_kernel<T, D>, dkv_smem<D>(), kThreads};
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  kern<<<grid, kThreads, bytes, stream>>>(p);
-  return cudaGetLastError();
+}
+
+// pass 0-2, dtype 0 (f32) or 1 (bf16), d 32 / 64 / 128; false otherwise
+bool pick_for(int pass, int dtype, int d, Kernel* kern) {
+  if (pass < 0 || pass > 2) return false;
+  switch (dtype * 1000 + d) {
+    case 32: *kern = pick<float, 32>(pass); return true;
+    case 64: *kern = pick<float, 64>(pass); return true;
+    case 128: *kern = pick<float, 128>(pass); return true;
+    case 1032: *kern = pick<bf16, 32>(pass); return true;
+    case 1064: *kern = pick<bf16, 64>(pass); return true;
+    case 1128: *kern = pick<bf16, 128>(pass); return true;
+    default: return false;
+  }
 }
 
 }  // namespace
@@ -614,7 +1168,7 @@ extern "C" int flash_attn(int pass, int dtype, int d, const void* q,
                           float inv_keep, unsigned thresh,
                           const long long* seed, int num_sms, void* stream) {
   (void)num_sms;
-  if (pass < 0 || pass > 2 || B * H > 65535) return cudaErrorInvalidValue;
+  if (B * H > 65535) return cudaErrorInvalidValue;
   Params p;
   p.q = q;
   p.k = k;
@@ -636,18 +1190,56 @@ extern "C" int flash_attn(int pass, int dtype, int d, const void* q,
   p.inv_keep = inv_keep;
   p.thresh = thresh;
   p.seed = seed;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (dtype * 1000 + d) {
-    case 32: err = launch<float, 32>(pass, p, B, st); break;
-    case 64: err = launch<float, 64>(pass, p, B, st); break;
-    case 128: err = launch<float, 128>(pass, p, B, st); break;
-    case 1032: err = launch<__nv_bfloat16, 32>(pass, p, B, st); break;
-    case 1064: err = launch<__nv_bfloat16, 64>(pass, p, B, st); break;
-    case 1128: err = launch<__nv_bfloat16, 128>(pass, p, B, st); break;
-    default: err = cudaErrorInvalidValue;
+  Kernel kern;
+  if (!pick_for(pass, dtype, d, &kern)) return cudaErrorInvalidValue;
+  if (dtype == 1 && pass != 1) {
+    // the tensor-core kernels copy 16-byte row chunks of q, k, v, do and
+    // store bf16 pairs of the outputs
+    const void* ins[4] = {q, k, v, pass == 2 ? dout : nullptr};
+    for (int i = 0; i < 4; ++i) {
+      if (ins[i] == nullptr) continue;
+      if (reinterpret_cast<uintptr_t>(ins[i]) % 16 != 0)
+        return cudaErrorInvalidValue;
+      for (int j = 0; j < 3; ++j)
+        if (p.st[i][j] % 8 != 0) return cudaErrorInvalidValue;
+    }
+    const void* outs[2] = {out, pass == 2 ? out2 : nullptr};
+    for (int i = 0; i < 2; ++i)
+      if (outs[i] != nullptr &&
+          (reinterpret_cast<uintptr_t>(outs[i]) % 4 != 0 ||
+           p.st[kO + i][2] % 2 != 0))
+        return cudaErrorInvalidValue;
   }
-  return static_cast<int>(err);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kern.bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = ((pass == 2 ? sk : sq) + kTile - 1) / kTile;
+  kern.fn<<<dim3(tiles, B * H), kern.threads, kern.bytes,
+            static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// what flash_attn launches for (pass, dtype, d): registers and local
+// (spilled) bytes a thread, threads and shared bytes a block, and the
+// blocks an SM holds at once
+extern "C" int flash_occupancy(int pass, int dtype, int d, int* out) {
+  Kernel kern;
+  if (!pick_for(pass, dtype, d, &kern)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kern.bytes));
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kern.fn);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[4], kern.fn, kern.threads, kern.bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = kern.threads;
+  out[3] = static_cast<int>(kern.bytes);
+  return 0;
 }
 
 extern "C" int flash_keep_mask(uint8_t* out, int BH, int sq, int sk,

@@ -34,9 +34,10 @@ The reference's rollback to a checkpoint after
 the port of ``distributed/checkpoint.py``; meshes, ZeRO and buffer
 donation are not ported.
 
-``engine.state`` exposes the parameters (the layer's own, updated in
-place) and the optimizer state under the reference's names, keyed by
-the parameters' structured names; a tied table appears once.
+``engine.state`` exposes the trainable parameters (the layer's own,
+updated in place) and the optimizer state under the reference's names,
+keyed by the parameters' structured names; a tied table appears once.
+Frozen parameters (``requires_grad`` False) sit in ``state.buffers``.
 """
 
 from __future__ import annotations
@@ -97,11 +98,18 @@ class Engine:
         self.loss_fn = loss_fn
         self._grad_clip = grad_clip if grad_clip is not None else \
             optimizer._grad_clip
-        params = dict(layer.named_parameters())
+        # the trainable parameters only, as the reference's
+        # `param_values`: a frozen one (requires_grad False, paddle's
+        # stop_gradient) rides with the buffers, as in its
+        # `buffer_values`, and gets no optimizer state, decay or update
+        named = dict(layer.named_parameters())
+        params = {k: p for k, p in named.items() if p.requires_grad}
+        buffers = {k: p for k, p in named.items() if not p.requires_grad}
+        buffers.update(layer.named_buffers())
         self.state = TrainState(
             params,
             {k: optimizer._init_state(p) for k, p in params.items()},
-            dict(layer.named_buffers()))
+            buffers)
         self._metas = {k: optimizer._leaf_meta(k) for k in params}
         if seed is None:
             seed = int(torch.randint(0, 2 ** 62, ()))

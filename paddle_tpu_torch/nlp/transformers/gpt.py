@@ -304,8 +304,9 @@ class GPTForPretraining(nn.Layer):
 
     def logits(self, h):
         if self.config.tie_word_embeddings:
+            # the reference's ``matmul_v2``, so O1 auto_cast casts it
             w = self.gpt.embeddings.word_embeddings.weight
-            return torch.matmul(h, w.t())
+            return F.matmul(h, w, transpose_y=True)
         return self.lm_head(h)
 
     @torch.no_grad()

@@ -12,6 +12,9 @@ TPU kernels of the reference:
     B2 `_bwd_dq_kernel`   backward dq               _flash_bwd_kernel
     B3 `_bwd_dkv_kernel`  backward dk, dv           _flash_bwd_kernel
 
+In bf16, B1 and B3 run on the tensor cores (``mma.sync``); B2 and every
+f32 pass run on the CUDA cores in full f32.
+
 CPU tensors run the plain PyTorch versions `_flash_fwd_plain` /
 `_flash_bwd_plain`, ported from the reference's ``_flash_fwd_jnp`` /
 ``_flash_bwd_jnp``. ``flash_attention.launches`` is a dict counting the
@@ -118,6 +121,22 @@ def _keep_mask_kernel(seed, bh, sq, sk, dropout_p):
     return out.bool()
 
 
+def _occupancy(pass_, dtype, d):
+    """What `flash_attention` launches for pass 0 (B1), 1 (B2) or 2 (B3)
+    in `dtype` at head dim `d` on the current card: ``{registers,
+    local_bytes, threads, smem_bytes, blocks_per_sm}`` (a report; no
+    pass of the attention calls it)."""
+    lib, fn = _launch.bind("flash_attn", "flash_occupancy",
+                           [_launch._I, _launch._I, _launch._I, _launch._P])
+    out = (ctypes.c_int * 5)()
+    err = fn(pass_, int(dtype == torch.bfloat16), d, out)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_occupancy: {lib.cuda_error_string(err).decode()}")
+    return dict(zip(("registers", "local_bytes", "threads", "smem_bytes",
+                     "blocks_per_sm"), out))
+
+
 # -- plain versions (the reference's jnp path) -------------------------------
 
 
@@ -180,7 +199,16 @@ def _flash_bwd_plain(q, k, v, o, lse, do, seed, scale, causal, dropout_p):
 
 
 def _rows_contiguous(t):
-    return t if t.stride(-1) == 1 else t.contiguous()
+    """`t` with a contiguous last dim; in bf16 also with 16-byte aligned
+    rows (base and (batch, head, row) strides), which the tensor-core
+    kernels copy in 16-byte chunks. The packed projection's q / k / v
+    views and a transposed ``[b, s, h, d]`` gradient already are."""
+    if t.stride(-1) != 1:
+        t = t.contiguous()
+    if t.dtype == torch.bfloat16 and (
+            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])):
+        t = _launch.aligned(t)
+    return t
 
 
 def _strides(*ts):

@@ -2,7 +2,9 @@
 config of tests/test_serving_w8a8.py, with the same numpy weights
 carried across by `weights.from_paddle_tpu_values`.
 
-- `forward` logits within rtol=atol=1e-5 (f32 sums in other orders);
+- `forward` logits within rtol=atol=1e-5 (f32 sums in other orders),
+  and under bf16 O1 ``auto_cast`` bf16 on both sides within one bf16
+  ulp of the largest |logit|;
 - `_attend_paged` on a hand-built block table: outputs within 1e-5 and
   the scattered pools equal (duplicate null-block writes included);
 - `generate` greedy tokens equal (bf16 static cache in both).
@@ -18,6 +20,7 @@ import jax.numpy as jnp
 
 import paddle_tpu as paddle
 
+from paddle_tpu_torch import amp as tamp
 from paddle_tpu_torch import weights
 from paddle_tpu_torch.nlp.transformers import gpt as tgpt
 from torch_parity import TINY, VOCAB, build_pair
@@ -35,6 +38,25 @@ def test_forward_logits_match(pair):
     with torch.no_grad():
         got = tm(torch.from_numpy(ids)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_forward_logits_under_bf16_auto_cast_are_bf16(pair):
+    # the tied logits are the reference's `matmul_v2`, on the O1 white
+    # list: both packages cast h and the table to bf16 and return bf16
+    jm, tm, _ = pair
+    ids = np.random.RandomState(1).randint(0, VOCAB, (2, 16))
+    with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+        jout = jm(paddle.to_tensor(ids.astype(np.int32)))._value
+    with torch.no_grad(), tamp.auto_cast(level="O1", dtype="bfloat16"):
+        tout = tm(torch.from_numpy(ids))
+    assert str(jout.dtype) == "bfloat16"
+    assert tout.dtype == torch.bfloat16
+    want = np.asarray(jout.astype(jnp.float32))
+    got = tout.float().numpy()
+    # one bf16 ulp of the largest |logit|: the products' inputs may
+    # round to neighbouring bf16 values on the two sides
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ulp)
 
 
 def test_attend_paged_matches_on_a_hand_built_table(pair):

@@ -5,9 +5,13 @@ int8 bitwise and fp8 within 4 K 2^-24 of the sum of the absolute
 products (f32 sums in another order; its e4m3 codes bitwise through an
 identity operand), with f32 and bf16 operands, a Linear weight and a
 transposed vocab chunk as b, at ragged shapes, B1-B3 flash
-attention within 1e-5 (o) / 2e-4 (grads) in f32 and 2e-2 in bf16 (the
-plain version rounds p and ds to bf16 before its products, the kernels
-keep them f32), with the dropout mask equal bit for bit; B4-B6 (the
+attention within 1e-5 (o) / 2e-4 (grads) in f32 (sums in another
+order) and 2e-2 in bf16 (B1 and B3 on the tensor cores; B1 rounds p
+divided by the running row sum to bf16 before its value product where
+the plain version rounds the normalised p, and the kernels' exp is the
+hardware's approximation), at every head dim, ragged rows, sq != sk,
+packed q / k / v views and a transposed output gradient, with the
+dropout mask equal bit for bit; B4-B6 (the
 fused LM-head loss) within 1e-5 in f32 at ragged shapes (vocab tails,
 heavy masking, every row ignored) and within one bf16 ulp in bf16
 (the plain version's f32 scores are summed in another order, which can
@@ -196,13 +200,31 @@ FLASH_SHAPES = [(1, 2, 70, 70, 32), (2, 3, 9, 21, 64), (1, 2, 21, 9, 64),
                 (2, 2, 130, 70, 128), (2, 3, 128, 128, 64)]
 
 
-def _flash_case(b, h, sq, sk, d, dtype, causal, dropout_p, seed=3):
+# bf16 (B1 and B3 on the tensor cores): rows ragged against the tiles
+# (1, 63, 65, 200), sq != sk both ways, every head dim; `packed` hands
+# over q, k, v as the [b, h, s, d] views of one [b, s, 3, h, d]
+# projection and the output gradient as a transposed [b, s, h, d]
+FLASH_BF16_CASES = [((1, 2, 1, 1, 64), False), ((1, 2, 63, 65, 32), False),
+                    ((2, 2, 65, 63, 128), False), ((1, 3, 1, 200, 64), False),
+                    ((2, 2, 200, 63, 32), False), ((1, 2, 65, 200, 128), False),
+                    ((2, 3, 200, 200, 32), True), ((2, 3, 200, 200, 64), True),
+                    ((1, 2, 200, 200, 128), True)]
+
+
+def _flash_case(b, h, sq, sk, d, dtype, causal, dropout_p, seed=3,
+                packed=False):
     gen = torch.Generator().manual_seed(b * 1000 + sq * 10 + sk + d)
-    q, k, v = (torch.randn((b, h, n, d), generator=gen).to(dtype).cuda()
-               for n in (sq, sk, sk))
-    do = torch.randn((b, h, sq, d), generator=gen).to(dtype).cuda()
+    if packed:
+        qkv = torch.randn((b, sq, 3, h, d), generator=gen).to(dtype).cuda()
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+        do = torch.randn((b, sq, h, d), generator=gen).to(
+            dtype).cuda().transpose(1, 2)
+    else:
+        q, k, v = (torch.randn((b, h, n, d), generator=gen).to(dtype).cuda()
+                   for n in (sq, sk, sk))
+        do = torch.randn((b, h, sq, d), generator=gen).to(dtype).cuda()
     sd = torch.tensor(seed, device="cuda")
-    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
     before = dict(fused_ops.flash_attention.launches)
     o = fused_ops.flash_attention(qg, kg, vg, sd, is_causal=causal,
                                   dropout_p=dropout_p)
@@ -236,11 +258,13 @@ def test_flash_kernels_match_plain_f32(b, h, sq, sk, d, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_kernels_match_plain_bf16(causal):
+@pytest.mark.parametrize("shape,packed", FLASH_BF16_CASES)
+def test_flash_kernels_match_plain_bf16(shape, packed, causal, dropout_p):
     _card()
-    got, want = _flash_case(2, 3, 200, 200, 64, torch.bfloat16, causal,
-                            0.1)
+    got, want = _flash_case(*shape, torch.bfloat16, causal, dropout_p,
+                            packed=packed)
     for g, w in zip(got, want):
         torch.testing.assert_close(g.reshape(w.shape).float(), w.float(),
                                    rtol=2e-2, atol=2e-2)

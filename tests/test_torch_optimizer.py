@@ -20,7 +20,10 @@ parameter reaches (finite gradients: loss scaling keeps the update,
 the guard skips it). Losses, parameters and moments agree within rtol
 1e-6; a skipped step leaves the parameters bit for bit as they were;
 the scale, its counters and the guard's counter equal the reference's
-after every step.
+after every step. A frozen weight (``stop_gradient`` in the reference,
+``requires_grad`` False in the port) rides with the buffers in both:
+one AdamW step with decay leaves it bit for bit and gives it no
+optimizer state, while the trainable leaves match within rtol 1e-6.
 """
 
 from __future__ import annotations
@@ -257,3 +260,48 @@ def test_engine_loss_scale_and_anomaly_guard_match_reference(loss_scale,
     if isinstance(loss_scale, dict):
         # 1024 -> 512 on the bad step -> 1024 after two good ones
         assert teng.state.buffers[tengine.LOSS_SCALE_KEY].item() == 1024.0
+
+
+def test_engine_leaves_a_frozen_parameter_alone():
+    # the reference's param_values skips stop_gradient parameters: no
+    # optimizer state, no decay, no update; the port's counterpart of
+    # the flag is requires_grad
+    rng = np.random.RandomState(7)
+    jm = paddle.nn.Sequential(paddle.nn.Linear(16, 32), paddle.nn.ReLU(),
+                              paddle.nn.Linear(32, 4))
+    vals = {k: rng.randn(*v.shape).astype(np.float32) * 0.3
+            for k, v in jm.state_dict().items()}
+    jm.set_state_dict({k: paddle.to_tensor(v) for k, v in vals.items()})
+    jm[0].weight.stop_gradient = True
+    tm = tnn.Sequential(tnn.Linear(16, 32), tnn.ReLU(), tnn.Linear(32, 4))
+    tm.load_state_dict({k: torch.from_numpy(v) for k, v in vals.items()})
+    tm[0].weight.requires_grad_(False)
+    x = rng.randn(8, 16).astype(np.float32)
+    y = rng.randint(0, 4, (8,)).astype(np.int64)
+    jeng = jengine.Engine(
+        jm, paddle.optimizer.AdamW(0.1, parameters=jm.parameters(),
+                                   weight_decay=0.5),
+        paddle.nn.CrossEntropyLoss())
+    teng = tengine.Engine(tm, topt.AdamW(0.1, weight_decay=0.5),
+                          tnn.CrossEntropyLoss(), device="cpu")
+    jeng.train_batch(x, y)
+    teng.train_batch(x, y)
+    frozen = "0.weight"
+    for st in (jeng.state, teng.state):
+        assert frozen not in st.params and frozen not in st.opt_state
+        assert frozen in st.buffers
+    np.testing.assert_array_equal(np.asarray(jeng.state.buffers[frozen]),
+                                  vals[frozen])
+    np.testing.assert_array_equal(teng.state.buffers[frozen].numpy(),
+                                  vals[frozen])
+    assert teng.state.buffers[frozen] is tm[0].weight
+    assert sorted(teng.state.params) == sorted(jeng.state.params)
+    for k, v in jeng.state.params.items():
+        assert not np.array_equal(np.asarray(v), vals[k]), k
+        np.testing.assert_allclose(teng.state.params[k].detach().numpy(),
+                                   np.asarray(v), rtol=1e-6, atol=1e-7,
+                                   err_msg=k)
+        for n, a in jeng.state.opt_state[k].items():
+            np.testing.assert_allclose(teng.state.opt_state[k][n].numpy(),
+                                       np.asarray(a), rtol=1e-6, atol=1e-7,
+                                       err_msg=f"{k}.{n}")
