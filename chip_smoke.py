@@ -30,8 +30,9 @@ Phases (any failure raises and the script exits non-zero):
 6. Flash attention: B1-B3 against their plain versions (f32 and bf16 at
    ragged shapes, sq != sk, head dims 32 / 64 / 128, causal and not; the
    ERNIE shape [32, 12, 512, 64] in f32 and bf16 with dropout 0.1; the
-   dropout mask bit for bit; in bf16 B1 and B3 run on the tensor cores),
-   the registers and blocks per SM of every pass, then timed at the
+   dropout mask bit for bit; in bf16 B1-B3 run on the tensor cores), B2
+   repeating bit for bit at the ERNIE shape, the registers and blocks
+   per SM of every pass, then timed at the
    ERNIE shape in bf16 beside the plain versions, torch SDPA at dropout
    0 and 0.1 (the yardstick, never called by the port; the backend it
    ran is printed) and the card's least time.
@@ -39,8 +40,11 @@ Phases (any failure raises and the script exits non-zero):
    ragged shapes with vocab tails, heavy masking, every row ignored and
    plain chunks that do not divide V, within 1e-5; the ERNIE shape
    x [16384, 768], w [18000, 768] in bf16 within one bf16 ulp on dx and
-   dw and 1e-3 relative on the loss), then timed at the ERNIE shape
-   beside the plain versions, the unfused two-call composition (the
+   dw and 1e-3 relative on the loss; bf16 at ragged shapes with exact
+   scores within one bf16 ulp; B6 on warpgroup products in bf16 up to H
+   768), B6 repeating bit for bit at the ERNIE shape, the registers and blocks
+   per SM of every kernel, then timed at the ERNIE shape beside the
+   plain versions, the unfused two-call composition (the
    yardstick, never called by the port) and the card's least time.
 8. The train step against its plain version: a tiny ERNIE on cuda and
    on the CPU, same weights and seeds, attention dropout 0.1,
@@ -698,6 +702,16 @@ def phase_flash(card):
         spin=AUTOGRAD_SPIN) for dp in (0.0, p)}
     lib_fwd_ms = {dp: _time_ms(lambda: sdpa(q, k, v, dropout_p=dp), flush)
                   for dp in (0.0, p)}
+    # B2 owns its q tile (no atomics): two launches agree bit for bit
+    fused_ops._launch_pass(1, q, k, v, do, dq, None, None, lse, delta, seed,
+                           scale, False, p)
+    first = dq.clone()
+    fused_ops._launch_pass(1, q, k, v, do, dq, None, None, lse, delta, seed,
+                           scale, False, p)
+    _check(torch.equal(first, dq), "B2 does not repeat bit for bit")
+    print(json.dumps({"bitwise_repeat": "B2", "shape": [b, h, s, s, d],
+                      "dropout": p, "equal": True}), flush=True)
+    del first
     print(json.dumps({"sdpa_backend": {
         f"{what}@{dp}": _sdpa_backend(fn) for dp in (0.0, p)
         for what, fn in (
@@ -768,6 +782,25 @@ def _lce_case(n, h, v, masked, dtype, gen, x_std=0.5, w_std=0.1):
     return x, w, lbl.cuda(), g.cuda()
 
 
+def _lce_exact_case(n, h, v, masked, gen):
+    """bf16 x [n, h] in quarters and w [v, h] in sixteenths of -2..2, so
+    every score is exact in f32 whatever the order of its sums: given
+    one lse, the kernel and the plain version then round the same d to
+    bf16, and dx / dw differ only by their own f32 sums (within one bf16
+    ulp). Labels with a `masked` share of -100, g = 1 / #valid."""
+    import torch
+
+    x = (torch.randint(-2, 3, (n, h), generator=gen) / 4.0).to(
+        torch.bfloat16).cuda()
+    w = (torch.randint(-2, 3, (v, h), generator=gen) / 16.0).to(
+        torch.bfloat16).cuda()
+    lbl = torch.randint(0, v, (n,), generator=gen)
+    lbl[torch.rand((n,), generator=gen) < masked] = -100
+    valid = (lbl != -100).float()
+    g = valid / valid.sum().clamp_min(1.0)
+    return x, w, lbl.cuda(), g.cuda()
+
+
 def _bf16_ulps(got, want):
     """Largest |got - want| in bf16 ulps of each element (of the largest
     element's 2^-8 near 0)."""
@@ -775,7 +808,9 @@ def _bf16_ulps(got, want):
 
     got, want = got.float(), want.float()
     ulp = torch.maximum(want.abs(), want.abs().max() * 2 ** -8) * 2 ** -7
-    return float(((got - want).abs() / ulp).max())
+    err = (got - want).abs()
+    # an all-zero `want` (every row ignored) has no ulp: equal reads 0
+    return float(torch.where(err == 0, 0.0, err / ulp).max())
 
 
 def phase_fused_loss(card):
@@ -809,6 +844,23 @@ def phase_fused_loss(card):
                           "masked": masked, "chunk": cv,
                           "max_abs_err": errs}), flush=True)
 
+    # bf16 at ragged shapes against B6's 64-row tiles (every hidden size,
+    # V and N not multiples of 64, every row ignored): exact scores, the
+    # kernel's lse on both sides, B5 / B6 within one bf16 ulp
+    for n, h, v, masked in ((37, 64, 301, 0.3), (130, 128, 1000, 0.85),
+                            (300, 256, 777, 1.0), (200, 512, 300, 0.5),
+                            (129, 768, 65, 0.0), (70, 1024, 513, 0.5)):
+        x, w, lbl, g = _lce_exact_case(n, h, v, masked, gen)
+        nll, lse = fl._fwd_kernel(x, w, lbl)
+        dx, dw = fl._bwd_kernel(x, w, lbl, lse, g)
+        dx_p, dw_p = fl._bwd_plain(x, w, lbl, lse, g, 128)
+        torch.cuda.synchronize()
+        ulps = {"B5": _bf16_ulps(dx, dx_p), "B6": _bf16_ulps(dw, dw_p)}
+        _check(all(u <= 1.0 for u in ulps.values()),
+               f"B5/B6 beyond one bf16 ulp at {(n, h, v)}: {ulps}")
+        print(json.dumps({"fused_loss_check": [n, h, v], "dtype": "bf16",
+                          "masked": masked, "ulps": ulps}), flush=True)
+
     # the ERNIE shape in bf16
     n, h, v = ERNIE_BATCH * ERNIE_SEQ, ERNIE["hidden_size"], \
         ERNIE["vocab_size"]
@@ -838,6 +890,18 @@ def phase_fused_loss(card):
                       "loss": loss, "plain_loss": loss_p, "ulps": ulps,
                       "max_abs_err": errs}), flush=True)
     del dx_p, dw_p
+    # B6 owns its vocab rows (no atomics): two launches agree bit for bit
+    _check(torch.equal(fl._bwd_dw_kernel(x, w, lbl32, lse, g), dw),
+           "B6 does not repeat bit for bit")
+    print(json.dumps({"bitwise_repeat": "B6", "shape": [n, h, v],
+                      "equal": True}), flush=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        for hd in fl._HIDDEN:
+            for mode, key in enumerate(("B4", "B5", "B6")):
+                print(json.dumps({"fused_loss_occupancy": key,
+                                  "dtype": str(dtype), "hidden": hd,
+                                  **fl._occupancy(mode, dtype, hd)}),
+                      flush=True)
 
     # the yardstick: the unfused two-call composition, forward and
     # backward by autograd (timed here, never called by the port)
@@ -1102,13 +1166,15 @@ def phase_train_profile(step, label):
         by_name[r.key[:90]] = by_name.get(r.key[:90], 0.0) + dev_us(r)
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:8]
     # device time by kind, from the kernels' names (the port's kernels by
-    # their own names; cuDNN's weight gradients carry "wgrad")
+    # their own names; cuDNN's weight gradients carry "wgrad", cuBLAS's
+    # Hopper GEMMs "nvjet")
     kinds = (("B9", ("qmm_gemm", "quant_rows", "quant_cols")),
              ("B10", ("tc_conv", "f32_conv")),
              ("flash B1-B3", ("fwd_kernel", "dq_kernel", "dkv_kernel")),
-             ("fused loss B4-B6", ("tc_kernel", "f32_kernel")),
+             ("fused loss B4-B6", ("tc_kernel", "dw_kernel_wg",
+                                   "f32_kernel")),
              ("conv weight grad (cuDNN)", ("wgrad",)),
-             ("gemm", ("gemm", "Gemm", "sm90_xmma")),
+             ("gemm", ("gemm", "Gemm", "sm90_xmma", "nvjet")),
              ("elementwise", ("elementwise",)), ("reduce", ("reduce",)),
              ("host-device copy", ("Memcpy",)))
     groups = {}

@@ -8,7 +8,8 @@
 // Replaces the Pallas TPU kernels of paddle_tpu/ops/fused_ops.py:
 //   B1 `_fwd_kernel` (:184)      -> fwd_kernel_mma (bf16), fwd_kernel (f32):
 //                                   o and lse = m + log(l)
-//   B2 `_bwd_dq_kernel` (:319)   -> dq_kernel:  dq = scale * sum_k ds * k
+//   B2 `_bwd_dq_kernel` (:319)   -> dq_kernel_mma (bf16), dq_kernel (f32):
+//                                   dq = scale * sum_k ds * k
 //   B3 `_bwd_dkv_kernel` (:363)  -> dkv_kernel_mma (bf16), dkv_kernel (f32):
 //                                   dv = pd^T do, dk = scale * ds^T q
 // with p recomputed from lse, ds = p * (dp * keep/(1-p) - delta), delta
@@ -16,31 +17,33 @@
 //
 // Bound: at the ERNIE shape (b*h = 384, s = 512, d = 64, bf16) B1
 // moves 101 MB for 25.8 GFLOP (bytes: 0.030 ms at 3.35 TB/s, the
-// products 0.026 ms at 989 TFLOP/s), B3 151 MB for 51.5 GFLOP
-// (operations: 0.052 ms). Next to the products every score costs an exp
-// and, with dropout, a murmur3 hash (~12 integer operations) on the
-// CUDA cores, ~100 M of each a pass.
+// products 0.026 ms at 989 TFLOP/s), B2 127 MB for 38.7 GFLOP
+// (operations: 0.039 ms), B3 151 MB for 51.5 GFLOP (operations: 0.052
+// ms). Next to the products every score costs an exp and, with dropout,
+// a murmur3 hash (~12 integer operations) on the CUDA cores, ~100 M of
+// each a pass.
 //
-// bf16 (the train step under O1) runs B1 and B3 on the tensor cores:
+// bf16 (the train step under O1) runs all three on the tensor cores:
 // mma.sync m16n8k16 bf16 -> f32 with ldmatrix fragments (.trans for the
 // [k][n] operands), operands staged as bf16 by a two-stage cp.async
 // ring, scores, softmax and gradients in f32 registers (see the section
 // below). B1 rounds p to bf16 before its value product as the
 // reference's kernel does (there divided by the running sum, so a row
-// within one tile sees exactly the plain version's probabilities); B3
-// rounds p * keep/(1-p) and ds to bf16 as the plain version does. The
-// dropout hash is split: the (seed, bh) and (seed, bh, q) rounds are
-// hoisted, each column's k word is mixed once a tile, and each tile's
-// keep bits are hashed while its copy is in flight.
+// within one tile sees exactly the plain version's probabilities); B2
+// and B3 recompute p from lse with the same instructions and round ds
+// (and B3 p * keep/(1-p)) to bf16 before their products, as the plain
+// version does. The dropout hash is split: the (seed, bh) and (seed,
+// bh, q) rounds are hoisted, each column's k word is mixed once a tile,
+// and each tile's keep bits are hashed while its copy is in flight.
 //
-// f32 keeps the first design, in full f32 on the CUDA cores (no TF32),
-// as does B2 in both dtypes: one block of 256 threads per (64-row tile,
-// b*h); resident operands in shared memory as f32, streamed ones staged
-// one 64-row tile at a time; each thread owns a 4x4 block of the 64x64
-// score tile (row group = tid / 16, column group = tid % 16) and 4 rows
-// x d/16 columns of the output tile, so every inner step is two 16-byte
-// shared-memory loads feeding 16 FMAs; row max and row sum reduce over
-// the 16 lanes of a row group with shuffles.
+// f32 keeps the first design, in full f32 on the CUDA cores (no TF32):
+// one block of 256 threads per (64-row tile, b*h); resident operands in
+// shared memory as f32, streamed ones staged one 64-row tile at a time;
+// each thread owns a 4x4 block of the 64x64 score tile (row group = tid
+// / 16, column group = tid % 16) and 4 rows x d/16 columns of the
+// output tile, so every inner step is two 16-byte shared-memory loads
+// feeding 16 FMAs; row max and row sum reduce over the 16 lanes of a
+// row group with shuffles.
 //
 // Every kernel owns its output tile (B2 a q tile walking the k tiles, B3
 // a k tile walking the q tiles), accumulates in f32 registers and needs
@@ -89,21 +92,6 @@ struct Params {
   uint32_t thresh;
   const long long* seed;
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, like torch
-}
 
 // -- the dropout hash: murmur3_32 over (bh, q, k) -----------------------
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
@@ -178,13 +166,14 @@ __device__ __forceinline__ void ld_cols(const float* row, int cb,
 // rows [r0, r0 + kTile) of x (row stride ss, rows >= n read as 0) into
 // shared memory as f32: transposed tr[c * kLd + r] and/or row-major
 // rw[r * (D + 4) + c] (either may be null)
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(const T* x, long long ss, int r0,
-                                          int n, float* tr, float* rw) {
+template <int D>
+__device__ __forceinline__ void load_tile(const float* x, long long ss,
+                                          int r0, int n, float* tr,
+                                          float* rw) {
   for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
     const int r = i / D, c = i % D;
     const float val =
-        (r0 + r < n) ? to_f32(x[static_cast<long long>(r0 + r) * ss + c])
+        (r0 + r < n) ? x[static_cast<long long>(r0 + r) * ss + c]
                      : 0.f;
     if (tr != nullptr) tr[c * kLd + r] = val;
     if (rw != nullptr) rw[r * (D + 4) + c] = val;
@@ -297,7 +286,7 @@ constexpr size_t fwd_smem() {
   return sizeof(float) * (2 * D * kLd + kTile * (D + 4) + kTile * kLd);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) fwd_kernel(const Params p) {
   constexpr int C = D / 16;
   extern __shared__ float4 smem4[];
@@ -308,12 +297,12 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const Params p) {
   const int tid = threadIdx.x, ra = tid >> 4, cb = tid & 15;
   const int q0 = blockIdx.x * kTile, bh = blockIdx.y;
   const int b = bh / p.H, h = bh - b * p.H;
-  const T* q = head<T>(p.q, p.st[kQ], b, h);
-  const T* k = head<T>(p.k, p.st[kK], b, h);
-  const T* v = head<T>(p.v, p.st[kV], b, h);
+  const float* q = head<float>(p.q, p.st[kQ], b, h);
+  const float* k = head<float>(p.k, p.st[kK], b, h);
+  const float* v = head<float>(p.v, p.st[kV], b, h);
   const int off = p.sk - p.sq;
 
-  load_tile<T, D>(q, p.st[kQ][2], q0, p.sq, Qt, nullptr);
+  load_tile<D>(q, p.st[kQ][2], q0, p.sq, Qt, nullptr);
   float m[4], l[4], acc[4][C];
   uint32_t qh[4];
   const uint32_t hb =
@@ -331,8 +320,8 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const Params p) {
   for (int kt = 0; kt < n_k; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's Kt / Vs / Pt reads are done
-    load_tile<T, D>(k, p.st[kK][2], k0, p.sk, Kt, nullptr);
-    load_tile<T, D>(v, p.st[kV][2], k0, p.sk, nullptr, Vs);
+    load_tile<D>(k, p.st[kK][2], k0, p.sk, Kt, nullptr);
+    load_tile<D>(v, p.st[kV][2], k0, p.sk, nullptr, Vs);
     __syncthreads();
     float s[4][4] = {};
     mm_tt<D>(Qt, Kt, ra, cb, s);
@@ -373,7 +362,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const Params p) {
     mm_pv<D>(Pt, Vs, ra, cb, acc);
   }
 
-  T* o = const_cast<T*>(head<T>(p.o, p.st[kO], b, h));
+  float* o = const_cast<float*>(head<float>(p.o, p.st[kO], b, h));
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ra * 4 + i;
@@ -382,7 +371,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const Params p) {
 #pragma unroll
     for (int c = 0; c < C; ++c)
       o[row * p.st[kO][2] + out_col<D>(cb, c)] =
-          from_f32<T>(acc[i][c] / l_safe);
+          acc[i][c] / l_safe;
     if (cb == 0)
       p.lse[static_cast<long long>(bh) * p.sq + row] = m[i] + logf(l_safe);
   }
@@ -396,7 +385,7 @@ constexpr size_t dq_smem() {
   return sizeof(float) * (4 * D * kLd + kTile * (D + 4) + kTile * kLd);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
   constexpr int C = D / 16;
   extern __shared__ float4 smem4[];
@@ -409,14 +398,14 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
   const int tid = threadIdx.x, ra = tid >> 4, cb = tid & 15;
   const int q0 = blockIdx.x * kTile, bh = blockIdx.y;
   const int b = bh / p.H, h = bh - b * p.H;
-  const T* q = head<T>(p.q, p.st[kQ], b, h);
-  const T* k = head<T>(p.k, p.st[kK], b, h);
-  const T* v = head<T>(p.v, p.st[kV], b, h);
-  const T* dout = head<T>(p.dout, p.st[kDo], b, h);
+  const float* q = head<float>(p.q, p.st[kQ], b, h);
+  const float* k = head<float>(p.k, p.st[kK], b, h);
+  const float* v = head<float>(p.v, p.st[kV], b, h);
+  const float* dout = head<float>(p.dout, p.st[kDo], b, h);
   const int off = p.sk - p.sq;
 
-  load_tile<T, D>(q, p.st[kQ][2], q0, p.sq, Qt, nullptr);
-  load_tile<T, D>(dout, p.st[kDo][2], q0, p.sq, dOt, nullptr);
+  load_tile<D>(q, p.st[kQ][2], q0, p.sq, Qt, nullptr);
+  load_tile<D>(dout, p.st[kDo][2], q0, p.sq, dOt, nullptr);
   float lse[4], delta[4], acc[4][C];
   uint32_t qh[4];
   const uint32_t hb =
@@ -436,8 +425,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
   for (int kt = 0; kt < n_k; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();
-    load_tile<T, D>(k, p.st[kK][2], k0, p.sk, Kt, Ks);
-    load_tile<T, D>(v, p.st[kV][2], k0, p.sk, Vt, nullptr);
+    load_tile<D>(k, p.st[kK][2], k0, p.sk, Kt, Ks);
+    load_tile<D>(v, p.st[kV][2], k0, p.sk, Vt, nullptr);
     __syncthreads();
     float s[4][4] = {}, dp[4][4] = {};
     mm_tt2<D>(Qt, Kt, dOt, Vt, ra, cb, s, dp);
@@ -454,9 +443,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
           const float pij = expf(x - lse[i]);
           const float dpv =
               p.dropout ? dp[i][j] * drop_scale(qh[i], col, p) : dp[i][j];
-          // rounded to the input dtype before its product, as the plain
-          // version and the reference's `_bwd_dq_kernel` round it
-          ds = to_f32(from_f32<T>(pij * (dpv - delta[i])));
+          ds = pij * (dpv - delta[i]);
         }
         s[i][j] = ds;
       }
@@ -466,7 +453,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
     mm_pv<D>(dSt, Ks, ra, cb, acc);
   }
 
-  T* dq = const_cast<T*>(head<T>(p.o, p.st[kO], b, h));
+  float* dq = const_cast<float*>(head<float>(p.o, p.st[kO], b, h));
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ra * 4 + i;
@@ -474,7 +461,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
 #pragma unroll
     for (int c = 0; c < C; ++c)
       dq[row * p.st[kO][2] + out_col<D>(cb, c)] =
-          from_f32<T>(acc[i][c] * p.scale);
+          acc[i][c] * p.scale;
   }
 }
 
@@ -487,7 +474,7 @@ constexpr size_t dkv_smem() {
          (4 * D * kLd + 2 * kTile * (D + 4) + kTile * kLd + 2 * kTile);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) dkv_kernel(const Params p) {
   constexpr int C = D / 16;
   extern __shared__ float4 smem4[];
@@ -503,14 +490,14 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Params p) {
   const int tid = threadIdx.x, ra = tid >> 4, cb = tid & 15;
   const int k0 = blockIdx.x * kTile, bh = blockIdx.y;
   const int b = bh / p.H, h = bh - b * p.H;
-  const T* q = head<T>(p.q, p.st[kQ], b, h);
-  const T* k = head<T>(p.k, p.st[kK], b, h);
-  const T* v = head<T>(p.v, p.st[kV], b, h);
-  const T* dout = head<T>(p.dout, p.st[kDo], b, h);
+  const float* q = head<float>(p.q, p.st[kQ], b, h);
+  const float* k = head<float>(p.k, p.st[kK], b, h);
+  const float* v = head<float>(p.v, p.st[kV], b, h);
+  const float* dout = head<float>(p.dout, p.st[kDo], b, h);
   const int off = p.sk - p.sq;
 
-  load_tile<T, D>(k, p.st[kK][2], k0, p.sk, Kt, nullptr);
-  load_tile<T, D>(v, p.st[kV][2], k0, p.sk, Vt, nullptr);
+  load_tile<D>(k, p.st[kK][2], k0, p.sk, Kt, nullptr);
+  load_tile<D>(v, p.st[kV][2], k0, p.sk, Vt, nullptr);
   float acck[4][C], accv[4][C];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -524,8 +511,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Params p) {
   for (int qt = qt0; qt < n_q; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();
-    load_tile<T, D>(q, p.st[kQ][2], q0, p.sq, Qt, Qs);
-    load_tile<T, D>(dout, p.st[kDo][2], q0, p.sq, dOt, dOs);
+    load_tile<D>(q, p.st[kQ][2], q0, p.sq, Qt, Qs);
+    load_tile<D>(dout, p.st[kDo][2], q0, p.sq, dOt, dOs);
     if (tid < kTile) {
       const int row = q0 + tid;
       const long long at = static_cast<long long>(bh) * p.sq + row;
@@ -567,8 +554,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Params p) {
     mm_pv<D>(Ps, Qs, ra, cb, acck);
   }
 
-  T* dk = const_cast<T*>(head<T>(p.o, p.st[kO], b, h));
-  T* dv = const_cast<T*>(head<T>(p.o2, p.st[kO2], b, h));
+  float* dk = const_cast<float*>(head<float>(p.o, p.st[kO], b, h));
+  float* dv = const_cast<float*>(head<float>(p.o2, p.st[kO2], b, h));
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = k0 + ra * 4 + i;
@@ -576,17 +563,18 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Params p) {
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int col = out_col<D>(cb, c);
-      dk[row * p.st[kO][2] + col] = from_f32<T>(acck[i][c] * p.scale);
-      dv[row * p.st[kO2][2] + col] = from_f32<T>(accv[i][c]);
+      dk[row * p.st[kO][2] + col] = acck[i][c] * p.scale;
+      dv[row * p.st[kO2][2] + col] = accv[i][c];
     }
   }
 }
 
 // ---------------------------------------------------------------------
-// bf16 on the tensor cores: B1 (fwd_kernel_mma) and B3 (dkv_kernel_mma)
+// bf16 on the tensor cores: B1 (fwd_kernel_mma), B2 (dq_kernel_mma) and
+// B3 (dkv_kernel_mma)
 // ---------------------------------------------------------------------
-// Four warps a block; each owns 16 rows of the block's 64-row tile (B1:
-// queries, B3: keys) and multiplies with mma.sync m16n8k16 (bf16 in, f32
+// Four warps a block; each owns 16 rows of the block's 64-row tile (B1,
+// B2: queries, B3: keys) and multiplies with mma.sync m16n8k16 (bf16 in, f32
 // accumulators). Operand tiles sit in shared memory as bf16 [64][D + 8]:
 // the 16-byte row pad puts the 8 row addresses of every ldmatrix phase
 // in 8 distinct 16-byte bank groups. The streamed tiles come through a
@@ -1102,6 +1090,145 @@ __global__ void __launch_bounds__(kThreadsTc, 2)
   }
 }
 
+template <int D>
+constexpr size_t dq_mma_smem() {
+  return 6 * tile_bytes<D>();  // Q, dO, K x 2 stages, V x 2 stages
+}
+
+// B2 in bf16: the block owns 64 queries and walks the k tiles. Lane (g,
+// t) of warp w holds query rows q0 + 16 w + g (+ 8) and, of every n8
+// tile j, key columns 8 j + 2 t (+ 1), as in B1. p is recomputed from
+// lse exactly as B3 recomputes it; ds = p (dp keep / (1 - p) - delta)
+// is rounded to bf16 by acc_to_a on its way into dQ += dS K.
+// Register budget: 170 at d <= 64 (three blocks an SM), 255 at d = 128.
+template <int D>
+__global__ void __launch_bounds__(kThreadsTc, D <= 64 ? 3 : 2)
+    dq_kernel_mma(const Params p) {
+  constexpr int NO = D / 8;
+  constexpr uint32_t TB = tile_bytes<D>();
+  extern __shared__ float4 smem4[];
+  const uint32_t q_s = smem_addr(smem4);
+  const uint32_t do_s = q_s + TB;
+  const uint32_t k_s = do_s + TB;      // two stages
+  const uint32_t v_s = k_s + 2 * TB;   // two stages
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kTile, bh = blockIdx.y;
+  const int b = bh / p.H, h = bh - b * p.H;
+  const bf16* q = head<bf16>(p.q, p.st[kQ], b, h);
+  const bf16* k = head<bf16>(p.k, p.st[kK], b, h);
+  const bf16* v = head<bf16>(p.v, p.st[kV], b, h);
+  const bf16* dout = head<bf16>(p.dout, p.st[kDo], b, h);
+  const int off = p.sk - p.sq;
+  const int n_k = k_tiles(p, q0);
+  const int row0 = q0 + warp * 16 + g;
+  const float scale2 = p.scale * kLog2e;
+
+  cp_tile<D>(q_s, q, p.st[kQ][2], q0, p.sq);
+  cp_tile<D>(do_s, dout, p.st[kDo][2], q0, p.sq);
+  cp_tile<D>(k_s, k, p.st[kK][2], 0, p.sk);
+  cp_tile<D>(v_s, v, p.st[kV][2], 0, p.sk);
+  cp_commit();
+
+  // the two rows' lse, lse in log2 units and delta (zeros past sq)
+  float lse[2], lse2[2], delta[2];
+  uint32_t qh[2] = {0u, 0u};
+  const uint32_t hb =
+      p.dropout ? mm3_round(static_cast<uint32_t>(*p.seed), bh) : 0u;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    const long long at = static_cast<long long>(bh) * p.sq + row;
+    lse[i] = row < p.sq ? p.lse_in[at] : 0.f;
+    lse2[i] = lse[i] * kLog2e;
+    delta[i] = row < p.sq ? p.delta[at] : 0.f;
+    if (p.dropout) qh[i] = mm3_round(hb, static_cast<uint32_t>(row));
+  }
+  float acc[NO][4];
+#pragma unroll
+  for (int c = 0; c < NO; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int k0 = kt * kTile;
+    const uint32_t cur = (kt & 1) * TB;
+    if (kt + 1 < n_k) {
+      const uint32_t nxt = TB - cur;
+      cp_tile<D>(k_s + nxt, k, p.st[kK][2], k0 + kTile, p.sk);
+      cp_tile<D>(v_s + nxt, v, p.st[kV][2], k0 + kTile, p.sk);
+    }
+    cp_commit();
+    // the tile's keep bits (bit 4 j + e), hashed while the copy is in
+    // flight, each column's k word once for both rows
+    uint32_t keep = ~0u;
+    if (p.dropout) {
+      keep = 0u;
+#pragma unroll
+      for (int j = 0; j < kNt; ++j) {
+        const int col = k0 + j * 8 + 2 * t;
+        const uint32_t kw[2] = {mm3_word(static_cast<uint32_t>(col)),
+                                mm3_word(static_cast<uint32_t>(col + 1))};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          keep |= static_cast<uint32_t>(
+                      keep_bit(qh[e >> 1], kw[e & 1], p.thresh))
+                  << (j * 4 + e);
+      }
+    }
+    cp_wait_prev();
+    __syncthreads();
+    const uint32_t ks = k_s + cur;
+
+    // S = Q K^T and dP = dO V^T
+    float s[kNt][4], dp[kNt][4];
+#pragma unroll
+    for (int j = 0; j < kNt; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    mm_abt<D>(q_s, ks, warp, lane, s);
+    mm_abt<D>(do_s, v_s + cur, warp, lane, dp);
+
+    // dS = P (dP keep / (1 - p) - delta), P = exp(scale S - lse) with a
+    // masked score at -1e30 (1 in a fully masked row, whose lse is
+    // -1e30); keys past sk contribute exactly nothing
+    const bool edge =
+        k0 + kTile > p.sk || (p.causal && q0 + off < k0 + kTile - 1);
+#pragma unroll
+    for (int j = 0; j < kNt; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float x = fmaf(s[j][e], scale2, -lse2[i]);
+        if (edge) {
+          const int col = k0 + j * 8 + 2 * t + (e & 1);
+          if (col >= p.sk)
+            x = -INFINITY;
+          else if (p.causal && row0 + 8 * i + off < col)
+            x = (kNegInf - lse[i]) * kLog2e;
+        }
+        const float dpv =
+            (keep >> (j * 4 + e)) & 1u ? dp[j][e] * p.inv_keep : 0.f;
+        s[j][e] = ex2(x) * (dpv - delta[i]);
+      }
+    // dQ += dS K (dS rounded to bf16; scaled at the end)
+    mm_xb<D>(s, ks, lane, acc);
+    __syncthreads();  // every warp is done with stage `cur` before refill
+  }
+
+  bf16* dq = const_cast<bf16*>(head<bf16>(p.o, p.st[kO], b, h));
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= p.sq) continue;
+    bf16* dqr = dq + row * p.st[kO][2] + 2 * t;
+#pragma unroll
+    for (int c = 0; c < NO; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(dqr + c * 8) = __floats2bfloat162_rn(
+          acc[c][2 * i] * p.scale, acc[c][2 * i + 1] * p.scale);
+  }
+}
+
 // the keep mask itself, for checking the hash against the plain version
 __global__ void keep_mask_kernel(uint8_t* out, int BH, int sq, int sk,
                                  uint32_t thresh, const long long* seed) {
@@ -1128,28 +1255,26 @@ struct Kernel {
   int threads;
 };
 
-template <typename T, int D>
-Kernel pick(int pass) {
-  if (pass == 1) return {dq_kernel<T, D>, dq_smem<D>(), kThreads};
-  if constexpr (sizeof(T) == 2) {  // bf16: B1 and B3 on the tensor cores
+template <int D>
+Kernel pick(int pass, int dtype) {
+  if (dtype == 1) {  // bf16: B1-B3 on the tensor cores
     if (pass == 0) return {fwd_kernel_mma<D>, fwd_mma_smem<D>(), kThreadsTc};
+    if (pass == 1) return {dq_kernel_mma<D>, dq_mma_smem<D>(), kThreadsTc};
     return {dkv_kernel_mma<D>, dkv_mma_smem<D>(), kThreadsTc};
   } else {
-    if (pass == 0) return {fwd_kernel<T, D>, fwd_smem<D>(), kThreads};
-    return {dkv_kernel<T, D>, dkv_smem<D>(), kThreads};
+    if (pass == 0) return {fwd_kernel<D>, fwd_smem<D>(), kThreads};
+    if (pass == 1) return {dq_kernel<D>, dq_smem<D>(), kThreads};
+    return {dkv_kernel<D>, dkv_smem<D>(), kThreads};
   }
 }
 
 // pass 0-2, dtype 0 (f32) or 1 (bf16), d 32 / 64 / 128; false otherwise
 bool pick_for(int pass, int dtype, int d, Kernel* kern) {
-  if (pass < 0 || pass > 2) return false;
-  switch (dtype * 1000 + d) {
-    case 32: *kern = pick<float, 32>(pass); return true;
-    case 64: *kern = pick<float, 64>(pass); return true;
-    case 128: *kern = pick<float, 128>(pass); return true;
-    case 1032: *kern = pick<bf16, 32>(pass); return true;
-    case 1064: *kern = pick<bf16, 64>(pass); return true;
-    case 1128: *kern = pick<bf16, 128>(pass); return true;
+  if (pass < 0 || pass > 2 || dtype < 0 || dtype > 1) return false;
+  switch (d) {
+    case 32: *kern = pick<32>(pass, dtype); return true;
+    case 64: *kern = pick<64>(pass, dtype); return true;
+    case 128: *kern = pick<128>(pass, dtype); return true;
     default: return false;
   }
 }
@@ -1192,10 +1317,10 @@ extern "C" int flash_attn(int pass, int dtype, int d, const void* q,
   p.seed = seed;
   Kernel kern;
   if (!pick_for(pass, dtype, d, &kern)) return cudaErrorInvalidValue;
-  if (dtype == 1 && pass != 1) {
+  if (dtype == 1) {
     // the tensor-core kernels copy 16-byte row chunks of q, k, v, do and
     // store bf16 pairs of the outputs
-    const void* ins[4] = {q, k, v, pass == 2 ? dout : nullptr};
+    const void* ins[4] = {q, k, v, pass != 0 ? dout : nullptr};
     for (int i = 0; i < 4; ++i) {
       if (ins[i] == nullptr) continue;
       if (reinterpret_cast<uintptr_t>(ins[i]) % 16 != 0)

@@ -21,33 +21,54 @@
 // Design. One kernel shape serves all three: a block OWNS a tile of
 // rows of one operand ("a": x for B4 / B5, w for B6), kept in shared
 // memory for the whole block, and WALKS the other operand ("b": w for
-// B4 / B5, x for B6) in tiles of kBQ = 64 rows. Each step loads the b
-// tile, forms the score tile a b^T over all of H, then either folds it
-// into the per-row online statistics (B4) or turns it into d and adds
-// d b (B5: dx rows of the owned x rows) or d^T b (B6: dw rows of the
-// owned vocab rows) into accumulators held in registers. The TPU
-// kernels keep a [256, 768] dx and a [1024, 768] dw accumulator in VMEM
-// (3 MB); here an owned tile is 32 rows, whose [32, H] f32 accumulator
-// spreads over the block's 8 warps (96 registers a thread at H 768).
-// B5 owns row tiles and walks the vocab, B6 owns vocab tiles and walks
-// the rows, so every output element is summed by one thread in a fixed
-// order: no atomics, results repeat bit for bit.
+// B4 / B5, x for B6) in tiles of 64 rows. Each step loads the b tile,
+// forms the score tile a b^T over all of H, then either folds it into
+// the per-row online statistics (B4) or turns it into d and adds d b
+// (B5: dx rows of the owned x rows) or d^T b (B6: dw rows of the owned
+// vocab rows) into f32 accumulators held in registers. The TPU kernels
+// keep a [256, 768] dx and a [1024, 768] dw accumulator in VMEM (3 MB);
+// here the register file (256 KB an SM) holds them. B5 owns row tiles
+// and walks the vocab, B6 owns vocab tiles and walks the rows, so every
+// output element is summed by one thread in a fixed order: no atomics,
+// results repeat bit for bit. Columns past V and rows past N are
+// zero-filled by the copies and masked in d.
 //
-// bf16 operands run on the tensor cores with warp-level
-// mma.sync.m16n8k16 (bf16 in, f32 accumulators: the reference's
-// arithmetic), fragments loaded with ldmatrix. The walked tile sits in
-// shared memory as H / 64 chunk slots filled by cp.async; a slot is
-// refilled with the next tile's chunk as soon as the block is done with
-// it, so the loads of one step run under the products of the one
-// before. The score tile stays in the accumulator registers for the
-// epilogue; d is rounded to bf16 into shared memory and read back as
-// the A operand of the second product, whose B operand (the walked
-// tile, K = its rows) is transposed on load with ldmatrix.trans. f32
-// operands (tests, steps without amp) take a CUDA-core path of the same
-// shape in full f32 (no TF32). Shared-memory rows are padded by 16
-// bytes, so fragment loads fall on distinct banks. H is a multiple of
-// 64 up to 1024 (one instantiation each of 64, 128, 256, 512, 768,
-// 1024); N and V are arbitrary.
+// B4 and B5 in bf16 (tc_kernel): warp-level mma.sync.m16n8k16 (bf16 in,
+// f32 accumulators: the reference's arithmetic), fragments loaded with
+// ldmatrix. An owned tile is 32 rows (B4: 64 up to H 768), its [32, H]
+// accumulator spread over 8 warps (96 registers a thread at H 768). The
+// walked tile sits in shared memory as H / 64 chunk slots filled by
+// cp.async; a slot is refilled with the next tile's chunk as soon as the
+// block is done with it, so the loads of one step run under the
+// products of the one before. d is rounded to bf16 into shared memory
+// and read back as the A operand of the second product, whose B operand
+// (the walked tile, K = its rows) is transposed on load with
+// ldmatrix.trans. Shared-memory rows are padded by 16 bytes, so fragment
+// loads fall on distinct banks.
+//
+// B6 in bf16 (dw_kernel_wg, H <= 768): warpgroup products (wgmma) with
+// both operands read from shared memory through descriptors, so no
+// fragment passes through registers. It removes the four limits of the
+// 32-row mma.sync design it replaced (6.4 ms at the ERNIE shape on an
+// H100): a block owns 64 vocab rows, so x streams through L2 282 times
+// instead of 563 (6.8 GB instead of 13.5); the score product is m64n32
+// a warpgroup and the dW product m64n64, against 16 x 16 warp tiles fed
+// by two ldmatrix a pair of mma; the [64, 768] f32 accumulator (192 KB)
+// spreads over two warpgroups at 192 registers a thread (252 in all, no
+// spills); the next token tile is refilled part by part under the
+// current tile's products; the 2.14 waves of 64-row tiles (282 on 132
+// SMs) become 2 whole waves and a third of 126 blocks that split the
+// last 18 tiles 7 ways over the tokens, the last piece of each summing
+// the f32 partials in piece order (dw_split). What bounds it now: one
+// block an SM (202 KB of shared memory), whose phases (score product, d
+// on the CUDA cores, dW product, the next tile's first loads) follow
+// each other. At H 1024 the 64-row accumulator would fill the register
+// file, so B6 keeps the 32-row mma.sync kernel there.
+//
+// f32 operands (tests, steps without amp) take a CUDA-core path of the
+// same shape in full f32 (no TF32). H is a multiple of 64 up to 1024
+// (one instantiation each of 64, 128, 256, 512, 768, 1024); N and V are
+// arbitrary.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,6 +94,13 @@ struct Args {
   float* lse_out;     // [N], forward output
   void* out;          // dx [N, H] or dw [V, H], operand dtype
   int n, vocab;       // N, V
+  // B6 on warpgroup products: vocab tiles >= `full` are split over the
+  // tokens into `pieces` ranges of `piece_tokens`; each piece writes its
+  // f32 partial [64, H] to `ws` and counts itself in `count` (one int a
+  // split tile, zeroed before the launch)
+  float* ws;
+  int* count;
+  int full, pieces, piece_tokens;
 };
 
 template <int MODE>
@@ -529,6 +557,348 @@ __global__ void __launch_bounds__(kThreads, 1) tc_kernel(const Args p) {
 }
 
 // ---------------------------------------------------------------------------
+// B6 in bf16 on warpgroup products (wgmma), H <= 768
+// ---------------------------------------------------------------------------
+// A block of two warpgroups owns 64 vocab rows (the wgmma M) and walks
+// the tokens in tiles of 64. Per tile:
+//   S [64 vocab, 64 tokens] = W X^T over H: warpgroup g forms the
+//     m64n32 half of tokens 32 g .. 32 g + 31 (both operands K-major in
+//     shared memory), one k16 step per wgmma;
+//   d = (exp(S - lse) - onehot) * g, rounded to bf16 into D [64, 64];
+//   dW [64, H] += D X: warpgroup g owns the H / 2 columns of every other
+//     64-column chunk (chunks g, g + 2, ...), m64n64 accumulators in f32
+//     registers (H 768: 192 a thread, two warpgroups of 128 threads, one
+//     block an SM), X read MN-major by the same descriptors' transpose.
+// Shared memory holds the owned table rows W [64, H] and the walked tile
+// X [64, H] as 64-column chunks of [64 rows][128 bytes] with the 128-byte
+// swizzle (16-byte unit u of row r at u ^ (r % 8)), D [64, 64] likewise.
+// The tile's columns are refilled part by part (a part: one warpgroup's
+// chunk) by cp.async as soon as that warpgroup's second product on them
+// has finished, so the next tile's loads run under this tile's products
+// and the next score product starts on the parts that landed first.
+constexpr int kWgThreads = 256;     // two warpgroups
+constexpr int kVP = 64;             // owned vocab rows
+constexpr int kTQ = 64;             // tokens a walked tile
+constexpr uint32_t kChunk = 64 * 128;   // bytes of a swizzled chunk
+
+template <int H>
+constexpr size_t dw_wg_smem() {
+  // alignment slack, W and X chunks, D, the tile's lse / g / labels
+  return 1024 + 2 * (size_t)(H / 64) * kChunk + kChunk + 3 * kTQ * 4;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void cp_async16_s(uint32_t dst, const void* src,
+                                             bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4_s(uint32_t dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+// byte offset of 16-byte unit u (0..7) of row r inside a swizzled chunk
+__device__ __forceinline__ uint32_t swz(int r, int u) {
+  return r * 128 + ((u ^ (r & 7)) << 4);
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets (K-major: the stride steps 8 rows of
+// M or N, the leading offset is unused; MN-major: the stride steps 8
+// rows of K, the leading offset 64 columns of M or N)
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// wait until at most `n` (< 8) of the warpgroup's product groups run
+__device__ __forceinline__ void wg_wait_n(int n) {
+  switch (n) {
+    case 0: wg_wait<0>(); break;
+    case 1: wg_wait<1>(); break;
+    case 2: wg_wait<2>(); break;
+    case 3: wg_wait<3>(); break;
+    case 4: wg_wait<4>(); break;
+    case 5: wg_wait<5>(); break;
+    case 6: wg_wait<6>(); break;
+    default: wg_wait<7>(); break;
+  }
+}
+// generic-proxy writes (st.shared, cp.async) made visible to wgmma
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products that own the registers
+template <int R>
+__device__ __forceinline__ void reg_fence(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x N] (+)= A B, bf16 from shared memory through descriptors; the
+// f32 accumulator of lane (g, t) of warp w: d[4 j + 2 h + e] is row
+// 16 w + g + 8 h, column 8 j + 2 t + e
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+// PW columns a part (one wgmma n: 64, or 32 at H = 64, where the two
+// warpgroups split the only chunk), NP parts a warpgroup
+template <int H>
+__global__ void __launch_bounds__(kWgThreads, 1) dw_kernel_wg(const Args p) {
+  constexpr int NC = H / 64;
+  constexpr int PW = H >= 128 ? 64 : 32;
+  constexpr int NP = H / 2 / PW;
+  constexpr int R = PW / 2;           // accumulator registers of a part
+  static_assert(NP >= 1 && NP <= 8, "parts a warpgroup");
+
+  extern __shared__ uint4 smem4[];
+  const uint32_t raw = smem_u32(smem4);
+  const uint32_t w_s = (raw + 1023) & ~1023u;   // swizzle atoms: 1 KB
+  const uint32_t x_s = w_s + NC * kChunk;
+  const uint32_t d_s = x_s + NC * kChunk;
+  const uint32_t rows_s = d_s + kChunk;         // lse, g, labels [kTQ]
+  const char* rows_p = reinterpret_cast<const char*>(smem4) + (rows_s - raw);
+  const float* lse_t = reinterpret_cast<const float*>(rows_p);
+  const float* g_t = lse_t + kTQ;
+  const int* lab_t = reinterpret_cast<const int*>(g_t + kTQ);
+
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127;
+  const int warp = wt >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  // the block's vocab tile and token range [t_lo, t_hi)
+  int vt = blockIdx.x, piece = -1, t_lo = 0, t_hi = p.n;
+  if (vt >= p.full) {
+    const int b = vt - p.full;
+    vt = p.full + b / p.pieces;
+    piece = b % p.pieces;
+    t_lo = piece * p.piece_tokens;
+    t_hi = min(p.n, t_lo + p.piece_tokens);
+  }
+  const int v0 = vt * kVP;
+  const __nv_bfloat16* W = static_cast<const __nv_bfloat16*>(p.a);
+  const __nv_bfloat16* X = static_cast<const __nv_bfloat16*>(p.b);
+  auto part_col = [&](int pp) {
+    return PW == 64 ? (2 * pp + wg) * 64 : wg * 32;
+  };
+
+  // the owned table rows, one commit group of every thread
+  for (int i = tid; i < kVP * (H / 8); i += kWgThreads) {
+    const int r = i / (H / 8), u = i % (H / 8);
+    const bool ok = v0 + r < p.vocab;
+    cp_async16_s(w_s + (u >> 3) * kChunk + swz(r, u & 7),
+                 W + (ok ? (size_t)(v0 + r) * H + u * 8 : 0), ok);
+  }
+  cp_async_commit();
+  // part pp of the tile of tokens t0..: this warpgroup's columns of the
+  // X rows (zeros past n) and, with part 0, the tile's lse, g and labels;
+  // one commit group of every thread, whatever it copies
+  auto fill = [&](int t0, int pp) {
+    const int col0 = part_col(pp);
+    for (int i = wt; i < kTQ * (PW / 8); i += 128) {
+      const int r = i / (PW / 8), col = col0 + (i % (PW / 8)) * 8;
+      const bool ok = t0 + r < t_hi;
+      cp_async16_s(x_s + (col >> 6) * kChunk + swz(r, (col & 63) >> 3),
+                   X + (ok ? (size_t)(t0 + r) * H + col : 0), ok);
+    }
+    if (pp == 0 && wt < kTQ) {
+      const int t = t0 + wt;
+      const bool ok = t < t_hi;
+      const int at = ok ? t : 0;
+      if (wg == 0) {
+        cp_async4_s(rows_s + wt * 4, p.lse + at, ok);
+        cp_async4_s(rows_s + (kTQ + wt) * 4, p.g + at, ok);
+      } else {
+        cp_async4_s(rows_s + (2 * kTQ + wt) * 4, p.labels + at, ok);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int pp = 0; pp < NP; ++pp) fill(t_lo, pp);
+
+  float acc[NP][R];
+#pragma unroll
+  for (int pp = 0; pp < NP; ++pp)
+#pragma unroll
+    for (int e = 0; e < R; ++e) acc[pp][e] = 0.f;
+
+  for (int t0 = t_lo; t0 < t_hi; t0 += kTQ) {
+    // S: warpgroup wg's 32 tokens, over the chunks as their parts land
+    float s[16];
+#pragma unroll
+    for (int pp = 0; pp < NP; ++pp) {
+      cp_async_wait_n(NP - 1 - pp);
+      fence_async_smem();
+      __syncthreads();        // parts pp of both warpgroups have landed
+      wg_fence();
+#pragma unroll
+      for (int c = 2 * pp; c < (2 * pp + 2 < NC ? 2 * pp + 2 : NC); ++c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_n32<0>(s, wg_desc(w_s + c * kChunk + kk * 32, 16, 1024),
+                       wg_desc(x_s + c * kChunk + wg * 32 * 128 + kk * 32,
+                               16, 1024),
+                       (c | kk) != 0);
+      wg_commit();
+    }
+    wg_wait<0>();
+    reg_fence(s);
+
+    // d of the tile, rounded to bf16, into D [vocab row][token]
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + g + 8 * h, v = v0 + r;
+        const int tl = wg * 32 + j * 8 + 2 * t4;   // the tile's token
+        float d[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          d[e] = dlogit(s[4 * j + 2 * h + e],
+                        t0 + tl + e < t_hi && v < p.vocab, lse_t[tl + e],
+                        g_t[tl + e], v == lab_t[tl + e]);
+        const uint32_t dst = d_s + swz(r, tl >> 3) + (tl & 7) * 2;
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst),
+                     "r"(pack_bf16(d[0], d[1])));
+      }
+    fence_async_smem();
+    __syncthreads();          // D complete; every S product is done
+
+    // dW[:, part] += D X[:, part], one commit group a part
+    wg_fence();
+#pragma unroll
+    for (int pp = 0; pp < NP; ++pp) {
+      const int col0 = part_col(pp);
+      const uint32_t xb = x_s + (col0 >> 6) * kChunk + (col0 & 63) * 2;
+#pragma unroll
+      for (int kk = 0; kk < kTQ / 16; ++kk) {
+        const uint64_t da = wg_desc(d_s + kk * 32, 16, 1024);
+        // one 64-column atom in N: the leading offset (the next atom's)
+        // is never stepped, so it is given the stride of 8 K rows too
+        const uint64_t db = wg_desc(xb + kk * 16 * 128, 1024, 1024);
+        if constexpr (PW == 64)
+          wgmma_n64<1>(acc[pp], da, db, 1);
+        else
+          wgmma_n32<1>(acc[pp], da, db, 1);
+      }
+      wg_commit();
+    }
+    // refill each part for the next tile once its products are done
+#pragma unroll
+    for (int pp = 0; pp < NP; ++pp) {
+      wg_wait_n(NP - 1 - pp);
+      fill(t0 + kTQ, pp);
+    }
+  }
+  cp_async_wait<0>();       // the copies past the last tile
+#pragma unroll
+  for (int pp = 0; pp < NP; ++pp) reg_fence(acc[pp]);
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+  if (piece < 0) {
+#pragma unroll
+    for (int pp = 0; pp < NP; ++pp)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = v0 + warp * 16 + g + 8 * h;
+        if (row >= p.vocab) continue;
+#pragma unroll
+        for (int j = 0; j < R / 4; ++j)
+          *reinterpret_cast<uint32_t*>(out + (size_t)row * H +
+                                       part_col(pp) + j * 8 + 2 * t4) =
+              pack_bf16(acc[pp][4 * j + 2 * h], acc[pp][4 * j + 2 * h + 1]);
+      }
+    return;
+  }
+
+  // a piece of a split tile: its f32 partial into the workspace; the
+  // piece that finishes last sums all of them in piece order (the same
+  // order whichever block it is, so results repeat bit for bit)
+  float* part = p.ws + (size_t)(blockIdx.x - p.full) * kVP * H;
+#pragma unroll
+  for (int pp = 0; pp < NP; ++pp)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < R / 4; ++j)
+        *reinterpret_cast<float2*>(part + (warp * 16 + g + 8 * h) * H +
+                                   part_col(pp) + j * 8 + 2 * t4) =
+            make_float2(acc[pp][4 * j + 2 * h], acc[pp][4 * j + 2 * h + 1]);
+  __threadfence();
+  __syncthreads();
+  int* last = reinterpret_cast<int*>(smem4);   // the copies are all done
+  if (tid == 0)
+    *last = atomicAdd(p.count + (vt - p.full), 1) == p.pieces - 1;
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  const float2* parts = reinterpret_cast<const float2*>(
+      p.ws + (size_t)(vt - p.full) * p.pieces * kVP * H);
+  for (int i = tid; i < kVP * H / 2; i += kWgThreads) {
+    const int row = v0 + 2 * i / H;
+    if (row >= p.vocab) break;
+    float2 sum = __ldcg(parts + i);
+    for (int q = 1; q < p.pieces; ++q) {
+      const float2 x = __ldcg(parts + (size_t)q * kVP * H / 2 + i);
+      sum.x += x.x;
+      sum.y += x.y;
+    }
+    *reinterpret_cast<uint32_t*>(out + (size_t)v0 * H + 2 * i) =
+        pack_bf16(sum.x, sum.y);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // CUDA-core path (f32 operands, full f32)
 // ---------------------------------------------------------------------------
 
@@ -648,56 +1018,109 @@ __global__ void __launch_bounds__(kThreads) f32_kernel(const Args p) {
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename K>
-cudaError_t launch_one(K kernel, size_t smem, int rows, int per_block,
-                       const Args& p, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int grid = (rows + per_block - 1) / per_block;
-  kernel<<<grid, kThreads, smem, st>>>(p);
-  return cudaGetLastError();
+// the kernel, dynamic shared memory, block size and owned rows a block
+// of a mode
+struct Kernel {
+  void (*fn)(const Args);
+  size_t bytes;
+  int threads, rows;
+  bool split = false;   // B6 on warpgroup products: see dw_split
+};
+
+// B6's grid on `sms` SMs: the vocab tiles past the last whole wave are
+// each split over the tokens into `pieces` ranges of `tiles` token
+// tiles, so the last wave holds about as many blocks as the others
+// (ERNIE: 282 tiles on 132 SMs, 264 whole and 18 split 7 ways)
+struct Split {
+  int full, pieces, tiles, split_tiles;
+};
+Split dw_split(int n, int vocab, int sms) {
+  const int nvt = (vocab + kVP - 1) / kVP, ntt = (n + kTQ - 1) / kTQ;
+  const int rem = nvt % sms;
+  if (rem == 0 || sms / rem < 2 || ntt < 2) return {nvt, 1, ntt, 0};
+  int pieces = min(sms / rem, ntt);
+  const int tiles = (ntt + pieces - 1) / pieces;
+  pieces = (ntt + tiles - 1) / tiles;   // none empty
+  return {nvt - rem, pieces, tiles, rem};
+}
+
+// workspace of a split launch: the pieces' f32 partials, then a counter
+// a split tile
+size_t dw_ws_bytes(const Split& sp, int H) {
+  return (size_t)sp.split_tiles * sp.pieces * kVP * H * 4 +
+         (size_t)sp.split_tiles * 4;
 }
 
 template <int H>
-cudaError_t launch_h(int mode, int bf16, const Args& p, cudaStream_t st) {
-  const int rows = mode == kDw ? p.vocab : p.n;
+Kernel pick_h(int mode, int bf16) {
   if (!bf16) {
     const size_t smem = f32_smem_bytes<H>();
     switch (mode) {
-      case kFwd: return launch_one(f32_kernel<kFwd, H>, smem, rows, kFP, p, st);
-      case kDx: return launch_one(f32_kernel<kDx, H>, smem, rows, kFP, p, st);
-      default: return launch_one(f32_kernel<kDw, H>, smem, rows, kFP, p, st);
+      case kFwd: return {f32_kernel<kFwd, H>, smem, kThreads, kFP};
+      case kDx: return {f32_kernel<kDx, H>, smem, kThreads, kFP};
+      default: return {f32_kernel<kDw, H>, smem, kThreads, kFP};
     }
   }
   // the forward owns 64 rows (half the walks over w) where they fit
   constexpr int kFwdBP = H <= 768 ? 64 : 32;
   switch (mode) {
     case kFwd:
-      return launch_one(tc_kernel<kFwd, kFwdBP, H>,
-                        tc_smem_bytes<kFwdBP, H>(kFwd), rows, kFwdBP, p, st);
+      return {tc_kernel<kFwd, kFwdBP, H>, tc_smem_bytes<kFwdBP, H>(kFwd),
+              kThreads, kFwdBP};
     case kDx:
-      return launch_one(tc_kernel<kDx, 32, H>, tc_smem_bytes<32, H>(kDx),
-                        rows, 32, p, st);
+      return {tc_kernel<kDx, 32, H>, tc_smem_bytes<32, H>(kDx), kThreads, 32};
     default:
-      return launch_one(tc_kernel<kDw, 32, H>, tc_smem_bytes<32, H>(kDw),
-                        rows, 32, p, st);
+      // a 64-row f32 dW accumulator of 1024 columns would fill the
+      // register file: H 1024 keeps the 32-row mma.sync kernel
+      if constexpr (H <= 768)
+        return {dw_kernel_wg<H>, dw_wg_smem<H>(), kWgThreads, kVP, true};
+      else
+        return {tc_kernel<kDw, 32, H>, tc_smem_bytes<32, H>(kDw), kThreads,
+                32};
+  }
+}
+
+// mode 0-2, dtype 0 (f32) or 1 (bf16), H one of the six; false otherwise
+bool pick(int mode, int dtype, int H, Kernel* k) {
+  if (mode < 0 || mode > 2) return false;
+  switch (H) {
+    case 64: *k = pick_h<64>(mode, dtype); return true;
+    case 128: *k = pick_h<128>(mode, dtype); return true;
+    case 256: *k = pick_h<256>(mode, dtype); return true;
+    case 512: *k = pick_h<512>(mode, dtype); return true;
+    case 768: *k = pick_h<768>(mode, dtype); return true;
+    case 1024: *k = pick_h<1024>(mode, dtype); return true;
+    default: return false;
   }
 }
 
 }  // namespace
 
+// bytes of the workspace that fused_lce needs for (mode, dtype, H, n,
+// vocab) on `num_sms` SMs (0: none); -1 for arguments it does not take
+extern "C" long long fused_lce_workspace(int mode, int dtype, int H, int n,
+                                         int vocab, int num_sms) {
+  Kernel k;
+  if (n <= 0 || vocab <= 0 || num_sms <= 0 || !pick(mode, dtype, H, &k))
+    return -1;
+  return k.split ? (long long)dw_ws_bytes(dw_split(n, vocab, num_sms), H)
+                 : 0;
+}
+
 // mode: 0 forward (B4: nll, lse), 1 dx (B5), 2 dw (B6); dtype: 0 f32,
 // 1 bf16 (x and w share it). x [n, H], w [vocab, H], out [n or vocab,
 // H], all rows contiguous and 16-byte aligned; labels int32 [n]; lse,
-// g f32 [n]. Returns cudaGetLastError() of the launch.
+// g f32 [n]; ws: fused_lce_workspace bytes (256-byte aligned) or null
+// when that is 0. Returns cudaGetLastError() of the launch.
 extern "C" int fused_lce(int mode, int dtype, int H, const void* x,
                          const void* w, const int* labels, const float* lse,
                          const float* g, float* nll, float* lse_out, void* out,
-                         int n, int vocab, int num_sms, void* stream) {
-  (void)num_sms;
-  if (mode < 0 || mode > 2 || n <= 0 || vocab <= 0)
+                         void* ws, int n, int vocab, int num_sms,
+                         void* stream) {
+  Kernel k;
+  if (n <= 0 || vocab <= 0 || num_sms <= 0 || !pick(mode, dtype, H, &k))
     return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   Args p;
   p.a = mode == kDw ? w : x;
   p.b = mode == kDw ? x : w;
@@ -709,18 +1132,55 @@ extern "C" int fused_lce(int mode, int dtype, int H, const void* x,
   p.out = out;
   p.n = n;
   p.vocab = vocab;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (H) {
-    case 64: err = launch_h<64>(mode, dtype, p, st); break;
-    case 128: err = launch_h<128>(mode, dtype, p, st); break;
-    case 256: err = launch_h<256>(mode, dtype, p, st); break;
-    case 512: err = launch_h<512>(mode, dtype, p, st); break;
-    case 768: err = launch_h<768>(mode, dtype, p, st); break;
-    case 1024: err = launch_h<1024>(mode, dtype, p, st); break;
-    default: err = cudaErrorInvalidValue;
+  const int rows = mode == kDw ? vocab : n;
+  int grid = (rows + k.rows - 1) / k.rows;
+  p.ws = nullptr;
+  p.count = nullptr;
+  p.full = grid;
+  p.pieces = 1;
+  p.piece_tokens = n;
+  cudaError_t err = cudaSuccess;
+  if (k.split) {
+    const Split sp = dw_split(n, vocab, num_sms);
+    if (sp.split_tiles > 0) {
+      if (ws == nullptr) return cudaErrorInvalidValue;
+      p.ws = static_cast<float*>(ws);
+      p.count = reinterpret_cast<int*>(
+          static_cast<char*>(ws) + dw_ws_bytes(sp, H) - sp.split_tiles * 4);
+      err = cudaMemsetAsync(p.count, 0, sp.split_tiles * 4, st);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    p.full = sp.full;
+    p.pieces = sp.pieces;
+    p.piece_tokens = sp.tiles * kTQ;
+    grid = sp.full + sp.split_tiles * sp.pieces;
   }
-  return static_cast<int>(err);
+  err = cudaFuncSetAttribute(
+      k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)k.bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k.fn<<<grid, k.threads, k.bytes, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// what fused_lce launches for (mode, dtype, H): registers and local
+// (spilled) bytes a thread, threads and shared bytes a block, and the
+// blocks an SM holds at once
+extern "C" int fused_lce_occupancy(int mode, int dtype, int H, int* out) {
+  Kernel k;
+  if (!pick(mode, dtype, H, &k)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)k.bytes);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, k.fn);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], k.fn,
+                                                        k.threads, k.bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = k.threads;
+  out[3] = static_cast<int>(k.bytes);
+  return 0;
 }
 
 extern "C" const char* cuda_error_string(int err) {

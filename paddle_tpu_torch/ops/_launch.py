@@ -39,17 +39,30 @@ def same_device(name, ref, *tensors):
                 f"{t.device}")
 
 
-def bind(lib_name, fn_name, argtypes):
+def bind(lib_name, fn_name, argtypes, restype=_I):
     """The C entry point `fn_name` of ``csrc/<lib_name>.cu`` (built and
     loaded on first use) with its ctypes signature declared."""
     lib = _build.load(lib_name)
     fn = getattr(lib, fn_name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
-        fn.restype = _I
+        fn.restype = restype
         lib.cuda_error_string.argtypes = [_I]
         lib.cuda_error_string.restype = ctypes.c_char_p
     return lib, fn
+
+
+def occupancy(lib_name, fn_name, *args):
+    """What a kernel entry launches for the int `args` on the current
+    card, from its occupancy entry `fn_name`: ``{registers, local_bytes,
+    threads, smem_bytes, blocks_per_sm}`` (a report; no op calls it)."""
+    lib, fn = bind(lib_name, fn_name, [_I] * len(args) + [_P])
+    out = (ctypes.c_int * 5)()
+    err = fn(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{fn_name}: {lib.cuda_error_string(err).decode()}")
+    return dict(zip(("registers", "local_bytes", "threads", "smem_bytes",
+                     "blocks_per_sm"), out))
 
 
 def launch(lib, fn, what, device, *args):

@@ -12,6 +12,11 @@ Pallas TPU kernels of the reference:
     B5 `_bwd_dx_kernel`   backward dx              _bwd_pallas (dx)
     B6 `_bwd_dw_kernel`   backward dw              _bwd_pallas (dw)
 
+A bf16 CUDA tensor launches B4 and B5 on ``mma.sync`` and B6 on
+warpgroup products (``dw_kernel_wg``, ``wgmma``; at hidden size 1024 B6
+keeps the ``mma.sync`` kernel, whose 32-row tile fits the register
+file); f32 runs all three on the CUDA cores in full f32.
+
 CPU tensors run the plain PyTorch versions `_fwd_plain` / `_bwd_plain`,
 ported from the reference's ``_fwd_lax`` / ``_bwd_lax``: a loop over
 vocab chunks of ``chunk_v`` rows of the table that never forms
@@ -36,6 +41,8 @@ precision against the low-precision lse.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -158,11 +165,35 @@ def _check(x, w, labels):
 def _bind():
     P, I = _launch._P, _launch._I
     return _launch.bind("fused_loss", "fused_lce",
-                        [I, I, I, P, P, P, P, P, P, P, P, I, I, I, P])
+                        [I, I, I, P, P, P, P, P, P, P, P, P, I, I, I, P])
+
+
+def _workspace(mode, x, w):
+    """The scratch the kernel of `mode` needs on x's card (B6 on
+    warpgroup products: the f32 partials of the vocab tiles it splits
+    over the tokens, and their counters), or None."""
+    _, fn = _launch.bind("fused_loss", "fused_lce_workspace",
+                         [_launch._I] * 6, ctypes.c_longlong)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    nbytes = fn(mode, int(x.dtype == torch.bfloat16), x.shape[1],
+                x.shape[0], w.shape[0], sms)
+    if nbytes < 0:
+        raise ValueError("fused_lce_workspace: arguments not taken")
+    return torch.empty((nbytes,), dtype=torch.uint8, device=x.device) \
+        if nbytes else None
+
+
+def _occupancy(mode, dtype, h):
+    """What the op launches for mode 0 (B4), 1 (B5) or 2 (B6) in `dtype`
+    at hidden size `h` on the current card (`_launch.occupancy`; a
+    report, the op never calls it)."""
+    return _launch.occupancy("fused_loss", "fused_lce_occupancy", mode,
+                             int(dtype == torch.bfloat16), h)
 
 
 def _run(mode, x, w, labels32, lse=None, g=None, nll=None, lse_out=None,
          out=None):
+    ws = _workspace(mode, x, w)
     lib, fn = _bind()
     _launch.launch(
         lib, fn, ("fused_lce_fwd", "fused_lce_dx", "fused_lce_dw")[mode],
@@ -173,7 +204,7 @@ def _run(mode, x, w, labels32, lse=None, g=None, nll=None, lse_out=None,
         nll.data_ptr() if nll is not None else None,
         lse_out.data_ptr() if lse_out is not None else None,
         out.data_ptr() if out is not None else None,
-        x.shape[0], w.shape[0])
+        ws.data_ptr() if ws is not None else None, x.shape[0], w.shape[0])
     launches[("B4", "B5", "B6")[mode]] += 1
 
 

@@ -12,8 +12,11 @@ TPU kernels of the reference:
     B2 `_bwd_dq_kernel`   backward dq               _flash_bwd_kernel
     B3 `_bwd_dkv_kernel`  backward dk, dv           _flash_bwd_kernel
 
-In bf16, B1 and B3 run on the tensor cores (``mma.sync``); B2 and every
-f32 pass run on the CUDA cores in full f32.
+A bf16 CUDA tensor launches the tensor-core kernels of all three
+(``fwd_kernel_mma``, ``dq_kernel_mma``, ``dkv_kernel_mma``: ``mma.sync``
+bf16 with f32 accumulators), or raises where its rows are not 16-byte
+aligned (the wrapper aligns them first); an f32 one runs every pass on
+the CUDA cores in full f32.
 
 CPU tensors run the plain PyTorch versions `_flash_fwd_plain` /
 `_flash_bwd_plain`, ported from the reference's ``_flash_fwd_jnp`` /
@@ -123,18 +126,10 @@ def _keep_mask_kernel(seed, bh, sq, sk, dropout_p):
 
 def _occupancy(pass_, dtype, d):
     """What `flash_attention` launches for pass 0 (B1), 1 (B2) or 2 (B3)
-    in `dtype` at head dim `d` on the current card: ``{registers,
-    local_bytes, threads, smem_bytes, blocks_per_sm}`` (a report; no
-    pass of the attention calls it)."""
-    lib, fn = _launch.bind("flash_attn", "flash_occupancy",
-                           [_launch._I, _launch._I, _launch._I, _launch._P])
-    out = (ctypes.c_int * 5)()
-    err = fn(pass_, int(dtype == torch.bfloat16), d, out)
-    if err != 0:
-        raise RuntimeError(
-            f"flash_occupancy: {lib.cuda_error_string(err).decode()}")
-    return dict(zip(("registers", "local_bytes", "threads", "smem_bytes",
-                     "blocks_per_sm"), out))
+    in `dtype` at head dim `d` on the current card (`_launch.occupancy`;
+    a report, no pass of the attention calls it)."""
+    return _launch.occupancy("flash_attn", "flash_occupancy", pass_,
+                             int(dtype == torch.bfloat16), d)
 
 
 # -- plain versions (the reference's jnp path) -------------------------------

@@ -1,5 +1,5 @@
-"""The port's package boundary: paddle_tpu_torch (and chip_smoke.py)
-never import jax or anything of paddle_tpu, and its entry points run on
+"""The port's package boundary: paddle_tpu_torch (and chip_smoke.py,
+chip_ab.py) never import jax or anything of paddle_tpu, and its entry points run on
 CUDA unless the caller asks for the CPU — without a GPU they raise
 instead of quietly running on the CPU."""
 
@@ -49,7 +49,8 @@ def test_importing_every_module_pulls_in_no_jax_and_no_paddle_tpu():
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    "path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                          REPO / "chip_ab.py"],
     ids=lambda p: str(p.relative_to(REPO)))
 def test_no_forbidden_import_in_source(path):
     tree = ast.parse(path.read_text(), filename=str(path))

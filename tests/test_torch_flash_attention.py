@@ -1,7 +1,9 @@
 """Port parity: paddle_tpu_torch's flash attention (the plain PyTorch
 versions behind kernels B1-B3, which CPU tensors take) against
 paddle_tpu's ``ops.fused_ops.flash_attention``, on its jnp path and on
-its Pallas kernels in interpret mode (``PADDLE_TPU_FLASH_FORCE=pallas``).
+its Pallas kernels in interpret mode (``PADDLE_TPU_FLASH_FORCE=pallas``;
+in f32 and bf16, sq != sk both ways; fully masked rows against the jnp
+path, see ``INTERP_CASES``).
 
 Tolerances: f32 ``o`` within rtol=atol=1e-5 and gradients within 2e-4
 (f32 sums in other orders); bf16 within 2e-2 (both round p and ds to
@@ -82,15 +84,37 @@ def test_plain_matches_reference_jnp_path_bf16(causal):
            _jax(q, k, v, w, causal, jnp.bfloat16), 2e-2, 2e-2)
 
 
-@pytest.mark.parametrize("causal", [False, True])
-def test_plain_matches_reference_pallas_kernels_interpret(causal):
-    q, k, v, w = _inputs(1, 1, 70, 70, 8, seed=3)
-    os.environ["PADDLE_TPU_FLASH_FORCE"] = "pallas"
+# (sq, sk, dtype, causal): the square f32 cases, then bf16 and sq != sk
+# both ways under causal — the shapes at which the card holds the
+# tensor-core kernels against these plain versions. With sq > sk and
+# causal the first sq - sk rows are fully masked; the reference's Pallas
+# kernels average them over its keys padded to the 128-row block (o
+# scaled by sk / 128) where its jnp path and the port average the sk
+# keys, so that case is held against the jnp path.
+INTERP_CASES = [
+    pytest.param(70, 70, "float32", False, id="False"),
+    pytest.param(70, 70, "float32", True, id="True"),
+    pytest.param(70, 70, "bfloat16", False, id="bf16-70x70"),
+    pytest.param(70, 70, "bfloat16", True, id="bf16-70x70-causal"),
+    pytest.param(40, 70, "float32", True, id="40x70-causal"),
+    pytest.param(40, 70, "bfloat16", True, id="bf16-40x70-causal"),
+    pytest.param(70, 40, "float32", True, id="70x40-causal-jnp"),
+    pytest.param(70, 40, "bfloat16", True, id="bf16-70x40-causal-jnp"),
+]
+
+
+@pytest.mark.parametrize("sq,sk,dtype,causal", INTERP_CASES)
+def test_plain_matches_reference_pallas_kernels_interpret(sq, sk, dtype,
+                                                           causal):
+    q, k, v, w = _inputs(1, 1, sq, sk, 8, seed=3)
+    masked_rows = causal and sq > sk
+    os.environ["PADDLE_TPU_FLASH_FORCE"] = "jnp" if masked_rows else "pallas"
     try:
-        want = _jax(q, k, v, w, causal)
+        want = _jax(q, k, v, w, causal, getattr(jnp, dtype))
     finally:
         os.environ.pop("PADDLE_TPU_FLASH_FORCE", None)
-    _close(_torch(q, k, v, w, causal), want, 1e-5, 2e-4)
+    tol = (1e-5, 2e-4) if dtype == "float32" else (2e-2, 2e-2)
+    _close(_torch(q, k, v, w, causal, getattr(torch, dtype)), want, *tol)
 
 
 def test_masked_sdpa_matches_reference():

@@ -1,6 +1,7 @@
 """Port parity: paddle_tpu_torch's fused LM-head loss (ops/fused_loss.py)
 against paddle_tpu's, on the same numpy inputs (n 37, h 64, v 301,
-chunk 128: no row, vocab or chunk boundary aligned).
+chunk 128: no row, vocab or chunk boundary aligned; and n 200, h 128,
+v 777, past several of the kernels' 64- and 128-row tiles).
 
 - the plain forward (nll, lse) and backward (dx, dw) against the
   reference's lax path (``_fwd_lax`` / ``_bwd_lax``) and its Pallas
@@ -59,13 +60,13 @@ class _force:
             os.environ["PADDLE_TPU_LMLOSS_FORCE"] = self.prev
 
 
-def _data(masked, seed=0):
+def _data(masked, seed=0, n=N, h=H, v=V):
     rs = np.random.RandomState(seed)
-    x = (rs.randn(N, H) * 0.5).astype(np.float32)
-    w = (rs.randn(V, H) * 0.1).astype(np.float32)
-    lbl = rs.randint(0, V, N).astype(np.int32)
-    lbl[rs.rand(N) < masked] = -100
-    g = rs.rand(N).astype(np.float32)
+    x = (rs.randn(n, h) * 0.5).astype(np.float32)
+    w = (rs.randn(v, h) * 0.1).astype(np.float32)
+    lbl = rs.randint(0, v, n).astype(np.int32)
+    lbl[rs.rand(n) < masked] = -100
+    g = rs.rand(n).astype(np.float32)
     g[lbl == -100] = 0.0
     return x, w, lbl, g
 
@@ -111,6 +112,33 @@ def test_plain_fwd_bwd_match_reference(mode, masked, dtype):
     _close(lse.numpy(), jlse, "float32")
     _close(nll.numpy()[valid], np.asarray(jnll)[valid], "float32")
     assert np.isfinite(nll.numpy()).all()
+    for got, want in ((dx, jdx), (dw, jdw)):
+        _close(got.float().numpy(), want.astype(jnp.float32), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["lax", "pallas"])
+def test_plain_fwd_bwd_match_reference_ragged_tiles(mode, dtype):
+    """N 200 and V 777 past several of the kernels' 64- and 128-row tiles
+    (neither a multiple of either), H 128, plain chunks of 128 that do not
+    divide V: the same tolerances as above."""
+    n, h, v = 200, 128, 777
+    x, w, lbl, g = _data(0.3, seed=4, n=n, h=h, v=v)
+    jx, jw = (jnp.asarray(a).astype(dtype) for a in (x, w))
+    jl, jg = jnp.asarray(lbl), jnp.asarray(g)
+    with _force(mode):
+        fwd, bwd = ((jfl._fwd_lax, jfl._bwd_lax) if mode == "lax" else
+                    (jfl._fwd_pallas, jfl._bwd_pallas))
+        jnll, jlse = fwd(jx, jw, jl, CV)
+        jdx, jdw = bwd(jx, jw, jl, jlse, jg, CV)
+    tdt = getattr(torch, dtype)
+    tx, tw = (torch.from_numpy(a).to(tdt) for a in (x, w))
+    tl = torch.from_numpy(lbl).long()
+    nll, lse = tfl._fwd_plain(tx, tw, tl, CV)
+    dx, dw = tfl._bwd_plain(tx, tw, tl, lse, torch.from_numpy(g), CV)
+    valid = lbl != -100
+    _close(lse.numpy(), jlse, "float32")
+    _close(nll.numpy()[valid], np.asarray(jnll)[valid], "float32")
     for got, want in ((dx, jdx), (dw, jdw)):
         _close(got.float().numpy(), want.astype(jnp.float32), dtype)
 

@@ -6,16 +6,20 @@ products (f32 sums in another order; its e4m3 codes bitwise through an
 identity operand), with f32 and bf16 operands, a Linear weight and a
 transposed vocab chunk as b, at ragged shapes, B1-B3 flash
 attention within 1e-5 (o) / 2e-4 (grads) in f32 (sums in another
-order) and 2e-2 in bf16 (B1 and B3 on the tensor cores; B1 rounds p
+order) and 2e-2 in bf16 (B1-B3 on the tensor cores; B1 rounds p
 divided by the running row sum to bf16 before its value product where
 the plain version rounds the normalised p, and the kernels' exp is the
 hardware's approximation), at every head dim, ragged rows, sq != sk,
 packed q / k / v views and a transposed output gradient, with the
-dropout mask equal bit for bit; B4-B6 (the
+dropout mask equal bit for bit and the bf16 backward repeating bit for
+bit; B4-B6 (the
 fused LM-head loss) within 1e-5 in f32 at ragged shapes (vocab tails,
 heavy masking, every row ignored) and within one bf16 ulp in bf16
 (the plain version's f32 scores are summed in another order, which can
-move d across a bf16 rounding boundary), repeating bit for bit; B10
+move d across a bf16 rounding boundary), and in bf16 at ragged shapes
+against B6's 64-row tiles (every hidden size) with exact scores, where
+both sides round the same d, within one bf16 ulp; repeating bit for
+bit; B10
 (the fused conv) with every epilogue (none, moments, affine with and
 without a residual, ReLU and identity) at ragged pixel counts, channel
 counts (12 as the space-to-depth stem, odd ones) and output widths,
@@ -271,6 +275,26 @@ def test_flash_kernels_match_plain_bf16(shape, packed, causal, dropout_p):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
+def test_flash_bf16_backward_repeats_bitwise(dropout_p):
+    """B2 and B3 own their output tiles (no atomics): the same backward
+    twice gives the same dq, dk, dv bit for bit."""
+    _card()
+    gen = torch.Generator().manual_seed(11)
+    q, k, v = (torch.randn((2, 3, 200, 64), generator=gen).to(
+        torch.bfloat16).cuda() for _ in range(3))
+    do = torch.randn((2, 3, 200, 64), generator=gen).to(torch.bfloat16).cuda()
+    sd = torch.tensor(5, device="cuda")
+    grads = []
+    for _ in range(2):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        fused_ops.flash_attention(*leaves, sd, is_causal=True,
+                                  dropout_p=dropout_p).backward(do)
+        grads.append([t.grad for t in leaves])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("p", [0.1, 0.5])
 def test_flash_dropout_mask_bitwise(p):
     _card()
@@ -350,6 +374,57 @@ def test_fused_loss_kernels_repeat_bitwise(dtype):
     first = _lce_both(x, w, lbl, g)[0]
     second = _lce_both(x, w, lbl, g)[0]
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# bf16 ragged against B6's 64-row vocab and token tiles (and B5's 32-row
+# tiles): every hidden size, V and N not multiples of 64 or 128, every
+# label ignored; all but the first and the last split vocab tiles over
+# the tokens on a 132-SM card (`dw_split`)
+LCE_BF16_RAGGED = [(37, 64, 301, 0.3), (300, 64, 301, 0.3),
+                   (130, 128, 1000, 0.85), (300, 256, 777, 1.0),
+                   (200, 512, 300, 0.5), (129, 768, 65, 0.0),
+                   (65, 768, 4001, 0.5), (70, 1024, 513, 0.5)]
+
+
+def _lce_exact_case(n, h, v, masked):
+    """bf16 x in quarters and w in sixteenths of -2..2: every score is
+    exact in f32 in any order of its sums, so given one lse the kernels
+    and the plain version round the same d to bf16 and dx / dw differ
+    only by the order of their own f32 sums. (With arbitrary operands
+    the two sides' scores differ in their last bits, a d on a bf16
+    rounding boundary can round either way, and where dw's terms cancel
+    that moves an element by more than one of its own ulps.)"""
+    rng = np.random.RandomState(n + h + v)
+    x = torch.from_numpy(rng.randint(-2, 3, (n, h)) / 4.0)
+    w = torch.from_numpy(rng.randint(-2, 3, (v, h)) / 16.0)
+    lbl = rng.randint(0, v, n)
+    lbl[rng.rand(n) < masked] = -100
+    g = torch.from_numpy(rng.rand(n).astype(np.float32))
+    g[torch.from_numpy(lbl) == -100] = 0.0
+    return (x.to(torch.bfloat16).cuda(), w.to(torch.bfloat16).cuda(),
+            torch.from_numpy(lbl).cuda(), g.cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,v,masked", LCE_BF16_RAGGED)
+def test_fused_loss_bf16_ragged_within_one_ulp_and_repeats(n, h, v, masked):
+    _card()
+    x, w, lbl, g = _lce_exact_case(n, h, v, masked)
+    nll, lse = fused_loss._fwd_kernel(x, w, lbl)
+    before = dict(fused_loss.launches)
+    dx, dw = fused_loss._bwd_kernel(x, w, lbl, lse, g)
+    assert all(fused_loss.launches[k] == before[k] + 1 for k in ("B5", "B6"))
+    dx_p, dw_p = fused_loss._bwd_plain(x, w, lbl, lse, g, 128)
+    for gt, wt in ((dx, dx_p), (dw, dw_p)):
+        gt, wt = gt.float(), wt.float()
+        # one bf16 ulp of each element (of the largest one near 0)
+        ulp = torch.maximum(wt.abs(), wt.abs().max() * 2 ** -8) * 2 ** -7
+        assert bool(((gt - wt).abs() <= ulp).all()), \
+            float(((gt - wt).abs() / ulp).max())
+    if masked == 1.0:
+        assert float(dw.float().abs().max()) == 0.0
+    again = fused_loss._bwd_kernel(x, w, lbl, lse, g)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
 
 
 @pytest.mark.cuda
