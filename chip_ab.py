@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Before / after timings of the flash-attention dq kernel (B2) and the
-LM-head loss kernels (B4-B6) of two checkouts of the port, on one card.
+"""Before / after timings of the flash-attention dq kernel (B2), the
+LM-head loss kernels (B4-B6) and the fused conv (B10) of two checkouts
+of the port, on one card.
 
     python3 chip_ab.py PARENT_DIR
 
@@ -11,13 +12,22 @@ one call, and prints one JSON line per process: B2 at the ERNIE shape
 ([32, 12, 512, 64] bf16, dropout 0.1 and 0), B4, B5 and B6 at the
 ERNIE head ([16384, 768] x [18000, 768] bf16), each as chip_smoke.py
 times it (median of CUDA events, L2 flushed), and each kernel's largest
-difference from the plain version on the same inputs (B2 absolute, B6
-in bf16 ulps, also at a ragged head with every label valid). Needs one
-CUDA card; exits 2 without one.
+difference from the plain version on the same inputs (B2 absolute, B5
+and B6 in bf16 ulps, also at a ragged head with every label valid);
+B10 at every conv of one ResNet-50 training step at b128 (bf16,
+recorded from the tree's own model), each timed as chip_smoke.py times
+it and checked within one bf16 ulp of the plain version, summed over
+the step's 114 launches in all and by class. A fifth process then
+loads both checkouts' fused-loss libraries and times B6 of each on the
+same inputs in turns (the parent's `fused_lce` entry must take this
+checkout's arguments), so that a difference between the processes above
+is told from one between the kernels. Needs one CUDA card; exits 2
+without one.
 """
 
 from __future__ import annotations
 
+import ctypes
 import importlib.util
 import json
 import subprocess
@@ -82,6 +92,9 @@ def one(tree):
         dw = fl._bwd_dw_kernel(x, w, lbl32, lse, g)
         dw_p = fl._bwd_plain(x, w, lbl, lse, g, 1024)[1]
         out[f"B6_ulps_{label}"] = sm._bf16_ulps(dw, dw_p)
+        dx = fl._bwd_dx_kernel(x, w, lbl32, lse, g)
+        out[f"B5_ulps_{label}"] = sm._bf16_ulps(
+            dx, fl._bwd_plain(x, w, lbl, lse, g, 1024)[0])
         if label == "ernie":
             out["B4_ms"] = sm._time_ms(lambda: fl._fwd_kernel(x, w, lbl),
                                        flush)
@@ -89,13 +102,84 @@ def one(tree):
                 lambda: fl._bwd_dx_kernel(x, w, lbl32, lse, g), flush)
             out["B6_ms"] = sm._time_ms(
                 lambda: fl._bwd_dw_kernel(x, w, lbl32, lse, g), flush)
-        del x, w, dw, dw_p
+        del x, w, dx, dw, dw_p
+    out.update(b10_step(sm, gen, flush))
     print(json.dumps(out), flush=True)
+
+
+def b10_step(sm, gen, flush):
+    """B10 summed over one ResNet-50 training step's launches, in all and
+    by `chip_smoke._conv_class`; the largest bf16 ulp against the plain
+    version."""
+    import torch
+
+    from paddle_tpu_torch.ops import fused_conv
+
+    train_calls, _ = sm._record_resnet_convs()
+    total, by_class, ulps = 0.0, {}, 0.0
+    for key, per_step in sorted(train_calls.items()):
+        _x, _w, plan, xp, wk, kw = sm._conv_operands(key, torch.bfloat16,
+                                                     gen)
+        got = fused_conv._conv_kernel(xp, wk, plan, **kw)[0]
+        ulps = max(ulps, sm._bf16_ulps(
+            got, fused_conv._conv_plain(xp, wk, plan, **kw)[0]))
+        ms = sm._time_ms(lambda: fused_conv._conv_kernel(xp, wk, plan, **kw),
+                         flush, n=20, spin=sm.AUTOGRAD_SPIN)
+        total += per_step * ms
+        cls = sm._conv_class(key)
+        by_class[cls] = by_class.get(cls, 0.0) + per_step * ms
+    return {"B10_step_ms": total, "B10_step_launches":
+            sum(train_calls.values()), "B10_by_class_ms": by_class,
+            "B10_max_ulps": ulps}
+
+
+def b6_in_turns(parent, rounds=8):
+    """B6 at the ERNIE head through this checkout's wrapper, launching
+    the parent's library and this one's in turns (ABBA order), in one
+    process on one set of inputs: each round's median and both outputs
+    compared bit for bit."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import fused_loss as fl
+
+    spec = importlib.util.spec_from_file_location(
+        "parent_build", Path(parent).resolve() / "paddle_tpu_torch" / "ops" /
+        "_build.py")
+    parent_build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(parent_build)
+    libs = {"parent": ctypes.CDLL(str(parent_build._compile("fused_loss")[0])),
+            "change": _build.load("fused_loss")}
+    sm = _smoke()
+    gen = torch.Generator().manual_seed(7)
+    flush = torch.empty(32 * 1024 * 1024, device="cuda")
+    x, w, lbl, g = sm._lce_case(16384, 768, 18000, 0.85, torch.bfloat16,
+                                gen, 1.0, 0.02)
+    lbl32 = lbl.to(torch.int32)
+    _nll, lse = fl._fwd_kernel(x, w, lbl)
+    dws, times = {}, {key: [] for key in libs}
+    for r in range(rounds):
+        for key in (("parent", "change") if r % 2 == 0 else
+                    ("change", "parent")):
+            _build._libs["fused_loss"] = libs[key]
+            dws[key] = fl._bwd_dw_kernel(x, w, lbl32, lse, g)
+            times[key].append(sm._time_ms(
+                lambda: fl._bwd_dw_kernel(x, w, lbl32, lse, g), flush))
+    _build._libs["fused_loss"] = libs["change"]
+    print(json.dumps({"B6_in_turns_ms": times, "card": sm._card_line(),
+                      "median_ms": {k: sorted(v)[len(v) // 2]
+                                    for k, v in times.items()},
+                      "equal": torch.equal(dws["parent"], dws["change"])}),
+          flush=True)
 
 
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--one":
         one(sys.argv[2])
+        return
+    if len(sys.argv) == 3 and sys.argv[1] == "--b6-turns":
+        b6_in_turns(sys.argv[2])
         return
     import torch
 
@@ -106,6 +190,8 @@ def main():
     for tree in (sys.argv[1], ROOT, ROOT, sys.argv[1]):
         subprocess.run([sys.executable, __file__, "--one", str(tree)],
                        check=True)
+    subprocess.run([sys.executable, __file__, "--b6-turns", sys.argv[1]],
+                   check=True)
 
 
 if __name__ == "__main__":

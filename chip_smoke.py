@@ -41,11 +41,13 @@ Phases (any failure raises and the script exits non-zero):
    plain chunks that do not divide V, within 1e-5; the ERNIE shape
    x [16384, 768], w [18000, 768] in bf16 within one bf16 ulp on dx and
    dw and 1e-3 relative on the loss; bf16 at ragged shapes with exact
-   scores within one bf16 ulp; B6 on warpgroup products in bf16 up to H
-   768), B6 repeating bit for bit at the ERNIE shape, the registers and blocks
-   per SM of every kernel, then timed at the ERNIE shape beside the
-   plain versions, the unfused two-call composition (the
-   yardstick, never called by the port) and the card's least time.
+   scores within one bf16 ulp; B5 and B6 on warpgroup products in bf16
+   up to H 768), B5 and B6 repeating bit for bit at the ERNIE shape, the
+   registers and blocks per SM of every kernel, then timed at the ERNIE
+   shape beside the plain versions, the library yardsticks (never called
+   by the port: the unfused two-call composition for B4 / B6, and for B5
+   the same composition's backward asked for dx alone) and the card's
+   least time.
 8. The train step against its plain version: a tiny ERNIE on cuda and
    on the CPU, same weights and seeds, attention dropout 0.1,
    FLAGS_use_fused_lm_loss on (the cuda run goes through B1-B6); three
@@ -89,7 +91,10 @@ Phases (any failure raises and the script exits non-zero):
     within 1e-4; f32 at three of them, within 1e-5 of the largest
     element, K up to 4608), then timed beside the plain version, cuDNN's
     bf16 F.conv2d on the same NCHW operands (the yardstick, never
-    called by the port) and the bound; summed over a step's launches.
+    called by the port) and the bound; summed over a step's launches,
+    in all and by class (1x1 / 3x3 at stride 1 and 2, the stem, the dx
+    parity planes); the registers and blocks per SM of the bf16 kernel
+    at each of its three tile widths.
 18. A tiny ResNet-18 and a narrow bottleneck ResNet-50 on cuda against
     the same models on the CPU: eval logits, one Momentum step's loss,
     and each parameter's and running stat's change over the step.
@@ -890,11 +895,15 @@ def phase_fused_loss(card):
                       "loss": loss, "plain_loss": loss_p, "ulps": ulps,
                       "max_abs_err": errs}), flush=True)
     del dx_p, dw_p
-    # B6 owns its vocab rows (no atomics): two launches agree bit for bit
+    # B5 owns its token rows, B6 its vocab rows (no atomics): two
+    # launches agree bit for bit
+    _check(torch.equal(fl._bwd_dx_kernel(x, w, lbl32, lse, g), dx),
+           "B5 does not repeat bit for bit")
     _check(torch.equal(fl._bwd_dw_kernel(x, w, lbl32, lse, g), dw),
            "B6 does not repeat bit for bit")
-    print(json.dumps({"bitwise_repeat": "B6", "shape": [n, h, v],
-                      "equal": True}), flush=True)
+    for key in ("B5", "B6"):
+        print(json.dumps({"bitwise_repeat": key, "shape": [n, h, v],
+                          "equal": True}), flush=True)
     for dtype in (torch.bfloat16, torch.float32):
         for hd in fl._HIDDEN:
             for mode, key in enumerate(("B4", "B5", "B6")):
@@ -914,9 +923,16 @@ def phase_fused_loss(card):
     lib_loss = lib_fwd()
     flush = torch.empty(32 * 1024 * 1024, device="cuda")   # 128 MB
     bw, _, _, bf16_peak = _peaks(card)
-    lib_fwd_ms = _time_ms(lambda: lib_fwd(), flush, n=20)
+    lib_fwd_ms = _time_ms(lambda: lib_fwd(), flush, n=20,
+                          spin=AUTOGRAD_SPIN)
     lib_bwd_ms = _time_ms(lambda: torch.autograd.grad(
-        lib_loss, (xl, wl), retain_graph=True), flush, n=20)
+        lib_loss, (xl, wl), retain_graph=True), flush, n=20,
+        spin=AUTOGRAD_SPIN)
+    # B5's own function in library calls: the same autograd backward
+    # asked for dx alone (cross_entropy's softmax - onehot, the dx GEMM;
+    # no dw GEMM)
+    lib_dx_ms = _time_ms(lambda: torch.autograd.grad(
+        lib_loss, xl, retain_graph=True), flush, n=20, spin=AUTOGRAD_SPIN)
     del lib_loss
     plain_bwd_ms = _time_ms(lambda: fl._bwd_plain(x, w, lbl, lse, g, 1024),
                             flush, n=5)
@@ -938,8 +954,8 @@ def phase_fused_loss(card):
             replaces="paddle_tpu/ops/fused_loss.py:234 (_bwd_dx_kernel)",
             ms=_time_ms(lambda: fl._bwd_dx_kernel(x, w, lbl32, lse, g),
                         flush),
-            plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
-            library=library + " (backward, dx and dw)",
+            plain_ms=plain_bwd_ms, library_ms=lib_dx_ms,
+            library=library + " (backward, dx only)",
             nbytes=xh + wh + 3 * row + xh, ops=2 * flops),
         "B6": dict(
             name="fused_lce_bwd_dw",
@@ -1169,10 +1185,9 @@ def phase_train_profile(step, label):
     # their own names; cuDNN's weight gradients carry "wgrad", cuBLAS's
     # Hopper GEMMs "nvjet")
     kinds = (("B9", ("qmm_gemm", "quant_rows", "quant_cols")),
-             ("B10", ("tc_conv", "f32_conv")),
+             ("B10", ("wg_conv", "f32_conv")),
              ("flash B1-B3", ("fwd_kernel", "dq_kernel", "dkv_kernel")),
-             ("fused loss B4-B6", ("tc_kernel", "dw_kernel_wg",
-                                   "f32_kernel")),
+             ("fused loss B4-B6", ("tc_kernel", "wg_kernel", "f32_kernel")),
              ("conv weight grad (cuDNN)", ("wgrad",)),
              ("gemm", ("gemm", "Gemm", "sm90_xmma", "nvjet")),
              ("elementwise", ("elementwise",)), ("reduce", ("reduce",)),
@@ -1647,22 +1662,24 @@ def _resnet_batch(batch, hw, classes=1000, seed=0):
             rng.randint(0, classes, (batch,)).astype(np.int32))
 
 
-def phase_conv(card):
-    """B10 against its plain version at every distinct conv of the
-    ResNet-50 path at batch 128 (bf16 under O1): the training forward
-    (moments epilogue), the dx parity planes (none), the eval forward
-    (affine, with and without the residual, ReLU or identity), recorded
-    from one training step and one eval forward of the real model; f32
-    at three of them. Each timed with CUDA events (L2 flushed) beside
-    the plain version, cuDNN's bf16 F.conv2d on the same NCHW operands
-    (the yardstick, never called by the port) and the bound. Returns
-    the B10 row summed over one training step's launches."""
+def _conv_class(key):
+    """The class of a recorded conv that B10's per-step sums are split
+    by: 1x1 / 3x3 at stride 1 or 2, the 4x4 space-to-depth stem, and the
+    1x2 / 2x1 / 2x2 dx parity planes of the stride-2 3x3 convs."""
+    _xs, ws, s, _pads, _epi = key
+    kh, kw = ws[2], ws[3]
+    if kh == kw and kh in (1, 3):
+        return f"{kh}x{kw} s{s}"
+    return "stem 4x4" if kh == kw == 4 else "dx parity planes"
+
+
+def _record_resnet_convs():
+    """The distinct convs that reach B10 in one ResNet-50 training step
+    and one eval forward at b128 (bf16 under O1), with how often each
+    runs: two `_ConvRecorder.calls` dicts."""
     import torch
-    import torch.nn.functional as tF
 
     from paddle_tpu_torch import amp
-    from paddle_tpu_torch.ops import fused_conv
-    from paddle_tpu_torch.ops.nn_ops import pad2d
 
     model = _resnet_model("cuda", space_to_depth_stem=True)
     eng = _resnet_engine(model, "cuda")
@@ -1677,35 +1694,70 @@ def phase_conv(card):
         model(x_img)
     del eng, model, x_img
     torch.cuda.empty_cache()
+    return train_rec.calls, eval_rec.calls
 
+
+def _conv_operands(key, dtype, gen):
+    """Random operands of a recorded conv on the card, lowered: (x, w,
+    plan, xp, wk, epilogue kwargs of `_conv_kernel`)."""
+    import torch
+
+    from paddle_tpu_torch.ops import fused_conv
+
+    xs, ws, s, pads, epi = key
+    x = torch.randn(xs, generator=gen).to(dtype).cuda()
+    w = (torch.randn(ws, generator=gen) /
+         (ws[1] * ws[2] * ws[3]) ** 0.5).to(dtype).cuda()
+    plan = fused_conv._plan(xs, ws, (s, s), pads)
+    xp, wk = fused_conv._lower(x, w, plan)
+    kw = dict(moments=epi == "moments")
+    if epi.startswith("affine"):
+        kw.update(g=torch.rand((ws[0],), generator=gen).cuda() + 0.5,
+                  b=torch.randn((ws[0],), generator=gen).cuda() * 0.1,
+                  act=epi.rsplit("+", 1)[1])
+        if "+res" in epi:
+            kw["res"] = torch.randn(
+                (xs[0], plan.ho, plan.wo, ws[0]),
+                generator=gen).to(dtype).cuda()
+    return x, w, plan, xp, wk, kw
+
+
+def phase_conv(card):
+    """B10 against its plain version at every distinct conv of the
+    ResNet-50 path at batch 128 (bf16 under O1): the training forward
+    (moments epilogue), the dx parity planes (none), the eval forward
+    (affine, with and without the residual, ReLU or identity), recorded
+    from one training step and one eval forward of the real model; f32
+    at three of them. Each timed with CUDA events (L2 flushed, the long
+    spin) beside the plain version, cuDNN's bf16 F.conv2d on the same
+    NCHW operands (the yardstick, never called by the port) and the
+    bound, summed
+    over a step's launches in all and by class (`_conv_class`); the
+    registers and blocks per SM of each bf16 tile. Returns the B10 row
+    summed over one training step's launches."""
+    import torch
+    import torch.nn.functional as tF
+
+    from paddle_tpu_torch.ops import fused_conv
+    from paddle_tpu_torch.ops.nn_ops import pad2d
+
+    train_calls, eval_calls = _record_resnet_convs()
     bw, _, _, bf16_peak = _peaks(card)
     flush = torch.empty(32 * 1024 * 1024, device="cuda")   # 128 MB
     gen = torch.Generator().manual_seed(10)
     shapes, step = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
                             bound_ms=0.0)
+    by_class = {}
     err = ulps_max = 0.0
-    keys = sorted(set(train_rec.calls) | set(eval_rec.calls))
+    keys = sorted(set(train_calls) | set(eval_calls))
     f32_keys = {max(keys, key=lambda k_: k_[1][1] * k_[1][2] * k_[1][3]),
                 keys[0], keys[-1]}
     for key in keys:
         xs, ws, s, pads, epi = key
-        per_step = train_rec.calls.get(key, 0)
+        per_step = train_calls.get(key, 0)
         for dtype in ([torch.bfloat16, torch.float32] if key in f32_keys
                       else [torch.bfloat16]):
-            x = torch.randn(xs, generator=gen).to(dtype).cuda()
-            w = (torch.randn(ws, generator=gen) /
-                 (ws[1] * ws[2] * ws[3]) ** 0.5).to(dtype).cuda()
-            plan = fused_conv._plan(xs, ws, (s, s), pads)
-            xp, wk = fused_conv._lower(x, w, plan)
-            kw = dict(moments=epi == "moments")
-            if epi.startswith("affine"):
-                kw.update(g=torch.rand((ws[0],), generator=gen).cuda() + 0.5,
-                          b=torch.randn((ws[0],), generator=gen).cuda() * 0.1,
-                          act=epi.rsplit("+", 1)[1])
-                if "+res" in epi:
-                    kw["res"] = torch.randn(
-                        (xs[0], plan.ho, plan.wo, ws[0]),
-                        generator=gen).to(dtype).cuda()
+            x, w, plan, xp, wk, kw = _conv_operands(key, dtype, gen)
             got = fused_conv._conv_kernel(xp, wk, plan, **kw)
             want = fused_conv._conv_plain(xp, wk, plan, **kw)
             torch.cuda.synchronize()
@@ -1728,24 +1780,28 @@ def phase_conv(card):
                                   "max_abs_err": (y - yw).abs().max().item()}),
                       flush=True)
                 continue
+            # the wrapper's host work (and the moments' two row sums)
+            # can outlast the default spin: time the device after a long
+            # one, cuDNN alike
             ms = _time_ms(lambda: fused_conv._conv_kernel(xp, wk, plan, **kw),
-                          flush, n=20)
+                          flush, n=20, spin=AUTOGRAD_SPIN)
             plain_ms = _time_ms(
                 lambda: fused_conv._conv_plain(xp, wk, plan, **kw), flush,
                 n=5)
             xpad = pad2d(x, pads)
             lib_ms = _time_ms(lambda: tF.conv2d(xpad, w, stride=s), flush,
-                              n=20)
+                              n=20, spin=AUTOGRAD_SPIN)
             m, o = xs[0] * plan.ho * plan.wo, ws[0]
             real = 2.0 * m * o * ws[1] * ws[2] * ws[3]
-            lowered = 2.0 * m * o * wk.shape[0] * wk.shape[1]
+            lowered = 2.0 * m * o * fused_conv._CHUNK_K * len(
+                fused_conv._live_chunks(plan, wk.shape[1]))
             nbytes = (xp.numel() + wk.numel() + m * o) * 2 + \
                 (m * o * 2 if "res" in kw else 0) + \
                 (2 * o * 4 if epi != "none" else 0)
             t_bytes, t_ops = nbytes / bw * 1e3, real / bf16_peak * 1e3
             row = dict(x=list(xs), w=list(ws), stride=s, pads=list(pads),
                        epilogue=epi, launches_per_step=per_step,
-                       eval_launches=eval_rec.calls.get(key, 0), ms=ms,
+                       eval_launches=eval_calls.get(key, 0), ms=ms,
                        plain_ms=plain_ms, cudnn_ms=lib_ms,
                        bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -1757,14 +1813,24 @@ def phase_conv(card):
                           ("library_ms", lib_ms),
                           ("bound_ms", row["bound_ms"])):
                 step[k_] += per_step * v
+            cls = by_class.setdefault(_conv_class(key), dict(
+                launches=0, ms=0.0, cudnn_ms=0.0, bound_ms=0.0))
+            cls["launches"] += per_step
+            for k_, v in (("ms", ms), ("cudnn_ms", lib_ms),
+                          ("bound_ms", row["bound_ms"])):
+                cls[k_] += per_step * v
             del x, w, xp, wk, got, want
     t_bytes = sum(r["launches_per_step"] * r["bound_ms"] for r in shapes
                   if r["bound_by"] == "bytes")
     t_ops = step["bound_ms"] - t_bytes
-    per_step_total = sum(train_rec.calls.values())
+    per_step_total = sum(train_calls.values())
     print(json.dumps({"b10_per_step": step, "launches": per_step_total,
                       "distinct_shapes": len(keys),
                       "max_bf16_ulps": ulps_max}), flush=True)
+    print(json.dumps({"b10_per_step_by_class": by_class}), flush=True)
+    for tile_n in (64, 128, 256):
+        print(json.dumps({"conv_occupancy": f"bf16 tile_n {tile_n}",
+                          **fused_conv._occupancy(tile_n)}), flush=True)
     return dict(
         name="fused_conv2d_bn_act",
         route="cuda", source="paddle_tpu_torch/csrc/fused_conv.cu",

@@ -11,8 +11,8 @@
 // with the TPU kernel's three epilogues on the f32 accumulator:
 //   none     y = acc
 //   moments  y = acc, plus the per-channel sum and sum of squares of
-//            the unrounded f32 acc, one partial row per M tile
-//            ([tiles, O] each; the wrapper sums the rows, as the
+//            the unrounded f32 acc, one partial per M tile ([O, tiles]
+//            each; the wrapper sums each channel's row, as the
 //            reference sums its (N, 8, O) partials outside the kernel)
 //   affine   y = act(acc * g + b [+ residual]), g, b f32 per channel,
 //            the residual read in the operand dtype and added in f32,
@@ -24,28 +24,46 @@
 // tensor cores bound them; the narrow 1x1 ones (C or O 64) sit near the
 // byte line. Either way the product is the work.
 //
-// Design: an implicit GEMM. M = N * Ho * Wo output pixels, the GEMM's N
-// is O, K = T * Ce walked tap by tap and, within a tap, in chunks of 32
-// channels. A block owns a 128 x 64 tile of y and walks K; for each
-// step it gathers the 128 shifted pixel rows of xp (a row is the pixel
-// (n, ho + dh, wo + dw): Ce contiguous channels) and the [32, 64] slice
-// of wk into shared memory. No im2col buffer exists in device memory.
-// The row offsets of the tile's pixels are computed once per block. A
-// 2-stage ring of tiles is filled with cp.async (16-byte vectors where
-// Ce, resp. O, is a multiple of 8; element loads otherwise, such as
-// the 12-channel space-to-depth stem) while the other stage feeds the
-// tensor cores: mma.sync.m16n8k16, bf16 in, f32 accumulators (the
-// reference's arithmetic), A fragments by ldmatrix, B fragments by
-// ldmatrix.trans from the O-contiguous weight tile. Eight warps split
-// the block tile 4 (M) x 2 (O) into 32 x 32 warp tiles. Pixels past M,
-// channels past Ce and outputs past O are masked (zeros in, no store),
-// so any shape is taken. Moments come out of the registers: a shuffle
-// reduction over the rows a warp holds, then a fixed-order sum over
-// the 4 M-warps in shared memory; no atomics, so two launches agree
-// bit for bit. f32 operands take a CUDA-core path of the same shape
-// (64 x 64 tiles, 4 x 4 outputs a thread, fmaf in full f32: no TF32).
-// Shared-memory rows are padded by 16 bytes so fragment loads fall on
-// distinct banks.
+// Design (bf16): an implicit GEMM on warpgroup products (wgmma). M = N *
+// Ho * Wo output pixels, the GEMM's N is O, and K = T * Ce is one flat
+// axis walked in chunks of 64 (one 128-byte row of a swizzle atom). The
+// wrapper pads Ce to a multiple of 8 (zero channels in xp, zero rows in
+// wk), so every 8-channel unit of a chunk lies in one tap and is one
+// 16-byte cp.async: the unit at K index k reads pixel row
+// (n, ho + dh, wo + dw), channels c .. c + 7, with (dh, dw, c) from k. No
+// im2col buffer exists in device memory, and the 12-channel stem (16
+// padded, K 256) takes 4 chunks. Chunks that the stride-2 lowering
+// leaves structurally zero (taps past the kernel's support in some
+// parity planes) are skipped: the wrapper passes the list of live
+// chunks, and the block walks only those.
+//
+// A block of two warpgroups owns a tile of 128 pixels x BN outputs (BN
+// 64, 128 or 256, chosen from O and K), so x is read once for every BN
+// outputs; warpgroup g forms the m64 x BN product of pixels 64 g ..
+// from shared memory through descriptors: A [128 pixels][64 K] K-major,
+// B the [64 K, BN] slice of wk read MN-major (the transpose bit), both
+// in the 128-byte swizzle (16-byte unit u of row r at u ^ (r % 8)). A
+// ring of S stages is filled by cp.async S - 2 chunks ahead, while the
+// products of the chunk before still run. Convs of K under 1024 (most
+// 1x1s) take BN 128 and 3 stages, so two blocks share an SM and one's
+// epilogue runs under the other's loads and products.
+//
+// Epilogue: the f32 accumulators go through the none / moments / affine
+// math in registers; y is rounded to bf16 into shared memory and
+// written out in 16-byte row vectors, so each warp stores whole lines.
+// With a residual the tile stays f32 in shared memory and the row phase
+// adds the residual, read in the same 16-byte row vectors, before the
+// one rounding.
+// The moments are column sums of the unrounded f32 accumulators: each
+// thread's two rows of a column are added in registers, the 64 pair
+// sums of a column go through shared memory and one thread adds them in
+// a fixed order; no atomics, so two launches agree bit for bit (a
+// shuffle butterfly over the lanes' rows was slower on an H100). Pixels
+// past M and outputs past O are masked (zeros in, no store), so any
+// shape is taken.
+//
+// f32 operands take a CUDA-core path of the same contract (64 x 64
+// tiles, 4 x 4 outputs a thread, fmaf in full f32: no TF32).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,13 +71,12 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;     // both paths: two warpgroups (bf16)
 constexpr int kBM = 128;          // output pixels of a block tile (and
                                   // _TILE_M in ops/fused_conv.py)
-constexpr int kBN = 64;           // output channels of a block tile
-constexpr int kBK = 32;           // channels of one K step
-constexpr int kLDA = kBK + 8;     // A tile row stride (bf16): 80 bytes
-constexpr int kLDB = kBN + 8;     // B tile row stride (bf16): 144 bytes
+constexpr int kBK = 64;           // K of a chunk
+constexpr uint32_t kAChunk = kBM * 128;   // bytes of a stage's A tile
+constexpr int kMaxLive = 512;     // live-chunk list capacity
 
 constexpr int kFM = 64, kFN = 64, kFK = 16;   // CUDA-core tile (kFM:
                                               // _TILE_M too)
@@ -68,29 +85,19 @@ enum Epi { kNone = 0, kMoments = 1, kAffine = 2 };
 
 struct Args {
   const void* x;      // xp [N, Hp, Wp, Ce]
-  const void* w;      // wk [T, Ce, O]
+  const void* w;      // wk [T, Ce, ldw] (columns past O are zero)
   const float* g;     // affine scale [O]
   const float* b;     // affine shift [O]
   const void* res;    // residual [M, O] (operand dtype) or null
   void* y;            // [M, O], operand dtype
-  float* msum;        // moments partials [tiles, O]
+  float* msum;        // moments partials [O, tiles]
   float* msq;
-  int hp, wp, ce, ho, wo, kkh, kkw, o, m;
+  int tiles;          // M tiles
+  int hp, wp, ce, ho, wo, kkh, kkw, o, ldw, m;
   int epi, relu;
+  int nlive;          // chunks walked (bf16): live[0 .. nlive)
+  unsigned short live[kMaxLive];
 };
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // element offset of output pixel m's (dh = 0, dw = 0) input pixel in
 // xp, or -1 past M
@@ -102,244 +109,408 @@ __device__ __forceinline__ long long pixel_base(const Args& p, int m) {
   return ((long long)(n * p.hp + oh) * p.wp + ow) * p.ce;
 }
 
-// the epilogue of one output element (row m < M, column c < O)
-template <typename T>
-__device__ __forceinline__ float epilogue(const Args& p, float acc, int m,
-                                          int c) {
-  float v = acc;
-  if (p.epi == kAffine) {
-    v = v * p.g[c] + p.b[c];
-    if (p.res)
-      v += to_f(static_cast<const T*>(p.res)[(size_t)m * p.o + c]);
-    if (p.relu) v = fmaxf(v, 0.f);
-  }
-  return v;
-}
 
 // ---------------------------------------------------------------------------
-// tensor-core path (bf16 operands)
+// warpgroup path (bf16 operands)
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
 }
 
 // 16 bytes global -> shared without a register stop; zeros (and no
 // read) when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+__device__ __forceinline__ void cp_async16_s(uint32_t dst, const void* src,
+                                             bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 16 : 0));
 }
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
-
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-struct TcSmem {
-  __nv_bfloat16 a[2][kBM * kLDA];
-  __nv_bfloat16 b[2][kBK * kLDB];
-  long long rows[kBM];            // pixel_base of the tile's rows
-  float red[2][4][kBN];           // moments: per M-warp column sums
-};
-
-// Fill stage `st` with K step `ks`: the A tile (the tile's pixel rows,
-// shifted by the step's tap, channels c0 .. c0 + 31) and the B tile
-// (wk rows t * Ce + c0 .., columns o0 .. o0 + 63). AVEC / BVEC: Ce /
-// O is a multiple of 8, so a row chunk of 8 is one 16-byte vector.
-template <bool AVEC, bool BVEC>
-__device__ __forceinline__ void tc_fetch(TcSmem& s, const Args& p, int st,
-                                         int ks, int nck, int o0) {
-  const int t = ks / nck, c0 = (ks - t * nck) * kBK;
-  const int dh = t / p.kkw, dw = t - dh * p.kkw;
-  const long long tap = ((long long)dh * p.wp + dw) * p.ce + c0;
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
-  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(p.w);
-  __nv_bfloat16* As = s.a[st];
-  __nv_bfloat16* Bs = s.b[st];
-  if constexpr (AVEC) {
-#pragma unroll
-    for (int j = 0; j < kBM * kBK / 8 / kThreads; ++j) {
-      const int v = threadIdx.x + j * kThreads;
-      const int r = v >> 2, cv = (v & 3) * 8;
-      const long long base = s.rows[r];
-      const bool ok = base >= 0 && c0 + cv < p.ce;
-      cp_async16(As + r * kLDA + cv, x + (ok ? base + tap + cv : 0), ok);
-    }
-  } else {
-    const int c = threadIdx.x & (kBK - 1);
-    const bool cok = c0 + c < p.ce;
-#pragma unroll 4
-    for (int r = threadIdx.x / kBK; r < kBM; r += kThreads / kBK) {
-      const long long base = s.rows[r];
-      As[r * kLDA + c] = (base >= 0 && cok) ? x[base + tap + c]
-                                            : __float2bfloat16(0.f);
-    }
-  }
-  const long long wrow = (long long)t * p.ce + c0;
-  if constexpr (BVEC) {
-    const int r = threadIdx.x >> 3, cv = (threadIdx.x & 7) * 8;
-    const bool ok = c0 + r < p.ce && o0 + cv < p.o;
-    cp_async16(Bs + r * kLDB + cv,
-               w + (ok ? (wrow + r) * p.o + o0 + cv : 0), ok);
-  } else {
-    const int c = threadIdx.x & (kBN - 1);
-    const bool cok = o0 + c < p.o;
-#pragma unroll
-    for (int r = threadIdx.x / kBN; r < kBK; r += kThreads / kBN)
-      Bs[r * kLDB + c] = (cok && c0 + r < p.ce)
-                             ? w[(wrow + r) * p.o + o0 + c]
-                             : __float2bfloat16(0.f);
-  }
+// byte offset of 16-byte unit u (0..7) of row r inside a swizzle atom
+// row block (rows of 128 bytes)
+__device__ __forceinline__ uint32_t swz(int r, int u) {
+  return r * 128 + ((u ^ (r & 7)) << 4);
 }
 
-template <bool AVEC, bool BVEC>
-__global__ void __launch_bounds__(kThreads) tc_conv(const Args p) {
-  __shared__ __align__(16) TcSmem s;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;   // 4 x 2 warps of 32 x 32
-  const int m0 = blockIdx.x * kBM, o0 = blockIdx.y * kBN;
+// shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets (K-major: the stride steps 8 rows of
+// M or N, the leading offset is unused; MN-major: the stride steps 8
+// rows of K, the leading offset 64 columns of M or N)
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
 
-  for (int r = threadIdx.x; r < kBM; r += kThreads)
-    s.rows[r] = pixel_base(p, m0 + r);
-  __syncthreads();
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// generic-proxy writes (cp.async) made visible to wgmma
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products that own the registers
+template <int R>
+__device__ __forceinline__ void reg_fence(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 
-  const int nck = (p.ce + kBK - 1) / kBK;
-  const int nk = p.kkh * p.kkw * nck;
+// d[64 x N] += A B, A K-major and B MN-major (transposed) in shared
+// memory; the f32 accumulator of lane (g, t) of warp w: d[4 j + 2 h + e]
+// is row 16 w + g + 8 h, column 8 j + 2 t + e
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
 
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
 
-  tc_fetch<AVEC, BVEC>(s, p, 0, 0, nck, o0);
-  cp_async_commit();
-  for (int ks = 0; ks < nk; ++ks) {
-    const int st = ks & 1;
-    if (ks + 1 < nk) tc_fetch<AVEC, BVEC>(s, p, st ^ 1, ks + 1, nck, o0);
-    cp_async_commit();    // possibly empty: every thread counts alike
-    cp_async_wait<1>();   // step ks has landed
-    __syncthreads();
-    const __nv_bfloat16* As = s.a[st];
-    const __nv_bfloat16* Bs = s.b[st];
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_bn(float (&d)[BN / 2], uint64_t da,
+                                         uint64_t db) {
+  if constexpr (BN == 64) wgmma_n64(d, da, db);
+  else if constexpr (BN == 128) wgmma_n128(d, da, db);
+  else wgmma_n256(d, da, db);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int BN, int S>
+constexpr size_t wg_smem() {
+  // alignment slack and the ring of [A 128 x 64 | B 64 x BN] stages; the
+  // epilogue reuses the ring (the moments' partial rows [2][64][BN + 8]
+  // f32, then the y tile [128][BN + 8], bf16 or f32)
+  static_assert(kBM * (BN + 8) * 4 <= S * (kAChunk + BN * 128),
+                "the epilogue fits in the ring");
+  return 1024 + (size_t)S * (kAChunk + BN * 128);
+}
+
+template <int BN, int S>
+__global__ void __launch_bounds__(kThreads, BN == 256 ? 1 : 2)
+    wg_conv(const __grid_constant__ Args p) {
+  constexpr uint32_t kStage = kAChunk + BN * 128;
+  constexpr int VPR = BN / 8;            // 16-byte vectors of a wk row
+  constexpr int RPP = kThreads / VPR;    // wk rows a pass of the block
+  constexpr int LDY = BN + 8;            // y tile row stride (bf16)
+  constexpr int LDP = BN + 8;            // f32 tile row stride (the
+                                         // moments' partials, y with a
+                                         // residual)
+  static_assert(S >= 3, "the ring refills the stage of two chunks back");
+
+  extern __shared__ uint4 smem4[];
+  const uint32_t raw = smem_u32(smem4);
+  const uint32_t ring = (raw + 1023) & ~1023u;   // swizzle atoms: 1 KB
+  char* ring_p = reinterpret_cast<char*>(smem4) + (ring - raw);
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2,
+            t4 = lane & 3;
+  // O tiles of one M tile are neighbours in launch order, so the blocks
+  // that run together share their x rows
+  const int n_ot = (p.o + BN - 1) / BN;
+  const int mt = blockIdx.x / n_ot, ot = blockIdx.x - mt * n_ot;
+  const int m0 = mt * kBM, o0 = ot * BN;
+  const int K = p.kkh * p.kkw * p.ce;
+  const __nv_bfloat16* X = static_cast<const __nv_bfloat16*>(p.x);
+  const __nv_bfloat16* W = static_cast<const __nv_bfloat16*>(p.w);
+
+  // this thread's A copies: unit u of rows (tid >> 3) + 32 j
+  const int u = tid & 7, r0 = tid >> 3;
+  long long rb[4];
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldsm_x4(a[mi], As + (wm * 32 + mi * 16 + (lane & 15)) * kLDA + kk +
-                           (lane >> 4) * 8);
-#pragma unroll
-      for (int jp = 0; jp < 2; ++jp) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, Bs + (kk + (lane & 15)) * kLDB + wn * 32 + jp * 16 +
-                             (lane >> 4) * 8);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16(acc[mi][2 * jp], a[mi], b);
-          mma_bf16(acc[mi][2 * jp + 1], a[mi], b + 2);
-        }
+  for (int j = 0; j < 4; ++j) rb[j] = pixel_base(p, m0 + r0 + 32 * j);
+
+  // chunk i of the walk into stage i % S; one commit group of every
+  // thread, whatever it copies
+  auto load = [&](int i) {
+    if (i < p.nlive) {
+      const int kc = p.live[i];
+      const uint32_t st = ring + (i % S) * kStage;
+      const int k = kc * kBK + u * 8;
+      long long off = 0;
+      if (k < K) {
+        const int t = k / p.ce, c = k - t * p.ce;
+        const int dh = t / p.kkw, dw = t - dh * p.kkw;
+        off = ((long long)dh * p.wp + dw) * p.ce + c;
       }
-    }
-    __syncthreads();      // every warp is done with stage st
-  }
-  cp_async_wait<0>();
-
-  if (p.epi == kMoments) {
-    // column sums over the warp's 32 rows (rows past M hold exact 0),
-    // then over the 4 M-warps in a fixed order
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float v = acc[mi][j][2 * h + e];
-            s1 += v;
-            s2 += v * v;
-          }
-#pragma unroll
-        for (int off = 4; off < 32; off <<= 1) {
-          s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-          s2 += __shfl_xor_sync(0xffffffffu, s2, off);
-        }
-        if (g == 0) {
-          const int c = wn * 32 + j * 8 + 2 * t4 + e;
-          s.red[0][wm][c] = s1;
-          s.red[1][wm][c] = s2;
-        }
-      }
-    __syncthreads();
-    if (threadIdx.x < kBN && o0 + threadIdx.x < p.o) {
-      const int c = threadIdx.x;
-      const size_t at = (size_t)blockIdx.x * p.o + o0 + c;
-      p.msum[at] = ((s.red[0][0][c] + s.red[0][1][c]) + s.red[0][2][c]) +
-                   s.red[0][3][c];
-      p.msq[at] = ((s.red[1][0][c] + s.red[1][1][c]) + s.red[1][2][c]) +
-                  s.red[1][3][c];
-    }
-  }
-
-  __nv_bfloat16* y = static_cast<__nv_bfloat16*>(p.y);
-  const bool pairs = (p.o & 1) == 0;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm * 32 + mi * 16 + g + 8 * h;
-      if (m >= p.m) continue;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int c = o0 + wn * 32 + j * 8 + 2 * t4;
-        if (c >= p.o) continue;
-        const float v0 = epilogue<__nv_bfloat16>(p, acc[mi][j][2 * h], m, c);
-        if (pairs) {   // c even, O even: c + 1 < O and 4-byte aligned
-          const float v1 =
-              epilogue<__nv_bfloat16>(p, acc[mi][j][2 * h + 1], m, c + 1);
-          *reinterpret_cast<__nv_bfloat162*>(y + (size_t)m * p.o + c) =
-              __floats2bfloat162_rn(v0, v1);
-        } else {
-          y[(size_t)m * p.o + c] = __float2bfloat16(v0);
-          if (c + 1 < p.o)
-            y[(size_t)m * p.o + c + 1] = __float2bfloat16(
-                epilogue<__nv_bfloat16>(p, acc[mi][j][2 * h + 1], m, c + 1));
-        }
+        const bool ok = k < K && rb[j] >= 0;
+        cp_async16_s(st + swz(r0 + 32 * j, u), X + (ok ? rb[j] + off : 0),
+                     ok);
+      }
+      const int v = tid % VPR;
+#pragma unroll
+      for (int kr = tid / VPR; kr < kBK; kr += RPP) {
+        const int row = kc * kBK + kr;
+        const bool ok = row < K && o0 + v * 8 < p.ldw;
+        cp_async16_s(st + kAChunk + (v >> 3) * 8192 + swz(kr, v & 7),
+                     W + (ok ? (size_t)row * p.ldw + o0 + v * 8 : 0), ok);
       }
     }
+    cp_async_commit();
+  };
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int e = 0; e < BN / 2; ++e) acc[e] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < S - 2; ++i) load(i);
+  for (int i = 0; i < p.nlive; ++i) {
+    cp_async_wait<S - 3>();   // chunk i has landed (this thread's part)
+    fence_async_smem();
+    __syncthreads();          // ... every thread's; the products of
+                              // chunk i - 2 are done in both warpgroups
+    const uint32_t st = ring + (i % S) * kStage;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_bn<BN>(acc, wg_desc(st + wg * 64 * 128 + kk * 32, 16, 1024),
+                   wg_desc(st + kAChunk + kk * 16 * 128, 8192, 1024));
+    wg_commit();
+    wg_wait<1>();             // this warpgroup's products of chunk i - 1
+    load(i + S - 2);          // into the stage of chunk i - 2
+  }
+  wg_wait<0>();
+  reg_fence(acc);
+  cp_async_wait<0>();         // the empty groups past the last chunk
+  __syncthreads();            // the ring is free for the epilogue
+
+  const int rw = wg * 64 + warp * 16 + g;   // + 8 h: the thread's rows
+  if (p.epi == kMoments) {
+    // column sums of the unrounded acc over the tile's 128 rows (rows
+    // past M hold exact zeros): each thread adds its two rows of a
+    // column and stores the pair's sum and sum of squares as one of 64
+    // partial rows (rows padded by 8 floats, so at most two of a warp's
+    // stores share a bank); then one thread a (quantity, column) adds
+    // the 64 in order
+    float* part = reinterpret_cast<float*>(ring_p);   // [2][64][LDP]
+    const int pr = (wg * 4 + warp) * 8 + g;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float a0 = acc[4 * j + e], a1 = acc[4 * j + 2 + e];
+        const int col = 8 * j + 2 * t4 + e;
+        part[pr * LDP + col] = a0 + a1;
+        part[(64 + pr) * LDP + col] = a0 * a0 + a1 * a1;
+      }
+    __syncthreads();
+    for (int i = tid; i < 2 * BN; i += kThreads) {
+      const int q = i / BN, col = i - q * BN;
+      float sum = 0.f;
+#pragma unroll 16
+      for (int r = 0; r < 64; ++r) sum += part[(q * 64 + r) * LDP + col];
+      if (o0 + col < p.o)
+        (q ? p.msq : p.msum)[(size_t)(o0 + col) * p.tiles + mt] = sum;
+    }
+    __syncthreads();          // the y tile below reuses the partials' space
+  }
+
+  // y through the epilogue into the tile: rounded to bf16, or, with a
+  // residual, acc * g + b kept in f32, so that the row phase below adds
+  // the residual (read in whole 16-byte rows) before the one rounding
+  const bool res_rows = p.epi == kAffine && p.res != nullptr;
+  __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(ring_p);
+  float* yf = reinterpret_cast<float*>(ring_p);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = 8 * j + 2 * t4, c = o0 + col;
+    float ga[2] = {1.f, 1.f}, ba[2] = {0.f, 0.f};
+    if (p.epi == kAffine) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (c + e < p.o) {
+          ga[e] = p.g[c + e];
+          ba[e] = p.b[c + e];
+        }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = rw + 8 * h;
+      float v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        v[e] = acc[4 * j + 2 * h + e];
+        if (p.epi == kAffine) {
+          v[e] = v[e] * ga[e] + ba[e];
+          if (p.relu && !res_rows) v[e] = fmaxf(v[e], 0.f);
+        }
+      }
+      if (res_rows)
+        *reinterpret_cast<float2*>(yf + r * LDP + col) = make_float2(v[0], v[1]);
+      else
+        *reinterpret_cast<uint32_t*>(ys + r * LDY + col) =
+            pack_bf16(v[0], v[1]);
+    }
+  }
+  __syncthreads();
+  // whole rows out: a warp stores 32 consecutive 16-byte vectors
+  __nv_bfloat16* y = static_cast<__nv_bfloat16*>(p.y);
+  const __nv_bfloat16* res = static_cast<const __nv_bfloat16*>(p.res);
+  const bool vec = p.o % 8 == 0;
+  for (int i = tid; i < kBM * VPR; i += kThreads) {
+    const int r = i / VPR, col = (i - r * VPR) * 8;
+    const int m = m0 + r, c = o0 + col;
+    if (m >= p.m || c >= p.o) continue;
+    const size_t at = (size_t)m * p.o + c;
+    const int n8 = vec ? 8 : min(8, p.o - c);
+    uint32_t ow[4];   // the 8 outputs, bf16 pairs
+    if (res_rows) {
+      const float4* src = reinterpret_cast<const float4*>(yf + r * LDP + col);
+      const float4 lo = src[0], hi = src[1];
+      const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      uint32_t rr[4] = {0u, 0u, 0u, 0u};   // the residual, bf16 pairs
+      if (vec) {
+        const uint4 q = *reinterpret_cast<const uint4*>(res + at);
+        rr[0] = q.x, rr[1] = q.y, rr[2] = q.z, rr[3] = q.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (e < n8)
+            rr[e / 2] |= (uint32_t)__bfloat16_as_ushort(res[at + e])
+                         << (16 * (e & 1));
+      }
+#pragma unroll
+      for (int e = 0; e < 8; e += 2) {
+        // bf16 -> f32 is exact: the pair's halves as the high bits
+        float a0 = v[e] + __uint_as_float(rr[e / 2] << 16);
+        float a1 = v[e + 1] + __uint_as_float(rr[e / 2] & 0xffff0000u);
+        if (p.relu) {
+          a0 = fmaxf(a0, 0.f);
+          a1 = fmaxf(a1, 0.f);
+        }
+        ow[e / 2] = pack_bf16(a0, a1);
+      }
+    } else {
+      const uint4 q = *reinterpret_cast<const uint4*>(ys + r * LDY + col);
+      ow[0] = q.x, ow[1] = q.y, ow[2] = q.z, ow[3] = q.w;
+    }
+    if (vec) {
+      *reinterpret_cast<uint4*>(y + at) = make_uint4(ow[0], ow[1], ow[2], ow[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (e < n8)
+          y[at + e] = __ushort_as_bfloat16(
+              (unsigned short)(ow[e / 2] >> (16 * (e & 1))));
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -352,6 +523,18 @@ struct F32Smem {
   long long rows[kFM];
   float red[2][16][kFN];          // moments: per row-group column sums
 };
+
+// the f32 epilogue of one output element (row m < M, column c < O)
+__device__ __forceinline__ float epilogue(const Args& p, float acc, int m,
+                                          int c) {
+  float v = acc;
+  if (p.epi == kAffine) {
+    v = v * p.g[c] + p.b[c];
+    if (p.res) v += static_cast<const float*>(p.res)[(size_t)m * p.o + c];
+    if (p.relu) v = fmaxf(v, 0.f);
+  }
+  return v;
+}
 
 // thread (ty, tx) of a 16 x 16 grid owns rows ty + 16 i and columns
 // tx + 16 j (i, j < 4) of the 64 x 64 tile
@@ -429,7 +612,7 @@ __global__ void __launch_bounds__(kThreads) f32_conv(const Args p) {
         s1 += s.red[0][r][c];
         s2 += s.red[1][r][c];
       }
-      const size_t at = (size_t)blockIdx.x * p.o + o0 + c;
+      const size_t at = (size_t)(o0 + c) * p.tiles + blockIdx.x;
       p.msum[at] = s1;
       p.msq[at] = s2;
     }
@@ -443,35 +626,58 @@ __global__ void __launch_bounds__(kThreads) f32_conv(const Args p) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = o0 + tx + 16 * j;
-      if (c < p.o) y[(size_t)m * p.o + c] = epilogue<float>(p, acc[i][j], m, c);
+      if (c < p.o) y[(size_t)m * p.o + c] = epilogue(p, acc[i][j], m, c);
     }
   }
 }
 
-template <bool AVEC, bool BVEC>
-cudaError_t launch_tc(const Args& p, cudaStream_t st) {
-  const dim3 grid((p.m + kBM - 1) / kBM, (p.o + kBN - 1) / kBN);
-  tc_conv<AVEC, BVEC><<<grid, kThreads, 0, st>>>(p);
-  return cudaGetLastError();
+// BN and stages of a bf16 launch: 256 outputs a tile where O is wide and
+// K long (16 chunks or more: one block an SM, a 4-stage ring), 128 for
+// shorter K (two blocks an SM, a 3-stage ring), 64 where O is 64
+struct Cfg {
+  void (*fn)(const Args);
+  size_t bytes;
+  int bn;
+};
+
+template <int BN, int S>
+Cfg cfg() {
+  return {wg_conv<BN, S>, wg_smem<BN, S>(), BN};
+}
+
+Cfg tile(int bn) {
+  switch (bn) {
+    case 64: return cfg<64, 4>();
+    case 128: return cfg<128, 3>();
+    default: return cfg<256, 4>();
+  }
+}
+
+// nk: the chunks walked
+Cfg pick(int o, int nk) {
+  return tile(o <= 64 ? 64 : (o <= 128 || nk < 16 ? 128 : 256));
 }
 
 }  // namespace
 
 // dtype: 0 f32, 1 bf16 (xp, wk, residual and y share it). epi: 0 none,
-// 1 moments (msum, msq [tiles, O] f32; tiles = ceil(M / kBM) in bf16,
-// ceil(M / kFM) in f32), 2 affine (g, b f32 [O];
-// residual [M, O] or null; relu 0 / 1). xp [N, Hp, Wp, Ce], wk
-// [kkh * kkw, Ce, O], y [N, Hp - kkh + 1, Wp - kkw + 1, O], all
-// contiguous; bf16 pointers 16-byte aligned. Returns
-// cudaGetLastError() of the launch.
+// 1 moments (msum, msq [O, tiles] f32; tiles = ceil(M / kBM) in bf16,
+// ceil(M / kFM) in f32), 2 affine (g, b f32 [O]; residual [M, O] or
+// null; relu 0 / 1). xp [N, Hp, Wp, Ce], wk [kkh * kkw, Ce, ldw] (ldw >=
+// O; bf16: Ce and ldw multiples of 8, the columns past O zero), y
+// [N, Hp - kkh + 1, Wp - kkw + 1, O], all contiguous; bf16 pointers
+// 16-byte aligned. live: the nlive (1 .. 512) K chunks of 64 that bf16
+// walks, in order (f32 ignores it). Returns cudaGetLastError() of the
+// launch.
 extern "C" int fused_conv(int dtype, int epi, int relu, const void* xp,
                           const void* wk, const float* g, const float* b,
                           const void* res, void* y, float* msum, float* msq,
                           int n, int hp, int wp, int ce, int kkh, int kkw,
-                          int o, int num_sms, void* stream) {
+                          int o, int ldw, const unsigned short* live,
+                          int nlive, int num_sms, void* stream) {
   (void)num_sms;
-  if (epi < 0 || epi > 2 || n <= 0 || ce <= 0 || o <= 0 || kkh <= 0 ||
-      kkw <= 0 || hp < kkh || wp < kkw)
+  if (epi < 0 || epi > 2 || n <= 0 || ce <= 0 || o <= 0 || ldw < o ||
+      kkh <= 0 || kkw <= 0 || hp < kkh || wp < kkw)
     return cudaErrorInvalidValue;
   Args p;
   p.x = xp;
@@ -490,24 +696,58 @@ extern "C" int fused_conv(int dtype, int epi, int relu, const void* xp,
   p.kkh = kkh;
   p.kkw = kkw;
   p.o = o;
+  p.ldw = ldw;
   const long long m = (long long)n * p.ho * p.wo;
   if (m >= (1LL << 31)) return cudaErrorInvalidValue;
   p.m = (int)m;
   p.epi = epi;
   p.relu = relu;
+  p.tiles = (p.m + (dtype ? kBM : kFM) - 1) / (dtype ? kBM : kFM);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!dtype) {
+    if (ldw != o) return cudaErrorInvalidValue;
     const dim3 grid((p.m + kFM - 1) / kFM, (o + kFN - 1) / kFN);
     f32_conv<<<grid, kThreads, 0, st>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
-  const bool avec = ce % 8 == 0, bvec = o % 8 == 0;
-  cudaError_t err;
-  if (avec && bvec) err = launch_tc<true, true>(p, st);
-  else if (avec) err = launch_tc<true, false>(p, st);
-  else if (bvec) err = launch_tc<false, true>(p, st);
-  else err = launch_tc<false, false>(p, st);
-  return static_cast<int>(err);
+  if (ce % 8 || ldw % 8) return cudaErrorInvalidValue;
+  const long long k = (long long)kkh * kkw * ce;
+  const int nk = (int)((k + kBK - 1) / kBK);
+  if (!live || nlive <= 0 || nlive > kMaxLive) return cudaErrorInvalidValue;
+  p.nlive = nlive;
+  for (int i = 0; i < nlive; ++i) {
+    if (live[i] >= nk) return cudaErrorInvalidValue;
+    p.live[i] = live[i];
+  }
+  const Cfg c = pick(o, nlive);
+  cudaError_t err = cudaFuncSetAttribute(
+      c.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks =
+      (long long)((p.m + kBM - 1) / kBM) * ((o + c.bn - 1) / c.bn);
+  if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
+  c.fn<<<(unsigned)blocks, kThreads, c.bytes, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// what fused_conv launches in bf16 for tiles of tile_n (64, 128, 256)
+// outputs: registers and local (spilled) bytes a thread, threads and
+// shared bytes a block, and the blocks an SM holds at once
+extern "C" int fused_conv_occupancy(int tile_n, int* out) {
+  const Cfg c = tile(tile_n);
+  cudaError_t err = cudaFuncSetAttribute(
+      c.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.bytes);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, c.fn);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], c.fn,
+                                                        kThreads, c.bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = kThreads;
+  out[3] = static_cast<int>(c.bytes);
+  return 0;
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -33,37 +33,38 @@
 // results repeat bit for bit. Columns past V and rows past N are
 // zero-filled by the copies and masked in d.
 //
-// B4 and B5 in bf16 (tc_kernel): warp-level mma.sync.m16n8k16 (bf16 in,
-// f32 accumulators: the reference's arithmetic), fragments loaded with
-// ldmatrix. An owned tile is 32 rows (B4: 64 up to H 768), its [32, H]
-// accumulator spread over 8 warps (96 registers a thread at H 768). The
+// B4 in bf16 (tc_kernel): warp-level mma.sync.m16n8k16 (bf16 in, f32
+// accumulators: the reference's arithmetic), fragments loaded with
+// ldmatrix. An owned tile is 64 rows up to H 768 (32 at H 1024); the
 // walked tile sits in shared memory as H / 64 chunk slots filled by
 // cp.async; a slot is refilled with the next tile's chunk as soon as the
 // block is done with it, so the loads of one step run under the
-// products of the one before. d is rounded to bf16 into shared memory
-// and read back as the A operand of the second product, whose B operand
-// (the walked tile, K = its rows) is transposed on load with
-// ldmatrix.trans. Shared-memory rows are padded by 16 bytes, so fragment
-// loads fall on distinct banks.
+// products of the one before. At H 1024 B5 and B6 run the same kernel
+// with 32 owned rows, their [32, 1024] f32 accumulator spread over 8
+// warps: d is rounded to bf16 into shared memory and read back as the A
+// operand of the second product, whose B operand (the walked tile, K =
+// its rows) is transposed on load with ldmatrix.trans. Shared-memory
+// rows are padded by 16 bytes, so fragment loads fall on distinct banks.
 //
-// B6 in bf16 (dw_kernel_wg, H <= 768): warpgroup products (wgmma) with
-// both operands read from shared memory through descriptors, so no
-// fragment passes through registers. It removes the four limits of the
-// 32-row mma.sync design it replaced (6.4 ms at the ERNIE shape on an
-// H100): a block owns 64 vocab rows, so x streams through L2 282 times
-// instead of 563 (6.8 GB instead of 13.5); the score product is m64n32
-// a warpgroup and the dW product m64n64, against 16 x 16 warp tiles fed
-// by two ldmatrix a pair of mma; the [64, 768] f32 accumulator (192 KB)
-// spreads over two warpgroups at 192 registers a thread (252 in all, no
-// spills); the next token tile is refilled part by part under the
-// current tile's products; the 2.14 waves of 64-row tiles (282 on 132
-// SMs) become 2 whole waves and a third of 126 blocks that split the
-// last 18 tiles 7 ways over the tokens, the last piece of each summing
-// the f32 partials in piece order (dw_split). What bounds it now: one
-// block an SM (202 KB of shared memory), whose phases (score product, d
-// on the CUDA cores, dW product, the next tile's first loads) follow
-// each other. At H 1024 the 64-row accumulator would fill the register
-// file, so B6 keeps the 32-row mma.sync kernel there.
+// B5 and B6 in bf16 (wg_kernel, H <= 768): warpgroup products (wgmma)
+// with both operands read from shared memory through descriptors, so no
+// fragment passes through registers. B5 owns token rows and walks the
+// vocab, B6 owns vocab rows and walks the tokens; the rest is one code
+// path. Against the 32-row mma.sync design it replaced (B6 6.4 ms, B5
+// 5.7 ms at the ERNIE shape on an H100): a block owns 64 rows, so the
+// walked operand streams through L2 half as often (B5: the 27.6 MB
+// table 256 times instead of 512; B6: x 282 times instead of 563); the
+// score product is m64n32 a warpgroup and the second product m64n64,
+// against 16 x 16 warp tiles fed by two ldmatrix a pair of mma; the
+// [64, 768] f32 accumulator (192 KB) spreads over two warpgroups at 192
+// registers a thread (no spills); the next walked tile is refilled part
+// by part under the current tile's products; B6's tail vocab tiles split
+// over the tokens (dw_split; B5's waves need no split, see wg_kernel).
+// What bounds it now: one block an SM (202 KB of shared memory), whose
+// phases (score product, d on the CUDA cores, second product, the next
+// tile's first loads) follow each other. At H 1024 the 64-row
+// accumulator would fill the register file, so B5 and B6 keep the
+// 32-row mma.sync kernel there.
 //
 // f32 operands (tests, steps without amp) take a CUDA-core path of the
 // same shape in full f32 (no TF32). H is a multiple of 64 up to 1024
@@ -557,33 +558,45 @@ __global__ void __launch_bounds__(kThreads, 1) tc_kernel(const Args p) {
 }
 
 // ---------------------------------------------------------------------------
-// B6 in bf16 on warpgroup products (wgmma), H <= 768
+// B5 and B6 in bf16 on warpgroup products (wgmma), H <= 768
 // ---------------------------------------------------------------------------
-// A block of two warpgroups owns 64 vocab rows (the wgmma M) and walks
-// the tokens in tiles of 64. Per tile:
-//   S [64 vocab, 64 tokens] = W X^T over H: warpgroup g forms the
-//     m64n32 half of tokens 32 g .. 32 g + 31 (both operands K-major in
-//     shared memory), one k16 step per wgmma;
-//   d = (exp(S - lse) - onehot) * g, rounded to bf16 into D [64, 64];
-//   dW [64, H] += D X: warpgroup g owns the H / 2 columns of every other
-//     64-column chunk (chunks g, g + 2, ...), m64n64 accumulators in f32
-//     registers (H 768: 192 a thread, two warpgroups of 128 threads, one
-//     block an SM), X read MN-major by the same descriptors' transpose.
-// Shared memory holds the owned table rows W [64, H] and the walked tile
-// X [64, H] as 64-column chunks of [64 rows][128 bytes] with the 128-byte
+// One kernel, two roles. A block of two warpgroups owns 64 rows of one
+// operand (the wgmma M: 64 tokens of x for B5, 64 vocab rows of w for
+// B6) and walks the other in tiles of 64 rows. Per walked tile:
+//   S [64 owned, 64 walked] = A B^T over H: warpgroup g forms the
+//     m64n32 half of walked rows 32 g .. 32 g + 31 (both operands
+//     K-major in shared memory), one k16 step per wgmma;
+//   d = (exp(S - lse) - onehot) * g, rounded to bf16 into D [64, 64]
+//     (B5: lse, g and the label of the owned token rows, in registers
+//     for the whole walk; B6: those of the walked tile's tokens, copied
+//     in with the tile);
+//   out [64, H] += D B: warpgroup g owns the H / 2 columns of every
+//     other 64-column chunk (chunks g, g + 2, ...), m64n64 accumulators
+//     in f32 registers (H 768: 192 a thread, two warpgroups of 128
+//     threads, one block an SM), B read MN-major by the same
+//     descriptors' transpose bit.
+// Shared memory holds the owned rows A [64, H] and the walked tile
+// B [64, H] as 64-column chunks of [64 rows][128 bytes] with the 128-byte
 // swizzle (16-byte unit u of row r at u ^ (r % 8)), D [64, 64] likewise.
 // The tile's columns are refilled part by part (a part: one warpgroup's
 // chunk) by cp.async as soon as that warpgroup's second product on them
 // has finished, so the next tile's loads run under this tile's products
 // and the next score product starts on the parts that landed first.
+//
+// Waves. B5 owns 16384 / 64 = 256 token tiles at the ERNIE shape: on 132
+// SMs, one block an SM, that is one full wave and a second 94 % full, so
+// it launches the tiles as they are. B6 owns 282 vocab tiles: two full
+// waves and a third of 18 blocks (14 %), so the tiles past the last full
+// wave split over the tokens (dw_split).
 constexpr int kWgThreads = 256;     // two warpgroups
 constexpr int kVP = 64;             // owned vocab rows
 constexpr int kTQ = 64;             // tokens a walked tile
 constexpr uint32_t kChunk = 64 * 128;   // bytes of a swizzled chunk
 
 template <int H>
-constexpr size_t dw_wg_smem() {
-  // alignment slack, W and X chunks, D, the tile's lse / g / labels
+constexpr size_t wg_smem() {
+  // alignment slack, A and B chunks, D, the walked tile's lse / g /
+  // labels (B6)
   return 1024 + 2 * (size_t)(H / 64) * kChunk + kChunk + 3 * kTQ * 4;
 }
 
@@ -694,19 +707,20 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
 
 // PW columns a part (one wgmma n: 64, or 32 at H = 64, where the two
 // warpgroups split the only chunk), NP parts a warpgroup
-template <int H>
-__global__ void __launch_bounds__(kWgThreads, 1) dw_kernel_wg(const Args p) {
+template <int MODE, int H>
+__global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(const Args p) {
   constexpr int NC = H / 64;
   constexpr int PW = H >= 128 ? 64 : 32;
   constexpr int NP = H / 2 / PW;
   constexpr int R = PW / 2;           // accumulator registers of a part
   static_assert(NP >= 1 && NP <= 8, "parts a warpgroup");
+  static_assert(MODE == kDx || MODE == kDw, "backward modes");
 
   extern __shared__ uint4 smem4[];
   const uint32_t raw = smem_u32(smem4);
-  const uint32_t w_s = (raw + 1023) & ~1023u;   // swizzle atoms: 1 KB
-  const uint32_t x_s = w_s + NC * kChunk;
-  const uint32_t d_s = x_s + NC * kChunk;
+  const uint32_t a_s = (raw + 1023) & ~1023u;   // swizzle atoms: 1 KB
+  const uint32_t b_s = a_s + NC * kChunk;
+  const uint32_t d_s = b_s + NC * kChunk;
   const uint32_t rows_s = d_s + kChunk;         // lse, g, labels [kTQ]
   const char* rows_p = reinterpret_cast<const char*>(smem4) + (rows_s - raw);
   const float* lse_t = reinterpret_cast<const float*>(rows_p);
@@ -715,42 +729,42 @@ __global__ void __launch_bounds__(kWgThreads, 1) dw_kernel_wg(const Args p) {
 
   const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127;
   const int warp = wt >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  // the block's vocab tile and token range [t_lo, t_hi)
-  int vt = blockIdx.x, piece = -1, t_lo = 0, t_hi = p.n;
+  // the block's owned tile and walked range [t_lo, t_hi)
+  int vt = blockIdx.x, piece = -1, t_lo = 0, t_hi = rows_b<MODE>(p);
   if (vt >= p.full) {
     const int b = vt - p.full;
     vt = p.full + b / p.pieces;
     piece = b % p.pieces;
     t_lo = piece * p.piece_tokens;
-    t_hi = min(p.n, t_lo + p.piece_tokens);
+    t_hi = min(t_hi, t_lo + p.piece_tokens);
   }
-  const int v0 = vt * kVP;
-  const __nv_bfloat16* W = static_cast<const __nv_bfloat16*>(p.a);
-  const __nv_bfloat16* X = static_cast<const __nv_bfloat16*>(p.b);
+  const int a0 = vt * kVP;
+  const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(p.a);
+  const __nv_bfloat16* B = static_cast<const __nv_bfloat16*>(p.b);
   auto part_col = [&](int pp) {
     return PW == 64 ? (2 * pp + wg) * 64 : wg * 32;
   };
 
-  // the owned table rows, one commit group of every thread
+  // the owned rows, one commit group of every thread
   for (int i = tid; i < kVP * (H / 8); i += kWgThreads) {
     const int r = i / (H / 8), u = i % (H / 8);
-    const bool ok = v0 + r < p.vocab;
-    cp_async16_s(w_s + (u >> 3) * kChunk + swz(r, u & 7),
-                 W + (ok ? (size_t)(v0 + r) * H + u * 8 : 0), ok);
+    const bool ok = a0 + r < rows_a<MODE>(p);
+    cp_async16_s(a_s + (u >> 3) * kChunk + swz(r, u & 7),
+                 A + (ok ? (size_t)(a0 + r) * H + u * 8 : 0), ok);
   }
   cp_async_commit();
-  // part pp of the tile of tokens t0..: this warpgroup's columns of the
-  // X rows (zeros past n) and, with part 0, the tile's lse, g and labels;
-  // one commit group of every thread, whatever it copies
+  // part pp of the walked tile of rows t0..: this warpgroup's columns
+  // (zeros past t_hi) and, with part 0 of B6, the tile's lse, g and
+  // labels; one commit group of every thread, whatever it copies
   auto fill = [&](int t0, int pp) {
     const int col0 = part_col(pp);
     for (int i = wt; i < kTQ * (PW / 8); i += 128) {
       const int r = i / (PW / 8), col = col0 + (i % (PW / 8)) * 8;
       const bool ok = t0 + r < t_hi;
-      cp_async16_s(x_s + (col >> 6) * kChunk + swz(r, (col & 63) >> 3),
-                   X + (ok ? (size_t)(t0 + r) * H + col : 0), ok);
+      cp_async16_s(b_s + (col >> 6) * kChunk + swz(r, (col & 63) >> 3),
+                   B + (ok ? (size_t)(t0 + r) * H + col : 0), ok);
     }
-    if (pp == 0 && wt < kTQ) {
+    if (MODE == kDw && pp == 0 && wt < kTQ) {
       const int t = t0 + wt;
       const bool ok = t < t_hi;
       const int at = ok ? t : 0;
@@ -766,6 +780,21 @@ __global__ void __launch_bounds__(kWgThreads, 1) dw_kernel_wg(const Args p) {
 #pragma unroll
   for (int pp = 0; pp < NP; ++pp) fill(t_lo, pp);
 
+  // B5: lse, g and the label of the thread's two owned token rows
+  float lse_r[2] = {0.f, 0.f}, g_r[2] = {0.f, 0.f};
+  int lab_r[2] = {-1, -1};
+  if constexpr (MODE == kDx) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = a0 + warp * 16 + g + 8 * h;
+      if (t < p.n) {
+        lse_r[h] = p.lse[t];
+        g_r[h] = p.g[t];
+        lab_r[h] = p.labels[t];
+      }
+    }
+  }
+
   float acc[NP][R];
 #pragma unroll
   for (int pp = 0; pp < NP; ++pp)
@@ -773,7 +802,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) dw_kernel_wg(const Args p) {
     for (int e = 0; e < R; ++e) acc[pp][e] = 0.f;
 
   for (int t0 = t_lo; t0 < t_hi; t0 += kTQ) {
-    // S: warpgroup wg's 32 tokens, over the chunks as their parts land
+    // S: warpgroup wg's 32 walked rows, over the chunks as their parts
+    // land
     float s[16];
 #pragma unroll
     for (int pp = 0; pp < NP; ++pp) {
@@ -785,8 +815,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) dw_kernel_wg(const Args p) {
       for (int c = 2 * pp; c < (2 * pp + 2 < NC ? 2 * pp + 2 : NC); ++c)
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_n32<0>(s, wg_desc(w_s + c * kChunk + kk * 32, 16, 1024),
-                       wg_desc(x_s + c * kChunk + wg * 32 * 128 + kk * 32,
+          wgmma_n32<0>(s, wg_desc(a_s + c * kChunk + kk * 32, 16, 1024),
+                       wg_desc(b_s + c * kChunk + wg * 32 * 128 + kk * 32,
                                16, 1024),
                        (c | kk) != 0);
       wg_commit();
@@ -794,19 +824,24 @@ __global__ void __launch_bounds__(kWgThreads, 1) dw_kernel_wg(const Args p) {
     wg_wait<0>();
     reg_fence(s);
 
-    // d of the tile, rounded to bf16, into D [vocab row][token]
+    // d of the tile, rounded to bf16, into D [owned row][walked row]
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int r = warp * 16 + g + 8 * h, v = v0 + r;
-        const int tl = wg * 32 + j * 8 + 2 * t4;   // the tile's token
+        const int r = warp * 16 + g + 8 * h;
+        const int tl = wg * 32 + j * 8 + 2 * t4;   // the tile's walked row
         float d[2];
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
-          d[e] = dlogit(s[4 * j + 2 * h + e],
-                        t0 + tl + e < t_hi && v < p.vocab, lse_t[tl + e],
-                        g_t[tl + e], v == lab_t[tl + e]);
+        for (int e = 0; e < 2; ++e) {
+          const float sv = s[4 * j + 2 * h + e];
+          const bool ok = t0 + tl + e < t_hi && a0 + r < rows_a<MODE>(p);
+          if constexpr (MODE == kDx)   // owned tokens, walked vocab
+            d[e] = dlogit(sv, ok, lse_r[h], g_r[h], t0 + tl + e == lab_r[h]);
+          else                         // owned vocab, walked tokens
+            d[e] = dlogit(sv, ok, lse_t[tl + e], g_t[tl + e],
+                          a0 + r == lab_t[tl + e]);
+        }
         const uint32_t dst = d_s + swz(r, tl >> 3) + (tl & 7) * 2;
         asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst),
                      "r"(pack_bf16(d[0], d[1])));
@@ -814,18 +849,18 @@ __global__ void __launch_bounds__(kWgThreads, 1) dw_kernel_wg(const Args p) {
     fence_async_smem();
     __syncthreads();          // D complete; every S product is done
 
-    // dW[:, part] += D X[:, part], one commit group a part
+    // out[:, part] += D B[:, part], one commit group a part
     wg_fence();
 #pragma unroll
     for (int pp = 0; pp < NP; ++pp) {
       const int col0 = part_col(pp);
-      const uint32_t xb = x_s + (col0 >> 6) * kChunk + (col0 & 63) * 2;
+      const uint32_t bb = b_s + (col0 >> 6) * kChunk + (col0 & 63) * 2;
 #pragma unroll
       for (int kk = 0; kk < kTQ / 16; ++kk) {
         const uint64_t da = wg_desc(d_s + kk * 32, 16, 1024);
         // one 64-column atom in N: the leading offset (the next atom's)
         // is never stepped, so it is given the stride of 8 K rows too
-        const uint64_t db = wg_desc(xb + kk * 16 * 128, 1024, 1024);
+        const uint64_t db = wg_desc(bb + kk * 16 * 128, 1024, 1024);
         if constexpr (PW == 64)
           wgmma_n64<1>(acc[pp], da, db, 1);
         else
@@ -850,8 +885,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) dw_kernel_wg(const Args p) {
     for (int pp = 0; pp < NP; ++pp)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int row = v0 + warp * 16 + g + 8 * h;
-        if (row >= p.vocab) continue;
+        const int row = a0 + warp * 16 + g + 8 * h;
+        if (row >= rows_a<MODE>(p)) continue;
 #pragma unroll
         for (int j = 0; j < R / 4; ++j)
           *reinterpret_cast<uint32_t*>(out + (size_t)row * H +
@@ -861,9 +896,9 @@ __global__ void __launch_bounds__(kWgThreads, 1) dw_kernel_wg(const Args p) {
     return;
   }
 
-  // a piece of a split tile: its f32 partial into the workspace; the
-  // piece that finishes last sums all of them in piece order (the same
-  // order whichever block it is, so results repeat bit for bit)
+  // a piece of a split tile (B6): its f32 partial into the workspace;
+  // the piece that finishes last sums all of them in piece order (the
+  // same order whichever block it is, so results repeat bit for bit)
   float* part = p.ws + (size_t)(blockIdx.x - p.full) * kVP * H;
 #pragma unroll
   for (int pp = 0; pp < NP; ++pp)
@@ -885,15 +920,15 @@ __global__ void __launch_bounds__(kWgThreads, 1) dw_kernel_wg(const Args p) {
   const float2* parts = reinterpret_cast<const float2*>(
       p.ws + (size_t)(vt - p.full) * p.pieces * kVP * H);
   for (int i = tid; i < kVP * H / 2; i += kWgThreads) {
-    const int row = v0 + 2 * i / H;
-    if (row >= p.vocab) break;
+    const int row = a0 + 2 * i / H;
+    if (row >= rows_a<MODE>(p)) break;
     float2 sum = __ldcg(parts + i);
     for (int q = 1; q < p.pieces; ++q) {
       const float2 x = __ldcg(parts + (size_t)q * kVP * H / 2 + i);
       sum.x += x.x;
       sum.y += x.y;
     }
-    *reinterpret_cast<uint32_t*>(out + (size_t)v0 * H + 2 * i) =
+    *reinterpret_cast<uint32_t*>(out + (size_t)a0 * H + 2 * i) =
         pack_bf16(sum.x, sum.y);
   }
 }
@@ -1063,20 +1098,18 @@ Kernel pick_h(int mode, int bf16) {
   }
   // the forward owns 64 rows (half the walks over w) where they fit
   constexpr int kFwdBP = H <= 768 ? 64 : 32;
-  switch (mode) {
-    case kFwd:
-      return {tc_kernel<kFwd, kFwdBP, H>, tc_smem_bytes<kFwdBP, H>(kFwd),
-              kThreads, kFwdBP};
-    case kDx:
+  if (mode == kFwd)
+    return {tc_kernel<kFwd, kFwdBP, H>, tc_smem_bytes<kFwdBP, H>(kFwd),
+            kThreads, kFwdBP};
+  // a 64-row f32 accumulator of 1024 columns would fill the register
+  // file: H 1024 keeps the 32-row mma.sync kernel for B5 and B6
+  if constexpr (H <= 768) {
+    if (mode == kDx) return {wg_kernel<kDx, H>, wg_smem<H>(), kWgThreads, kVP};
+    return {wg_kernel<kDw, H>, wg_smem<H>(), kWgThreads, kVP, true};
+  } else {
+    if (mode == kDx)
       return {tc_kernel<kDx, 32, H>, tc_smem_bytes<32, H>(kDx), kThreads, 32};
-    default:
-      // a 64-row f32 dW accumulator of 1024 columns would fill the
-      // register file: H 1024 keeps the 32-row mma.sync kernel
-      if constexpr (H <= 768)
-        return {dw_kernel_wg<H>, dw_wg_smem<H>(), kWgThreads, kVP, true};
-      else
-        return {tc_kernel<kDw, 32, H>, tc_smem_bytes<32, H>(kDw), kThreads,
-                32};
+    return {tc_kernel<kDw, 32, H>, tc_smem_bytes<32, H>(kDw), kThreads, 32};
   }
 }
 

@@ -10,7 +10,10 @@ in the reference:
 - `_lower` turns a conv into that kernel's input: the pad (negative
   amounts crop, as ``lax.pad`` does), stride 2 as space-to-depth
   parity planes with the weight regrouped (the folding of
-  ``fold_conv7_stem``), NCHW to NHWC;
+  ``fold_conv7_stem``), NCHW to NHWC, and in bf16 the channels padded
+  to a multiple of 8 for the tensor-core kernel; `_live_chunks` lists,
+  from the plan alone, the 64-row chunks of the lowered weight that
+  kernel walks (the stride-2 lowering leaves some all zero);
 - `_ConvCore` (conv, optionally with the BN moments) and `_ConvAffine`
   (the eval form: the BN folded to ``g, b``) are autograd Functions with
   the reference's backwards. They save the ORIGINAL NCHW ``x`` and
@@ -37,6 +40,8 @@ composes it with ``fused_bn_act`` (the reference's lax path).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as tF
 
@@ -60,12 +65,13 @@ def _use_pallas_conv():
 
 
 class _Plan:
-    __slots__ = ("s", "pads", "ho", "wo", "kkh", "kkw")
+    __slots__ = ("s", "pads", "ho", "wo", "kkh", "kkw", "c", "kh", "kw")
 
-    def __init__(self, s, pads, ho, wo, kkh, kkw):
+    def __init__(self, s, pads, ho, wo, kkh, kkw, c, kh, kw):
         self.s, self.pads = s, pads
         self.ho, self.wo = ho, wo
         self.kkh, self.kkw = kkh, kkw
+        self.c, self.kh, self.kw = c, kh, kw
 
 
 def _plan(xs, ws, strides, pads):
@@ -84,7 +90,7 @@ def _plan(xs, ws, strides, pads):
     if ho <= 0 or wo <= 0:
         return None
     return _Plan(s, (tuple(pads[0]), tuple(pads[1])), ho, wo,
-                 -(-kh // s), -(-kw // s))
+                 -(-kh // s), -(-kw // s), c, kh, kw)
 
 
 def _lower(x, w, plan):
@@ -93,7 +99,9 @@ def _lower(x, w, plan):
 
     stride 2: parity planes xp_a[i] = xpad[2i+a] become channels and the
     weight regroups as w'[o,(a,b,c),q,r] = w[o,c,2q+a,2r+b] (zero where
-    2q+a >= k)."""
+    2q+a >= k). bf16 (the tensor-core kernel's operands): Ce is padded
+    to a multiple of 8 with zero channels in xp and zero rows in wk, so
+    each 8-channel unit of K lies in one tap."""
     n, c, h, wd = x.shape
     o, _, kh, kw = w.shape
     (plh, phh), (plw, phw) = plan.pads
@@ -114,10 +122,62 @@ def _lower(x, w, plan):
     # leave one unused trailing plane row)
     hp, wp = plan.ho + plan.kkh - 1, plan.wo + plan.kkw - 1
     assert xp.shape[2] >= hp and xp.shape[3] >= wp, (xp.shape, hp, wp)
-    xp = xp[:, :, :hp, :wp].permute(0, 2, 3, 1).contiguous()
+    xp = xp[:, :, :hp, :wp]
+    extra = -wk.shape[1] % 8 if x.dtype == torch.bfloat16 else 0
+    if extra:
+        xp = tF.pad(xp, (0, 0, 0, 0, 0, extra))
+        wk = tF.pad(wk, (0, 0, 0, 0, 0, extra))
+    xp = xp.permute(0, 2, 3, 1).contiguous()
     ce = wk.shape[1]
     wk = wk.permute(2, 3, 1, 0).reshape(plan.kkh * plan.kkw, ce, o)
     return xp, wk.contiguous()
+
+
+# K rows of one chunk of the bf16 kernel's walk (kBK in
+# csrc/fused_conv.cu) and the most chunks its list holds (kMaxLive: K
+# up to 32768, ResNet-50's longest is 4608)
+_CHUNK_K = 64
+_MAX_LIVE = 512
+
+
+def _live_rows(plan, ce):
+    """Which rows of the lowered wk [T * Ce] can be nonzero: row
+    t * Ce + ch, tap t = q * Kkw + r, reads w[o, ch, q, r] at stride 1
+    and w[o, ch % C, 2q+a, 2r+b] of parity plane (a, b) = divmod(ch // C,
+    planes across) at stride 2; taps past the kernel's support and the
+    padding channels past the planes are zero."""
+    s, c, kh, kw = plan.s, plan.c, plan.kh, plan.kw
+    nb = min(s, kw)
+    planes = min(s, kh) * nb
+    rows = []
+    for q in range(plan.kkh):
+        for r in range(plan.kkw):
+            for ch in range(ce):
+                p = ch // c
+                a, b = divmod(p, nb)
+                rows.append(p < planes and s * q + a < kh and s * r + b < kw)
+    return rows
+
+
+_LIVE = {}
+
+
+def _live_chunks(plan, ce):
+    """The 64-row chunks of the lowered wk that hold a live row (see
+    `_live_rows`), in order, as the ctypes array of chunk indices the
+    bf16 kernel walks. Raises past `_MAX_LIVE` chunks. Cached by the
+    geometry: it depends on no data."""
+    key = (plan.s, plan.c, plan.kh, plan.kw, ce)
+    if key not in _LIVE:
+        rows = _live_rows(plan, ce)
+        live = [i for i in range(-(-len(rows) // _CHUNK_K))
+                if any(rows[i * _CHUNK_K:(i + 1) * _CHUNK_K])]
+        if len(live) > _MAX_LIVE:
+            raise ValueError(f"fused conv: {len(live)} live K chunks of "
+                             f"{_CHUNK_K}, the bf16 kernel takes at most "
+                             f"{_MAX_LIVE}")
+        _LIVE[key] = (ctypes.c_ushort * len(live))(*live)
+    return _LIVE[key]
 
 
 # ---------------------------------------------------------------------------
@@ -125,7 +185,8 @@ def _lower(x, w, plan):
 # ---------------------------------------------------------------------------
 
 # output pixels of one M tile, as kBM (bf16) and kFM (f32) in
-# csrc/fused_conv.cu: the moments epilogue writes one partial row a tile
+# csrc/fused_conv.cu: the moments epilogue writes one partial a tile and
+# channel
 _TILE_M = {torch.bfloat16: 128, torch.float32: 64}
 
 
@@ -153,7 +214,8 @@ def _conv_plain(xp, wk, plan, g=None, b=None, res=None, act="identity",
 
 def _conv_kernel(xp, wk, plan, g=None, b=None, res=None, act="identity",
                  moments=False):
-    """B10 on the card; the same contract as `_conv_plain`."""
+    """B10 on the card; the same contract as `_conv_plain` (bf16: Ce a
+    multiple of 8, as `_lower` pads it)."""
     global LAUNCHES
     if xp.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused conv: operands must be float32 or bfloat16 "
@@ -179,20 +241,33 @@ def _conv_kernel(xp, wk, plan, g=None, b=None, res=None, act="identity",
     xp, wk = _launch.aligned(xp), _launch.aligned(wk)
     res = _launch.aligned(res) if res is not None else None
     bf16 = int(xp.dtype == torch.bfloat16)
+    live, ldw = None, o
+    if bf16:
+        if ce % 8:
+            raise ValueError(f"fused conv: bf16 Ce {ce} is not a multiple "
+                             f"of 8 (lower the conv with `_lower`)")
+        live = _live_chunks(plan, ce)
+        # 16-byte weight rows: zero columns up to a multiple of 8
+        ldw = o + (-o % 8)
+        if ldw != o:
+            wk = _launch.aligned(tF.pad(wk, (0, ldw - o)))
     m = n * plan.ho * plan.wo
     y = torch.empty((n, plan.ho, plan.wo, o), dtype=xp.dtype, device=dev)
     msum = msq = None
     if moments:
+        # the sum and sum-of-squares partials, a row of M tiles a
+        # channel, in one tensor: one reduction over its last dim sums
+        # both
         tiles = -(-m // _TILE_M[xp.dtype])
-        msum = torch.empty((tiles, o), dtype=torch.float32, device=dev)
-        msq = torch.empty((tiles, o), dtype=torch.float32, device=dev)
+        parts = torch.empty((2, o, tiles), dtype=torch.float32, device=dev)
+        msum, msq = parts[0], parts[1]
     if g is not None:
         g = g.float().contiguous()
         b = b.float().contiguous()
     P, I = _launch._P, _launch._I
     lib, fn = _launch.bind("fused_conv", "fused_conv",
                            [I, I, I, P, P, P, P, P, P, P, P,
-                            I, I, I, I, I, I, I, I, P])
+                            I, I, I, I, I, I, I, I, P, I, I, P])
     epi = 1 if moments else (2 if g is not None else 0)
 
     def ptr(t):
@@ -201,11 +276,19 @@ def _conv_kernel(xp, wk, plan, g=None, b=None, res=None, act="identity",
     _launch.launch(lib, fn, "fused_conv", dev, bf16, epi,
                    int(act == "relu"), xp.data_ptr(), wk.data_ptr(),
                    ptr(g), ptr(b), ptr(res), y.data_ptr(), ptr(msum),
-                   ptr(msq), n, hp, wp, ce, plan.kkh, plan.kkw, o)
+                   ptr(msq), n, hp, wp, ce, plan.kkh, plan.kkw, o, ldw,
+                   live, len(live) if live is not None else 0)
     LAUNCHES += 1
     if moments:
-        return [y, msum.sum(0), msq.sum(0)]
+        return [y, *parts.sum(2)]
     return [y]
+
+
+def _occupancy(tile_n):
+    """What the bf16 kernel launches for its tile of `tile_n` (64, 128 or
+    256) outputs on the current card (`_launch.occupancy`; a report, the
+    op never calls it)."""
+    return _launch.occupancy("fused_conv", "fused_conv_occupancy", tile_n)
 
 
 def _fwd(x, w, s, pads, *, g=None, b=None, res=None, act="identity",

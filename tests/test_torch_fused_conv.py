@@ -149,6 +149,121 @@ def test_lowering_crops_negative_pads_and_skips_empty_planes():
 
 
 # ---------------------------------------------------------------------------
+# the bf16 kernel's lowering: Ce padded to 8, the live-chunk walk
+# ---------------------------------------------------------------------------
+
+
+def _small_ints(rng, shape):
+    """-2..2: every product and sum of a conv below is an integer far
+    under 2^24, exact in f32 in any order."""
+    return rng.integers(-2, 3, shape).astype(np.float32)
+
+
+# (n, c, h, w, o, k, s, pad): the 12-channel space-to-depth stem, the
+# 7x7 stride-2 stem on 3 channels, odd channel counts at stride 1 and 2,
+# and a Ce already a multiple of 8
+PAD_CASES = [(2, 12, 11, 10, 16, 4, 1, 0), (1, 3, 15, 14, 8, 7, 2, 3),
+             (2, 5, 9, 10, 10, 3, 1, 1), (2, 5, 9, 10, 10, 3, 2, 1),
+             (1, 16, 8, 9, 8, 1, 1, 0)]
+
+
+@pytest.mark.parametrize("n,c,h,w,o,k,s,pad", PAD_CASES)
+def test_bf16_lowering_pads_channels_to_eight(n, c, h, w, o, k, s, pad):
+    """bf16 `_lower` pads Ce to a multiple of 8 with zero channels and
+    zero weight rows; `_conv_plain` on the padded plane equals it on the
+    unpadded f32 plane bit for bit (y cast once to bf16, the moments in
+    f32), with operands whose sums are exact in any order."""
+    rng = np.random.default_rng(c * 10 + k)
+    x = torch.from_numpy(_small_ints(rng, (n, c, h, w)))
+    wt = torch.from_numpy(_small_ints(rng, (o, c, k, k)))
+    plan = tfc._plan(x.shape, wt.shape, (s, s), ((pad, pad), (pad, pad)))
+    xp32, wk32 = tfc._lower(x, wt, plan)
+    xp16, wk16 = tfc._lower(x.bfloat16(), wt.bfloat16(), plan)
+    ce = xp32.shape[3]
+    assert xp16.shape[3] % 8 == 0 and xp16.shape[3] - ce < 8
+    assert wk16.shape == (wk32.shape[0], xp16.shape[3], o)
+    assert torch.equal(xp16[..., :ce].float(), xp32)
+    assert torch.equal(wk16[:, :ce].float(), wk32)
+    assert not bool(xp16[..., ce:].any()) and not bool(wk16[:, ce:].any())
+    y16, s16, q16 = tfc._conv_plain(xp16, wk16, plan, moments=True)
+    y32, s32, q32 = tfc._conv_plain(xp32, wk32, plan, moments=True)
+    assert y16.dtype == torch.bfloat16
+    assert torch.equal(y16, y32.bfloat16())
+    assert torch.equal(s16, s32) and torch.equal(q16, q32)
+
+
+# (k, s, c): 1x1 / 3x3 / 4x4 / 7x7 at strides 1 and 2; parity planes of
+# 24 channels (chunks straddle planes), of 128 (whole chunks) and of 3 /
+# 12 (the stems); each at odd and even extents
+LIVE_CASES = [(1, 1, 64), (1, 2, 64), (3, 1, 24), (3, 2, 24), (3, 2, 128),
+              (4, 1, 12), (4, 2, 20), (7, 1, 5), (7, 2, 3)]
+
+
+@pytest.mark.parametrize("hw", [(9, 11), (10, 8)], ids=["odd", "even"])
+@pytest.mark.parametrize("k,s,c", LIVE_CASES,
+                         ids=[f"k{k}s{s}c{c}" for k, s, c in LIVE_CASES])
+def test_live_chunks_cover_every_nonzero_row(k, s, c, hw):
+    """The chunks the bf16 kernel walks (`_live_chunks`, derived from the
+    plan alone) hold every row of the lowered wk that can be nonzero and
+    no chunk that is all zero, in order."""
+    rng = np.random.default_rng(k * 100 + s * 10 + c)
+    x = torch.from_numpy(rng.standard_normal((1, c) + hw).astype(
+        np.float32)).bfloat16()
+    wt = torch.from_numpy(rng.standard_normal((8, c, k, k)).astype(
+        np.float32) + 3.0).bfloat16()       # no weight is 0
+    pad = k // 2
+    plan = tfc._plan(x.shape, wt.shape, (s, s), ((pad, pad), (pad, pad)))
+    _, wk = tfc._lower(x, wt, plan)
+    ce = wk.shape[1]
+    nonzero = wk.reshape(-1, 8).ne(0).any(1).tolist()
+    assert tfc._live_rows(plan, ce) == nonzero
+    step = tfc._CHUNK_K
+    nk = -(-len(nonzero) // step)
+    live = list(tfc._live_chunks(plan, ce))
+    assert live == sorted(live)
+    for i in range(nk):
+        has = any(nonzero[i * step:(i + 1) * step])
+        assert has == (i in live), (i, has, live)
+
+
+@pytest.mark.parametrize("k,s,c", [(3, 2, 24), (3, 2, 128), (7, 2, 3),
+                                   (4, 2, 20), (1, 2, 8)])
+def test_live_chunks_sum_to_the_full_conv(k, s, c):
+    """The conv summed over the live chunks alone (each chunk's rows of
+    wk, the others zeroed) equals the conv over the whole lowered K, bit
+    for bit with exact operands: the skipped chunks add nothing."""
+    rng = np.random.default_rng(k + s + c)
+    x = torch.from_numpy(_small_ints(rng, (2, c, 9, 10)))
+    wt = torch.from_numpy(_small_ints(rng, (8, c, k, k)))
+    pad = k // 2
+    plan = tfc._plan(x.shape, wt.shape, (s, s), ((pad, pad), (pad, pad)))
+    xp, wk = tfc._lower(x.bfloat16(), wt.bfloat16(), plan)
+    full = tfc._conv_plain(xp.float(), wk.float(), plan)[0]
+    flat = wk.float().reshape(-1, wk.shape[2])
+    step = tfc._CHUNK_K
+    total = torch.zeros_like(full)
+    for i in tfc._live_chunks(plan, wk.shape[1]):
+        part = torch.zeros_like(flat)
+        part[i * step:(i + 1) * step] = flat[i * step:(i + 1) * step]
+        total += tfc._conv_plain(xp.float(), part.reshape(wk.shape), plan)[0]
+    assert torch.equal(total, full)
+
+
+def test_live_chunks_raise_past_the_kernels_list():
+    """The bf16 kernel takes at most `_MAX_LIVE` chunks (K up to 32768):
+    a longer K raises instead of being walked some other way."""
+    c = tfc._MAX_LIVE * tfc._CHUNK_K
+    for ce, ok in ((c, True), (c + 8, False)):
+        plan = tfc._plan((1, ce, 4, 4), (8, ce, 1, 1), (1, 1),
+                         ((0, 0), (0, 0)))
+        if ok:
+            assert len(tfc._live_chunks(plan, ce)) == tfc._MAX_LIVE
+        else:
+            with pytest.raises(ValueError, match="live K chunks"):
+                tfc._live_chunks(plan, ce)
+
+
+# ---------------------------------------------------------------------------
 # fused_conv2d_bn_act against the reference op
 # ---------------------------------------------------------------------------
 

@@ -23,10 +23,11 @@ bit; B10
 (the fused conv) with every epilogue (none, moments, affine with and
 without a residual, ReLU and identity) at ragged pixel counts, channel
 counts (12 as the space-to-depth stem, odd ones) and output widths,
-through the stride-2 lowering and the dx parity planes: f32 within
-rtol 1e-5 and 1e-5 of the largest element (sums in another order), bf16
-y within one bf16 ulp and the moments within 1e-4 relative, repeating
-bit for bit; each launch counted. Without a card every test skips.
+through the stride-2 lowering and the dx parity planes, at each of the
+bf16 kernel's three tile widths: f32 within rtol 1e-5 and 1e-5 of the
+largest element (sums in another order), bf16 y within one bf16 ulp
+and the moments within 1e-4 relative, repeating bit for bit; each
+launch counted; B5 repeating bit for bit at the ERNIE head. Without a card every test skips.
 
 This file imports neither jax nor paddle_tpu, so it also runs on a
 machine that has only the port's dependencies:
@@ -428,6 +429,26 @@ def test_fused_loss_bf16_ragged_within_one_ulp_and_repeats(n, h, v, masked):
 
 
 @pytest.mark.cuda
+def test_fused_loss_dx_bf16_ernie_shape_repeats_bitwise():
+    """B5 at the ERNIE head (x [16384, 768], w [18000, 768] bf16, 85% of
+    the labels ignored): one launch each, every dx element summed by one
+    thread in a fixed vocab order, so two launches agree bit for bit;
+    within one bf16 ulp of the plain version."""
+    _card()
+    x, w, lbl, g = _lce_case(16384, 768, 18000, 0.85, torch.bfloat16)
+    lbl32 = lbl.to(torch.int32)
+    _nll, lse = fused_loss._fwd_kernel(x, w, lbl)
+    before = fused_loss.launches["B5"]
+    first = fused_loss._bwd_dx_kernel(x, w, lbl32, lse, g)
+    second = fused_loss._bwd_dx_kernel(x, w, lbl32, lse, g)
+    assert fused_loss.launches["B5"] == before + 2
+    assert torch.equal(first, second)
+    want = fused_loss._bwd_plain(x, w, lbl, lse, g, 1024)[0].float()
+    ulp = torch.maximum(want.abs(), want.abs().max() * 2 ** -8) * 2 ** -7
+    assert bool(((first.float() - want).abs() <= ulp).all())
+
+
+@pytest.mark.cuda
 def test_fused_loss_op_all_rows_ignored_and_rejects_bad_hidden():
     _card()
     x, w, lbl, _ = _lce_case(40, 64, 301, 1.0, torch.float32)
@@ -445,11 +466,21 @@ def test_fused_loss_op_all_rows_ignored_and_rejects_bad_hidden():
 
 
 # B10: (n, c, h, w, o, k, s, pad) — ragged pixel counts against the
-# 128-pixel tiles, Ce 12 (the s2d stem) and odd (element loads), O odd
-# and past one 64-wide tile, 1x1 / 3x3 / 4x4 / 7x7 at stride 1 and 2
+# 128-pixel tiles, Ce 12 (the s2d stem) and odd (padded to 8 by
+# `_lower`), O odd (weights padded to 8 columns) and past one 64-wide
+# tile, 1x1 / 3x3 / 4x4 / 7x7 at stride 1 and 2; then ResNet-50's
+# kinds at M not a multiple of 128: a 3x3 stride 2 on 128 channels
+# (whole dead chunks skipped), a 1x1 of K 64 into O 256 (one chunk,
+# 128-wide tiles), a 1x1 into O 2048 (K 512: 128-wide tiles) and the
+# 256-wide tiles that O over 128 with 16 walked chunks or more choose: a
+# 3x3 on 128 channels into 256 at stride 1 (18 chunks) and stride 2 (18
+# of 32 chunks live)
 CONV_SHAPES = [(2, 64, 9, 11, 128, 1, 1, 0), (3, 12, 17, 15, 64, 4, 1, 0),
                (2, 5, 9, 10, 10, 3, 1, 1), (1, 24, 13, 11, 72, 3, 2, 1),
-               (2, 3, 15, 14, 67, 7, 2, 3), (2, 40, 8, 9, 200, 1, 2, 0)]
+               (2, 3, 15, 14, 67, 7, 2, 3), (2, 40, 8, 9, 200, 1, 2, 0),
+               (2, 128, 15, 13, 96, 3, 2, 1), (3, 64, 14, 15, 256, 1, 1, 0),
+               (2, 512, 7, 7, 2048, 1, 1, 0), (2, 128, 15, 13, 256, 3, 1, 1),
+               (1, 128, 17, 15, 256, 3, 2, 1)]
 
 
 def _conv_case(n, c, h, w, o, k, s, pad, dtype, seed=0):
@@ -535,6 +566,42 @@ def test_conv_grads_through_parity_planes_match_plain(n, c, h, w, o, k, s,
     bf16 = dtype == torch.bfloat16
     for got, want in zip(outs["cuda"], outs["cpu"]):
         _assert_conv_close(got, want, bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,h,w,o,k,s,pad",
+                         [CONV_SHAPES[i] for i in (1, 2, 3, 7, 9, 10)])
+def test_conv_kernel_every_tile_matches_plain(n, c, h, w, o, k, s, pad):
+    """Each of the bf16 kernel's three tile widths, at shapes whose O and
+    K choose it (64: the stem and O 10; 128: O 72 at stride 2 and the
+    one-chunk 1x1 into O 256; 256: the two 3x3s into O 256): y within one
+    bf16 ulp, the moments within 1e-4, and a second launch equal bit for
+    bit."""
+    _card()
+    plan, xp, wk, g, b, res = _conv_case(n, c, h, w, o, k, s, pad,
+                                         torch.bfloat16)
+    for leg in (dict(moments=True), dict(g=g, b=b, res=res, act="relu")):
+        got = fused_conv._conv_kernel(xp, wk, plan, **leg)
+        again = fused_conv._conv_kernel(xp, wk, plan, **leg)
+        want = fused_conv._conv_plain(xp, wk, plan, **leg)
+        _assert_conv_close(got[0], want[0], True)
+        for gm, wm in zip(got[1:], want[1:]):
+            torch.testing.assert_close(gm, wm, rtol=1e-4,
+                                       atol=1e-4 * float(wm.abs().max()))
+        assert all(torch.equal(a, c_) for a, c_ in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,h,w,o,k,s,pad", CONV_SHAPES)
+def test_conv_kernel_bf16_repeats_bitwise(n, c, h, w, o, k, s, pad):
+    """The bf16 moments sum in a fixed order (no atomics): two launches
+    agree bit for bit, y and both moment rows."""
+    _card()
+    plan, xp, wk, _g, _b, _res = _conv_case(n, c, h, w, o, k, s, pad,
+                                            torch.bfloat16)
+    first = fused_conv._conv_kernel(xp, wk, plan, moments=True)
+    second = fused_conv._conv_kernel(xp, wk, plan, moments=True)
+    assert all(torch.equal(a, c_) for a, c_ in zip(first, second))
 
 
 @pytest.mark.cuda
