@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Before / after timings of the flash-attention dq kernel (B2), the
-LM-head loss kernels (B4-B6) and the fused conv (B10) of two checkouts
-of the port, on one card.
+LM-head loss kernels (B4-B6), the scaled int8 / fp8 matmul (B9) and the
+fused conv (B10) of two checkouts of the port, on one card.
 
     python3 chip_ab.py PARENT_DIR
 
@@ -14,7 +14,11 @@ ERNIE head ([16384, 768] x [18000, 768] bf16), each as chip_smoke.py
 times it (median of CUDA events, L2 flushed), and each kernel's largest
 difference from the plain version on the same inputs (B2 absolute, B5
 and B6 in bf16 ulps, also at a ragged head with every label valid);
-B10 at every conv of one ResNet-50 training step at b128 (bf16,
+B9 in int8 and fp8 at each of the nine distinct calls of one ERNIE-1.0
+low-precision train step (`B9_STEP_CALLS`), each timed as chip_smoke.py
+times it, int8 checked bit for bit and fp8 within chip_smoke.py's
+`_fp8_tol` against the tree's plain version, summed over the step's 69
+calls; B10 at every conv of one ResNet-50 training step at b128 (bf16,
 recorded from the tree's own model), each timed as chip_smoke.py times
 it and checked within one bf16 ulp of the plain version, summed over
 the step's 114 launches in all and by class. A fifth process then
@@ -103,8 +107,62 @@ def one(tree):
             out["B6_ms"] = sm._time_ms(
                 lambda: fl._bwd_dw_kernel(x, w, lbl32, lse, g), flush)
         del x, w, dx, dw, dw_p
+    out.update(b9_step(sm, gen, flush))
     out.update(b10_step(sm, gen, flush))
     print(json.dumps(out), flush=True)
+
+
+# B9's distinct calls in one ERNIE-1.0 low-precision train step at b32 x
+# s512, as chip_smoke.py's phase 14 records them: (m, k, n, a dtype, a's
+# row stride, b dtype, b layout) -> calls a step (69: the 51 Linears and
+# the loss's 18 vocab chunks)
+B9_STEP_CALLS = {
+    (32, 768, 2, "float32", 768, "float32", "weight"): 1,
+    (32, 768, 768, "float32", 393216, "float32", "weight"): 1,
+    (16384, 768, 592, "bfloat16", 768, "bfloat16", "chunk"): 1,
+    (16384, 768, 768, "bfloat16", 768, "float32", "weight"): 12,
+    (16384, 768, 768, "float32", 768, "float32", "weight"): 1,
+    (16384, 768, 1024, "bfloat16", 768, "bfloat16", "chunk"): 17,
+    (16384, 768, 2304, "float32", 768, "float32", "weight"): 12,
+    (16384, 768, 3072, "float32", 768, "float32", "weight"): 12,
+    (16384, 3072, 768, "float32", 3072, "float32", "weight"): 12,
+}
+
+
+def b9_step(sm, gen, flush):
+    """B9 in int8 and fp8 at each of B9_STEP_CALLS, summed over the step;
+    int8 bit for bit and fp8 within `_fp8_tol` of the plain version."""
+    import torch
+
+    from paddle_tpu_torch.ops import lowp
+
+    out = {}
+    for q in ("int8", "fp8"):
+        total, per_call, worst = 0.0, {}, 0.0
+        for key, per_step in sorted(B9_STEP_CALLS.items()):
+            a, b = sm._b9_operands(*key, gen)
+            sa, sb = lowp.amax_of(a), lowp.amax_of(b)
+            got = lowp._smm_kernel(a, b, sa, sb, q)
+            want = lowp._smm_plain(a, b, sa, sb, q)
+            if q == "int8":
+                sm._check(torch.equal(got, want),
+                          f"B9 int8 differs from its plain version at {key}")
+            else:
+                tol = sm._fp8_tol(a, b, sa, sb)
+                worst = max(worst, float(((got.double() - want.double())
+                                          .abs() / (tol + 1e-30)).max()))
+                sm._check(worst <= 1.0, f"B9 fp8 beyond _fp8_tol at {key}")
+            ms = sm._time_ms(lambda: lowp._smm_kernel(a, b, sa, sb, q),
+                             flush, n=20)
+            per_call["x".join(map(str, key[:3])) + f" {key[3]}/{key[5]}"
+                     f" {key[6]}"] = ms
+            total += per_step * ms
+            del a, b, got, want
+        out[f"B9_{q}_step_ms"] = total
+        out[f"B9_{q}_ms"] = per_call
+        if q == "fp8":
+            out["B9_fp8_err_of_tol"] = worst
+    return out
 
 
 def b10_step(sm, gen, flush):

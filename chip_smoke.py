@@ -40,14 +40,15 @@ Phases (any failure raises and the script exits non-zero):
    ragged shapes with vocab tails, heavy masking, every row ignored and
    plain chunks that do not divide V, within 1e-5; the ERNIE shape
    x [16384, 768], w [18000, 768] in bf16 within one bf16 ulp on dx and
-   dw and 1e-3 relative on the loss; bf16 at ragged shapes with exact
-   scores within one bf16 ulp; B5 and B6 on warpgroup products in bf16
-   up to H 768), B5 and B6 repeating bit for bit at the ERNIE shape, the
-   registers and blocks per SM of every kernel, then timed at the ERNIE
-   shape beside the plain versions, the library yardsticks (never called
-   by the port: the unfused two-call composition for B4 / B6, and for B5
-   the same composition's backward asked for dx alone) and the card's
-   least time.
+   dw and 1e-3 relative on the loss, nll and lse within 1e-4; bf16 at
+   ragged shapes with exact scores, B4 within 1e-4 and B5 / B6 within
+   one bf16 ulp; B4 on warpgroup products in bf16 at every hidden size,
+   B5 and B6 up to H 768), B4-B6 repeating bit for bit at the ERNIE
+   shape, the registers and blocks per SM of every kernel, then timed at
+   the ERNIE shape beside the plain versions, the library yardsticks
+   (never called by the port: the unfused two-call composition for
+   B4 / B6, and for B5 the same composition's backward asked for dx
+   alone) and the card's least time.
 8. The train step against its plain version: a tiny ERNIE on cuda and
    on the CPU, same weights and seeds, attention dropout 0.1,
    FLAGS_use_fused_lm_loss on (the cuda run goes through B1-B6); three
@@ -80,7 +81,9 @@ Phases (any failure raises and the script exits non-zero):
     and fp8 within 4 K 2^-24 of the sum of the absolute products, then
     timed beside the plain version, the library yardstick (torch._int_mm
     or torch._scaled_mm with the same quantization; never called by the
-    port) and the bound; summed over a step's calls.
+    port) and the bound, each call's time split into its quantise passes
+    (timed alone) and its GEMM; summed over a step's calls; the GEMM's
+    registers and blocks per SM.
 16. The fused leg again with the flag off: its first three losses equal
     the fused leg's, and no lowp stat moved.
 17. B10, the fused conv: the distinct convs of one ResNet-50 training
@@ -849,22 +852,35 @@ def phase_fused_loss(card):
                           "masked": masked, "chunk": cv,
                           "max_abs_err": errs}), flush=True)
 
-    # bf16 at ragged shapes against B6's 64-row tiles (every hidden size,
-    # V and N not multiples of 64, every row ignored): exact scores, the
-    # kernel's lse on both sides, B5 / B6 within one bf16 ulp
+    # bf16 at ragged shapes against B4's 128-row and B6's 64-row tiles
+    # (every hidden size, V and N not multiples of 64, every row ignored):
+    # exact scores, B4 within 1e-4 (a label in the last, partial vocab
+    # tile), the kernel's lse on both sides of B5 / B6, within one bf16 ulp
     for n, h, v, masked in ((37, 64, 301, 0.3), (130, 128, 1000, 0.85),
                             (300, 256, 777, 1.0), (200, 512, 300, 0.5),
-                            (129, 768, 65, 0.0), (70, 1024, 513, 0.5)):
+                            (129, 768, 65, 0.0), (257, 768, 4001, 0.5),
+                            (70, 1024, 513, 0.5)):
         x, w, lbl, g = _lce_exact_case(n, h, v, masked, gen)
+        if masked < 1.0:
+            lbl[-1] = v - 1
         nll, lse = fl._fwd_kernel(x, w, lbl)
+        nll_p, lse_p = fl._fwd_plain(x, w, lbl, 128)
         dx, dw = fl._bwd_kernel(x, w, lbl, lse, g)
         dx_p, dw_p = fl._bwd_plain(x, w, lbl, lse, g, 128)
         torch.cuda.synchronize()
+        valid = lbl != -100
+        torch.testing.assert_close(lse, lse_p, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(nll[valid], nll_p[valid], rtol=1e-4,
+                                   atol=1e-4)
         ulps = {"B5": _bf16_ulps(dx, dx_p), "B6": _bf16_ulps(dw, dw_p)}
         _check(all(u <= 1.0 for u in ulps.values()),
                f"B5/B6 beyond one bf16 ulp at {(n, h, v)}: {ulps}")
         print(json.dumps({"fused_loss_check": [n, h, v], "dtype": "bf16",
-                          "masked": masked, "ulps": ulps}), flush=True)
+                          "masked": masked, "ulps": ulps,
+                          "B4_max_abs_err": max(
+                              (lse - lse_p).abs().max().item(),
+                              (nll - nll_p)[valid].abs().max().item()
+                              if bool(valid.any()) else 0.0)}), flush=True)
 
     # the ERNIE shape in bf16
     n, h, v = ERNIE_BATCH * ERNIE_SEQ, ERNIE["hidden_size"], \
@@ -895,13 +911,17 @@ def phase_fused_loss(card):
                       "loss": loss, "plain_loss": loss_p, "ulps": ulps,
                       "max_abs_err": errs}), flush=True)
     del dx_p, dw_p
-    # B5 owns its token rows, B6 its vocab rows (no atomics): two
+    # B4 and B5 own their token rows, B6 its vocab rows (no atomics): two
     # launches agree bit for bit
+    again = fl._fwd_kernel(x, w, lbl)
+    _check(torch.equal(again[0], nll) and torch.equal(again[1], lse),
+           "B4 does not repeat bit for bit")
     _check(torch.equal(fl._bwd_dx_kernel(x, w, lbl32, lse, g), dx),
            "B5 does not repeat bit for bit")
     _check(torch.equal(fl._bwd_dw_kernel(x, w, lbl32, lse, g), dw),
            "B6 does not repeat bit for bit")
-    for key in ("B5", "B6"):
+    del again
+    for key in ("B4", "B5", "B6"):
         print(json.dumps({"bitwise_repeat": key, "shape": [n, h, v],
                           "equal": True}), flush=True)
     for dtype in (torch.bfloat16, torch.float32):
@@ -1184,10 +1204,11 @@ def phase_train_profile(step, label):
     # device time by kind, from the kernels' names (the port's kernels by
     # their own names; cuDNN's weight gradients carry "wgrad", cuBLAS's
     # Hopper GEMMs "nvjet")
-    kinds = (("B9", ("qmm_gemm", "quant_rows", "quant_cols")),
+    kinds = (("B9", ("qmm_wg", "quant_rows", "quant_cols")),
              ("B10", ("wg_conv", "f32_conv")),
              ("flash B1-B3", ("fwd_kernel", "dq_kernel", "dkv_kernel")),
-             ("fused loss B4-B6", ("tc_kernel", "wg_kernel", "f32_kernel")),
+             ("fused loss B4-B6", ("lse_kernel", "tc_kernel", "wg_kernel",
+                                   "f32_kernel")),
              ("conv weight grad (cuDNN)", ("wgrad",)),
              ("gemm", ("gemm", "Gemm", "sm90_xmma", "nvjet")),
              ("elementwise", ("elementwise",)), ("reduce", ("reduce",)),
@@ -1404,7 +1425,10 @@ B9_RAGGED = [(1, 100, 2, "float32", "float32", "weight"),
              (33, 100, 333, "float32", "bfloat16", "chunk"),
              (33, 768, 333, "bfloat16", "bfloat16", "chunk"),
              (7, 768, 3, "bfloat16", "bfloat16", "weight"),
-             (1, 3072, 333, "float32", "float32", "chunk")]
+             (1, 3072, 333, "float32", "float32", "chunk"),
+             (129, 129, 257, "float32", "float32", "weight"),
+             (257, 200, 129, "bfloat16", "bfloat16", "chunk"),
+             (129, 3000, 130, "bfloat16", "float32", "weight")]
 
 
 def _b9_operands(m, k, n, a_dtype, lda, b_dtype, layout, gen):
@@ -1422,6 +1446,16 @@ def _b9_operands(m, k, n, a_dtype, lda, b_dtype, layout, gen):
         b = (torch.randn((k, n), generator=gen) * 0.05).to(
             getattr(torch, b_dtype)).cuda()
     return a, b
+
+
+def _b9_split_ms(a, b, sa, sb, q, ms, flush):
+    """One B9 call's time `ms` split into its quantise passes (timed
+    alone, as `_time_ms` times the call) and its GEMM (the rest)."""
+    from paddle_tpu_torch.ops import lowp
+
+    quantise = _time_ms(
+        lambda: lowp._smm_kernel(a, b, sa, sb, q, gemm=False), flush, n=20)
+    return {"quantise_ms": quantise, "gemm_ms": ms - quantise}
 
 
 def phase_lowp_kernels(card, calls):
@@ -1444,7 +1478,8 @@ def phase_lowp_kernels(card, calls):
     err = {"int8": 0.0, "fp8": 0.0}
     ragged = [(m, k, n, ad, k, bd, lay) for m, k, n, ad, bd, lay in B9_RAGGED]
     step = {q: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                    bound_bytes_ms=0.0) for q in ("int8", "fp8")}
+                    bound_bytes_ms=0.0, quantise_ms=0.0, gemm_ms=0.0)
+            for q in ("int8", "fp8")}
     lib_notes = {}
     for key in sorted(calls) + ragged:
         m, k, n, a_dt, lda, b_dt, layout = key
@@ -1483,9 +1518,12 @@ def phase_lowp_kernels(card, calls):
             plain_ms = _time_ms(lambda: lowp._smm_plain(a, b, sa, sb, q),
                                 flush, n=3)
             lib_ms = _time_ms(lib, flush, n=20) if lib else None
-            row[q] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms)
+            row[q] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          **_b9_split_ms(a, b, sa, sb, q, ms, flush))
             st = step[q]
             st["ms"] += per_step * ms
+            st["quantise_ms"] += per_step * row[q]["quantise_ms"]
+            st["gemm_ms"] += per_step * row[q]["gemm_ms"]
             st["plain_ms"] += per_step * plain_ms
             st["library_ms"] += per_step * (lib_ms or 0.0)
             st["bound_ms"] += per_step * max(t_bytes, t_ops)
@@ -1496,6 +1534,9 @@ def phase_lowp_kernels(card, calls):
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
         print(json.dumps({"b9_shape": row}), flush=True)
         del a, b, got
+    for q in ("int8", "fp8"):
+        print(json.dumps({"scaled_matmul_occupancy": q,
+                          **lowp._occupancy(q)}), flush=True)
     launches = sum(calls.values())
     print(json.dumps({"b9_per_step": step, "launches": launches,
                       "distinct_calls": len(calls),

@@ -18,32 +18,44 @@
 // product, 453 GFLOP, and B5 / B6 two each (the scores again, then dx
 // or dw), 906 GFLOP, against ~50 MB of operands: operations, not bytes.
 //
-// Design. One kernel shape serves all three: a block OWNS a tile of
-// rows of one operand ("a": x for B4 / B5, w for B6), kept in shared
-// memory for the whole block, and WALKS the other operand ("b": w for
-// B4 / B5, x for B6) in tiles of 64 rows. Each step loads the b tile,
-// forms the score tile a b^T over all of H, then either folds it into
-// the per-row online statistics (B4) or turns it into d and adds d b
-// (B5: dx rows of the owned x rows) or d^T b (B6: dw rows of the owned
-// vocab rows) into f32 accumulators held in registers. The TPU kernels
-// keep a [256, 768] dx and a [1024, 768] dw accumulator in VMEM (3 MB);
-// here the register file (256 KB an SM) holds them. B5 owns row tiles
-// and walks the vocab, B6 owns vocab tiles and walks the rows, so every
-// output element is summed by one thread in a fixed order: no atomics,
-// results repeat bit for bit. Columns past V and rows past N are
+// Design. One kernel shape serves all three: a block OWNS a tile of rows of
+// one operand ("a": x for B4 / B5, w for B6), kept in shared memory for the
+// whole block, and WALKS the other operand ("b": w for B4 / B5, x for B6) in
+// tiles of 64 rows (B4 in bf16: 128). Each step loads the b tile, forms the
+// score tile a b^T over all of H, then either folds it into the per-row online
+// statistics (B4) or turns it into d and adds d b (B5: dx rows of the owned x
+// rows) or d^T b (B6: dw rows of the owned vocab rows) into f32 accumulators
+// held in registers. The TPU kernels keep a [256, 768] dx and a [1024, 768] dw
+// accumulator in VMEM (3 MB); here the register file (256 KB an SM) holds
+// them. B5 owns row tiles and walks the vocab, B6 owns vocab tiles and walks
+// the rows, so every output element is summed by one thread in a fixed order:
+// no atomics, results repeat bit for bit. Columns past V and rows past N are
 // zero-filled by the copies and masked in d.
 //
-// B4 in bf16 (tc_kernel): warp-level mma.sync.m16n8k16 (bf16 in, f32
-// accumulators: the reference's arithmetic), fragments loaded with
-// ldmatrix. An owned tile is 64 rows up to H 768 (32 at H 1024); the
-// walked tile sits in shared memory as H / 64 chunk slots filled by
-// cp.async; a slot is refilled with the next tile's chunk as soon as the
-// block is done with it, so the loads of one step run under the
-// products of the one before. At H 1024 B5 and B6 run the same kernel
-// with 32 owned rows, their [32, 1024] f32 accumulator spread over 8
-// warps: d is rounded to bf16 into shared memory and read back as the A
-// operand of the second product, whose B operand (the walked tile, K =
-// its rows) is transposed on load with ldmatrix.trans. Shared-memory
+// B4 in bf16 (lse_kernel, every H): warpgroup products (wgmma) fed by
+// TMA. A block owns 128 token rows (64 at H 1024), so the table streams
+// through L2 once per 128 tokens (16384 / 128 = 128 times at the ERNIE
+// head, one block on each of 128 SMs) instead of once per 64; its x
+// tile stays in 128-byte-swizzled shared memory, a producer warp walks
+// the table in [128 vocab rows, 32 or 64 columns] items through a ring
+// of mbarrier-guarded slots, and each consumer warpgroup folds its
+// m64n128 score tile into the rows' online statistics in registers
+// while the next tile's products run. See lse_kernel. At the ERNIE head
+// on an H100 80GB HBM3 (700 W) it takes about 1.1 ms against 3.9 ms for
+// the mma.sync kernel it replaced (64 owned rows, a cp.async ring; both
+// in one chip_ab.py call) and 2.45 ms for the unfused two-call forward
+// (chip_smoke.py); 2.4x its 0.458 ms bound (operations). The walk is
+// bound by the bytes it keeps in flight (see lse_kernel); a 2-block
+// cluster sharing each item by TMA multicast was slower.
+//
+// B5 / B6 at H 1024 (tc_kernel): warp-level mma.sync.m16n8k16 (bf16
+// in, f32 accumulators), fragments loaded with ldmatrix, 32 owned rows,
+// their [32, 1024] f32 accumulator spread over 8 warps; the walked tile
+// sits in shared memory as H / 64 chunk slots filled by cp.async, a
+// slot refilled with the next tile's chunk as soon as the block is done
+// with it. d is rounded to bf16 into shared memory and read back as the
+// A operand of the second product, whose B operand (the walked tile,
+// K = its rows) is transposed on load with ldmatrix.trans. Shared-memory
 // rows are padded by 16 bytes, so fragment loads fall on distinct banks.
 //
 // B5 and B6 in bf16 (wg_kernel, H <= 768): warpgroup products (wgmma)
@@ -76,7 +88,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
+
+using namespace sm90;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -278,10 +294,9 @@ constexpr int kKC = 64;          // H columns of a walked-tile chunk
 constexpr int kLDC = kKC + 8;    // its row stride (bf16): 144 bytes
 
 template <int BP, int H>
-constexpr size_t tc_smem_bytes(int mode) {
+constexpr size_t tc_smem_bytes() {
   return (size_t)BP * (H + 8) * 2 + (size_t)(H / kKC) * kBQ * kLDC * 2 +
-         (mode == kFwd ? (size_t)kWarps * BP * 3 * 4
-                       : (size_t)BP * (kBQ + 8) * 2);
+         (size_t)BP * (kBQ + 8) * 2;
 }
 
 // Copy H-chunk `c` of the walked tile's rows b0.. (zeros past nb) into
@@ -302,14 +317,13 @@ __device__ __forceinline__ void fetch_chunk(__nv_bfloat16* Bs,
   cp_async_commit();
 }
 
-// BP owned rows (32 or 64), H a multiple of 64. The walked tile lives
-// in shared memory as NC = H / 64 chunk slots of [kBQ, 64]; a slot is
+// B5 / B6 at H 1024: BP owned rows (32). The walked tile lives in
+// shared memory as NC = H / 64 chunk slots of [kBQ, 64]; a slot is
 // refilled with the next tile's chunk as soon as every warp is done
-// with it (B4: after the score product reads it; B5 / B6: after the
-// second product does), so the loads of tile i+1 run under the
-// products of tile i. Warps split the score tile [BP, kBQ] into WM x WN
-// tiles of 16 x (kBQ / WN); in the second product warp w owns columns
-// [64 c + 8 w, 64 c + 8 w + 8) of every chunk c of the [BP, H]
+// with it in the second product, so the loads of tile i+1 run under
+// the products of tile i. Warps split the score tile [BP, kBQ] into
+// WM x WN tiles of 16 x (kBQ / WN); in the second product warp w owns
+// columns [64 c + 8 w, 64 c + 8 w + 8) of every chunk c of the [BP, H]
 // accumulator.
 template <int MODE, int BP, int H>
 __global__ void __launch_bounds__(kThreads, 1) tc_kernel(const Args p) {
@@ -320,6 +334,7 @@ __global__ void __launch_bounds__(kThreads, 1) tc_kernel(const Args p) {
   constexpr int MI = BP / 16;         // m16 tiles of the accumulator
   constexpr int LDD = kBQ + 8;        // d tile row stride (bf16)
   static_assert(NJ % 2 == 0, "score tiles pair n8 tiles");
+  static_assert(MODE == kDx || MODE == kDw, "backward modes");
 
   extern __shared__ uint4 smem4[];
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem4);
@@ -345,38 +360,28 @@ __global__ void __launch_bounds__(kThreads, 1) tc_kernel(const Args p) {
 #pragma unroll
   for (int c = 0; c < NC; ++c) fetch_chunk<H>(Bs, B, 0, nb, c);
 
-  // per-token operands of the thread's two owned rows (B4, B5: rows
-  // are tokens)
+  // B5: per-token operands of the thread's two owned rows
   float lse_r[2] = {0.f, 0.f}, g_r[2] = {0.f, 0.f};
   int lab_r[2] = {-1, -1};
-  if (MODE != kDw) {
+  if (MODE == kDx) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int t = a0 + m0 + g + 8 * h;
       if (t < p.n) {
         lab_r[h] = p.labels[t];
-        if (MODE == kDx) {
-          lse_r[h] = p.lse[t];
-          g_r[h] = p.g[t];
-        }
+        lse_r[h] = p.lse[t];
+        g_r[h] = p.g[t];
       }
     }
   }
-  // B4: the online max / sum-exp / picked logit of those rows over the
-  // warp's columns, kept in registers (the 4 lanes of a quad hold the
-  // same m and l); the WN warps of a row combine once at the end
-  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f},
-        pk_r[2] = {0.f, 0.f};
 
   float acc[MI][NC][4];
-  if constexpr (MODE != kFwd) {
 #pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
+  for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-      for (int c = 0; c < NC; ++c)
+    for (int c = 0; c < NC; ++c)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][c][e] = 0.f;
-  }
+      for (int e = 0; e < 4; ++e) acc[mi][c][e] = 0.f;
 
   for (int b0 = 0; b0 < nb; b0 += kBQ) {
     const int b1 = b0 + kBQ;          // the next walked tile
@@ -404,11 +409,9 @@ __global__ void __launch_bounds__(kThreads, 1) tc_kernel(const Args p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
     for (int c = 0; c < NC; ++c) {
-      // in flight past chunk c: this tile's later chunks, plus (B4) the
-      // next tile's chunks 0 .. c-2
-      cp_async_wait_n(MODE == kFwd && c > 0 ? NC - 2 : NC - 1 - c);
-      __syncthreads();  // chunk c visible; every warp is done with c - 1
-      if (MODE == kFwd && c > 0) fetch_chunk<H>(Bs, B, b1, nb, c - 1);
+      // in flight past chunk c: this tile's later chunks
+      cp_async_wait_n(NC - 1 - c);
+      __syncthreads();  // chunk c visible
       const __nv_bfloat16* slot = Bs + c * kBQ * kLDC;
 #pragma unroll
       for (int kk = 0; kk < kKC; kk += 16) {
@@ -427,120 +430,57 @@ __global__ void __launch_bounds__(kThreads, 1) tc_kernel(const Args p) {
       }
     }
 
-    if constexpr (MODE == kFwd) {
-      __syncthreads();  // every warp is done with the last chunk
-      fetch_chunk<H>(Bs, B, b1, nb, NC - 1);
+    // d of the tile, rounded to bf16, into shared memory
+    __nv_bfloat16* Ds = static_cast<__nv_bfloat16*>(tail);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        float x[NJ][2];
-        float mx = kNegInf;
+        const int r = m0 + g + 8 * h;
+        float d[2];
 #pragma unroll
-        for (int j = 0; j < NJ; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int v = b0 + q0 + j * 8 + 2 * t4 + e;
-            const float sv = s[j][2 * h + e];
-            if (v < p.vocab && v == lab_r[h]) pk_r[h] += sv;
-            x[j][e] = v < p.vocab ? sv : kNegInf;
-            mx = fmaxf(mx, x[j][e]);
+        for (int e = 0; e < 2; ++e) {
+          const int q = q0 + j * 8 + 2 * t4 + e;
+          const float sv = s[j][2 * h + e];
+          if (MODE == kDx) {
+            const int t = a0 + r, v = b0 + q;
+            d[e] = dlogit(sv, t < p.n && v < p.vocab, lse_r[h], g_r[h],
+                          v == lab_r[h]);
+          } else {
+            const int v = a0 + r, t = b0 + q;
+            d[e] = dlogit(sv, t < p.n && v < p.vocab, lse_c[j][e],
+                          g_c[j][e], v == lab_c[j][e]);
           }
-        const float m_new = fmaxf(m_r[h], group_max<4>(mx));
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-          sum += expf(x[j][0] - m_new) + expf(x[j][1] - m_new);
-        l_r[h] = l_r[h] * expf(m_r[h] - m_new) + group_sum<4>(sum);
-        m_r[h] = m_new;
-      }
-    } else {
-      // d of the tile, rounded to bf16, into shared memory
-      __nv_bfloat16* Ds = static_cast<__nv_bfloat16*>(tail);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = m0 + g + 8 * h;
-          float d[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int q = q0 + j * 8 + 2 * t4 + e;
-            const float sv = s[j][2 * h + e];
-            if (MODE == kDx) {
-              const int t = a0 + r, v = b0 + q;
-              d[e] = dlogit(sv, t < p.n && v < p.vocab, lse_r[h], g_r[h],
-                            v == lab_r[h]);
-            } else {
-              const int v = a0 + r, t = b0 + q;
-              d[e] = dlogit(sv, t < p.n && v < p.vocab, lse_c[j][e],
-                            g_c[j][e], v == lab_c[j][e]);
-            }
-          }
-          *reinterpret_cast<uint32_t*>(Ds + r * LDD + q0 + j * 8 + 2 * t4) =
-              pack_bf16(d[0], d[1]);
         }
-      }
-      __syncthreads();
-
-      // acc[BP, warp's columns] += d [BP, kBQ] @ walked tile [kBQ, H]
-      uint32_t ad[MI][kBQ / 16][4];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int ks = 0; ks < kBQ / 16; ++ks)
-          ldsm_x4(ad[mi][ks], Ds + (mi * 16 + (lane & 15)) * LDD + ks * 16 +
-                                  (lane >> 4) * 8);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const __nv_bfloat16* slot = Bs + c * kBQ * kLDC;
-#pragma unroll
-        for (int ks = 0; ks < kBQ / 16; ++ks) {
-          uint32_t b[2];
-          ldsm_x2_trans(b, slot + (ks * 16 + (lane & 15)) * kLDC + warp * 8);
-#pragma unroll
-          for (int mi = 0; mi < MI; ++mi) mma_bf16(acc[mi][c], ad[mi][ks], b);
-        }
-        __syncthreads();  // every warp is done with chunk c
-        fetch_chunk<H>(Bs, B, b1, nb, c);
-      }
-    }
-  }
-
-  if constexpr (MODE == kFwd) {
-    // combine the WN column slices of each row: lse = M + log(sum_i
-    // l_i exp(m_i - M)), nll = lse - picked (l >= 1 overall: every row
-    // has a valid column)
-    float* part = static_cast<float*>(tail);   // [WN][BP][3]
-    const int wn = warp / WM;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float pk = group_sum<4>(pk_r[h]);
-      if (t4 == 0) {
-        float* q = part + (wn * BP + m0 + g + 8 * h) * 3;
-        q[0] = m_r[h];
-        q[1] = l_r[h];
-        q[2] = pk;
+        *reinterpret_cast<uint32_t*>(Ds + r * LDD + q0 + j * 8 + 2 * t4) =
+            pack_bf16(d[0], d[1]);
       }
     }
     __syncthreads();
-    for (int r = threadIdx.x; r < BP; r += kThreads) {
-      const int t = a0 + r;
-      if (t >= p.n) continue;
-      float M = kNegInf;
+
+    // acc[BP, warp's columns] += d [BP, kBQ] @ walked tile [kBQ, H]
+    uint32_t ad[MI][kBQ / 16][4];
 #pragma unroll
-      for (int i = 0; i < WN; ++i) M = fmaxf(M, part[(i * BP + r) * 3]);
-      float L = 0.f, P = 0.f;
+    for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-      for (int i = 0; i < WN; ++i) {
-        const float* q = part + (i * BP + r) * 3;
-        L += q[1] * expf(q[0] - M);
-        P += q[2];
+      for (int ks = 0; ks < kBQ / 16; ++ks)
+        ldsm_x4(ad[mi][ks], Ds + (mi * 16 + (lane & 15)) * LDD + ks * 16 +
+                                (lane >> 4) * 8);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const __nv_bfloat16* slot = Bs + c * kBQ * kLDC;
+#pragma unroll
+      for (int ks = 0; ks < kBQ / 16; ++ks) {
+        uint32_t b[2];
+        ldsm_x2_trans(b, slot + (ks * 16 + (lane & 15)) * kLDC + warp * 8);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) mma_bf16(acc[mi][c], ad[mi][ks], b);
       }
-      const float lse = M + logf(L);
-      p.lse_out[t] = lse;
-      p.nll[t] = lse - P;
+      __syncthreads();  // every warp is done with chunk c
+      fetch_chunk<H>(Bs, B, b1, nb, c);
     }
-    return;
   }
+
   cp_async_wait<0>();   // the empty groups past the last tile
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
 #pragma unroll
@@ -600,10 +540,6 @@ constexpr size_t wg_smem() {
   return 1024 + 2 * (size_t)(H / 64) * kChunk + kChunk + 3 * kTQ * 4;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
 __device__ __forceinline__ void cp_async16_s(uint32_t dst, const void* src,
                                              bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
@@ -620,27 +556,6 @@ __device__ __forceinline__ uint32_t swz(int r, int u) {
   return r * 128 + ((u ^ (r & 7)) << 4);
 }
 
-// shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets (K-major: the stride steps 8 rows of
-// M or N, the leading offset is unused; MN-major: the stride steps 8
-// rows of K, the leading offset 64 columns of M or N)
-__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
-                                            uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 // wait until at most `n` (< 8) of the warpgroup's product groups run
 __device__ __forceinline__ void wg_wait_n(int n) {
   switch (n) {
@@ -658,14 +573,6 @@ __device__ __forceinline__ void wg_wait_n(int n) {
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
-// keeps the compiler from moving accumulator reads or writes across the
-// asynchronous products that own the registers
-template <int R>
-__device__ __forceinline__ void reg_fence(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // d[64 x N] (+)= A B, bf16 from shared memory through descriptors; the
 // f32 accumulator of lane (g, t) of warp w: d[4 j + 2 h + e] is row
 // 16 w + g + 8 h, column 8 j + 2 t + e
@@ -934,6 +841,303 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(const Args p) {
 }
 
 // ---------------------------------------------------------------------------
+// B4 in bf16 on warpgroup products (wgmma), every H
+// ---------------------------------------------------------------------------
+// A block owns kRows token rows of x (128: two consumer warpgroups of
+// m64, up to H 768; 64 at H 1024, where 128 rows of x would not fit)
+// and walks the table in tiles of 128 vocab rows. A producer warp keeps
+// the walk in flight with TMA: x once ([kRows, H] as H / 64 chunks of
+// [kRows rows][128 bytes], 128-byte swizzled), then each tile as items
+// of [128 vocab rows][kIW columns] through a ring of kStages slots
+// (full / empty mbarriers). How many bytes are in flight bounds the
+// walk (L2 answers a block's load in about a microsecond under this
+// load): at H 768, x takes 192 KB and leaves room for two 16 KB items
+// or four 8 KB ones, so items there are 32 columns (64-byte rows,
+// 64-byte swizzle); elsewhere 64. Each consumer warpgroup forms its
+// m64n128 score tile item by item (k16 products, both operands K-major
+// from shared memory), so the next items' loads run under this one's
+// products. The score tile is folded into the rows' online max /
+// sum-exp / picked logit in registers; in the accumulator layout a
+// row's 128 columns sit in the four threads of a quad, which keep one
+// max (two shfl.xor) and each its own partial sum, added once at the
+// end. Two accumulators alternate over the tiles: the fold of tile t-1
+// runs on the CUDA cores while tile t's products run on the tensor
+// cores (its max with the first item, its exps spread over the next
+// ones). Blocks start their walks at tiles spread over the vocab, so
+// they do not all ask L2 for the same lines at once. Every row is owned
+// by one block and walked in one order: results repeat bit for bit.
+// Vocab rows past V arrive as zeros (TMA fills out-of-bounds rows) and
+// their columns are masked to -1e30.
+template <int H>
+struct Fwd {
+  static constexpr int kWG = H <= 768 ? 2 : 1;   // consumer warpgroups
+  static constexpr int kRows = 64 * kWG;         // owned token rows
+  static constexpr int kNC = H / 64;             // 64-column chunks of x
+  static constexpr uint32_t kXChunk = kRows * 128;
+  static constexpr uint32_t kXBytes = kNC * kXChunk;
+  static constexpr int kRoom = 232448 - 1024 - 128 - (int)kXBytes;
+  // items of [128 vocab][kIW columns]: 64 (128-byte rows) where four
+  // 16 KB slots fit beside x, else 32 (64-byte rows, four 8 KB slots)
+  static constexpr int kIW = kRoom / (128 * 128) >= 4 ? 64 : 32;
+  static constexpr int kNI = H / kIW;            // items a tile
+  static constexpr int kK16 = kIW / 16;          // k16 products an item
+  static constexpr uint32_t kItem = 128 * kIW * 2;
+  static constexpr int kFit = kRoom / (int)kItem;
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr int kThreads = 128 * kWG + 32;   // + the producer warp
+  // alignment slack, x, the ring, full / empty barriers and x's barrier
+  static constexpr size_t kSmem =
+      1024 + kXBytes + (size_t)kStages * kItem + (2 * kStages + 1) * 8;
+  // fold parts after the max: the exps of a tile spread over P items
+  static constexpr int kParts = kNI > 4 ? 4 : (kNI > 2 ? 2 : 1);
+  static_assert(kStages >= 2, "the ring needs two slots");
+};
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// the online statistics of the thread's two rows (h: row g or g + 8 of
+// its warp's 16); l and the picked logit are the thread's own columns'
+// partials, m is the quad's
+struct RowStats4 {
+  float m[2], l[2], pk[2], ms[2];   // ms = m log2(e)
+  int lab[2];
+};
+
+// the first part of folding the score tile s of vocab rows v0..: mask
+// columns past the vocab, pick the label's score, take the running max
+// and rescale l. Column of s[4 j + 2 h + e]: 8 j + 2 t4 + e.
+__device__ __forceinline__ void fold_max(float (&s)[64], RowStats4& st,
+                                         int v0, int vocab, int t4) {
+  const int valid = vocab - v0 < 128 ? vocab - v0 : 128;
+  if (valid < 128) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      if (8 * (i >> 2) + 2 * t4 + (i & 1) >= valid) s[i] = kNegInf;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int want = st.lab[h] - v0;
+    if ((unsigned)want < (unsigned)valid) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (8 * j + 2 * t4 + e == want) st.pk[h] += s[4 * j + 2 * h + e];
+    }
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+    mx = group_max<4>(mx);
+    const float mn = fmaxf(st.m[h], mx);
+    st.l[h] *= exp2f((st.m[h] - mn) * kLog2e);
+    st.m[h] = mn;
+    st.ms[h] = mn * kLog2e;
+  }
+}
+
+// the sum-exp of s's column groups j in [j0, j1) into l
+__device__ __forceinline__ void fold_exp(const float (&s)[64], RowStats4& st,
+                                         int j0, int j1) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    if (j < j0 || j >= j1) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        st.l[h] += exp2f(fmaf(s[4 * j + 2 * h + e], kLog2e, -st.ms[h]));
+  }
+}
+
+// shared memory of lse_kernel: x chunks, the ring, the barriers
+template <class C>
+struct FwdSmem {
+  uint32_t x, ring, full, empty, xbar;
+  __device__ __forceinline__ explicit FwdSmem(uint32_t raw) {
+    x = (raw + 1023) & ~1023u;
+    ring = x + C::kXBytes;
+    full = ring + C::kStages * C::kItem;
+    empty = full + 8 * C::kStages;
+    xbar = empty + 8 * C::kStages;
+  }
+};
+
+// the descriptor of a K-major [rows][64 bytes] operand, 64-byte swizzle
+// (16-byte unit u of row r at u ^ ((r / 2) % 4)): the stride steps 8
+// rows (512 bytes)
+__device__ __forceinline__ uint64_t wg_desc64(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(16 >> 4) << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
+}
+
+// the walk's t-th tile's products into `cur`, item by item, with the
+// fold of the one before (`prev`, vocab tile t_prev, complete once the
+// first item's wait returns) spread under them. `da` describes the
+// warpgroup's rows of x's first chunk; every operand's descriptor is
+// that of its chunk start plus a byte offset / 16 (the address field is
+// the low 14 bits).
+template <class C>
+__device__ __forceinline__ void lse_tile(float (&cur)[64], float (&prev)[64],
+                                         int t, const FwdSmem<C>& sm,
+                                         uint64_t da, RowStats4& st,
+                                         int vocab, int t4, int t_prev) {
+  // opaque to the compiler, so it forms each chunk's descriptors where
+  // they are used instead of holding all H / 16 of them in registers
+  // across the walk
+  asm volatile("" : "+l"(da));
+#pragma unroll
+  for (int c = 0; c < C::kNI; ++c) {
+    const int j = t * C::kNI + c;
+    const int slot = j % C::kStages;
+    mbar_wait(sm.full + 8 * slot, (j / C::kStages) & 1);
+    wg_fence();
+    const uint32_t b = sm.ring + slot * C::kItem;
+    const uint64_t db = C::kIW == 64 ? wg_desc(b, 16, 1024) : wg_desc64(b);
+    // the item's columns: x chunk (c kIW) / 64, bytes (c kIW) % 64 * 2 in
+#pragma unroll
+    for (int kk = 0; kk < C::kK16; ++kk)
+      wgmma_n128(cur,
+                 da + (((c * C::kIW / 64) * C::kXChunk +
+                        (c * C::kIW % 64) * 2 + kk * 32) >> 4),
+                 db + ((kk * 32) >> 4), (c | kk) != 0);
+    wg_commit();
+    wg_wait<1>();           // item j - 1 is done: release its slot
+    if (j > 0) mbar_arrive(sm.empty + 8 * ((j - 1) % C::kStages));
+    if (t == 0) continue;
+    if (c == 0) {
+      reg_fence(prev);
+      fold_max(prev, st, t_prev * 128, vocab, t4);
+      if (C::kNI == 1) fold_exp(prev, st, 0, 16);
+    } else if (c <= C::kParts) {
+      constexpr int kW = 16 / C::kParts;
+      fold_exp(prev, st, (c - 1) * kW, c * kW);
+    }
+  }
+}
+
+template <int H>
+__global__ void __launch_bounds__(Fwd<H>::kThreads, 1)
+    lse_kernel(const __grid_constant__ CUtensorMap tx,
+               const __grid_constant__ CUtensorMap tw, const Args p) {
+  using C = Fwd<H>;
+  extern __shared__ uint4 smem4[];
+  const FwdSmem<C> sm(smem_u32(smem4));
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int row0 = blockIdx.x * C::kRows;
+  const int tiles = (p.vocab + 127) / 128;
+  const int items = tiles * C::kNI;
+  // blocks start their walks at tiles spread over the vocab (each wraps
+  // around once), so they do not all ask L2 for the same lines at once
+  const int start = (int)(blockIdx.x * (long long)tiles / gridDim.x);
+  if (tid == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(sm.full + 8 * s, 1);
+      mbar_init(sm.empty + 8 * s, 128 * C::kWG);
+    }
+    mbar_init(sm.xbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == C::kWG) {       // the producer warp; one thread issues
+    if (tid != 128 * C::kWG) return;
+    mbar_expect_tx(sm.xbar, C::kXBytes);
+    for (int c = 0; c < C::kNC; ++c)
+      tma_load(sm.x + c * C::kXChunk, &tx, c * 64, row0, sm.xbar);
+    for (int j = 0; j < items; ++j) {
+      const int slot = j % C::kStages;
+      if (j >= C::kStages)
+        mbar_wait(sm.empty + 8 * slot, (j / C::kStages - 1) & 1);
+      mbar_expect_tx(sm.full + 8 * slot, C::kItem);
+      tma_load(sm.ring + slot * C::kItem, &tw, (j % C::kNI) * C::kIW,
+               ((j / C::kNI + start) % tiles) * 128, sm.full + 8 * slot);
+    }
+    return;
+  }
+
+  const int wt = tid & 127, warp = wt >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  RowStats4 st;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + wg * 64 + warp * 16 + g + 8 * h;
+    st.m[h] = kNegInf;
+    st.l[h] = 0.f;
+    st.pk[h] = 0.f;
+    st.ms[h] = 0.f;
+    st.lab[h] = r < p.n ? p.labels[r] : -1;
+  }
+  float acc0[64], acc1[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
+  // this warpgroup's 64 rows of x's first chunk
+  const uint64_t da = wg_desc(sm.x + wg * 64 * 128, 16, 1024);
+  mbar_wait(sm.xbar, 0);
+
+  for (int t = 0; t < tiles; t += 2) {
+    lse_tile<C>(acc0, acc1, t, sm, da, st, p.vocab, t4,
+                (t - 1 + start) % tiles);
+    if (t + 1 < tiles)
+      lse_tile<C>(acc1, acc0, t + 1, sm, da, st, p.vocab, t4,
+                  (t + start) % tiles);
+  }
+  wg_wait<0>();
+  const int t_last = (tiles - 1 + start) % tiles;
+  if ((tiles - 1) & 1) {
+    reg_fence(acc1);
+    fold_max(acc1, st, t_last * 128, p.vocab, t4);
+    fold_exp(acc1, st, 0, 16);
+  } else {
+    reg_fence(acc0);
+    fold_max(acc0, st, t_last * 128, p.vocab, t4);
+    fold_exp(acc0, st, 0, 16);
+  }
+  // every row has a valid column, so l >= 1 after the running max
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float l = group_sum<4>(st.l[h]), pk = group_sum<4>(st.pk[h]);
+    const int r = row0 + wg * 64 + warp * 16 + g + 8 * h;
+    if (t4 == 0 && r < p.n) {
+      const float lse = st.m[h] + logf(l);
+      p.lse_out[r] = lse;
+      p.nll[r] = lse - pk;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // CUDA-core path (f32 operands, full f32)
 // ---------------------------------------------------------------------------
 
@@ -1056,10 +1260,12 @@ __global__ void __launch_bounds__(kThreads) f32_kernel(const Args p) {
 // the kernel, dynamic shared memory, block size and owned rows a block
 // of a mode
 struct Kernel {
-  void (*fn)(const Args);
+  const void* fn;
   size_t bytes;
   int threads, rows;
   bool split = false;   // B6 on warpgroup products: see dw_split
+  int item_cols = 0;    // B4 in bf16: launched with tensor maps of x and
+                        // w, w read in items of this many columns
 };
 
 // B6's grid on `sms` SMs: the vocab tiles past the last whole wave are
@@ -1086,31 +1292,57 @@ size_t dw_ws_bytes(const Split& sp, int H) {
          (size_t)sp.split_tiles * 4;
 }
 
+template <typename F>
+const void* sym(F* fn) {
+  return reinterpret_cast<const void*>(fn);
+}
+
 template <int H>
 Kernel pick_h(int mode, int bf16) {
   if (!bf16) {
     const size_t smem = f32_smem_bytes<H>();
     switch (mode) {
-      case kFwd: return {f32_kernel<kFwd, H>, smem, kThreads, kFP};
-      case kDx: return {f32_kernel<kDx, H>, smem, kThreads, kFP};
-      default: return {f32_kernel<kDw, H>, smem, kThreads, kFP};
+      case kFwd: return {sym(f32_kernel<kFwd, H>), smem, kThreads, kFP};
+      case kDx: return {sym(f32_kernel<kDx, H>), smem, kThreads, kFP};
+      default: return {sym(f32_kernel<kDw, H>), smem, kThreads, kFP};
     }
   }
-  // the forward owns 64 rows (half the walks over w) where they fit
-  constexpr int kFwdBP = H <= 768 ? 64 : 32;
-  if (mode == kFwd)
-    return {tc_kernel<kFwd, kFwdBP, H>, tc_smem_bytes<kFwdBP, H>(kFwd),
-            kThreads, kFwdBP};
+  if (mode == kFwd) {
+    return {sym(lse_kernel<H>), Fwd<H>::kSmem, Fwd<H>::kThreads,
+            Fwd<H>::kRows, false, Fwd<H>::kIW};
+  }
   // a 64-row f32 accumulator of 1024 columns would fill the register
   // file: H 1024 keeps the 32-row mma.sync kernel for B5 and B6
   if constexpr (H <= 768) {
-    if (mode == kDx) return {wg_kernel<kDx, H>, wg_smem<H>(), kWgThreads, kVP};
-    return {wg_kernel<kDw, H>, wg_smem<H>(), kWgThreads, kVP, true};
+    if (mode == kDx)
+      return {sym(wg_kernel<kDx, H>), wg_smem<H>(), kWgThreads, kVP};
+    return {sym(wg_kernel<kDw, H>), wg_smem<H>(), kWgThreads, kVP, true};
   } else {
     if (mode == kDx)
-      return {tc_kernel<kDx, 32, H>, tc_smem_bytes<32, H>(kDx), kThreads, 32};
-    return {tc_kernel<kDw, 32, H>, tc_smem_bytes<32, H>(kDw), kThreads, 32};
+      return {sym(tc_kernel<kDx, 32, H>), tc_smem_bytes<32, H>(), kThreads,
+              32};
+    return {sym(tc_kernel<kDw, 32, H>), tc_smem_bytes<32, H>(), kThreads, 32};
   }
+}
+
+// a [rows, H] bf16 matrix (rows contiguous) read in boxes of [box_rows,
+// box_cols (64 or 32) columns], swizzled by the box's row bytes (128 or
+// 64); rows past `rows` read as zeros
+bool bf16_map(CUtensorMap* map, const void* base, int H, int rows,
+              int box_rows, int box_cols) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)H, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)H * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<void*>(base), dims, strides, box, step,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                            : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // mode 0-2, dtype 0 (f32) or 1 (bf16), H one of the six; false otherwise
@@ -1191,7 +1423,20 @@ extern "C" int fused_lce(int mode, int dtype, int H, const void* x,
   err = cudaFuncSetAttribute(
       k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)k.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  k.fn<<<grid, k.threads, k.bytes, st>>>(p);
+  if (k.item_cols) {
+    CUtensorMap tx, tw;
+    if (!bf16_map(&tx, x, H, n, k.rows, 64) ||
+        !bf16_map(&tw, w, H, vocab, 128, k.item_cols))
+      return cudaErrorInvalidValue;
+    void* args[] = {&tx, &tw, &p};
+    err = cudaLaunchKernel(k.fn, dim3(grid), dim3(k.threads), args, k.bytes,
+                           st);
+  } else {
+    void* args[] = {&p};
+    err = cudaLaunchKernel(k.fn, dim3(grid), dim3(k.threads), args, k.bytes,
+                           st);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -36,6 +36,8 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "sm90.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;                       // 8 warps
@@ -289,30 +291,39 @@ extern "C" int w8a8_matmul_f32_i8(const float* x, const int8_t* qb,
 // f32 output take at 3.35 TB/s against 1979 TOP/s: the bytes (mostly
 // the f32 output) bound it.
 //
-// Design: three launches on the caller's stream. Two quantise passes
-// write the codes once: a -> qa [Mp, Kp] row-major, b -> qb [Np, Kp]
-// K-major (the "col" operand of mma), zero past M, N and K up to the
-// tile multiples (Mp, Np of 128, Kp of 64: a zero code adds nothing, as
-// the TPU kernel's zero padding). A K-major b is a straight row pass; an
-// N-major one goes through a 32 x 32 shared-memory transpose so reads
-// and writes both stay coalesced. Then a tiled GEMM: a block computes a
-// 128 x 128 output tile with 8 warps of 64 x 32, K in steps of 64 bytes
-// through a 3-stage cp.async ring (rows padded to 80 bytes: the
-// fragments' 32-bit loads fall on 32 distinct banks), on
-// mma.sync.m16n8k32 (s8 x s8 -> s32, or e4m3 x e4m3 -> f32). int32 sums
-// are exact (|acc| <= 127^2 K < 2^31 for K < 133143), so int8 is bitwise
-// equal to the plain version. fp8: the tensor cores' f32 accumulation
-// keeps fewer mantissa bits than an f32 add, so each 64-deep K step
-// starts a fresh fragment that is added into f32 registers on the CUDA
-// cores. The epilogue scales and stores with M / N masked.
+// Design: three launches on the caller's stream. Two quantise passes write the
+// codes once: a -> qa [Mp, Kp] row-major, b -> qb [Np, Kp] K-major (wgmma
+// reads 8-bit operands K-major only), zero past M, N and K up to the tile
+// multiples (Mp, Np and Kp of 128: a zero code adds nothing, as the TPU
+// kernel's zero padding). A K-major b is a straight row pass; an N-major one
+// goes through a 32 x 32 shared-memory transpose so reads and writes both stay
+// coalesced. Then the GEMM (qmm_wg): a block computes a 128 x 128 output tile
+// with two consumer warpgroups of m64n128 warpgroup products, both operands
+// read from 128-byte-swizzled shared memory, where a producer warp's TMA loads
+// land in a ring of [128 rows][128 bytes of K] slots (mbarriers mark them full
+// and empty), so the loads run ahead of the products; two blocks an SM, so one
+// block's stores run under the other's products. int8 multiplies s8 x s8 ->
+// s32 (k32 a product): int32 sums are exact (|acc| <= 127^2 K < 2^31 for K <
+// 133143), so int8 is bitwise equal to the plain version. fp8 stores each e4m3
+// code decoded to bf16 (exact) and multiplies bf16 x bf16 -> f32 (k16 a
+// product): the products are exact and the f32 accumulation holds the plain
+// version's tolerance. The e4m3 products themselves (wgmma .e4m3, k32)
+// accumulate in the tensor cores with fewer mantissa bits: on an H100 they
+// missed that tolerance at K of 100-200 by up to 3.6x with a fresh fragment
+// every 64 of K added in f32, and by up to 1.24x with one every 32. The
+// epilogue scales the tile into shared memory and writes it in 16-byte
+// vectors, each warp one 512-byte output row at a time, M / N masked. On an
+// H100 80GB HBM3 (700 W) a step's 69 calls take about 7.8 ms in int8 and 10.1
+// ms in fp8 against 14.3 / 21.4 ms for the mma.sync design this replaced
+// (chip_ab.py, one call), the quantise passes a quarter to a third of it
+// (chip_smoke.py); the bound is 3.42 ms (bytes, mostly the f32 output). The
+// GEMM's operand reads and output writes add up rather than overlap; neither a
+// persistent grid whose TMA bulk stores drain under the next tile nor 256 x
+// 128 tiles moved it.
 
 namespace qmm {
 
-constexpr int kBM = 128, kBN = 128, kBK = 64, kStages = 3;
-constexpr int kLds = kBK + 16;                   // smem row bytes
-constexpr int kThreads = 256;                    // 8 warps, 2 (M) x 4 (N)
-constexpr int kStageBytes = (kBM + kBN) * kLds;
-constexpr int kSmem = kStages * kStageBytes;     // 61440 bytes
+using namespace sm90;
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
@@ -323,14 +334,18 @@ __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// the code of x, inv = qmax / s
+// the stored code of x, inv = qmax / s: the int8 code, or the e4m3
+// code decoded to bf16 (exact: bf16 holds every e4m3 value), the form
+// the GEMM multiplies
 template <bool kFp8>
 __device__ __forceinline__ uint32_t code(float x, float inv) {
   float y = x * inv;
   if constexpr (kFp8) {
     y = y < -448.0f ? -448.0f : (y > 448.0f ? 448.0f : y);
-    return static_cast<uint32_t>(
-        __nv_cvt_float_to_fp8(y, __NV_SATFINITE, __NV_E4M3));
+    __nv_fp8_e4m3 q;
+    q.__x = __nv_cvt_float_to_fp8(y, __NV_SATFINITE, __NV_E4M3);
+    const __nv_bfloat16 v = __float2bfloat16_rn(static_cast<float>(q));
+    return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(&v));
   } else {
     y = rintf(y);
     y = y < -127.0f ? -127.0f : (y > 127.0f ? 127.0f : y);
@@ -341,29 +356,38 @@ __device__ __forceinline__ uint32_t code(float x, float inv) {
 }
 
 // dst [Rp, Cp] (Cp % 4 == 0): the code of src[r * rs + c * cs] inside
-// [R, C], 0 outside; four codes (one 32-bit word) a thread
+// [R, C], 0 outside; four codes a thread (one 32-bit word of int8
+// codes, two of bf16)
 template <typename T, bool kFp8>
 __global__ void quant_rows(const T* __restrict__ src,
                            const float* __restrict__ s_ptr, float qmax,
-                           uint32_t* __restrict__ dst, int R, int C,
-                           int Rp, int Cp, long long rs, long long cs) {
+                           void* __restrict__ dst, int R, int C, int Rp,
+                           int Cp, long long rs, long long cs) {
   const float inv = __fdiv_rn(qmax, *s_ptr);
-  const int words = Cp / 4;
-  const long long total = static_cast<long long>(Rp) * words;
+  const int quads = Cp / 4;
+  const long long total = static_cast<long long>(Rp) * quads;
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int r = static_cast<int>(i / words);
-    const int c = 4 * static_cast<int>(i % words);
-    uint32_t u = 0;
+    const int r = static_cast<int>(i / quads);
+    const int c = 4 * static_cast<int>(i % quads);
+    uint32_t u[2] = {0u, 0u};
     if (r < R) {
       const T* p = src + r * rs;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (c + j < C)
-          u |= code<kFp8>(to_f32(p[(c + j) * cs]), inv) << (8 * j);
+        if (c + j < C) {
+          const uint32_t q = code<kFp8>(to_f32(p[(c + j) * cs]), inv);
+          if constexpr (kFp8)
+            u[j >> 1] |= q << (16 * (j & 1));
+          else
+            u[0] |= q << (8 * j);
+        }
     }
-    dst[i] = u;
+    if constexpr (kFp8)
+      static_cast<uint2*>(dst)[i] = make_uint2(u[0], u[1]);
+    else
+      static_cast<uint32_t*>(dst)[i] = u[0];
   }
 }
 
@@ -372,16 +396,18 @@ __global__ void quant_rows(const T* __restrict__ src,
 template <typename T, bool kFp8>
 __global__ void quant_cols(const T* __restrict__ src,
                            const float* __restrict__ s_ptr, float qmax,
-                           uint8_t* __restrict__ dst, int K, int N, int Kp,
+                           void* __restrict__ dst_, int K, int N, int Kp,
                            long long sk, long long sn) {
-  __shared__ uint8_t tile[32][33];
+  using Code = typename std::conditional<kFp8, uint16_t, uint8_t>::type;
+  __shared__ Code tile[32][33];
+  Code* dst = static_cast<Code*>(dst_);
   const float inv = __fdiv_rn(qmax, *s_ptr);
   const int n0 = blockIdx.x * 32, k0 = blockIdx.y * 32;
   const int tx = threadIdx.x, ty = threadIdx.y;
   for (int i = ty; i < 32; i += 8) {
     const int k = k0 + i, n = n0 + tx;
     tile[i][tx] = (k < K && n < N)
-                      ? static_cast<uint8_t>(code<kFp8>(
+                      ? static_cast<Code>(code<kFp8>(
                             to_f32(src[k * sk + n * sn]), inv))
                       : 0;
   }
@@ -390,162 +416,229 @@ __global__ void quant_cols(const T* __restrict__ src,
     dst[static_cast<long long>(n0 + i) * Kp + k0 + tx] = tile[tx][i];
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
+// ---------------------------------------------------------------------------
+// the GEMM: warpgroup products (wgmma) fed by TMA
+// ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
+constexpr int kBM = 128, kBN = 128;    // output tile of a block
+constexpr int kRowBytes = 128;         // K step: one 128-byte swizzle row
+constexpr int kConsumers = 256;        // two warpgroups, m64 each
+constexpr int kThreads = kConsumers + 32;   // + the producer warp
+constexpr uint32_t kSlab = 128 * kRowBytes;   // one operand's K step
+constexpr int kStages = 3;
+constexpr int kBlocks = 2;             // blocks an SM: one's stores run
+                                       // under the other's products
+constexpr size_t kRing = (size_t)kStages * 2 * kSlab;
+constexpr size_t kSmem = 1024 + kRing + 2 * kStages * 8;
+constexpr int kLdo = kBN + 8;          // staged output row stride (floats)
+static_assert(kRing >= (size_t)kBM * kLdo * 4,
+              "the staged output tile reuses the ring");
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t ld32(const uint8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
+// d[64 x 128] (+)= A B over 32 bytes of K (32 int8 codes, or 16 bf16
+// ones) from shared memory; lane (g, t) of warp w holds d[4 j + 2 h + e]
+// = row 16 w + g + 8 h, column 8 j + 2 t + e
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
-
-__device__ __forceinline__ void mma_e4m3(float (&d)[4],
-                                         const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da,
+                                           uint64_t db, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // out [M, N] = (qa [Mp, Kp] x qb [Np, Kp]^T) * epilogue; grid (Np / 128,
-// Mp / 128)
+// Mp / 128). A producer warp streams both operands' K steps through a
+// ring of kStages slots ([128 rows][128 bytes] each, 128-byte swizzled,
+// full / empty mbarriers); each consumer warpgroup multiplies its 64
+// rows by the 128 columns, four products a step, and sums the whole of
+// K in the tensor cores' accumulator: s32 for int8 (exact), f32 for the
+// bf16-decoded e4m3 codes (their products are exact). The epilogue
+// scales the tile into shared memory (the ring, free by then) and
+// stores it in 512-byte rows of 16-byte vectors, M and N masked.
 template <bool kFp8>
-__global__ void __launch_bounds__(kThreads)
-qmm_gemm(const uint8_t* __restrict__ qa, const uint8_t* __restrict__ qb,
-         const float* __restrict__ sa_ptr, const float* __restrict__ sb_ptr,
-         float* __restrict__ out, int M, int N, int Kp) {
-  extern __shared__ __align__(16) uint8_t smem[];
+__global__ void __launch_bounds__(kThreads, kBlocks)
+    qmm_wg(const __grid_constant__ CUtensorMap ta,
+           const __grid_constant__ CUtensorMap tb,
+           const float* __restrict__ sa_ptr, const float* __restrict__ sb_ptr,
+           float* __restrict__ out, int M, int N, int Kp) {
   using Acc = typename std::conditional<kFp8, float, int>::type;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
+  extern __shared__ uint4 smem4[];
+  const uint32_t raw = smem_u32(smem4);
+  const uint32_t ring = (raw + 1023) & ~1023u;
+  const uint32_t full = ring + (uint32_t)kRing;
+  const uint32_t empty = full + 8 * kStages;
+  const int tid = threadIdx.x, wg = tid >> 7;
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int kt_n = Kp / kBK;
-  const uint8_t* ga = qa + static_cast<long long>(m0) * Kp;
-  const uint8_t* gb = qb + static_cast<long long>(n0) * Kp;
-
-  auto load = [&](int kt) {
-    uint8_t* sa_ = smem + (kt % kStages) * kStageBytes;
-    uint8_t* sb_ = sa_ + kBM * kLds;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * kThreads;        // 512 16-byte chunks each
-      const int row = c >> 2, col = (c & 3) * 16;
-      const long long off = static_cast<long long>(row) * Kp + kt * kBK + col;
-      cp_async16(sa_ + row * kLds + col, ga + off);
-      cp_async16(sb_ + row * kLds + col, gb + off);
+  constexpr int kStep = kFp8 ? kRowBytes / 2 : kRowBytes;   // K a step
+  const int steps = Kp / kStep;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumers);
     }
-  };
-
-  Acc acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < kt_n) load(s);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int kt = 0; kt < kt_n; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    if (kt + kStages - 1 < kt_n) load(kt + kStages - 1);
-    cp_async_commit();
-    const uint8_t* As = smem + (kt % kStages) * kStageBytes;
-    const uint8_t* Bs = As + kBM * kLds;
-    uint32_t af[2][4][4], bf[2][4][2];       // both 32-deep halves
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const uint8_t* p = As + (wm + mi * 16 + g) * kLds + 32 * h + 4 * t;
-        af[h][mi][0] = ld32(p);
-        af[h][mi][1] = ld32(p + 8 * kLds);
-        af[h][mi][2] = ld32(p + 16);
-        af[h][mi][3] = ld32(p + 8 * kLds + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const uint8_t* p = Bs + (wn + ni * 8 + g) * kLds + 32 * h + 4 * t;
-        bf[h][ni][0] = ld32(p);
-        bf[h][ni][1] = ld32(p + 16);
-      }
+  __syncthreads();
+
+  if (wg == 2) {            // the producer warp; one thread issues
+    if (tid != kConsumers) return;
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % kStages;
+      if (i >= kStages) mbar_wait(empty + 8 * s, (i / kStages - 1) & 1);
+      mbar_expect_tx(full + 8 * s, 2 * kSlab);
+      const uint32_t dst = ring + s * 2 * kSlab;
+      tma_load(dst, &ta, i * kStep, m0, full + 8 * s);
+      tma_load(dst + kSlab, &tb, i * kStep, n0, full + 8 * s);
     }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        if constexpr (kFp8) {
-          // a fresh fragment for this 64-deep step, added in f32 here
-          float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          mma_e4m3(part, af[0][mi], bf[0][ni]);
-          mma_e4m3(part, af[1][mi], bf[1][ni]);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[mi][ni][j] += part[j];
-        } else {
-          mma_s8(acc[mi][ni], af[0][mi], bf[0][ni]);
-          mma_s8(acc[mi][ni], af[1][mi], bf[1][ni]);
-        }
-      }
+    return;
   }
 
+  Acc acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % kStages;
+    mbar_wait(full + 8 * s, (i / kStages) & 1);
+    const uint32_t a = ring + s * 2 * kSlab + wg * 64 * kRowBytes;
+    const uint32_t b = ring + s * 2 * kSlab + kSlab;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = wg_desc(a + kk * 32, 16, 1024);
+      const uint64_t db = wg_desc(b + kk * 32, 16, 1024);
+      if constexpr (kFp8)
+        wgmma_bf16(acc, da, db, 1);
+      else
+        wgmma_s8(acc, da, db, 1);
+    }
+    wg_commit();
+    wg_wait<1>();           // step i - 1 is done: release its slot
+    if (i > 0) mbar_arrive(empty + 8 * ((i - 1) % kStages));
+  }
+  wg_wait<0>();
+  reg_fence(acc);
+
+  // the scaled tile through shared memory (every product has read its
+  // operands once both warpgroups pass the barrier), then rows out
   const float epi = __fdiv_rn(*sa_ptr * *sb_ptr,
                               kFp8 ? 448.0f * 448.0f : 127.0f * 127.0f);
+  float* stage = reinterpret_cast<float*>(
+      reinterpret_cast<char*>(smem4) + (ring - raw));
+  const int wt = tid & 127, warp = wt >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+  for (int h = 0; h < 2; ++h) {
+    const int r = wg * 64 + warp * 16 + g + 8 * h;
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<float2*>(stage + r * kLdo + 8 * j + 2 * t4) =
+          make_float2(static_cast<float>(acc[4 * j + 2 * h]) * epi,
+                      static_cast<float>(acc[4 * j + 2 * h + 1]) * epi);
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+  const int n = n0 + 4 * lane;
+  const bool vec = N % 4 == 0;
+  for (int row = tid >> 5; row < kBM && m0 + row < M; row += kConsumers / 32) {
+    const float* src = stage + row * kLdo + 4 * lane;
+    float* dst = out + static_cast<long long>(m0 + row) * N + n;
+    if (vec) {
+      if (n < N) *reinterpret_cast<float4*>(dst) =
+          *reinterpret_cast<const float4*>(src);
+    } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = m0 + wm + mi * 16 + g + (j >> 1) * 8;
-        const int c = n0 + wn + ni * 8 + 2 * t + (j & 1);
-        if (r < M && c < N)
-          out[static_cast<long long>(r) * N + c] =
-              static_cast<float>(acc[mi][ni][j]) * epi;
-      }
+      for (int e = 0; e < 4; ++e)
+        if (n + e < N) dst[e] = src[e];
+    }
+  }
+}
+
+// codes [rows, Kp] (Kp a multiple of 128; int8, or bf16 for fp8) read
+// in boxes of [128 rows][128 bytes], 128-byte swizzled
+bool code_map(CUtensorMap* map, const void* base, int rows, int Kp,
+              bool fp8) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)Kp, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)Kp * (fp8 ? 2 : 1)};
+  const cuuint32_t box[2] = {(cuuint32_t)(fp8 ? 64 : 128), 128};
+  const cuuint32_t step[2] = {1, 1};
+  return enc(map,
+             fp8 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+             2,
+             const_cast<void*>(base), dims, strides, box, step,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename T, bool kFp8>
 cudaError_t quant_a(const void* a, long long lda, const float* sa,
-                    uint8_t* qa, int M, int K, int Mp, int Kp, int num_sms,
+                    void* qa, int M, int K, int Mp, int Kp, int num_sms,
                     cudaStream_t st) {
   const long long words = static_cast<long long>(Mp) * (Kp / 4);
   const int blocks = static_cast<int>(
       std::min<long long>((words + 255) / 256, num_sms * 8LL));
   quant_rows<T, kFp8><<<blocks, 256, 0, st>>>(
-      static_cast<const T*>(a), sa, kFp8 ? 448.0f : 127.0f,
-      reinterpret_cast<uint32_t*>(qa), M, K, Mp, Kp, lda, 1);
+      static_cast<const T*>(a), sa, kFp8 ? 448.0f : 127.0f, qa, M, K, Mp,
+      Kp, lda, 1);
   return cudaGetLastError();
 }
 
 template <typename T, bool kFp8>
 cudaError_t quant_b(const void* b, long long sk, long long sn,
-                    const float* sb, uint8_t* qb, int K, int N, int Np,
+                    const float* sb, void* qb, int K, int N, int Np,
                     int Kp, int num_sms, cudaStream_t st) {
   const float qmax = kFp8 ? 448.0f : 127.0f;
   if (sk == 1) {                        // K-major already: rows of qb
@@ -553,8 +646,7 @@ cudaError_t quant_b(const void* b, long long sk, long long sn,
     const int blocks = static_cast<int>(
         std::min<long long>((words + 255) / 256, num_sms * 8LL));
     quant_rows<T, kFp8><<<blocks, 256, 0, st>>>(
-        static_cast<const T*>(b), sb, qmax, reinterpret_cast<uint32_t*>(qb),
-        N, K, Np, Kp, sn, 1);
+        static_cast<const T*>(b), sb, qmax, qb, N, K, Np, Kp, sn, 1);
   } else {
     const dim3 grid(Np / 32, Kp / 32);
     quant_cols<T, kFp8><<<grid, dim3(32, 8), 0, st>>>(
@@ -566,9 +658,9 @@ cudaError_t quant_b(const void* b, long long sk, long long sn,
 template <bool kFp8>
 cudaError_t run(const void* a, int a_bf16, long long lda, const void* b,
                 int b_bf16, long long sk, long long sn, const float* sa,
-                const float* sb, uint8_t* qa, uint8_t* qb, float* out, int M,
+                const float* sb, void* qa, void* qb, float* out, int M,
                 int N, int K, int Mp, int Np, int Kp, int num_sms,
-                cudaStream_t st) {
+                cudaStream_t st, bool gemm) {
   cudaError_t err = a_bf16
       ? quant_a<__nv_bfloat16, kFp8>(a, lda, sa, qa, M, K, Mp, Kp, num_sms,
                                      st)
@@ -578,34 +670,61 @@ cudaError_t run(const void* a, int a_bf16, long long lda, const void* b,
       ? quant_b<__nv_bfloat16, kFp8>(b, sk, sn, sb, qb, K, N, Np, Kp,
                                      num_sms, st)
       : quant_b<float, kFp8>(b, sk, sn, sb, qb, K, N, Np, Kp, num_sms, st);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(qmm_gemm<kFp8>,
+  if (err != cudaSuccess || !gemm) return err;
+  CUtensorMap ta, tb;
+  if (!code_map(&ta, qa, Mp, Kp, kFp8) || !code_map(&tb, qb, Np, Kp, kFp8))
+    return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(qmm_wg<kFp8>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmem);
+                             (int)kSmem);
   if (err != cudaSuccess) return err;
-  qmm_gemm<kFp8><<<dim3(Np / kBN, Mp / kBM), kThreads, kSmem, st>>>(
-      qa, qb, sa, sb, out, M, N, Kp);
+  qmm_wg<kFp8><<<dim3(Np / kBN, Mp / kBM), kThreads, kSmem, st>>>(
+      ta, tb, sa, sb, out, M, N, Kp);
   return cudaGetLastError();
 }
 
 }  // namespace qmm
 
-// B9: the scratch qa [Mp, Kp] and qb [Np, Kp] (bytes) and out [M, N] f32
-// are the caller's; Mp, Np are multiples of 128 and Kp of 64, all > 0
+// B9: the scratch qa [Mp, Kp] and qb [Np, Kp] (int8 codes, or for fp8
+// bf16 ones: 2 Kp bytes a row; 16-byte aligned) and out [M, N] f32 are
+// the caller's; Mp, Np and Kp are multiples of 128, all > 0
+// gemm 0 runs the quantise passes alone (a report of their share)
 extern "C" int scaled_matmul_q(const void* a, int a_bf16, long long lda,
                                const void* b, int b_bf16, long long sk,
                                long long sn, const float* sa,
-                               const float* sb, uint8_t* qa, uint8_t* qb,
+                               const float* sb, void* qa, void* qb,
                                float* out, int M, int N, int K, int Mp,
-                               int Np, int Kp, int fp8, int num_sms,
-                               void* stream) {
+                               int Np, int Kp, int fp8, int gemm,
+                               int num_sms, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       fp8 ? qmm::run<true>(a, a_bf16, lda, b, b_bf16, sk, sn, sa, sb, qa,
-                           qb, out, M, N, K, Mp, Np, Kp, num_sms, st)
+                           qb, out, M, N, K, Mp, Np, Kp, num_sms, st, gemm)
           : qmm::run<false>(a, a_bf16, lda, b, b_bf16, sk, sn, sa, sb, qa,
-                            qb, out, M, N, K, Mp, Np, Kp, num_sms, st);
+                            qb, out, M, N, K, Mp, Np, Kp, num_sms, st, gemm);
   return static_cast<int>(err);
+}
+
+// what scaled_matmul_q's GEMM launches in int8 (fp8 0) or fp8: registers
+// and local (spilled) bytes a thread, threads and shared bytes a block,
+// and the blocks an SM holds at once
+extern "C" int scaled_matmul_occupancy(int fp8, int* out) {
+  const void* fn = fp8 ? reinterpret_cast<const void*>(qmm::qmm_wg<true>)
+                       : reinterpret_cast<const void*>(qmm::qmm_wg<false>);
+  const int bytes = static_cast<int>(qmm::kSmem);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[4], fn, qmm::kThreads, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = qmm::kThreads;
+  out[3] = bytes;
+  return 0;
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` holds kernels behind a plain C interface. On
-first use it is compiled by nvcc for Hopper (``sm_90a``) into a shared
-library under ``paddle_tpu_torch/_build/`` (git-ignored; the file name
-carries a hash of the source and flags, so an edited source rebuilds)
-and loaded with ctypes. Pointers and the CUDA stream cross as
-``ctypes.c_void_p``; every C entry point returns ``cudaGetLastError()``
-and the wrapper raises when it is not 0 (``ops/_launch.py``).
+Each ``csrc/<name>.cu`` holds kernels behind a plain C interface (the
+``csrc/*.cuh`` headers hold building blocks they share). On first use it is
+compiled by nvcc for Hopper (``sm_90a``) into a shared library under
+``paddle_tpu_torch/_build/`` (git-ignored; the file name carries a hash of the
+source, the headers and the flags, so an edited source or header rebuilds) and
+loaded with ctypes. Pointers and the CUDA stream cross as ``ctypes.c_void_p``;
+every C entry point returns ``cudaGetLastError()`` and the wrapper raises when
+it is not 0 (``ops/_launch.py``).
 
 There is no fallback: a missing nvcc or a failed build raises. Build
 all sources at once (one nvcc process each, in parallel) with
@@ -52,8 +53,13 @@ def _nvcc():
 
 
 def _target(name):
+    """The source and its library, named by a hash of the source, the
+    shared headers of csrc/ it may include, and the flags."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(FLAGS).encode())
     return src, BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 

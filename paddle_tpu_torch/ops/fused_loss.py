@@ -12,9 +12,10 @@ Pallas TPU kernels of the reference:
     B5 `_bwd_dx_kernel`   backward dx              _bwd_pallas (dx)
     B6 `_bwd_dw_kernel`   backward dw              _bwd_pallas (dw)
 
-A bf16 CUDA tensor launches B4 on ``mma.sync`` and B5 and B6 on
-warpgroup products (``wg_kernel``, ``wgmma``; at hidden size 1024 B5
-and B6 keep the ``mma.sync`` kernel, whose 32-row tile fits the
+A bf16 CUDA tensor launches all three on warpgroup products
+(``wgmma``): B4 on ``lse_kernel`` (128 owned token rows, 64 at hidden
+size 1024, fed by TMA), B5 and B6 on ``wg_kernel`` (at hidden size 1024
+B5 and B6 keep the ``mma.sync`` kernel, whose 32-row tile fits the
 register file); f32 runs all three on the CUDA cores in full f32.
 
 CPU tensors run the plain PyTorch versions `_fwd_plain` / `_bwd_plain`,

@@ -21,7 +21,10 @@ replace the Pallas TPU kernels of the reference:
 
 CPU tensors run the plain PyTorch versions `_w8a8_plain` / `_smm_plain`
 (the reference's lax paths). int32 sums are exact, so int8 agrees
-bitwise; fp8 sums in f32 in other orders. ``w8a8_matmul.launches`` and
+bitwise; fp8 sums the exact products of its e4m3 codes in f32 in other
+orders (B9 multiplies them decoded to bf16, whose f32 accumulation
+holds the plain version's tolerance where the tensor cores' e4m3
+accumulation does not). ``w8a8_matmul.launches`` and
 ``scaled_matmul.launches`` count kernel launches.
 
 Scales come from three places, in priority order: explicit arguments,
@@ -60,7 +63,7 @@ __all__ = ["mode", "QMAX", "amax_of", "quant_int8", "scaled_matmul",
 QMAX = {"int8": 127.0, "fp8": 448.0}
 
 _EPS = 1e-9
-_TILE_MN, _TILE_K = 128, 64        # B9's tile multiples (csrc/lowp.cu)
+_TILE_MN, _TILE_K = 128, 128       # B9's tile multiples (csrc/lowp.cu)
 
 _warned_slots = False
 
@@ -193,10 +196,12 @@ def _smm_plain(a, b, sa, sb, qdtype):
     return acc * true_div(sa * sb, 448.0 * 448.0)
 
 
-def _smm_kernel(a, b, sa, sb, qdtype):
+def _smm_kernel(a, b, sa, sb, qdtype, gemm=True):
     """B9 on a [M, K] (unit column stride) and b [K, N] (any strides),
     f32 or bf16 each; returns [M, N] f32. The quantized operands go to
-    scratch buffers padded to the kernel's tiles."""
+    scratch buffers padded to the kernel's tiles. ``gemm=False`` runs the
+    quantise passes alone (a report of their share of the time; the op
+    never asks for it, and it counts no launch)."""
     for name, t in (("a", a), ("b", b)):
         if t.dtype not in (torch.float32, torch.bfloat16) or t.dim() != 2:
             raise TypeError(
@@ -212,21 +217,32 @@ def _smm_kernel(a, b, sa, sb, qdtype):
         return out
     mp, np_ = _round_up(m, _TILE_MN), _round_up(n, _TILE_MN)
     kp = _round_up(max(k, 1), _TILE_K)
-    qa = torch.empty((mp, kp), dtype=torch.uint8, device=a.device)
-    qb = torch.empty((np_, kp), dtype=torch.uint8, device=a.device)
+    # int8 codes, or the e4m3 codes decoded to bf16 (the form fp8's GEMM
+    # multiplies): 1 or 2 bytes a code
+    width = 2 if qdtype == "fp8" else 1
+    qa = torch.empty((mp, kp * width), dtype=torch.uint8, device=a.device)
+    qb = torch.empty((np_, kp * width), dtype=torch.uint8, device=a.device)
     sa, sb = (s.to(torch.float32).contiguous() for s in (sa, sb))
     P, I, L = _launch._P, _launch._I, _launch._L
     lib, fn = _launch.bind(
         "lowp", "scaled_matmul_q",
-        [P, I, L, P, I, L, L, P, P, P, P, P, I, I, I, I, I, I, I, I, P])
+        [P, I, L, P, I, L, L, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P])
     _launch.launch(lib, fn, "scaled_matmul", a.device,
                    a.data_ptr(), int(a.dtype == torch.bfloat16), a.stride(0),
                    b.data_ptr(), int(b.dtype == torch.bfloat16), b.stride(0),
                    b.stride(1), sa.data_ptr(), sb.data_ptr(), qa.data_ptr(),
                    qb.data_ptr(), out.data_ptr(), m, n, k, mp, np_, kp,
-                   int(qdtype == "fp8"))
-    scaled_matmul.launches += 1
+                   int(qdtype == "fp8"), int(gemm))
+    if gemm:
+        scaled_matmul.launches += 1
     return out
+
+
+def _occupancy(qdtype):
+    """What B9's GEMM launches in `qdtype` on the current card
+    (`_launch.occupancy`; a report, the op never calls it)."""
+    return _launch.occupancy("lowp", "scaled_matmul_occupancy",
+                             int(qdtype == "fp8"))
 
 
 def _smm(a, b, sa, sb, qdtype):

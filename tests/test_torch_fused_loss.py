@@ -1,7 +1,8 @@
 """Port parity: paddle_tpu_torch's fused LM-head loss (ops/fused_loss.py)
 against paddle_tpu's, on the same numpy inputs (n 37, h 64, v 301,
-chunk 128: no row, vocab or chunk boundary aligned; and n 200, h 128,
-v 777, past several of the kernels' 64- and 128-row tiles).
+chunk 128: no row, vocab or chunk boundary aligned; n 200, h 128,
+v 777, past several of the kernels' 64- and 128-row tiles; and n 70,
+h 1024, v 513, the widest head the kernels take).
 
 - the plain forward (nll, lse) and backward (dx, dw) against the
   reference's lax path (``_fwd_lax`` / ``_bwd_lax``) and its Pallas
@@ -116,14 +117,9 @@ def test_plain_fwd_bwd_match_reference(mode, masked, dtype):
         _close(got.float().numpy(), want.astype(jnp.float32), dtype)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("mode", ["lax", "pallas"])
-def test_plain_fwd_bwd_match_reference_ragged_tiles(mode, dtype):
-    """N 200 and V 777 past several of the kernels' 64- and 128-row tiles
-    (neither a multiple of either), H 128, plain chunks of 128 that do not
-    divide V: the same tolerances as above."""
-    n, h, v = 200, 128, 777
-    x, w, lbl, g = _data(0.3, seed=4, n=n, h=h, v=v)
+def _ragged_case(mode, dtype, n, h, v, seed):
+    x, w, lbl, g = _data(0.3, seed=seed, n=n, h=h, v=v)
+    lbl[-1] = v - 1             # a label in the last, partial vocab tile
     jx, jw = (jnp.asarray(a).astype(dtype) for a in (x, w))
     jl, jg = jnp.asarray(lbl), jnp.asarray(g)
     with _force(mode):
@@ -141,6 +137,25 @@ def test_plain_fwd_bwd_match_reference_ragged_tiles(mode, dtype):
     _close(nll.numpy()[valid], np.asarray(jnll)[valid], "float32")
     for got, want in ((dx, jdx), (dw, jdw)):
         _close(got.float().numpy(), want.astype(jnp.float32), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["lax", "pallas"])
+def test_plain_fwd_bwd_match_reference_ragged_tiles(mode, dtype):
+    """N 200 and V 777 past several of the kernels' 64- and 128-row tiles
+    (neither a multiple of either), H 128, plain chunks of 128 that do not
+    divide V, a label in the last vocab tile: the same tolerances as
+    above."""
+    _ragged_case(mode, dtype, 200, 128, 777, seed=4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["lax", "pallas"])
+def test_plain_fwd_bwd_match_reference_ragged_head_h1024(mode, dtype):
+    """The widest hidden size the kernels take (H 1024: B4 owns 64 token
+    rows there, B5 / B6 keep their 32-row kernel) at N 70 and V 513, one
+    column past four 128-row vocab tiles: the same tolerances as above."""
+    _ragged_case(mode, dtype, 70, 1024, 513, seed=5)
 
 
 @pytest.mark.parametrize("reduction", ["none", "sum", "mean"])

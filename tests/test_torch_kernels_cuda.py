@@ -14,7 +14,9 @@ packed q / k / v views and a transposed output gradient, with the
 dropout mask equal bit for bit and the bf16 backward repeating bit for
 bit; B4-B6 (the
 fused LM-head loss) within 1e-5 in f32 at ragged shapes (vocab tails,
-heavy masking, every row ignored) and within one bf16 ulp in bf16
+heavy masking, every row ignored), B4 in bf16 within 1e-4 (nll, lse)
+at every hidden size, ragged token counts and vocab tails and the
+ERNIE head, repeating bit for bit, B5 / B6 within one bf16 ulp in bf16
 (the plain version's f32 scores are summed in another order, which can
 move d across a bf16 rounding boundary), and in bf16 at ragged shapes
 against B6's 64-row tiles (every hidden size) with exact scores, where
@@ -107,9 +109,11 @@ def test_w8a8_kernel_rounds_half_to_even():
                        lowp._w8a8_plain(x, q.t(), sb, sa))
 
 
-# B9: (m, k, n) ragged against its 128 x 128 x 64 tiles, ERNIE-like ones
+# B9: (m, k, n) ragged against its 128 x 128 x 128 tiles (K off the
+# 128-deep steps, M and N just past a tile edge), ERNIE-like ones
 SMM_SHAPES = [(1, 100, 2), (7, 100, 3), (33, 768, 333), (130, 768, 2304),
-              (300, 3072, 768), (256, 768, 1024)]
+              (300, 3072, 768), (256, 768, 1024), (129, 129, 257),
+              (257, 200, 129), (129, 3000, 130)]
 
 
 def _smm_case(m, k, n, a_dtype, b_dtype, chunk_view):
@@ -365,6 +369,37 @@ def test_fused_loss_kernels_match_plain_bf16(n, h, v):
         ulp = torch.maximum(wt.abs(), wt.abs().max() * 2 ** -8) * 2 ** -7
         assert bool(((gt - wt).abs() <= ulp).all()), \
             float(((gt - wt).abs() / ulp).max())
+
+
+# B4 in bf16 (lse_kernel: 128 owned token rows, 64 at H 1024, vocab
+# tiles of 128): (n, h, v, masked) at every hidden size, N off the
+# 128-row tiles, vocab tails shorter than a tile (V 129: one column),
+# every label ignored, the ERNIE head; every case with a valid label
+# also puts one in the last, partial vocab tile
+LSE_BF16_CASES = [(37, 64, 301, 0.3), (300, 64, 129, 0.0),
+                  (130, 128, 1000, 0.85), (300, 256, 777, 1.0),
+                  (200, 512, 300, 0.5), (129, 768, 65, 0.0),
+                  (257, 768, 4001, 0.5), (70, 1024, 513, 0.5),
+                  (300, 1024, 129, 0.3), (16384, 768, 18000, 0.85)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,v,masked", LSE_BF16_CASES)
+def test_fused_loss_fwd_bf16_matches_plain_and_repeats(n, h, v, masked):
+    _card()
+    x, w, lbl, _ = _lce_case(n, h, v, masked, torch.bfloat16)
+    if masked < 1.0:
+        lbl[-1] = v - 1
+    before = fused_loss.launches["B4"]
+    nll, lse = fused_loss._fwd_kernel(x, w, lbl)
+    again = fused_loss._fwd_kernel(x, w, lbl)
+    assert fused_loss.launches["B4"] == before + 2
+    nll_p, lse_p = fused_loss._fwd_plain(x, w, lbl, 1024)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-4, atol=1e-4)
+    valid = lbl != -100
+    torch.testing.assert_close(nll[valid], nll_p[valid], rtol=1e-4,
+                               atol=1e-4)
+    assert torch.equal(again[0], nll) and torch.equal(again[1], lse)
 
 
 @pytest.mark.cuda

@@ -113,9 +113,11 @@ def test_quant_int8_divides_like_the_reference():
 
 # -- B9: scaled_matmul (the training path) ------------------------------------
 
-# (m, k, n): ragged against B9's 128 x 128 x 64 tiles, N = 2 as the NSP
-# head, K = 100 off every tile multiple
-SMM_SHAPES = [(24, 40, 12), (7, 100, 333), (33, 64, 2), (1, 128, 3)]
+# (m, k, n): ragged against B9's 128 x 128 x 128 tiles, N = 2 as the NSP
+# head, K = 100 off every tile multiple, K just past one 128-deep step
+# (129) and off two (200, 3000), M and N just past a tile edge (129, 257)
+SMM_SHAPES = [(24, 40, 12), (7, 100, 333), (33, 64, 2), (1, 128, 3),
+              (129, 129, 257), (257, 200, 129), (9, 3000, 130)]
 
 
 def _smm_inputs(m, k, n, seed=0):
