@@ -81,9 +81,9 @@ Phases (any failure raises and the script exits non-zero):
     and fp8 within 4 K 2^-24 of the sum of the absolute products, then
     timed beside the plain version, the library yardstick (torch._int_mm
     or torch._scaled_mm with the same quantization; never called by the
-    port) and the bound, each call's time split into its quantise passes
-    (timed alone) and its GEMM; summed over a step's calls; the GEMM's
-    registers and blocks per SM.
+    port) and the bound, each call's device time split by kernel into its
+    quantise passes and its GEMM (torch.profiler's kernel events); summed
+    over a step's calls; the GEMM's registers and blocks per SM.
 16. The fused leg again with the flag off: its first three losses equal
     the fused leg's, and no lowp stat moved.
 17. B10, the fused conv: the distinct convs of one ResNet-50 training
@@ -154,6 +154,13 @@ def _card_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def _device_us(row):
+    """A torch.profiler row's own device time (us), under either name
+    torch has given the field."""
+    return getattr(row, "self_device_time_total", None) \
+        or getattr(row, "self_cuda_time_total", 0.0)
 
 
 def _time_ms(fn, flush, n=50, spin=200_000):
@@ -536,23 +543,19 @@ def phase_profile(model):
         torch.cuda.synchronize()
     rows = prof.key_averages()
 
-    def dev_us(row):
-        return getattr(row, "self_device_time_total", None) \
-            or getattr(row, "self_cuda_time_total", 0.0)
-
     kernels = [r for r in rows
                if r.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(dev_us(r) for r in kernels) / 1e3 / n
+    busy_ms = sum(_device_us(r) for r in kernels) / 1e3 / n
     launches = sum(r.count for r in rows
                    if r.key.startswith("cudaLaunchKernel")) / n
-    top = sorted(kernels, key=dev_us, reverse=True)[:6]
+    top = sorted(kernels, key=_device_us, reverse=True)[:6]
     _check(eng.metrics.get("failed") == 0, "profiled steps failed")
     print(json.dumps({
         "profile": "w8a8 decode step, 8 slots",
         "step_ms": host_ms, "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / host_ms),
         "launches_per_step": launches,
-        "top_kernels_ms_per_step": {r.key[:60]: dev_us(r) / 1e3 / n
+        "top_kernels_ms_per_step": {r.key[:60]: _device_us(r) / 1e3 / n
                                     for r in top},
     }), flush=True)
 
@@ -1187,19 +1190,15 @@ def phase_train_profile(step, label):
         host_ms = (time.perf_counter() - t0) * 1e3 / n
     rows = prof.key_averages()
 
-    def dev_us(row):
-        return getattr(row, "self_device_time_total", None) \
-            or getattr(row, "self_cuda_time_total", 0.0)
-
     kernels = [r for r in rows
                if r.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(dev_us(r) for r in kernels) / 1e3 / n
+    busy_ms = sum(_device_us(r) for r in kernels) / 1e3 / n
     _check(busy_ms > 0, "the profiler saw no device time")
     # summed by name prefix: kernels whose names share the printed
     # prefix (torch's elementwise templates) are one entry
     by_name = {}
     for r in kernels:
-        by_name[r.key[:90]] = by_name.get(r.key[:90], 0.0) + dev_us(r)
+        by_name[r.key[:90]] = by_name.get(r.key[:90], 0.0) + _device_us(r)
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:8]
     # device time by kind, from the kernels' names (the port's kernels by
     # their own names; cuDNN's weight gradients carry "wgrad", cuBLAS's
@@ -1448,14 +1447,39 @@ def _b9_operands(m, k, n, a_dtype, lda, b_dtype, layout, gen):
     return a, b
 
 
-def _b9_split_ms(a, b, sa, sb, q, ms, flush):
-    """One B9 call's time `ms` split into its quantise passes (timed
-    alone, as `_time_ms` times the call) and its GEMM (the rest)."""
+def _b9_split_ms(a, b, sa, sb, q, flush, n=10):
+    """One B9 call's device time by kernel, from torch.profiler's kernel
+    events over `n` calls (L2 flushed before each; after two calls
+    outside the trace, as the profiler's schedule warms up): its two
+    quantise passes (`quant_rows` / `quant_cols`) and its GEMM
+    (`qmm_wg`), each the mean of the launches the trace kept (times two
+    for the quantise passes). The trace has been seen to drop a few of
+    these short kernels, so the launches it kept are returned too."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
     from paddle_tpu_torch.ops import lowp
 
-    quantise = _time_ms(
-        lambda: lowp._smm_kernel(a, b, sa, sb, q, gemm=False), flush, n=20)
-    return {"quantise_ms": quantise, "gemm_ms": ms - quantise}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=n)) as prof:
+        for _ in range(n + 2):
+            flush.sum()
+            lowp._smm_kernel(a, b, sa, sb, q)
+            torch.cuda.synchronize()
+            prof.step()
+    us = {"quantise": 0.0, "gemm": 0.0}
+    count = {"quantise": 0, "gemm": 0}
+    for r in prof.key_averages():
+        part = "gemm" if "qmm_wg" in r.key else "quantise" if any(
+            t in r.key for t in ("quant_rows", "quant_cols")) else None
+        if part and r.device_type == torch.autograd.DeviceType.CUDA:
+            us[part] += _device_us(r)
+            count[part] += r.count
+    _check(all(count.values()) and all(us.values()),
+           f"B9's profile saw kernels {count}, device us {us}, for {n} calls")
+    return {"quantise_ms": 2 * us["quantise"] / 1e3 / count["quantise"],
+            "gemm_ms": us["gemm"] / 1e3 / count["gemm"],
+            "profiled_launches": count}
 
 
 def phase_lowp_kernels(card, calls):
@@ -1519,7 +1543,7 @@ def phase_lowp_kernels(card, calls):
                                 flush, n=3)
             lib_ms = _time_ms(lib, flush, n=20) if lib else None
             row[q] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          **_b9_split_ms(a, b, sa, sb, q, ms, flush))
+                          **_b9_split_ms(a, b, sa, sb, q, flush))
             st = step[q]
             st["ms"] += per_step * ms
             st["quantise_ms"] += per_step * row[q]["quantise_ms"]

@@ -69,7 +69,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
+
+using namespace sm90;
 
 constexpr int kThreads = 256;     // both paths: two warpgroups (bf16)
 constexpr int kBM = 128;          // output pixels of a block tile (and
@@ -114,10 +118,6 @@ __device__ __forceinline__ long long pixel_base(const Args& p, int m) {
 // warpgroup path (bf16 operands)
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
 // 16 bytes global -> shared without a register stop; zeros (and no
 // read) when !valid
 __device__ __forceinline__ void cp_async16_s(uint32_t dst, const void* src,
@@ -139,39 +139,10 @@ __device__ __forceinline__ uint32_t swz(int r, int u) {
   return r * 128 + ((u ^ (r & 7)) << 4);
 }
 
-// shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets (K-major: the stride steps 8 rows of
-// M or N, the leading offset is unused; MN-major: the stride steps 8
-// rows of K, the leading offset 64 columns of M or N)
-__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
-                                            uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 // generic-proxy writes (cp.async) made visible to wgmma
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
-// keeps the compiler from moving accumulator reads or writes across the
-// asynchronous products that own the registers
-template <int R>
-__device__ __forceinline__ void reg_fence(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // d[64 x N] += A B, A K-major and B MN-major (transposed) in shared
 // memory; the f32 accumulator of lane (g, t) of warp w: d[4 j + 2 h + e]
 // is row 16 w + g + 8 h, column 8 j + 2 t + e

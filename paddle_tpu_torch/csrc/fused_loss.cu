@@ -45,8 +45,7 @@
 // the mma.sync kernel it replaced (64 owned rows, a cp.async ring; both
 // in one chip_ab.py call) and 2.45 ms for the unfused two-call forward
 // (chip_smoke.py); 2.4x its 0.458 ms bound (operations). The walk is
-// bound by the bytes it keeps in flight (see lse_kernel); a 2-block
-// cluster sharing each item by TMA multicast was slower.
+// bound by the bytes it keeps in flight (see lse_kernel).
 //
 // B5 / B6 at H 1024 (tc_kernel): warp-level mma.sync.m16n8k16 (bf16
 // in, f32 accumulators), fragments loaded with ldmatrix, 32 owned rows,
@@ -863,9 +862,9 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(const Args p) {
 // end. Two accumulators alternate over the tiles: the fold of tile t-1
 // runs on the CUDA cores while tile t's products run on the tensor
 // cores (its max with the first item, its exps spread over the next
-// ones). Blocks start their walks at tiles spread over the vocab, so
-// they do not all ask L2 for the same lines at once. Every row is owned
-// by one block and walked in one order: results repeat bit for bit.
+// ones). Every block walks the vocab from tile 0 up, and every row is
+// owned by one block: a row's sums run in one order whatever the grid,
+// and results repeat bit for bit.
 // Vocab rows past V arrive as zeros (TMA fills out-of-bounds rows) and
 // their columns are masked to -1e30.
 template <int H>
@@ -1003,16 +1002,15 @@ __device__ __forceinline__ uint64_t wg_desc64(uint32_t addr) {
 }
 
 // the walk's t-th tile's products into `cur`, item by item, with the
-// fold of the one before (`prev`, vocab tile t_prev, complete once the
-// first item's wait returns) spread under them. `da` describes the
-// warpgroup's rows of x's first chunk; every operand's descriptor is
-// that of its chunk start plus a byte offset / 16 (the address field is
-// the low 14 bits).
+// fold of the one before (`prev`, complete once the first item's wait
+// returns) spread under them. `da` describes the warpgroup's rows of
+// x's first chunk; every operand's descriptor is that of its chunk
+// start plus a byte offset / 16 (the address field is the low 14 bits).
 template <class C>
 __device__ __forceinline__ void lse_tile(float (&cur)[64], float (&prev)[64],
                                          int t, const FwdSmem<C>& sm,
                                          uint64_t da, RowStats4& st,
-                                         int vocab, int t4, int t_prev) {
+                                         int vocab, int t4) {
   // opaque to the compiler, so it forms each chunk's descriptors where
   // they are used instead of holding all H / 16 of them in registers
   // across the walk
@@ -1038,7 +1036,7 @@ __device__ __forceinline__ void lse_tile(float (&cur)[64], float (&prev)[64],
     if (t == 0) continue;
     if (c == 0) {
       reg_fence(prev);
-      fold_max(prev, st, t_prev * 128, vocab, t4);
+      fold_max(prev, st, (t - 1) * 128, vocab, t4);
       if (C::kNI == 1) fold_exp(prev, st, 0, 16);
     } else if (c <= C::kParts) {
       constexpr int kW = 16 / C::kParts;
@@ -1058,9 +1056,6 @@ __global__ void __launch_bounds__(Fwd<H>::kThreads, 1)
   const int row0 = blockIdx.x * C::kRows;
   const int tiles = (p.vocab + 127) / 128;
   const int items = tiles * C::kNI;
-  // blocks start their walks at tiles spread over the vocab (each wraps
-  // around once), so they do not all ask L2 for the same lines at once
-  const int start = (int)(blockIdx.x * (long long)tiles / gridDim.x);
   if (tid == 0) {
     for (int s = 0; s < C::kStages; ++s) {
       mbar_init(sm.full + 8 * s, 1);
@@ -1082,7 +1077,7 @@ __global__ void __launch_bounds__(Fwd<H>::kThreads, 1)
         mbar_wait(sm.empty + 8 * slot, (j / C::kStages - 1) & 1);
       mbar_expect_tx(sm.full + 8 * slot, C::kItem);
       tma_load(sm.ring + slot * C::kItem, &tw, (j % C::kNI) * C::kIW,
-               ((j / C::kNI + start) % tiles) * 128, sm.full + 8 * slot);
+               (j / C::kNI) * 128, sm.full + 8 * slot);
     }
     return;
   }
@@ -1107,14 +1102,12 @@ __global__ void __launch_bounds__(Fwd<H>::kThreads, 1)
   mbar_wait(sm.xbar, 0);
 
   for (int t = 0; t < tiles; t += 2) {
-    lse_tile<C>(acc0, acc1, t, sm, da, st, p.vocab, t4,
-                (t - 1 + start) % tiles);
+    lse_tile<C>(acc0, acc1, t, sm, da, st, p.vocab, t4);
     if (t + 1 < tiles)
-      lse_tile<C>(acc1, acc0, t + 1, sm, da, st, p.vocab, t4,
-                  (t + start) % tiles);
+      lse_tile<C>(acc1, acc0, t + 1, sm, da, st, p.vocab, t4);
   }
   wg_wait<0>();
-  const int t_last = (tiles - 1 + start) % tiles;
+  const int t_last = tiles - 1;
   if ((tiles - 1) & 1) {
     reg_fence(acc1);
     fold_max(acc1, st, t_last * 128, p.vocab, t4);

@@ -660,7 +660,7 @@ cudaError_t run(const void* a, int a_bf16, long long lda, const void* b,
                 int b_bf16, long long sk, long long sn, const float* sa,
                 const float* sb, void* qa, void* qb, float* out, int M,
                 int N, int K, int Mp, int Np, int Kp, int num_sms,
-                cudaStream_t st, bool gemm) {
+                cudaStream_t st) {
   cudaError_t err = a_bf16
       ? quant_a<__nv_bfloat16, kFp8>(a, lda, sa, qa, M, K, Mp, Kp, num_sms,
                                      st)
@@ -670,7 +670,7 @@ cudaError_t run(const void* a, int a_bf16, long long lda, const void* b,
       ? quant_b<__nv_bfloat16, kFp8>(b, sk, sn, sb, qb, K, N, Np, Kp,
                                      num_sms, st)
       : quant_b<float, kFp8>(b, sk, sn, sb, qb, K, N, Np, Kp, num_sms, st);
-  if (err != cudaSuccess || !gemm) return err;
+  if (err != cudaSuccess) return err;
   CUtensorMap ta, tb;
   if (!code_map(&ta, qa, Mp, Kp, kFp8) || !code_map(&tb, qb, Np, Kp, kFp8))
     return cudaErrorInvalidValue;
@@ -688,20 +688,19 @@ cudaError_t run(const void* a, int a_bf16, long long lda, const void* b,
 // B9: the scratch qa [Mp, Kp] and qb [Np, Kp] (int8 codes, or for fp8
 // bf16 ones: 2 Kp bytes a row; 16-byte aligned) and out [M, N] f32 are
 // the caller's; Mp, Np and Kp are multiples of 128, all > 0
-// gemm 0 runs the quantise passes alone (a report of their share)
 extern "C" int scaled_matmul_q(const void* a, int a_bf16, long long lda,
                                const void* b, int b_bf16, long long sk,
                                long long sn, const float* sa,
                                const float* sb, void* qa, void* qb,
                                float* out, int M, int N, int K, int Mp,
-                               int Np, int Kp, int fp8, int gemm,
-                               int num_sms, void* stream) {
+                               int Np, int Kp, int fp8, int num_sms,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       fp8 ? qmm::run<true>(a, a_bf16, lda, b, b_bf16, sk, sn, sa, sb, qa,
-                           qb, out, M, N, K, Mp, Np, Kp, num_sms, st, gemm)
+                           qb, out, M, N, K, Mp, Np, Kp, num_sms, st)
           : qmm::run<false>(a, a_bf16, lda, b, b_bf16, sk, sn, sa, sb, qa,
-                            qb, out, M, N, K, Mp, Np, Kp, num_sms, st, gemm);
+                            qb, out, M, N, K, Mp, Np, Kp, num_sms, st);
   return static_cast<int>(err);
 }
 

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels:
 // shared-memory addresses, mbarriers, TMA tensor copies and the host's
 // tensor-map encoder, warpgroup-product (wgmma) descriptors and their
-// synchronisation. Included by the .cu sources of csrc/ (their builds
-// hash this file with them: ops/_build.py).
+// synchronisation. Included by fused_conv.cu, fused_loss.cu and lowp.cu
+// (their builds hash this file with them: ops/_build.py).
 
 #pragma once
 

@@ -196,12 +196,10 @@ def _smm_plain(a, b, sa, sb, qdtype):
     return acc * true_div(sa * sb, 448.0 * 448.0)
 
 
-def _smm_kernel(a, b, sa, sb, qdtype, gemm=True):
+def _smm_kernel(a, b, sa, sb, qdtype):
     """B9 on a [M, K] (unit column stride) and b [K, N] (any strides),
     f32 or bf16 each; returns [M, N] f32. The quantized operands go to
-    scratch buffers padded to the kernel's tiles. ``gemm=False`` runs the
-    quantise passes alone (a report of their share of the time; the op
-    never asks for it, and it counts no launch)."""
+    scratch buffers padded to the kernel's tiles."""
     for name, t in (("a", a), ("b", b)):
         if t.dtype not in (torch.float32, torch.bfloat16) or t.dim() != 2:
             raise TypeError(
@@ -226,15 +224,14 @@ def _smm_kernel(a, b, sa, sb, qdtype, gemm=True):
     P, I, L = _launch._P, _launch._I, _launch._L
     lib, fn = _launch.bind(
         "lowp", "scaled_matmul_q",
-        [P, I, L, P, I, L, L, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P])
+        [P, I, L, P, I, L, L, P, P, P, P, P, I, I, I, I, I, I, I, I, P])
     _launch.launch(lib, fn, "scaled_matmul", a.device,
                    a.data_ptr(), int(a.dtype == torch.bfloat16), a.stride(0),
                    b.data_ptr(), int(b.dtype == torch.bfloat16), b.stride(0),
                    b.stride(1), sa.data_ptr(), sb.data_ptr(), qa.data_ptr(),
                    qb.data_ptr(), out.data_ptr(), m, n, k, mp, np_, kp,
-                   int(qdtype == "fp8"), int(gemm))
-    if gemm:
-        scaled_matmul.launches += 1
+                   int(qdtype == "fp8"))
+    scaled_matmul.launches += 1
     return out
 
 
