@@ -1,27 +1,38 @@
 #!/usr/bin/env python3
 """Before / after timings of the flash-attention dq kernel (B2), the
-LM-head loss kernels (B4-B6), the scaled int8 / fp8 matmul (B9) and the
-fused conv (B10) of two checkouts of the port, on one card.
+LM-head loss kernels (B4-B6), the serving head's int8 kernels (B7, B8),
+the scaled int8 / fp8 matmul (B9) and the fused conv (B10) of two
+checkouts of the port, on one card.
 
-    python3 chip_ab.py PARENT_DIR
+    python3 chip_ab.py PARENT_DIR [GROUP ...]
 
 runs four processes in turn — PARENT_DIR, this checkout, this checkout,
 PARENT_DIR (each imports `paddle_tpu_torch` from its tree and builds its
 kernels there) — so that both versions are timed on the same card in
-one call, and prints one JSON line per process: B2 at the ERNIE shape
-([32, 12, 512, 64] bf16, dropout 0.1 and 0), B4, B5 and B6 at the
-ERNIE head ([16384, 768] x [18000, 768] bf16), each as chip_smoke.py
-times it (median of CUDA events, L2 flushed), and each kernel's largest
-difference from the plain version on the same inputs (B2 absolute, B5
-and B6 in bf16 ulps, also at a ragged head with every label valid);
-B9 in int8 and fp8 at each of the nine distinct calls of one ERNIE-1.0
-low-precision train step (`B9_STEP_CALLS`), each timed as chip_smoke.py
-times it, int8 checked bit for bit and fp8 within chip_smoke.py's
-`_fp8_tol` against the tree's plain version, summed over the step's 69
-calls; B10 at every conv of one ResNet-50 training step at b128 (bf16,
-recorded from the tree's own model), each timed as chip_smoke.py times
-it and checked within one bf16 ulp of the plain version, summed over
-the step's 114 launches in all and by class. A fifth process then
+one call, and prints one JSON line per process. GROUPs (default: all)
+choose what each process times, in this order:
+
+- B2: at the ERNIE shape ([32, 12, 512, 64] bf16, dropout 0.1 and 0);
+- B4-B6: B4, B5 and B6 at the ERNIE head ([16384, 768] x [18000, 768]
+  bf16), with B5's and B6's largest difference in bf16 ulps from the
+  plain version, also at a ragged head with every label valid;
+- B7, B8: at the serving head (x [8, 768] f32, the gpt2-small int8
+  table [50304, 768] frozen per tensor; B8 reads it in place as its
+  transpose, as the engine passes it), each checked against the tree's
+  plain version, B7 within rtol = atol = 1e-5 and B8 bit for bit; also
+  the kernel's own device time from torch.profiler (`*_kernel_us`),
+  which leaves out the few us that a pair of events adds to any launch;
+- B9: int8 and fp8 at each of the nine distinct calls of one ERNIE-1.0
+  low-precision train step (`B9_STEP_CALLS`), int8 checked bit for bit
+  and fp8 within chip_smoke.py's `_fp8_tol` against the tree's plain
+  version, summed over the step's 69 calls;
+- B10: at every conv of one ResNet-50 training step at b128 (bf16,
+  recorded from the tree's own model), checked within one bf16 ulp of
+  the plain version, summed over the step's 114 launches in all and by
+  class.
+
+Every time is taken as chip_smoke.py takes it (median of CUDA events, L2
+flushed before each launch). With B4-B6 chosen, a fifth process then
 loads both checkouts' fused-loss libraries and times B6 of each on the
 same inputs in turns (the parent's `fused_lce` entry must take this
 checkout's arguments), so that a difference between the processes above
@@ -50,18 +61,37 @@ def _smoke():
     return mod
 
 
-def one(tree):
+GROUPS = ("B2", "B4-B6", "B7", "B8", "B9", "B10")
+
+
+def one(tree, groups):
     sys.path.insert(0, str(Path(tree).resolve()))
     import torch
-
-    from paddle_tpu_torch.ops import fused_loss as fl
-    from paddle_tpu_torch.ops import fused_ops
 
     sm = _smoke()
     gen = torch.Generator().manual_seed(7)
     flush = torch.empty(32 * 1024 * 1024, device="cuda")
     out = {"tree": str(tree), "card": sm._card_line()}
+    if "B2" in groups:
+        out.update(b2_ernie(sm, gen, flush))
+    if "B4-B6" in groups:
+        out.update(b4_b6_head(sm, gen, flush))
+    out.update(serving_head(sm, gen, flush, groups))
+    if "B9" in groups:
+        out.update(b9_step(sm, gen, flush))
+    if "B10" in groups:
+        out.update(b10_step(sm, gen, flush))
+    print(json.dumps(out), flush=True)
 
+
+def b2_ernie(sm, gen, flush):
+    """B2 at the ERNIE shape, dropout 0.1 and 0, and its largest absolute
+    difference from the plain version."""
+    import torch
+
+    from paddle_tpu_torch.ops import fused_ops
+
+    out = {}
     b, h, s, d = 32, 12, 512, 64
     seed = torch.tensor(20260101, device="cuda")
     q, k, v = sm._packed_qkv(b, h, s, d, torch.bfloat16, gen)
@@ -84,8 +114,17 @@ def one(tree):
                              dq_p.float()).abs().max().item()
     out["B2_ms"] = sm._time_ms(lambda: b2(0.1), flush)
     out["B2_dropout0_ms"] = sm._time_ms(lambda: b2(0.0), flush)
-    del q, k, v, do, o, lse, delta, dq, dq_p
+    return out
 
+
+def b4_b6_head(sm, gen, flush):
+    """B4-B6 at the ERNIE head; B5's and B6's bf16 ulps against the plain
+    version there and at a ragged head."""
+    import torch
+
+    from paddle_tpu_torch.ops import fused_loss as fl
+
+    out = {}
     cases = (("ernie", 16384, 768, 18000, 0.85, 0.02),
              ("ragged", 129, 768, 65, 0.0, 0.05))
     for label, n, hd, vocab, masked, w_std in cases:
@@ -107,9 +146,67 @@ def one(tree):
             out["B6_ms"] = sm._time_ms(
                 lambda: fl._bwd_dw_kernel(x, w, lbl32, lse, g), flush)
         del x, w, dx, dw, dw_p
-    out.update(b9_step(sm, gen, flush))
-    out.update(b10_step(sm, gen, flush))
-    print(json.dumps(out), flush=True)
+    return out
+
+
+def _kernel_us(fn, flush, names, n=20):
+    """Median device time (us) of the kernels whose names hold one of
+    `names`, over `n` launches of `fn` under torch.profiler (each after
+    the L2 flush): the kernel alone, without the events' launch gap."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush.sum()
+            fn()
+        torch.cuda.synchronize()
+    us = sorted(getattr(e, "device_time_total", None) or e.cuda_time_total
+                for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and any(k in e.name for k in names))
+    return us[len(us) // 2] if us else None
+
+
+def serving_head(sm, gen, flush, groups):
+    """B7 and B8 at the serving head, each checked against the tree's
+    plain version (B7 within 1e-5, B8 bit for bit), timed by events and
+    by the profiler's kernel time."""
+    import torch
+
+    from paddle_tpu_torch.ops import lowp, quant_ops
+
+    out = {}
+    if "B7" not in groups and "B8" not in groups:
+        return out
+    m, k, n = 8, 768, 50304
+    q, s = (t.cuda() for t in sm._table(n, k, gen))
+    x = torch.randn((m, k), generator=gen).cuda()
+    if "B7" in groups:
+        sc = s.reshape(-1)
+        got = quant_ops._dequant_matmul_kernel(x, q, sc)
+        want = quant_ops._dequant_matmul_plain(x, q, sc)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        out["B7_max_abs_err"] = (got - want).abs().max().item()
+        out["B7_ms"] = sm._time_ms(
+            lambda: quant_ops._dequant_matmul_kernel(x, q, sc), flush)
+        out["B7_kernel_us"] = _kernel_us(
+            lambda: quant_ops._dequant_matmul_kernel(x, q, sc), flush,
+            ("dq_stream", "dequant_matmul"))
+    if "B8" in groups:
+        sa = x.abs().max()
+        got = lowp._w8a8_kernel(x, q.t(), s, sa)
+        sm._check(torch.equal(got, lowp._w8a8_plain(x, q.t(), s, sa)),
+                  "B8 differs from its plain version")
+        out["B8_ms"] = sm._time_ms(lambda: lowp._w8a8_kernel(x, q.t(), s, sa),
+                                   flush)
+        out["B8_kernel_us"] = _kernel_us(
+            lambda: lowp._w8a8_kernel(x, q.t(), s, sa), flush,
+            ("w8a8_stream", "w8a8_matmul"))
+    return out
 
 
 # B9's distinct calls in one ERNIE-1.0 low-precision train step at b32 x
@@ -233,23 +330,26 @@ def b6_in_turns(parent, rounds=8):
 
 
 def main():
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        one(sys.argv[2])
+    if len(sys.argv) >= 3 and sys.argv[1] == "--one":
+        one(sys.argv[2], sys.argv[3:])
         return
     if len(sys.argv) == 3 and sys.argv[1] == "--b6-turns":
         b6_in_turns(sys.argv[2])
         return
     import torch
 
-    if len(sys.argv) != 2 or not torch.cuda.is_available():
-        print("usage: python3 chip_ab.py PARENT_DIR (needs a CUDA card)",
-              file=sys.stderr)
+    groups = sys.argv[2:] or list(GROUPS)
+    if len(sys.argv) < 2 or not torch.cuda.is_available() or \
+            not set(groups) <= set(GROUPS):
+        print("usage: python3 chip_ab.py PARENT_DIR [GROUP ...] (GROUPs of "
+              f"{', '.join(GROUPS)}; needs a CUDA card)", file=sys.stderr)
         sys.exit(2)
     for tree in (sys.argv[1], ROOT, ROOT, sys.argv[1]):
-        subprocess.run([sys.executable, __file__, "--one", str(tree)],
+        subprocess.run([sys.executable, __file__, "--one", str(tree),
+                        *groups], check=True)
+    if "B4-B6" in groups:
+        subprocess.run([sys.executable, __file__, "--b6-turns", sys.argv[1]],
                        check=True)
-    subprocess.run([sys.executable, __file__, "--b6-turns", sys.argv[1]],
-                   check=True)
 
 
 if __name__ == "__main__":

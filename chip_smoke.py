@@ -9,12 +9,15 @@ Phases (any failure raises and the script exits non-zero):
 1. Device line: the card's name and power limit (nvidia-smi), torch and
    CUDA versions; build every kernel from csrc/ (one nvcc per source,
    in parallel — set-up time).
-2. Kernels at the serving shape (M=8, K=768, N=50304) and two ragged
-   shapes: B7 `dequant_matmul` against its plain version (rtol=atol=
-   1e-5, f32, TF32 off), B8 `w8a8_matmul` bitwise. Times (CUDA events,
-   median of 50 launches, L2 flushed before each) of the kernel, its
-   plain version and the one-call PyTorch yardstick where one exists,
-   beside the card's least time for the same bytes and operations.
+2. Kernels at the serving shape (M=8, K=768, N=50304) and three ragged
+   shapes (K not a multiple of 16, K in segments, 17 x rows, N one past
+   a table tile): B7 `dequant_matmul` against its plain version (rtol=
+   atol=1e-5, f32, TF32 off), B8 `w8a8_matmul` bitwise in both table
+   layouts; both repeating bit for bit at the serving shape, and their
+   registers and blocks per SM there. Times (CUDA events, median of 50
+   launches, L2 flushed before each) of the kernel, its plain version
+   and the one-call PyTorch yardstick where one exists, beside the
+   card's least time for the same bytes and operations.
 3. The slice against its plain version: a tiny GPT with the same
    weights on cuda and on the CPU, three pinned prompts through the
    int8 and the w8a8 engines; greedy tokens must agree.
@@ -26,7 +29,8 @@ Phases (any failure raises and the script exits non-zero):
    sharing a 64-token prefix, 32 new tokens each. Kernel launch counts
    are set to 0 just before each leg and read just after it.
 5. Where a decode step's time goes: host step time, device kernel time
-   and launches per step of the w8a8 engine, from torch.profiler.
+   and launches per step of the w8a8 engine, and the LM head's kernel
+   time by name (B8 `w8a8_stream` must show), from torch.profiler.
 6. Flash attention: B1-B3 against their plain versions (f32 and bf16 at
    ragged shapes, sq != sk, head dims 32 / 64 / 128, causal and not; the
    ERNIE shape [32, 12, 512, 64] in f32 and bf16 with dropout 0.1; the
@@ -215,7 +219,11 @@ def phase_kernels(card):
 
     gen = torch.Generator().manual_seed(0)
     errs = {"B7": 0.0, "B8": 0.0}
-    shapes = [(8, 768, 50304), (3, 100, 333), (13, 2100, 777)]
+    # the serving head, then ragged shapes: K not a multiple of 16 (the
+    # byte-load producer), 16 x rows with K in segments, two x tiles with
+    # N one past a table tile
+    shapes = [(8, 768, 50304), (3, 100, 333), (13, 2100, 777),
+              (17, 1000, 129)]
     for m, k, n in shapes:
         q, s = (t.cuda() for t in _table(n, k, gen))
         x = torch.randn((m, k), generator=gen).cuda()
@@ -253,6 +261,15 @@ def phase_kernels(card):
     x = torch.randn((m, k), generator=gen).cuda()
     sa = x.abs().max()
     sb, sa_c = torch.clamp_min(s, 1e-9), torch.clamp_min(sa, 1e-9)
+    # both repeat bit for bit at the serving shape
+    for fn in (lambda: quant_ops.dequant_matmul(x, q, s),
+               lambda: lowp.w8a8_matmul(x, q.t(), sb, sa_c)):
+        _check(torch.equal(fn(), fn()),
+               "a serving head kernel did not repeat bit for bit")
+    for key, occ in (("B7", quant_ops._occupancy(m, k)),
+                     ("B8", lowp._w8a8_occupancy(m, k))):
+        print(json.dumps({"serving_head_occupancy": key, "m": m, "k": k,
+                          **occ}), flush=True)
     w_f32 = quant_ops.dequant_int8(q, s)        # yardstick's operand only
     flush = torch.empty(32 * 1024 * 1024, device="cuda")   # 128 MB
     table_t = q.t()
@@ -550,11 +567,18 @@ def phase_profile(model):
                    if r.key.startswith("cudaLaunchKernel")) / n
     top = sorted(kernels, key=_device_us, reverse=True)[:6]
     _check(eng.metrics.get("failed") == 0, "profiled steps failed")
+    # the LM head's device time by kernel name (B7 runs while the
+    # activation scale calibrates, B8 once it is frozen)
+    head = {key: sum(_device_us(r) for r in kernels if name in r.key)
+            / 1e3 / n for key, name in (("B7", "dq_stream"),
+                                        ("B8", "w8a8_stream"))}
+    _check(head["B8"] > 0, "the profile saw no B8 (w8a8_stream) time")
     print(json.dumps({
         "profile": "w8a8 decode step, 8 slots",
         "step_ms": host_ms, "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / host_ms),
         "launches_per_step": launches,
+        "head_ms_per_step": head,
         "top_kernels_ms_per_step": {r.key[:60]: _device_us(r) / 1e3 / n
                                     for r in top},
     }), flush=True)
@@ -1454,27 +1478,34 @@ def _b9_split_ms(a, b, sa, sb, q, flush, n=10):
     quantise passes (`quant_rows` / `quant_cols`) and its GEMM
     (`qmm_wg`), each the mean of the launches the trace kept (times two
     for the quantise passes). The trace has been seen to drop a few of
-    these short kernels, so the launches it kept are returned too."""
+    these short kernels, so the launches it kept are returned too, and
+    once to keep none of them: a trace that saw no kernel of a kind is
+    taken again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from paddle_tpu_torch.ops import lowp
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=1, warmup=1, active=n)) as prof:
-        for _ in range(n + 2):
-            flush.sum()
-            lowp._smm_kernel(a, b, sa, sb, q)
-            torch.cuda.synchronize()
-            prof.step()
-    us = {"quantise": 0.0, "gemm": 0.0}
-    count = {"quantise": 0, "gemm": 0}
-    for r in prof.key_averages():
-        part = "gemm" if "qmm_wg" in r.key else "quantise" if any(
-            t in r.key for t in ("quant_rows", "quant_cols")) else None
-        if part and r.device_type == torch.autograd.DeviceType.CUDA:
-            us[part] += _device_us(r)
-            count[part] += r.count
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=1, warmup=1, active=n,
+                                       repeat=1)) as prof:
+            for _ in range(n + 2):
+                flush.sum()
+                lowp._smm_kernel(a, b, sa, sb, q)
+                torch.cuda.synchronize()
+                prof.step()
+        us = {"quantise": 0.0, "gemm": 0.0}
+        count = {"quantise": 0, "gemm": 0}
+        for r in prof.key_averages():
+            part = "gemm" if "qmm_wg" in r.key else "quantise" if any(
+                t in r.key for t in ("quant_rows", "quant_cols")) else None
+            if part and r.device_type == torch.autograd.DeviceType.CUDA:
+                us[part] += _device_us(r)
+                count[part] += r.count
+        if all(count.values()) and all(us.values()):
+            break
     _check(all(count.values()) and all(us.values()),
            f"B9's profile saw kernels {count}, device us {us}, for {n} calls")
     return {"quantise_ms": 2 * us["quantise"] / 1e3 / count["quantise"],

@@ -14,18 +14,23 @@
 //
 // Bound: device-memory bytes (the 38.6 MB int8 table at the serving
 // shape M = 8, K = 768, N = 50304, read once; 2*M int ops per byte).
-// Design: a persistent grid (kBlocksPerSM blocks per SM) walks the
-// table in tiles of kRowsPerBlock columns n. The block quantizes its
-// 8-row x tile into shared memory once (once per K tile when K exceeds
-// it): rintf = round half to even, like jnp.round; IEEE division
-// 127/sa, no fast-math. Each warp owns kRows columns of a tile and its
-// lanes split K, 16 bytes per lane per step (one int4 load of the
-// table, one of the quantized x row), accumulating with __dp4a in
-// int32; the loads of the warp's next step are issued before the
-// current step's arithmetic. A shuffle reduce-scatter leaves each lane
-// at most two finished outputs. The int32 sums are exact, so the result
-// is bitwise equal to the plain version. With sk != 1 (a K-major table)
-// the kernel falls back to byte loads. Ragged M, N and K edges are
+// Design (`w8a8_stream`): the table streams through shared memory as
+// table_stream.cuh describes (TMA into an mbarrier ring of ten 16 KB
+// slots, one block an SM: one producer warp, four consumer warps of 32
+// table rows), and each slot is
+// multiplied with mma.sync m16n8k32 s8 x s8 -> s32 on the tensor cores:
+// table rows (the columns n of qb) are the m16 side, the quantized x rows
+// the n8 side, and the table's bytes enter the products as they are. The
+// block quantizes its x tile (8 or 16 rows) into shared memory once (per K
+// segment when it does not fit): rintf = round half to even, like
+// jnp.round; 127/sa and the epilogue factor by IEEE division, no
+// fast-math; NaN gives code 0, as the plain version's nan_to_num. The
+// int32 sums are exact (|acc| <= 127^2 K < 2^31), so the result is
+// bitwise equal to the plain version in any order, and repeats. The
+// engine's K-major table (sk = 1, a row stride of a multiple of 16
+// bytes) arrives by TMA; any other layout, the MN-major [K, N] one
+// included, by the producer warp's byte loads into the same ring (slower;
+// no caller of the engine passes one). Ragged M, N and K edges are
 // masked, never padded.
 
 #include <cuda_bf16.h>
@@ -37,230 +42,257 @@
 #include <type_traits>
 
 #include "sm90.cuh"
+#include "table_stream.cuh"
 
-namespace {
+namespace w8a8 {
 
-constexpr int kThreads = 256;                       // 8 warps
-constexpr int kBlocksPerSM = 2;
-constexpr int kRows = 4;                            // table columns per warp
-constexpr int kRowsPerBlock = (kThreads / 32) * kRows;
-constexpr int kMTile = 8;                           // x rows per block
-constexpr int kKTile = 2048;                        // K staged per pass
-constexpr int kLaneK = 16;                          // int8 per lane per step
-constexpr int kWarpK = 32 * kLaneK;                 // K per warp step
-constexpr int kAcc = kMTile * kRows;                // sums per warp
+using namespace tstream;
 
-__device__ __forceinline__ int word(const int4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+constexpr int kXBudget = 32 * 1024;   // staged x bytes (one a value)
+constexpr int kStages = 10;           // ring slots: 160 KB in flight an SM
+
+struct Args {
+  Table t;
+  const float* x;
+  long long ldx;
+  int M;
+  const float* sa;
+  const float* sb;
+  float* out;
+  int ks_seg;
+  int tma;
+};
+
+// byte offset of x[r][kl] inside the staged segment: lane (g, t) of n8
+// group r / 8 reads 16 bytes of K order permuted as the table's
+// (table_stream.cuh): physical k 32 t + 16 i + e of each 128-byte step
+template <int NG>
+__device__ __forceinline__ int x_off(int r, int kl) {
+  const int kb = kl >> 7, w = kl & 127;
+  const int t = w >> 5, i = (w & 31) >> 4, e = w & 15;
+  return ((kb * 2 + i) * NG + (r >> 3)) * 512 + (4 * (r & 7) + t) * 16 + e;
 }
 
-// one step of a warp reduce-scatter over v[0 : 2*HALF]: lanes keep the
-// half selected by their bit HALF/2, adding the partner's copy
-template <int HALF, typename T>
-__device__ __forceinline__ void rs_step(T* v, int lane) {
-  const bool upper = lane & (HALF / 2);
-#pragma unroll
-  for (int i = 0; i < HALF; ++i) {
-    const T send = upper ? v[i] : v[i + HALF];
-    const T keep = upper ? v[i + HALF] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, HALF / 2);
+__device__ __forceinline__ uint32_t quant(float v, float inv) {
+  v = rintf(v * inv);
+  v = v < -127.0f ? -127.0f : (v > 127.0f ? 127.0f : v);
+  if (v != v) return 0u;
+  return static_cast<uint32_t>(static_cast<uint8_t>(static_cast<int8_t>(v)));
+}
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int NG>
+struct Op {
+  static constexpr int kR = 8 * NG;      // x rows of the block
+  static constexpr int kRW = kR / kWarps;   // of them, this warp's
+  static constexpr int kUK = 48 / kRW;   // a row's values a lane loads at once
+  static constexpr int kChunk = 32 * kUK;   // a row's K a warp loads at once
+  const Args& p;
+  const Layout& L;
+  int m0, warp, lane;
+  bool staged;                           // init staged all of x
+  float inv, epi;                        // 127 / sa, sa sb / 127^2
+  int acc[2][NG][4];                     // [fragment][group][c]
+
+  __device__ Op(const Args& p_, const Layout& L_) : p(p_), L(L_) {
+    m0 = blockIdx.y * kR;
+    warp = threadIdx.x >> 5;
+    lane = threadIdx.x & 31;
+    zero();
   }
-}
 
-// v[0 : kAcc] summed over the warp: lane l ends with the totals of
-// indices 2l and 2l + 1 in v[0] and v[1] (lanes with 2l >= kAcc hold
-// copies and write nothing)
-template <typename T>
-__device__ __forceinline__ void reduce_scatter(T* v, int lane) {
-  static_assert(kAcc == 32 || kAcc == 64, "kAcc must be 32 or 64");
-  if constexpr (kAcc == 64) rs_step<32>(v, lane);
-  rs_step<16>(v, lane);
-  rs_step<8>(v, lane);
-  rs_step<4>(v, lane);
-  rs_step<2>(v, lane);
-  if constexpr (kAcc == 32) {
-    v[0] += __shfl_xor_sync(0xffffffffu, v[0], 16);
-    v[1] += __shfl_xor_sync(0xffffffffu, v[1], 16);
+  __device__ void zero() {
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+#pragma unroll
+      for (int ng = 0; ng < NG; ++ng)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[f][ng][c] = 0;
   }
-}
 
-__device__ __forceinline__ unsigned quant(float v, float inv) {
-  v = fminf(fmaxf(rintf(v * inv), -127.0f), 127.0f);
-  return static_cast<unsigned char>(static_cast<int8_t>(v));
-}
-
-// quantized x[m0 : m0+8, k0 : k0+kt] -> xq, zero past M and past kt up
-// to the next multiple of kWarpK (the compute loop reads no further)
-__device__ __forceinline__ void stage_x(int8_t (*xq)[kKTile],
-                                        const float* __restrict__ x,
-                                        int M, int m0, int k0, int kt,
-                                        long long ldx, float inv) {
-  const int groups = ((kt + kWarpK - 1) / kWarpK) * kWarpK / 4;
-  for (int i = threadIdx.x; i < kMTile * groups; i += kThreads) {
-    const int m = i / groups, k = 4 * (i % groups);
-    unsigned u = 0;
-    if (m0 + m < M) {
-      const float* src = x + static_cast<long long>(m0 + m) * ldx + k0 + k;
+  // x[m0 + warp + kWarps j][k0 + lane + 32 u] for this warp's rows j, 0
+  // past M and K: every load of the chunk in flight at once (the table's
+  // stream fills the memory system while x is staged)
+  __device__ void load(float (&v)[kRW][kUK], int k0) const {
 #pragma unroll
-      for (int b = 0; b < 4; ++b)
-        if (k + b < kt) u |= quant(src[b], inv) << (8 * b);
-    }
-    *reinterpret_cast<unsigned*>(&xq[m][k]) = u;
-  }
-}
-
-// the warp's 16 table bytes at k0 + kk of each of its columns (zeros
-// past N and past kt)
-template <bool kVec>
-__device__ __forceinline__ void load_cols(int4 (&wv)[kRows],
-                                          const int8_t* __restrict__ qb,
-                                          int N, int n0, int k0, int kk,
-                                          int kt, long long sk,
-                                          long long sn) {
+    for (int j = 0; j < kRW; ++j) {
+      const int m = m0 + warp + kWarps * j;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int n = n0 + r;
-    wv[r] = make_int4(0, 0, 0, 0);
-    if (n < N && kk < kt) {
-      const int8_t* p = qb + static_cast<long long>(n) * sn +
-                        static_cast<long long>(k0 + kk) * sk;
-      if (kVec) {
-        wv[r] = __ldg(reinterpret_cast<const int4*>(p));
-      } else {
-        int w[4];
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          unsigned u = 0;
-#pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            const int k = kk + 4 * t + b;
-            const unsigned v =
-                k < kt ? static_cast<unsigned char>(p[(4 * t + b) * sk])
-                       : 0u;
-            u |= v << (8 * b);
-          }
-          w[t] = static_cast<int>(u);
-        }
-        wv[r] = make_int4(w[0], w[1], w[2], w[3]);
+      for (int u = 0; u < kUK; ++u) {
+        const int k = k0 + lane + 32 * u;
+        v[j][u] = m < p.M && k < p.t.K ? __ldg(p.x + m * p.ldx + k) : 0.f;
       }
     }
   }
-}
 
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-w8a8_matmul_kernel(const float* __restrict__ x,
-                   const int8_t* __restrict__ qb,
-                   const float* __restrict__ sa_ptr,
-                   const float* __restrict__ sb_ptr,
-                   float* __restrict__ out, int M, int N, int K,
-                   long long ldx, long long sk, long long sn) {
-  __shared__ __align__(16) int8_t xq[kMTile][kKTile];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int m0 = blockIdx.y * kMTile;
-  const float sa = *sa_ptr;
-  const float sb = *sb_ptr;
-  const float inv = 127.0f / sa;
-  const float epi = sa * sb / (127.0f * 127.0f);
-  const bool once = K <= kKTile;
-  if (once) {
-    stage_x(xq, x, M, m0, 0, K, ldx, inv);
-    __syncthreads();
+  // a loaded chunk quantized at segment offset kl0, up to span
+  __device__ void quantize(const float (&v)[kRW][kUK], int kl0, int span) {
+    char* xs = L.ptr<char>(L.x);
+#pragma unroll
+    for (int j = 0; j < kRW; ++j)
+#pragma unroll
+      for (int u = 0; u < kUK; ++u) {
+        const int kl = kl0 + lane + 32 * u;
+        if (kl < span)
+          xs[x_off<NG>(warp + kWarps * j, kl)] =
+              static_cast<char>(quant(v[j][u], inv));
+      }
   }
-  // the warp walks items (tile nb, K tile k0, step j) in order; the
-  // loads of item i + 1 are in flight while item i computes
-  int nb = blockIdx.x * kRowsPerBlock;
-  if (nb >= N) return;
-  int k0 = 0, j = 0;
-  int4 cur[kRows];
-  load_cols<kVec>(cur, qb, N, nb + warp * kRows, 0, lane * kLaneK,
-                  min(kKTile, K), sk, sn);
-  int acc[kAcc];                       // acc[m * kRows + r]
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) acc[i] = 0;
 
-  while (true) {
-    const int kt = min(kKTile, K - k0);
-    int nnb = nb, nk0 = k0, nj = j + 1;
-    if (nj * kWarpK >= kt) {
-      nj = 0;
-      nk0 = k0 + kKTile;
-      if (nk0 >= K) {
-        nk0 = 0;
-        nnb = nb + gridDim.x * kRowsPerBlock;
-      }
+  // the scales' factors, read once a block (every thread loading them
+  // would queue thousands of requests on one L2 line) beside x's first
+  // loads; when all of x fits one chunk and one segment, it is staged
+  // from those loads
+  __device__ void init() {
+    const int kp = (p.t.K + kStepK - 1) / kStepK * kStepK;
+    staged = p.t.K <= kChunk && kp <= p.ks_seg;
+    float* scales = L.ptr<float>(L.scratch);
+    if (threadIdx.x == 0) {
+      scales[0] = __ldg(p.sa);
+      scales[1] = __ldg(p.sb);
     }
-    const bool more = nnb < N;
-    int4 nxt[kRows];
-    if (more)
-      load_cols<kVec>(nxt, qb, N, nnb + warp * kRows, nk0,
-                      lane * kLaneK + nj * kWarpK, min(kKTile, K - nk0),
-                      sk, sn);
-    if (!once && j == 0) {
-      __syncthreads();
-      stage_x(xq, x, M, m0, k0, kt, ldx, inv);
-      __syncthreads();
+    float v[kRW][kUK];
+    if (staged) load(v, 0);
+    bar_consumers();
+    const float sa = scales[0], sb = scales[1];
+    inv = __fdiv_rn(127.0f, sa);
+    epi = __fdiv_rn(sa * sb, 127.0f * 127.0f);
+    if (staged) quantize(v, 0, kp);
+  }
+
+  __device__ void start(int) {}
+
+  // K segment seg of this warp's x rows quantized, zero past M and K
+  // (init staged them already when x fits at once)
+  __device__ void stage(int seg) {
+    if (staged) return;
+    const int kp = (p.t.K + kStepK - 1) / kStepK * kStepK;
+    const int k0 = seg * p.ks_seg, span = min(p.ks_seg, kp - k0);
+    float v[kRW][kUK];
+    for (int kl = 0; kl < span; kl += kChunk) {
+      load(v, k0 + kl);
+      quantize(v, kl, span);
     }
-    const int kk = lane * kLaneK + j * kWarpK;
-    if (kk < kt) {
+  }
+
+  // k32 step j of the slot: a0 / a2 = words 2j / 2j + 1 of row g, a1 /
+  // a3 of row g + 8; b0 / b1 the x words at the same K
+  __device__ void step(const uint32_t (&a)[2][2][8], int kbl) {
 #pragma unroll
-      for (int m = 0; m < kMTile; ++m) {
-        const int4 xv = *reinterpret_cast<const int4*>(&xq[m][kk]);
+    for (int i = 0; i < 2; ++i) {          // x chunk i: k steps 2i, 2i + 1
+      uint32_t b[NG][4];
 #pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const int a = word(xv, t);
-#pragma unroll
-          for (int r = 0; r < kRows; ++r)
-            acc[m * kRows + r] =
-                __dp4a(a, word(cur[r], t), acc[m * kRows + r]);
-        }
-      }
-    }
-    if (nnb != nb) {                   // the tile's last item: finish it
-      reduce_scatter(acc, lane);
-      const int n0 = nb + warp * kRows;
+      for (int ng = 0; ng < NG; ++ng)
+        lds128(L.x + ((kbl * 2 + i) * NG + ng) * 512 + lane * 16, b[ng]);
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) {
-        const int idx = 2 * lane + jj;
-        const int m = m0 + idx / kRows, n = n0 + idx % kRows;
-        if (idx < kAcc && m < M && n < N)
-          out[static_cast<long long>(m) * N + n] =
-              static_cast<float>(acc[jj]) * epi;
+        const int j = 2 * i + jj;
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+          const uint32_t fa[4] = {a[f][0][2 * j], a[f][1][2 * j],
+                                  a[f][0][2 * j + 1], a[f][1][2 * j + 1]};
+#pragma unroll
+          for (int ng = 0; ng < NG; ++ng)
+            mma_s8(acc[f][ng], fa, b[ng][2 * jj], b[ng][2 * jj + 1]);
+        }
       }
-#pragma unroll
-      for (int i = 0; i < kAcc; ++i) acc[i] = 0;
     }
-    if (!more) break;
-    nb = nnb;
-    k0 = nk0;
-    j = nj;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) cur[r] = nxt[r];
   }
+
+  // c index 2 h + e of fragment f, group ng: table row 16 f + g + 8 h of
+  // the warp's 32, x row 8 ng + 2 t + e
+  __device__ void finish(int tile) {
+    const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = tile * kTileRows + 32 * warp + 16 * f + g + 8 * h;
+        if (n >= p.t.N) continue;
+#pragma unroll
+        for (int ng = 0; ng < NG; ++ng)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = 8 * ng + 2 * t4 + e;
+            if (m0 + r < p.M)
+              p.out[static_cast<long long>(m0 + r) * p.t.N + n] =
+                  static_cast<float>(acc[f][ng][2 * h + e]) * epi;
+          }
+      }
+    zero();
+  }
+};
+
+template <int NG>
+__global__ void __launch_bounds__(kThreads, 1)
+    w8a8_stream(const __grid_constant__ CUtensorMap map,
+                const __grid_constant__ Args p) {
+  extern __shared__ uint4 smem4[];
+  const Layout L(smem4, kStages);
+  Op<NG> op(p, L);
+  run(&map, p.tma != 0, p.t, L, op, p.ks_seg);
 }
 
-}  // namespace
+template <int NG>
+size_t smem_bytes(int ks_seg) {
+  return fixed_bytes(kStages) + static_cast<size_t>(8 * NG) * ks_seg;
+}
+
+template <int NG>
+int seg(int K) {
+  return seg_k(K, 8 * NG, kXBudget);
+}
+
+template <int NG>
+cudaError_t run_ng(Args args, int num_sms, cudaStream_t st) {
+  CUtensorMap map = {};
+  args.tma = table_map(&map, args.t);
+  args.ks_seg = seg<NG>(args.t.K);
+  return launch(w8a8_stream<NG>, map, args, args.t.N,
+                (args.M + 8 * NG - 1) / (8 * NG), smem_bytes<NG>(args.ks_seg),
+                num_sms, st);
+}
+
+}  // namespace w8a8
 
 extern "C" int w8a8_matmul_f32_i8(const float* x, const int8_t* qb,
                                   const float* sa, const float* sb,
                                   float* out, int M, int N, int K,
                                   long long ldx, long long sk, long long sn,
                                   int num_sms, void* stream) {
-  const int tiles = (N + kRowsPerBlock - 1) / kRowsPerBlock;
-  const dim3 grid(min(tiles, num_sms * kBlocksPerSM),
-                  (M + kMTile - 1) / kMTile);
-  const bool vec = sk == 1 && K % kLaneK == 0 && sn % kLaneK == 0 &&
-                   reinterpret_cast<uintptr_t>(qb) % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec) {
-    w8a8_matmul_kernel<true><<<grid, kThreads, 0, st>>>(
-        x, qb, sa, sb, out, M, N, K, ldx, sk, sn);
-  } else {
-    w8a8_matmul_kernel<false><<<grid, kThreads, 0, st>>>(
-        x, qb, sa, sb, out, M, N, K, ldx, sk, sn);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (K == 0)
+    return static_cast<int>(cudaMemsetAsync(
+        out, 0, sizeof(float) * static_cast<size_t>(M) * N, st));
+  w8a8::Args args = {};
+  args.t = tstream::Table{qb, sn, sk, N, K};
+  args.x = x;
+  args.ldx = ldx;
+  args.M = M;
+  args.sa = sa;
+  args.sb = sb;
+  args.out = out;
+  const cudaError_t err = M <= 8 ? w8a8::run_ng<1>(args, num_sms, st)
+                                 : w8a8::run_ng<2>(args, num_sms, st);
+  return static_cast<int>(err);
+}
+
+// what w8a8_matmul_f32_i8 launches for M rows of x and depth K:
+// registers and local (spilled) bytes a thread, threads and shared bytes
+// a block, and the blocks an SM holds at once
+extern "C" int w8a8_matmul_occupancy(int M, int K, int* out) {
+  using namespace w8a8;
+  if (M <= 8)
+    return occupancy(w8a8_stream<1>, smem_bytes<1>(seg<1>(K)), out);
+  return occupancy(w8a8_stream<2>, smem_bytes<2>(seg<2>(K)), out);
 }
 
 // ---------------------------------------------------------------------------

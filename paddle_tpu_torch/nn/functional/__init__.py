@@ -69,13 +69,20 @@ def relu(x, name=None):
     return torch.relu(x)
 
 
+def _keep_mask(x, p):
+    """The keep mask of a dropout of `x` at rate `p`, from the installed
+    generator (`framework.random`)."""
+    return torch.empty(x.shape, device=x.device).bernoulli_(
+        1.0 - p, generator=_random.generator_for(x.device)).bool()
+
+
 def dropout(x, p=0.5, training=True):
-    """Upscale-in-train dropout; identity in eval or at p == 0. The mask
-    comes from the installed generator (`framework.random`)."""
+    """Upscale-in-train dropout; identity in eval or at p == 0. Kept
+    values are multiplied by ``1 / (1 - p)`` in x's dtype, as the
+    reference's ``dropout`` op does."""
     if not training or p == 0.0:
         return x
-    keep = torch.empty(x.shape, device=x.device).bernoulli_(
-        1.0 - p, generator=_random.generator_for(x.device)).bool()
+    keep = _keep_mask(x, p)
     scale = torch.tensor(1.0 / (1.0 - p), dtype=x.dtype, device=x.device)
     return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype,
                                                     device=x.device))
@@ -130,7 +137,8 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
     on CUDA tensors), dropout in-kernel from one 32-bit seed per call.
     With an additive (float) or boolean mask it is the reference's plain
     op: f32 scores, causal mask aligned bottom-right, softmax, dropout of
-    the probabilities from the installed generator."""
+    the probabilities from the installed generator (kept values divided
+    by ``1 - p``)."""
     use_dropout = dropout_p > 0.0 and training
     p = dropout_p if use_dropout else 0.0
     if attn_mask is None:
@@ -148,7 +156,16 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
     else:
         s = s + attn_mask
     probs = torch.softmax(s, dim=-1).to(q.dtype)
-    probs = dropout(probs, p, training=use_dropout)
+    if use_dropout:
+        # the reference's masked path divides by 1 - p in the
+        # probabilities' dtype (its dropout op multiplies by 1 / (1 - p));
+        # a tensor divisor keeps the division IEEE on CUDA
+        # (`ops.quant_ops.true_div`)
+        keep = _keep_mask(probs, p)
+        probs = torch.where(
+            keep, probs / torch.tensor(1.0 - p, dtype=probs.dtype,
+                                       device=probs.device),
+            torch.zeros((), dtype=probs.dtype, device=probs.device))
     return torch.matmul(probs, v).transpose(1, 2)
 
 

@@ -179,6 +179,12 @@ def w8a8_matmul(x, qweight, scale, act_scale):
 w8a8_matmul.launches = 0
 
 
+def _w8a8_occupancy(m, k):
+    """What B8 launches for `m` rows of x at depth `k` on the current card
+    (`_launch.occupancy`; a report, the op never calls it)."""
+    return _launch.occupancy("lowp", "w8a8_matmul_occupancy", m, k)
+
+
 # -- B9: scaled matmul --------------------------------------------------------
 
 

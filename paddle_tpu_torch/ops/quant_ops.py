@@ -10,7 +10,9 @@ paddle_tpu/ops/quant_ops.py).
                                 dequant, bitwise a different formula.
 
 `dequant_matmul` runs the hand-written CUDA kernel in
-``csrc/quant_ops.cu`` (it replaces the Pallas TPU kernel
+``csrc/quant_ops.cu`` (B7, `dq_stream`: the table streamed by TMA through
+shared memory into f16 tensor-core products against x split into two
+f16 pieces; it replaces the Pallas TPU kernel
 ``paddle_tpu/ops/quant_ops.py::_dq_kernel``) on CUDA tensors and its
 plain PyTorch version — the reference's lax path — on CPU tensors.
 ``dequant_matmul.launches`` counts kernel launches.
@@ -76,6 +78,12 @@ def _dequant_matmul_kernel(x2, q, sc):
                    0 if sc.numel() == 1 else 1)
     dequant_matmul.launches += 1
     return out
+
+
+def _occupancy(m, k):
+    """What B7 launches for `m` rows of x at depth `k` on the current card
+    (`_launch.occupancy`; a report, the op never calls it)."""
+    return _launch.occupancy("quant_ops", "dequant_matmul_occupancy", m, k)
 
 
 def dequant_matmul(x, qweight, scale):

@@ -131,6 +131,38 @@ def test_masked_sdpa_matches_reference():
                                rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_masked_sdpa_dropout_matches_reference_bitwise(p, monkeypatch):
+    """The masked path's dropout divides the kept probabilities by 1 - p
+    in their dtype, as the reference does (its dropout op multiplies by
+    1 / (1 - p) instead). q = k = 0 and v = I make the output the dropped
+    probabilities, exact in both packages; both draw one keep mask (the
+    port's, from a generator seeded 0)."""
+    from paddle_tpu_torch.framework import random as trandom
+
+    b, h, s = 2, 2, 12
+    q = np.zeros((b, h, s, s), np.float32)
+    v = np.broadcast_to(np.eye(s, dtype=np.float32), (b, h, s, s)).copy()
+    mask = np.where(np.random.RandomState(6).rand(b, 1, 1, s) < 0.3,
+                    -1e4, 0.0).astype(np.float32)
+    keep = torch.empty((b, h, s, s)).bernoulli_(
+        1.0 - p, generator=torch.Generator().manual_seed(0)).bool()
+    monkeypatch.setattr(
+        jax.random, "bernoulli",
+        lambda key, prob, shape: jnp.asarray(keep.numpy()).reshape(shape))
+    want = JF.scaled_dot_product_attention(
+        *(paddle.to_tensor(a).astype("bfloat16") for a in (q, q, v)),
+        attn_mask=paddle.to_tensor(mask), dropout_p=p, training=True,
+        qkv_layout="bhsd")
+    with trandom.rng_scope(trandom.RngState(0, "cpu")):
+        got = TF.scaled_dot_product_attention(
+            *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, q, v)),
+            attn_mask=torch.from_numpy(mask), dropout_p=p, training=True)
+    np.testing.assert_array_equal(
+        got.float().numpy(),
+        np.asarray(jnp.asarray(want._value).astype(jnp.float32)))
+
+
 def _murmur3_numpy(seed, words):
     """murmur3_32 of little-endian 32-bit words, in numpy uint32."""
     u = np.uint32

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: B7 `dequant_matmul` within rtol=atol=1e-5 (f32 sums in another
-order), B8 `w8a8_matmul` bitwise (exact int32 sums), B9 `scaled_matmul`
+order, x carried in two f16 pieces), B8 `w8a8_matmul` bitwise (exact
+int32 sums), both at ragged shapes and table views and repeating bit for
+bit, B9 `scaled_matmul`
 int8 bitwise and fp8 within 4 K 2^-24 of the sum of the absolute
 products (f32 sums in another order; its e4m3 codes bitwise through an
 identity operand), with f32 and bf16 operands, a Linear weight and a
@@ -47,9 +49,13 @@ import torch
 from paddle_tpu_torch.ops import fused_conv, fused_loss, fused_ops, lowp, \
     quant_ops
 
-# the serving head's shape, then ragged ones (non-vector paths, M > 8,
-# K beyond one staged tile)
-SHAPES = [(8, 768, 50304), (1, 64, 97), (3, 100, 333), (13, 2100, 777)]
+# the serving head's shape, then ragged ones against B7's and B8's
+# 128-row table tiles, 128-byte K steps and 8 / 16-row x tiles: K not a
+# multiple of 16 (the byte-load producer), M of 9, 16 and 17 (two x
+# tiles), N one past a tile, K staged in segments (2100 at 16 x rows,
+# 4200 at 8)
+SHAPES = [(8, 768, 50304), (1, 64, 97), (3, 100, 333), (13, 2100, 777),
+          (9, 768, 129), (16, 1000, 257), (17, 768, 1000), (5, 4200, 300)]
 
 
 def _card():
@@ -95,6 +101,47 @@ def test_w8a8_kernel_bitwise(m, k, n):
             got = lowp.w8a8_matmul(x, table, sb, sa)
             assert lowp.w8a8_matmul.launches == launches + 1
             assert torch.equal(got, lowp._w8a8_plain(x, table, sb, sa))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+def test_table_views_read_in_place(offset):
+    """A table with a padded row stride (offset 0: TMA) or an unaligned
+    base (offset 1: byte loads) gives the plain version's result."""
+    _card()
+    x, q, s = _inputs(8, 768, 1000)
+    wide = torch.zeros((1000, 800), dtype=torch.int8, device="cuda")
+    wide[:, offset:offset + 768] = q
+    view = wide[:, offset:offset + 768]
+    torch.testing.assert_close(
+        quant_ops.dequant_matmul(x, view, s),
+        quant_ops._dequant_matmul_plain(x, view, s.reshape(-1)),
+        rtol=1e-5, atol=1e-5)
+    sa = x.abs().max()
+    assert torch.equal(lowp.w8a8_matmul(x, view.t(), s, sa),
+                       lowp._w8a8_plain(x, view.t(), s, sa))
+
+
+@pytest.mark.cuda
+def test_serving_head_kernels_repeat_bitwise():
+    _card()
+    x, q, s = _inputs(8, 768, 50304)
+    first = quant_ops.dequant_matmul(x, q, s)
+    assert torch.equal(quant_ops.dequant_matmul(x, q, s), first)
+    sa = x.abs().max()
+    first = lowp.w8a8_matmul(x, q.t(), s, sa)
+    assert torch.equal(lowp.w8a8_matmul(x, q.t(), s, sa), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(8, 768), (16, 2100)])
+def test_serving_head_occupancy(m, k):
+    """B7 and B8 build without spills and fit the card at the serving
+    shape and at a segmented one."""
+    _card()
+    for occ in (quant_ops._occupancy(m, k), lowp._w8a8_occupancy(m, k)):
+        assert occ["threads"] == 160 and occ["local_bytes"] == 0, occ
+        assert occ["blocks_per_sm"] >= 1, occ
 
 
 @pytest.mark.cuda
