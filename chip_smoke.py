@@ -113,6 +113,25 @@ Phases (any failure raises and the script exits non-zero):
 20. Where that step's time goes, from torch.profiler.
 21. model.eval() forwards at b128: the affine epilogue, 53 B10 launches
     a forward, images/s.
+22. Checkpointing, leg A, resume after a preemption: the ERNIE-1.0 leg
+    of 9 through `distributed.checkpoint.train_epoch_range` (async saves,
+    max_to_keep 2, epochs of 2 steps) with FLAGS_simulate_preempt_at_step
+    2: an emergency checkpoint, the PREEMPTED marker and PreemptedError;
+    an engine of other seeds resumes at epoch 2, and the 8 losses repeat
+    the fused leg's first 8 within rtol 1e-5. Bytes on disk per
+    checkpoint, the snapshot's ms on the step thread, the background
+    write's seconds, restore and verify seconds, whether the replay was
+    bit for bit, B1-B6 launches over the leg.
+23. Checkpointing, leg B, the anomaly guard's rollback: the ResNet-50
+    leg of 19, guarded (FLAGS_anomaly_max_bad_steps 2, a read every
+    step), 2 steps, a checkpoint, 2 steps poisoned by
+    ``train.batch@3-4:nan``: one rollback to step 2, every restored leaf
+    hashing to the manifest, 2 replayed steps within rtol 1e-5 of a
+    clean guarded run; the rollback's ms, the guarded step's p50 beside
+    an unguarded engine's timed in turns with it (and beside the
+    unguarded p50 of 19), B10 launches over the leg. Both legs write
+    into one temporary directory (~3.7 GB at the peak) that is removed
+    at the end.
 
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line
 and ``{"ok": true, "device": {...}}``. Without a CUDA card, or outside a
@@ -1738,7 +1757,7 @@ def _resnet_values(model, seed):
     return vals
 
 
-def _resnet_engine(model, device, lr=0.1):
+def _resnet_engine(model, device, lr=0.1, **kw):
     from paddle_tpu_torch import nn, optimizer
     from paddle_tpu_torch.engine import Engine
 
@@ -1746,7 +1765,7 @@ def _resnet_engine(model, device, lr=0.1):
     opt = optimizer.Momentum(learning_rate=lr, momentum=0.9,
                              parameters=model.parameters(), weight_decay=1e-4)
     return Engine(model, opt, lambda logits, labels: crit(logits, labels),
-                  device=device, seed=0)
+                  device=device, seed=0, **kw)
 
 
 def _resnet_batch(batch, hw, classes=1000, seed=0):
@@ -2119,6 +2138,296 @@ def phase_resnet_eval(model, per_fwd, n=10, warm=2):
     print(json.dumps(out), flush=True)
     return out
 
+class _CkptTimes:
+    """Times the checkpoint path from the outside: the async manager's
+    snapshot on the step thread (`_to_host`, host clock) and its
+    background write (`_write`: the wait for the device->host copies,
+    hashing, the files and the commit), and each `load_state` (read,
+    verify, host->device, synchronised), after which the restored leaves
+    are re-hashed against the manifest (`verify_manifest`, timed on its
+    own: it also checks the bytes that landed on the card)."""
+
+    def __enter__(self):
+        import torch
+
+        from paddle_tpu_torch.distributed import checkpoint as ck
+
+        self.times = {"snapshot_ms": [], "write_s": [], "restore_s": [],
+                      "verify_s": []}
+        cls = ck.AsyncCheckpointManager
+        self._orig = (cls.__dict__["_to_host"], cls._write, ck.load_state)
+        to_host, write, load_state = self._orig
+
+        def timed_to_host(state):
+            t0 = time.perf_counter()
+            out = to_host.__func__(state)
+            self.times["snapshot_ms"].append(
+                (time.perf_counter() - t0) * 1e3)
+            return out
+
+        def timed_write(mgr, *args):
+            t0 = time.perf_counter()
+            write(mgr, *args)
+            self.times["write_s"].append(time.perf_counter() - t0)
+
+        def timed_load(path, template, **kw):
+            t0 = time.perf_counter()
+            out = load_state(path, template, **kw)
+            torch.cuda.synchronize()
+            self.times["restore_s"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            ck.verify_manifest(path, out)
+            self.times["verify_s"].append(time.perf_counter() - t0)
+            return out
+
+        cls._to_host = staticmethod(timed_to_host)
+        cls._write = timed_write
+        ck.load_state = timed_load
+        return self.times
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.distributed import checkpoint as ck
+
+        cls = ck.AsyncCheckpointManager
+        cls._to_host, cls._write, ck.load_state = self._orig
+
+
+def _dir_bytes(path):
+    import os
+
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _dirs, files in os.walk(path) for f in files)
+
+
+def _rel_dev(got, want):
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def phase_ckpt_resume(fused_leg, tmp):
+    """Leg A, resume after a preemption, ERNIE-1.0 at full width as the
+    fused leg of 9 builds it (b32 x s512, bf16 O1, AdamW, the fused loss,
+    weight and engine seeds 0): `train_epoch_range` with async saves
+    (max_to_keep 2), epochs of 2 steps and FLAGS_simulate_preempt_at_step
+    2 must commit an emergency checkpoint after epoch 1, write the
+    PREEMPTED marker and raise PreemptedError. An engine built from other
+    weight and engine seeds (1, 1) then resumes at epoch 2 and runs
+    epochs 2-3; all 8 losses must repeat the fused leg's first 8 within
+    rtol 1e-5 (whether they repeat bit for bit is printed). B1-B6 launch
+    counts are set to 0 before the leg and read after it."""
+    import os
+
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed import checkpoint, preempt
+    from paddle_tpu_torch.framework import monitor
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.nlp.transformers import ErnieConfig
+    from paddle_tpu_torch.ops import fused_loss, fused_ops
+
+    set_flags({"FLAGS_use_fused_lm_loss": True, "FLAGS_lowp_matmul": "off"})
+    cfg = ErnieConfig(**ERNIE)
+    ids, labels = _ernie_batch(cfg.vocab_size, ERNIE_BATCH, ERNIE_SEQ)
+
+    def epochs(eng, max_epoch, losses):
+        done = []
+        for epoch in checkpoint.train_epoch_range(
+                max_epoch, tmp, eng, async_save=True, max_to_keep=2):
+            for _ in range(2):
+                with amp.auto_cast(enable=True, dtype="bfloat16"):
+                    losses.append(float(eng.train_batch(ids, labels)))
+            done.append(epoch)
+        return done
+
+    fused_ops.flash_attention.launches.update(B1=0, B2=0, B3=0)
+    fused_loss.launches.update(B4=0, B5=0, B6=0)
+    saves0 = monitor.stat_get("preempt_emergency_saves")
+    losses = []
+    ckdir = os.path.join(tmp, "auto_ckpt")
+    marker = os.path.join(ckdir, preempt.MARKER_NAME)
+    with _CkptTimes() as times:
+        eng = _ernie_engine(cfg, "cuda", 0, 0, 1e-4)
+        set_flags({"FLAGS_simulate_preempt_at_step": 2})
+        try:
+            epochs(eng, 4, losses)
+            preempted = False
+        except preempt.PreemptedError:
+            preempted = True
+        finally:
+            set_flags({"FLAGS_simulate_preempt_at_step": 0})
+            preempt.uninstall()
+        _check(preempted and len(losses) == 4 and os.path.exists(marker) and
+               monitor.stat_get("preempt_emergency_saves") == saves0 + 1,
+               f"the simulated preemption: raised {preempted}, "
+               f"{len(losses)} steps, marker {os.path.exists(marker)}")
+        ckpt_bytes = _dir_bytes(os.path.join(ckdir, "ckpt-1"))
+        del eng
+        torch.cuda.empty_cache()
+        preempt.clear()
+        eng = _ernie_engine(cfg, "cuda", 1, 1, 1e-4)
+        try:
+            done = epochs(eng, 4, losses)
+        finally:
+            preempt.uninstall()
+    launches = {**fused_ops.flash_attention.launches, **fused_loss.launches}
+    del eng
+    torch.cuda.empty_cache()
+    _check(done == [2, 3] and not os.path.exists(marker),
+           f"resumed at epochs {done}, marker left: {os.path.exists(marker)}")
+    want = fused_leg["losses"][:8]
+    dev = _rel_dev(losses, want)
+    _check(len(losses) == 8 and dev <= 1e-5,
+           f"resumed losses {losses} vs uninterrupted {want}")
+    _check(all(launches[k] > 0 for k in launches),
+           f"leg A launches {launches}")
+    out = {"ckpt_resume": "ernie-1.0 b32 s512 bf16, async, preempted "
+                          "after epoch 1 of 2-step epochs",
+           "ckpt_bytes": ckpt_bytes, "losses": losses,
+           "uninterrupted_losses": want, "max_rel_dev": dev,
+           "bitwise": losses == want, **times, "launches": launches}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def phase_ckpt_rollback(resnet_leg, tmp, n=10):
+    """Leg B, the anomaly guard's rollback, ResNet-50 as the leg of 19
+    trains it (s2d stem, b128 x 224, bf16 O1, Momentum), guarded, with
+    FLAGS_anomaly_max_bad_steps 2 and FLAGS_anomaly_check_interval 1. A
+    clean guarded engine runs 4 steps; then it and an unguarded engine
+    take `n` steps each in turns (the order alternating, each step timed
+    on the host clock and ending in a synchronise): the two p50s and the
+    median of the paired differences are the guard's cost, printed
+    beside the unguarded p50 of 19. A second guarded engine, the same
+    seeds, under
+    ``train.batch@3-4:nan``: 2 steps, `CheckpointManager.save_engine`,
+    2 poisoned steps; exactly one rollback must follow, to step 2, after
+    which every parameter, velocity and running stat hashes to the saved
+    manifest; 2 replayed steps must repeat the clean run's steps 3-4
+    within rtol 1e-5 (bit for bit is printed). The rollback's host time
+    is that of the `_check_anomaly` call that restored (synchronised).
+    B10's launch count is set to 0 before the leg and read after it."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed import checkpoint
+    from paddle_tpu_torch.framework import faults, monitor
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.ops import fused_conv
+
+    set_flags({"FLAGS_anomaly_max_bad_steps": 2,
+               "FLAGS_anomaly_check_interval": 1})
+    imgs, labels = _resnet_batch(RESNET_BATCH, RESNET_HW)
+
+    def engine():
+        model = _resnet_model("cuda", space_to_depth_stem=True)
+        return _resnet_engine(model, "cuda", anomaly_guard=True)
+
+    def step(eng):
+        with amp.auto_cast(enable=True, dtype="bfloat16"):
+            loss = eng.train_batch(imgs, labels)
+        torch.cuda.synchronize()
+        return float(loss)
+
+    fused_conv.LAUNCHES = 0
+    eng = engine()
+    clean = [step(eng) for _ in range(4)]
+    plain = _resnet_engine(_resnet_model("cuda", space_to_depth_stem=True),
+                           "cuda")
+    step(plain)
+    step(plain)
+    times = {"guarded": [], "unguarded": []}
+    for i in range(n):
+        pair = [("guarded", eng), ("unguarded", plain)]
+        for name, e in pair if i % 2 == 0 else pair[::-1]:
+            t0 = time.perf_counter()
+            step(e)
+            times[name].append(time.perf_counter() - t0)
+    del eng, plain
+    torch.cuda.empty_cache()
+
+    eng = engine()
+    mgr = checkpoint.CheckpointManager(os.path.join(tmp, "rollback"))
+    eng.attach_checkpoint_manager(mgr)
+    checks = []
+    check_anomaly = eng._check_anomaly
+
+    def timed_check():
+        t0 = time.perf_counter()
+        check_anomaly()
+        torch.cuda.synchronize()
+        checks.append(time.perf_counter() - t0)
+
+    eng._check_anomaly = timed_check
+    rollbacks0 = monitor.stat_get("anomaly_rollbacks")
+    with faults.inject("train.batch@3-4:nan"):
+        losses = [step(eng) for _ in range(2)]
+        mgr.save_engine(2, eng)
+        losses += [step(eng) for _ in range(2)]
+    rollbacks = monitor.stat_get("anomaly_rollbacks") - rollbacks0
+    _check(_rel_dev(losses[:2], clean[:2]) <= 1e-5 and
+           bool(np.isnan(losses[2:]).all()),
+           f"rollback leg losses {losses}, clean {clean}")
+    _check(rollbacks == 1 and eng.state.step == 2,
+           f"{rollbacks} rollbacks, engine at step {eng.state.step}")
+    st = eng.state
+    got = checkpoint.leaf_digests({"params": st.params,
+                                   "opt_state": st.opt_state,
+                                   "buffers": st.buffers})
+    saved = {k: v["sha256"] for k, v in checkpoint.load_manifest(
+        os.path.join(tmp, "rollback", "ckpt-2")).items()}
+    _check(got == saved and "['buffers']['bn1._mean']" in got,
+           f"restored leaves off the manifest: "
+           f"{sorted(k for k in saved if got.get(k) != saved[k])[:8]}")
+    replay = [step(eng) for _ in range(2)]
+    launches = fused_conv.LAUNCHES
+    del eng
+    torch.cuda.empty_cache()
+    dev = _rel_dev(replay, clean[2:4])
+    _check(dev <= 1e-5, f"replayed losses {replay} vs clean {clean[2:4]}")
+    _check(launches > 0, "leg B launched no B10")
+    p50 = {k: float(np.median(v)) * 1e3 for k, v in times.items()}
+    pair_ms = float(np.median(np.subtract(times["guarded"],
+                                          times["unguarded"]))) * 1e3
+    out = {"ckpt_rollback": "resnet-50 s2d b128 224 bf16, guarded, "
+                            "train.batch@3-4:nan",
+           "rollbacks": rollbacks, "rollback_ms": max(checks) * 1e3,
+           "ckpt_bytes": _dir_bytes(os.path.join(tmp, "rollback", "ckpt-2")),
+           "leaves_checked": len(got), "replay_losses": replay,
+           "clean_losses": clean, "max_rel_dev": dev,
+           "bitwise": replay == clean[2:4],
+           "guarded_step_ms_p50": p50["guarded"],
+           "unguarded_in_turns_ms_p50": p50["unguarded"],
+           "guard_cost_ms_median_pair": pair_ms,
+           "unguarded_step_ms_p50": resnet_leg["step_ms_p50"],
+           "b10_launches": launches}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def phase_checkpoint(fused_leg, resnet_leg):
+    """Phases 22-23 in one temporary directory, removed at the end (the
+    flight recorder's dumps go there too)."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.framework.flags import get_flags, set_flags
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    saved = get_flags(["FLAGS_flight_recorder_dir",
+                       "FLAGS_anomaly_max_bad_steps",
+                       "FLAGS_anomaly_check_interval"])
+    set_flags({"FLAGS_flight_recorder_dir": tmp})
+    try:
+        resume = phase_ckpt_resume(fused_leg, tmp)
+        rollback = phase_ckpt_rollback(resnet_leg, tmp)
+    finally:
+        set_flags(saved)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return resume, rollback
+
 
 def main():
     try:
@@ -2269,6 +2578,15 @@ def main():
     timed("resnet_eval", phase_resnet_eval, model, per_fwd)
     del model
     torch.cuda.empty_cache()
+
+    # checkpointing on the training paths: ERNIE resumed after a
+    # simulated preemption (B1-B6), ResNet-50 rolled back by the guard
+    # (B10)
+    resume, rollback = timed("checkpoint", phase_checkpoint, fused_leg,
+                             resnet_leg)
+    for key, n in resume["launches"].items():
+        rows[key]["ckpt_leg_launches"] = n
+    rows["B10"]["ckpt_leg_launches"] = rollback["b10_launches"]
     for key, row in rows.items():
         _check(row["launches"] > 0, f"{key} never ran on the path")
     print(json.dumps({"total_s": time.monotonic() - t_start}), flush=True)

@@ -29,10 +29,21 @@ when it is on, ``state.buffers[LOWP_SCALE_KEY]`` holds a
 state's slots, in call order); the updated state replaces it after the
 step, and a step the guard rejects keeps the previous one.
 
-The reference's rollback to a checkpoint after
-``FLAGS_anomaly_max_bad_steps`` (a host read of the counter) waits for
-the port of ``distributed/checkpoint.py``; meshes, ZeRO and buffer
-donation are not ported.
+Every ``FLAGS_anomaly_check_interval`` steps a guarded engine reads the
+counter back to the host once (the guard's only host synchronisation;
+an unguarded engine never waits for the card), and after
+``FLAGS_anomaly_max_bad_steps`` consecutive bad steps it rolls back to
+the newest readable checkpoint of the manager given to
+`attach_checkpoint_manager` (``distributed.checkpoint``; a flight note
+and a black-box dump first, `PreconditionNotMetError` with no manager),
+then re-arms the counter. Each step passes the ``train.batch`` fault
+site with the host batch (``framework.faults``) and appends one
+flight-recorder record (``observe.flight``): the loss, the step's host
+wall time, the guard's counter, the pre-clip global gradient norm under
+``FLAGS_record_grad_norm`` (``GRAD_NORM_KEY``, a device scalar in
+``state.buffers``, latched at construction) and, on a card, the bytes
+in use under ``FLAGS_flight_record_memory``; the device values stay
+tensors until a dump. Meshes, ZeRO and buffer donation are not ported.
 
 ``engine.state`` exposes the trainable parameters (the layer's own,
 updated in place) and the optimizer state under the reference's names,
@@ -42,25 +53,32 @@ Frozen parameters (``requires_grad`` False) sit in ``state.buffers``.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
+from . import observe as _observe
 from . import resolve_device
+from .framework import faults as _faults
+from .framework import flags as _flags
+from .framework import monitor as _monitor
 from .framework import random as _random
 from .ops import lowp as _lowp
 
 __all__ = ["Engine", "TrainState", "LOSS_SCALE_KEY", "GOOD_STEPS_KEY",
-           "BAD_STEPS_KEY", "ANOMALY_BAD_STEPS_KEY", "LOWP_SCALE_KEY",
-           "DEFAULT_SCALE_CONFIG"]
+           "BAD_STEPS_KEY", "ANOMALY_BAD_STEPS_KEY", "GRAD_NORM_KEY",
+           "LOWP_SCALE_KEY", "DEFAULT_SCALE_CONFIG"]
 
-# reserved buffer names of the reference (paddle_tpu/engine.py:273-283)
+# reserved buffer names of the reference (paddle_tpu/engine.py:273-288)
 LOSS_SCALE_KEY = "__loss_scale__"
 GOOD_STEPS_KEY = "__loss_scale_good_steps__"
 BAD_STEPS_KEY = "__loss_scale_bad_steps__"
 ANOMALY_BAD_STEPS_KEY = "__anomaly_bad_steps__"
+GRAD_NORM_KEY = "__grad_norm__"
 LOWP_SCALE_KEY = "__lowp_scale__"
 _RESERVED = (LOSS_SCALE_KEY, GOOD_STEPS_KEY, BAD_STEPS_KEY,
-             ANOMALY_BAD_STEPS_KEY, LOWP_SCALE_KEY)
+             ANOMALY_BAD_STEPS_KEY, GRAD_NORM_KEY, LOWP_SCALE_KEY)
 
 # paddle GradScaler defaults (as the reference's DEFAULT_SCALE_CONFIG)
 DEFAULT_SCALE_CONFIG = dict(
@@ -137,6 +155,12 @@ class Engine:
         if anomaly_guard:
             bufs[ANOMALY_BAD_STEPS_KEY] = torch.zeros(
                 (), dtype=torch.int32, device=self.device)
+        # latched at construction, as in the reference
+        self._record_grad_norm = _flags.flag("FLAGS_record_grad_norm")
+        if self._record_grad_norm:
+            bufs[GRAD_NORM_KEY] = torch.zeros((), dtype=torch.float32,
+                                              device=self.device)
+        self._ckpt_manager = None
         if _lowp.mode() != "off":
             from .quantization.scaling import init_scale_state
 
@@ -157,13 +181,19 @@ class Engine:
 
     def train_batch(self, inputs, labels=()):
         """One step; returns the loss as a float32 0-dim device tensor
-        (no host synchronisation)."""
+        (no host synchronisation, unless a guarded engine reads its
+        counter this step)."""
+        t_step0 = time.perf_counter()
         if not isinstance(inputs, (list, tuple)):
             inputs = (inputs,)
         if not isinstance(labels, (list, tuple)):
             labels = (labels,)
-        inputs = [self._tensor(x) for x in inputs]
-        labels = [self._tensor(x) for x in labels]
+        # a scheduled 'nan' fault poisons the float leaves of the HOST
+        # batch: the deterministic way to exercise the anomaly guard
+        batch = _faults.fault_point("train.batch",
+                                    {"inputs": inputs, "labels": labels})
+        inputs = [self._tensor(x) for x in batch["inputs"]]
+        labels = [self._tensor(x) for x in batch["labels"]]
         params = self.state.params
         bufs = self.state.buffers
         model_bufs = {k: b for k, b in bufs.items() if k not in _RESERVED}
@@ -202,6 +232,11 @@ class Engine:
             # guard_ok implies finite, so it alone decides the update
             guard_ok = keep = (finite if scale is not None else _all_finite(
                 grads.values())) & torch.isfinite(loss)
+        if self._record_grad_norm:
+            # the global l2 norm of the RAW grads (unscaled, before decay
+            # and clipping): the number a clipper would have seen
+            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                   for g in grads.values()))
         opt = self.optimizer
         grads = opt.decay_gradients(params, grads, self._metas)
         if self._grad_clip is not None:
@@ -229,10 +264,87 @@ class Engine:
                     for new, old in zip(lowp_next, lowp_prev)))
         if lowp_next is not None:
             bufs[LOWP_SCALE_KEY] = lowp_next
+        if self._record_grad_norm:
+            bufs[GRAD_NORM_KEY] = gnorm
         if self._dynamic:
             self._update_scale(finite)
         self.state.step += 1
-        return loss.detach()
+        loss = loss.detach()
+        if self.anomaly_guard:
+            # the counter's host read blocks dispatch until the card
+            # catches up, so it is amortised: the device skips every bad
+            # update at once, the host only decides the ROLLBACK, up to
+            # interval - 1 (bad, already skipped) steps late
+            interval = _flags.flag("FLAGS_anomaly_check_interval")
+            if interval <= 1 or self.state.step % interval == 0:
+                self._check_anomaly()
+        self._flight_record(loss, time.perf_counter() - t_step0)
+        return loss
+
+    def _flight_record(self, loss, step_s):
+        """One flight-recorder entry per step. The loss, the grad norm
+        and the guard's counter stay device tensors (no host sync here);
+        the recorder reads them only when a black box is dumped."""
+        fields = {"loss": loss, "step_ms": step_s * 1e3}
+        bufs = self.state.buffers
+        if self._record_grad_norm:
+            fields["grad_norm"] = bufs[GRAD_NORM_KEY]
+        if self.anomaly_guard:
+            fields["anomaly_bad_steps"] = bufs[ANOMALY_BAD_STEPS_KEY]
+        if self.device.type == "cuda" and \
+                _flags.flag("FLAGS_flight_record_memory"):
+            fields["bytes_in_use"] = torch.cuda.memory_allocated(self.device)
+        _observe.flight.record_step(self.state.step, **fields)
+
+    def attach_checkpoint_manager(self, manager):
+        """Give the anomaly guard a rollback target: when
+        FLAGS_anomaly_max_bad_steps consecutive steps go non-finite, the
+        engine restores the newest readable checkpoint from this
+        `distributed.checkpoint.CheckpointManager`
+        (`train_epoch_range` attaches its own manager)."""
+        self._ckpt_manager = manager
+
+    def _check_anomaly(self):
+        """Step-boundary policy of the guard: ONE host read of the
+        consecutive-bad-step counter, then a rollback once the budget
+        is spent."""
+        bufs = self.state.buffers
+        bad = int(bufs[ANOMALY_BAD_STEPS_KEY])
+        if bad == 0:
+            return
+        _monitor.stat_add("anomaly_bad_steps")
+        max_bad = _flags.flag("FLAGS_anomaly_max_bad_steps")
+        if not max_bad or bad < max_bad:
+            return  # skipped on the device; give the run a chance
+        if self._ckpt_manager is None:
+            from .framework.errors import PreconditionNotMetError
+
+            raise PreconditionNotMetError(
+                f"anomaly guard: {bad} consecutive non-finite steps and "
+                "no checkpoint manager attached for rollback — call "
+                "engine.attach_checkpoint_manager(...) or train via "
+                "checkpoint.train_epoch_range")
+        import warnings
+
+        from .distributed import checkpoint as _ckpt
+
+        # the rollback overwrites the live (anomalous) state: keep the
+        # black box first so the post-mortem still has the bad steps
+        _observe.flight.note("anomaly_rollback", bad_steps=bad,
+                             engine_step=self.state.step)
+        _observe.flight.dump("anomaly-rollback")
+        self._ckpt_manager.wait_until_finished()
+        step, _ = self._ckpt_manager.restore_with(
+            lambda p: _ckpt.load_train_state(p, self))
+        # the restored snapshot predates the anomaly: the guard re-arms
+        # from zero
+        bufs[ANOMALY_BAD_STEPS_KEY] = torch.zeros(
+            (), dtype=torch.int32, device=self.device)
+        _monitor.stat_add("anomaly_rollbacks")
+        warnings.warn(
+            f"anomaly guard: {bad} consecutive non-finite steps; rolled "
+            f"back to checkpoint ckpt-{step} (engine step "
+            f"{self.state.step})")
 
     def _update_scale(self, finite):
         """The reference's in-graph GradScaler rule: grow the scale

@@ -1,9 +1,11 @@
 """Runtime flags registry: set_flags / get_flags + FLAGS_* env.
 
 The serving subset of paddle_tpu's registry plus the ERNIE head's
-`FLAGS_use_fused_lm_loss`, the ResNet convs' `FLAGS_use_pallas_conv`
-and the low-precision training flags (`FLAGS_lowp_*`), with the same
-names and defaults. Unknown flags raise.
+`FLAGS_use_fused_lm_loss`, the ResNet convs' `FLAGS_use_pallas_conv`,
+the low-precision training flags (`FLAGS_lowp_*`), and those of the
+anomaly guard's rollback, checkpointing, simulated preemption and the
+flight recorder, with the same names and defaults. Unknown flags
+raise.
 """
 
 from __future__ import annotations
@@ -103,6 +105,46 @@ _DEFS = {
         "pretraining head through the fused chunked-vocab loss "
         "(ops/fused_loss.py, kernels B4-B6) that never materializes the "
         "[N, V] logits; off = the plain tied matmul_v2 + cross_entropy"),
+    "FLAGS_anomaly_check_interval": (
+        16, int,
+        "anomaly guard: read the on-device bad-step counter back to the "
+        "host only every N steps (1 = every step). The guard still "
+        "skips every bad update immediately on the device; the interval "
+        "only delays the host-side rollback decision by up to N-1 steps "
+        "in exchange for not blocking dispatch on a device sync per "
+        "step"),
+    "FLAGS_anomaly_max_bad_steps": (
+        3, int,
+        "anomaly guard: after this many CONSECUTIVE non-finite steps "
+        "(loss or grads), roll the engine back to the last good "
+        "checkpoint (0 disables rollback; bad steps are still skipped "
+        "on the device)"),
+    "FLAGS_ckpt_verify_checksums": (
+        True, bool,
+        "verify the per-leaf sha256 manifest when restoring a "
+        "checkpoint (detects truncated/corrupted leaves)"),
+    "FLAGS_simulate_preempt_at_step": (
+        0, int,
+        "testing: report a preemption at the Nth preemption poll "
+        "(step/epoch boundary); 0 disables"),
+    "FLAGS_flight_recorder_capacity": (
+        256, int,
+        "observe: ring-buffer size of the always-on flight recorder "
+        "(last N per-step records kept for the crash black box)"),
+    "FLAGS_flight_recorder_dir": (
+        "", str,
+        "observe: directory the flight recorder dumps its JSON black "
+        "box into on crash/preemption/SIGTERM (empty = system tempdir)"),
+    "FLAGS_record_grad_norm": (
+        False, bool,
+        "observe: have the train step also keep the global gradient "
+        "norm (pre-clip) as a device scalar in a reserved engine buffer "
+        "so the flight recorder can log it without a host sync"),
+    "FLAGS_flight_record_memory": (
+        True, bool,
+        "observe: include the device's bytes in use in each "
+        "flight-recorder step record (torch.cuda.memory_allocated, a "
+        "host counter read)"),
 }
 
 _values: dict = {}

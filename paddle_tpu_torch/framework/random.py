@@ -41,9 +41,13 @@ class RngState:
 
     def __init__(self, seed, device):
         self.device = torch.device(device)
-        self.generator = torch.Generator(device=self.device).manual_seed(
-            int(seed))
-        self._base = torch.tensor(int(seed) & _M32, dtype=torch.int64,
+        self.generator = torch.Generator(device=self.device)
+        self._reseed(seed)
+
+    def _reseed(self, seed):
+        self.seed = int(seed)
+        self.generator.manual_seed(self.seed)
+        self._base = torch.tensor(self.seed & _M32, dtype=torch.int64,
                                   device=self.device)
         self.calls = 0
 
@@ -61,6 +65,20 @@ class RngState:
         state, calls = snap
         self.generator.set_state(state)
         self.calls = calls
+
+    def state_dict(self):
+        """Both streams and the seed, as JSON-ready values (the
+        generator's state as hex text): what a checkpoint stores so that
+        a resumed engine, whatever its own seed, draws the same masks."""
+        return {"seed": self.seed, "calls": self.calls,
+                "generator": self.generator.get_state().numpy().tobytes()
+                .hex()}
+
+    def set_state_dict(self, state):
+        self._reseed(state["seed"])
+        self.generator.set_state(torch.frombuffer(
+            bytearray.fromhex(state["generator"]), dtype=torch.uint8))
+        self.calls = int(state["calls"])
 
 
 @contextlib.contextmanager
