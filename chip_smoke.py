@@ -133,6 +133,45 @@ Phases (any failure raises and the script exits non-zero):
     into one temporary directory (~3.7 GB at the peak) that is removed
     at the end.
 
+24-28 run after 5, on phase 4's gpt2-small, 16 prompts and server
+shape, each leg's B7 / B8 counts set to 0 just before it and read just
+after it:
+24. The bf16 KV pool: the f32 and int8 legs with
+    ``cache_dtype=torch.bfloat16``; the pool exactly half of phase 4's
+    bytes; token agreement with phase 4's same leg. Then the bf16 pool's
+    cost: an f32-pool and a bf16-pool engine decoding the same 8 slots,
+    timed in turns on the host clock, each profiled for its device time
+    and launches a step.
+25. Speculative decoding, self-draft, k = 3, in the f32, int8 and w8a8
+    legs: every leg drafts (rounds and drafted tokens above 0, no draft
+    fault) and takes fewer steps than phase 4's; f32 and int8 accept
+    every drafted token; the int8 leg's tokens bit for bit phase 4's,
+    exactly 2 B7 launches a step (the last rows' head and the verify
+    head over 8 x 4 rows; the w8a8 leg 2 of B8); acceptance, steps,
+    tokens/s, step p50 / p99. Beside it, B7 and B8 at the verify head's
+    32 rows against their 8-row calls (bit for bit) and their plain
+    versions, both timed, and the launch grid each ran (from the
+    profiler's trace): its y extent is the number of x tiles, each of
+    which streams the whole table.
+26. Batched LoRA: the int8 engine with 4 adapters of rank 8; the
+    adapter-0 half of the prompts bit for bit phase 4's int8 leg, each
+    adapter request's first-step logits within 1e-4 of B7's plus the
+    plain delta; a second bank swapped in mid-traffic (no request
+    fails, every later first step held to the new bank).
+27. The SSD spill tier and KV migration (int8 engine): turn 1 on 8
+    prompts of 256 tokens spilled to a temporary directory at drain,
+    turn 2 extending each sequence restored from disk (every spilled
+    block, no spill error) and bit for bit a cold engine's tokens (record bytes, restore ms, the re-prefill ms
+    it saved); then an engine's cached prefixes exported, adopted by a
+    second engine through a `KVMailbox`, and both continuations equal.
+28. Batch mode: `Server(mode="batch", max_batch=32)` over ERNIE-1.0
+    sequence classification (bench.py's widths, 2 classes, eval, bf16
+    O1 entered by the batch function on the batcher's thread, s 512):
+    the ladder 1-32 warmed, 64 samples from 8 threads; exactly 12 B1
+    launches a forward; each output bit for bit its padded bucket's
+    direct forward and within 2^-4 of the sample's bucket-1 forward;
+    requests/s, occupancy, latency p50 / p99.
+
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line
 and ``{"ok": true, "device": {...}}``. Without a CUDA card, or outside a
 checkout of the repository, it exits with status 2 and prints no result.
@@ -141,8 +180,10 @@ checkout of the repository, it exits with status 2 and prints no result.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -460,60 +501,52 @@ def phase_slice():
               flush=True)
 
 
+SERVING_MAX_NEW = 32
+# Server(max_slots=8, block_size=16, prefill_chunk=64), bench_serving.py
+SERVING = dict(max_slots=8, block_size=16, prefill_chunk=64)
+
+
+def _serving_prompts(vocab):
+    """Phase 4's 16 prompts: lengths 32-256 from seed 0, the even ones
+    sharing a 64-token prefix."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    shared = rng.randint(1, vocab, (64,))
+    prompts = []
+    for i in range(16):
+        n = int(rng.randint(32, 257))
+        p = rng.randint(1, vocab, (n,))
+        if i % 2 == 0:
+            p[:64] = shared[:min(64, n)]
+        prompts.append(p.astype(np.int32))
+    return prompts
+
+
 def phase_full_width():
     """Phase 4: gpt2-small served in three legs; returns per-leg launch
-    counts and the model."""
-    import numpy as np
+    counts, the model and each leg's generated tokens and pool bytes
+    (what phases 24-26 are held to)."""
     import torch
 
     from paddle_tpu_torch.nlp.transformers import (
         GPTForPretraining, gpt_config,
     )
-    from paddle_tpu_torch.ops import lowp, quant_ops
-    from paddle_tpu_torch.serving import Server
 
     cfg = gpt_config("gpt2-small", dropout=0.0, attn_dropout=0.0,
                      use_parallel=False)
     model = GPTForPretraining(cfg, device="cuda",
                               generator=torch.Generator().manual_seed(0))
-    rng = np.random.RandomState(0)
-    shared = rng.randint(1, cfg.vocab_size, (64,))
-    prompts = []
-    for i in range(16):
-        n = int(rng.randint(32, 257))
-        p = rng.randint(1, cfg.vocab_size, (n,))
-        if i % 2 == 0:
-            p[:64] = shared[:min(64, n)]
-        prompts.append(p.astype(np.int32))
-    max_new = 32
+    prompts = _serving_prompts(cfg.vocab_size)
+    max_new = SERVING_MAX_NEW
     legs = {"f32": {}, "int8": dict(quantize=True),
             "w8a8": dict(quantize=True, w8a8=True)}
-    results, launches = {}, {}
+    results, launches, pool_bytes, n_steps = {}, {}, {}, {}
     for name, kw in legs.items():
-        srv = Server(model, max_slots=8, block_size=16, prefill_chunk=64,
-                     device="cuda", **kw)
-        quant_ops.dequant_matmul.launches = 0
-        lowp.w8a8_matmul.launches = 0
-        srv.start()                         # warmup: one step
-        t0 = time.monotonic()
-        futs = [srv.submit(p, max_new_tokens=max_new, timeout=600.0)
-                for p in prompts]
-        outs = [np.asarray(f.result(600.0)) for f in futs]
-        wall = time.monotonic() - t0
-        srv.shutdown(drain=True)
-        b7 = quant_ops.dequant_matmul.launches
-        b8 = lowp.w8a8_matmul.launches
-        eng = srv.engine
-        snap = srv.snapshot()
+        toks, snap, eng, wall, counts = _serve(model, prompts, max_new,
+                                               **kw)
+        b7, b8 = counts["B7"], counts["B8"]
         steps = snap["counters"]["steps"]
-        for p, o in zip(prompts, outs):
-            _check(o.shape == (p.size + max_new,) and
-                   np.array_equal(o[:p.size], p) and
-                   o.min() >= 0 and o.max() < cfg.vocab_size,
-                   f"{name}: malformed result")
-        _check(snap["counters"]["completed"] == len(prompts) and
-               snap["counters"].get("failed", 0) == 0,
-               f"{name}: not every request completed: {snap['counters']}")
         if name == "f32":
             _check(b7 == 0 and b8 == 0, "f32 leg launched an int8 kernel")
         elif name == "int8":
@@ -522,13 +555,10 @@ def phase_full_width():
             _check(b8 >= steps and b8 == steps,
                    f"w8a8: B8 ran {b8}x in {steps} steps")
             _check(eng._act_frozen, "w8a8 activation scale did not freeze")
-        results[name] = [o[p.size:] for p, o in zip(prompts, outs)]
-        launches[name] = {"B7": b7, "B8": b8}
-        agree = None
-        if name != "f32":
-            same = sum(int(np.sum(a == b)) for a, b in
-                       zip(results[name], results["f32"]))
-            agree = same / (len(prompts) * max_new)
+        results[name] = toks
+        launches[name] = counts
+        pool_bytes[name] = eng.kv_pool_bytes
+        n_steps[name] = steps
         step = snap["latency_s"]["step"]
         print(json.dumps({
             "leg": name, "requests": len(prompts), "max_new": max_new,
@@ -538,11 +568,58 @@ def phase_full_width():
             "kv_pool_bytes": eng.kv_pool_bytes,
             "prefix_hit_tokens": snap["counters"].get(
                 "prefix_hit_tokens", 0),
-            "launches": launches[name],
-            "token_agreement_vs_f32": agree,
+            "launches": counts,
+            "token_agreement_vs_f32": None if name == "f32" else
+            _agreement(toks, results["f32"]),
             "act_scale": float(eng._act_scale) if eng.w8a8 else None,
         }), flush=True)
-    return launches, model
+    return launches, model, {"tokens": results, "kv_pool_bytes": pool_bytes,
+                             "steps": n_steps}
+
+
+def _decode_engine(model, max_new=40, device="cuda", **kw):
+    """A SlotEngine (phase 4's shape, `kw` added) with all 8 slots
+    decoding: 8 seeded 64-token prompts admitted, then the prefill step
+    and 3 decode steps taken."""
+    import numpy as np
+
+    from paddle_tpu_torch.serving import SlotEngine
+
+    eng = SlotEngine(model, device=device, **SERVING, **kw)
+    eng.warmup()
+    rng = np.random.RandomState(1)
+    for _ in range(8):
+        eng.submit(rng.randint(1, model.config.vocab_size, (64,)),
+                   max_new_tokens=max_new, timeout=None)
+    eng._admit()
+    for _ in range(4):                  # the prefill step + 3 decode steps
+        eng._step()
+    return eng
+
+
+def _profile_steps(eng, n=10):
+    """`n` decode steps of `eng` under torch.profiler: the device's
+    kernel ms a step, the launch calls a step, the kernel rows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            eng._step()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    kernels = [r for r in rows
+               if r.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(_device_us(r) for r in kernels) / 1e3 / n
+    launches = sum(r.count for r in rows
+                   if r.key.startswith("cudaLaunchKernel")) / n
+    return busy_ms, launches, kernels
+
+
+def _top_kernels(kernels, n, k=6):
+    top = sorted(kernels, key=_device_us, reverse=True)[:k]
+    return {r.key[:60]: _device_us(r) / 1e3 / n for r in top}
 
 
 def phase_profile(model):
@@ -550,41 +627,16 @@ def phase_profile(model):
     8 slots decoding takes 10 steps on the host clock (each ends in the
     logits' copy to the host), then 10 more under torch.profiler for the
     device's kernel time, the launches and the costliest kernels."""
-    import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from paddle_tpu_torch.serving import SlotEngine
-
-    eng = SlotEngine(model, max_slots=8, block_size=16, prefill_chunk=64,
-                     quantize=True, w8a8=True, device="cuda")
-    eng.warmup()
-    rng = np.random.RandomState(1)
-    for _ in range(8):
-        eng.submit(rng.randint(1, model.config.vocab_size, (64,)),
-                   max_new_tokens=40, timeout=None)
-    eng._admit()
-    for _ in range(4):                  # the prefill step + 3 decode steps
-        eng._step()
+    eng = _decode_engine(model, quantize=True, w8a8=True)
     n = 10
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
         eng._step()
     host_ms = (time.perf_counter() - t0) * 1e3 / n
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            eng._step()
-        torch.cuda.synchronize()
-    rows = prof.key_averages()
-
-    kernels = [r for r in rows
-               if r.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(_device_us(r) for r in kernels) / 1e3 / n
-    launches = sum(r.count for r in rows
-                   if r.key.startswith("cudaLaunchKernel")) / n
-    top = sorted(kernels, key=_device_us, reverse=True)[:6]
+    busy_ms, launches, kernels = _profile_steps(eng, n)
     _check(eng.metrics.get("failed") == 0, "profiled steps failed")
     # the LM head's device time by kernel name (B7 runs while the
     # activation scale calibrates, B8 once it is frozen)
@@ -598,8 +650,7 @@ def phase_profile(model):
         "device_idle_share": max(0.0, 1.0 - busy_ms / host_ms),
         "launches_per_step": launches,
         "head_ms_per_step": head,
-        "top_kernels_ms_per_step": {r.key[:60]: _device_us(r) / 1e3 / n
-                                    for r in top},
+        "top_kernels_ms_per_step": _top_kernels(kernels, n),
     }), flush=True)
 
 
@@ -2429,6 +2480,629 @@ def phase_checkpoint(fused_leg, resnet_leg):
     return resume, rollback
 
 
+# -- phases 24-28: serving features on one card ------------------------------
+
+
+def _serve(model, prompts, max_new, device="cuda", adapters=None, **kw):
+    """Serve `prompts` through `Server(**SERVING, **kw)` as phase 4 does
+    (all submitted at once, greedy); the B7 / B8 counts are set to 0
+    just before the server starts and read after it drains. `adapters`
+    gives each prompt's adapter id. Returns (generated tokens, the
+    snapshot, the engine, wall seconds, {"B7": n, "B8": n})."""
+    import numpy as np
+
+    from paddle_tpu_torch.ops import lowp, quant_ops
+    from paddle_tpu_torch.serving import Server
+
+    srv = Server(model, device=device, **SERVING, **kw)
+    quant_ops.dequant_matmul.launches = 0
+    lowp.w8a8_matmul.launches = 0
+    srv.start()
+    t0 = time.monotonic()
+    futs = [srv.submit(p, max_new_tokens=max_new, timeout=600.0,
+                       adapter_id=adapters[i] if adapters else 0)
+            for i, p in enumerate(prompts)]
+    outs = [np.asarray(f.result(600.0)) for f in futs]
+    wall = time.monotonic() - t0
+    srv.shutdown(drain=True)
+    launches = {"B7": quant_ops.dequant_matmul.launches,
+                "B8": lowp.w8a8_matmul.launches}
+    snap = srv.snapshot()
+    for p, o in zip(prompts, outs):
+        _check(o.shape == (p.size + max_new,) and
+               np.array_equal(o[:p.size], p) and
+               o.min() >= 0 and o.max() < model.config.vocab_size,
+               "malformed result")
+    _check(snap["counters"]["completed"] == len(prompts) and
+           snap["counters"].get("failed", 0) == 0,
+           f"not every request completed: {snap['counters']}")
+    return ([o[p.size:] for p, o in zip(prompts, outs)], snap, srv.engine,
+            wall, launches)
+
+
+def _agreement(a, b):
+    """Share of equal generated tokens between two legs."""
+    import numpy as np
+
+    return sum(int(np.sum(x == y)) for x, y in zip(a, b)) / \
+        sum(x.size for x in a)
+
+
+def _leg_line(phase, name, snap, wall, n_tokens, launches, **extra):
+    step = snap["latency_s"]["step"]
+    print(json.dumps({
+        "phase": phase, "leg": name, "wall_s": wall,
+        "tokens_per_s": n_tokens / wall, "steps": snap["counters"]["steps"],
+        "step_p50_ms": step["p50"] * 1e3, "step_p99_ms": step["p99"] * 1e3,
+        "launches": launches, **extra}), flush=True)
+
+
+def phase_bf16_pool(model, ref, device="cuda"):
+    """Phase 24: the f32 and int8 legs of 4 with a bf16 KV pool. The
+    pool bytes must be exactly half of phase 4's; token agreement with
+    phase 4's same leg is printed. Returns the B7 launches."""
+    import torch
+
+    prompts = _serving_prompts(model.config.vocab_size)
+    b7 = 0
+    for name, kw in (("f32", {}), ("int8", dict(quantize=True))):
+        toks, snap, eng, wall, launches = _serve(
+            model, prompts, SERVING_MAX_NEW, device,
+            cache_dtype=torch.bfloat16, **kw)
+        want = ref["kv_pool_bytes"][name]
+        _check(2 * eng.kv_pool_bytes == want,
+               f"bf16 {name}: pool {eng.kv_pool_bytes} bytes, not half of "
+               f"{want}")
+        steps = snap["counters"]["steps"]
+        _check(launches["B7"] == (steps + 1 if name == "int8" else 0) and
+               launches["B8"] == 0,
+               f"bf16 {name}: launches {launches} in {steps} steps")
+        b7 += launches["B7"]
+        _leg_line(24, f"bf16 pool, {name}", snap, wall,
+                  len(prompts) * SERVING_MAX_NEW, launches,
+                  kv_pool_bytes=eng.kv_pool_bytes, f32_pool_bytes=want,
+                  token_agreement_vs_phase4=_agreement(
+                      toks, ref["tokens"][name]))
+    _pool_pair(model, device=device)
+    return b7
+
+
+def _pool_pair(model, rounds=10, steps=5, device="cuda"):
+    """Phase 24's cost of the bf16 pool: an f32-pool and a bf16-pool
+    engine (f32 weights), all 8 slots decoding the same prompts, take
+    `steps` decode steps each in turns (the order alternating) for
+    `rounds` rounds on the host clock; then 5 steps of each under
+    torch.profiler for the device's kernel ms and the launch calls a
+    step. The per-round ratio's median is the comparison."""
+    import numpy as np
+    import torch
+
+    engs = {"f32": _decode_engine(model, 96, device),
+            "bf16": _decode_engine(model, 96, device,
+                                   cache_dtype=torch.bfloat16)}
+    times = {key: [] for key in engs}
+    for r in range(rounds):
+        for key in (("f32", "bf16") if r % 2 == 0 else ("bf16", "f32")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                engs[key]._step()
+            times[key].append((time.perf_counter() - t0) * 1e3 / steps)
+    out = {"rounds": rounds, "steps_per_round": steps,
+           "bf16_over_f32_p50": float(np.median(
+               np.asarray(times["bf16"]) / np.asarray(times["f32"])))}
+    for key, eng in engs.items():
+        busy, launches, kernels = _profile_steps(eng, 5)
+        live = sum(s is not None and s.state == "decode"
+                   for s in eng._slots)
+        _check(live == 8 and eng.metrics.get("failed") == 0,
+               f"pool pair {key}: {live} slots decoding at the end")
+        out[key] = {"step_ms_p50": float(np.median(times[key])),
+                    "step_ms": times[key], "device_busy_ms": busy,
+                    "launches_per_step": launches,
+                    "top_kernels_ms_per_step": _top_kernels(kernels, 5)}
+    print(json.dumps({"phase": 24, "pool_pair": out}), flush=True)
+    del engs
+    torch.cuda.empty_cache()
+
+
+def phase_spec(model, ref, device="cuda"):
+    """Phase 25: speculative decoding, self-draft, k = 3, in the f32,
+    int8 (B7) and w8a8 (B8) legs of 4. Every leg must draft (rounds and
+    drafted tokens above 0, no draft fault) and take fewer steps than
+    phase 4's same leg; the f32 and int8 legs must accept every drafted
+    token (the self-draft is the greedy model). The int8 leg's tokens
+    must equal phase 4's int8 leg bit for bit, with exactly 2 B7
+    launches a step (the last rows' head and the verify head over 8 x 4
+    rows) and one step of warmup; the w8a8 leg 2 B8 launches a step
+    after a B7 warmup. Acceptance, steps, tokens/s, step p50 / p99 and
+    token agreement with phase 4's same leg are printed. Returns the B7
+    and B8 launches."""
+    prompts = _serving_prompts(model.config.vocab_size)
+    total = {"B7": 0, "B8": 0}
+    legs = {"f32": {}, "int8": dict(quantize=True),
+            "w8a8": dict(quantize=True, w8a8=True)}
+    for name, kw in legs.items():
+        toks, snap, eng, wall, launches = _serve(
+            model, prompts, SERVING_MAX_NEW, device, spec_len=3, **kw)
+        steps = snap["counters"]["steps"]
+        want = {"f32": {"B7": 0, "B8": 0},
+                "int8": {"B7": 2 * (steps + 1), "B8": 0},
+                "w8a8": {"B7": 2, "B8": 2 * steps}}[name]
+        _check(launches == want,
+               f"spec {name}: launches {launches}, want {want} "
+               f"({steps} steps)")
+        agree = _agreement(toks, ref["tokens"][name])
+        if name == "int8":
+            _check(agree == 1.0, f"spec int8: tokens differ from phase 4's "
+                   f"int8 leg (agreement {agree})")
+        spec = snap["speculative"]
+        _check(spec["draft_faults"] == 0 and spec["rounds"] > 0 and
+               spec["drafted_tokens"] > 0,
+               f"spec {name}: the draft did not run: {spec}")
+        _check(name == "w8a8" or spec["acceptance_rate"] == 1.0,
+               f"spec {name}: acceptance {spec['acceptance_rate']}, not 1")
+        _check(steps < ref["steps"][name],
+               f"spec {name}: {steps} steps, phase 4 took "
+               f"{ref['steps'][name]}")
+        for key in total:
+            total[key] += launches[key]
+        _leg_line(25, f"spec k=3, {name}", snap, wall,
+                  len(prompts) * SERVING_MAX_NEW, launches,
+                  acceptance_rate=spec["acceptance_rate"],
+                  rounds=spec["rounds"],
+                  drafted_tokens=spec["drafted_tokens"],
+                  kv_pool_bytes=eng.kv_pool_bytes,
+                  token_agreement_vs_phase4=agree)
+    return total
+
+
+def phase_verify_head(card):
+    """Phase 25, the kernels beside it: B7 and B8 at the verify head's
+    32 rows (8 slots x 4 columns) against their 8-row calls on the same
+    rows (bit for bit) and against the plain version (B7 within 1e-5,
+    B8 bit for bit), then both calls timed as phase 2 times them, and
+    the grid each launched at 32 rows read from the profiler's trace."""
+    import torch
+
+    from paddle_tpu_torch.ops import lowp, quant_ops
+
+    gen = torch.Generator().manual_seed(3)
+    q, s = (t.cuda() for t in _table(50304, 768, gen))
+    x = torch.randn((32, 768), generator=gen).cuda()
+    sa = x.abs().max()
+    b7 = quant_ops.dequant_matmul(x, q, s)
+    b8 = lowp.w8a8_matmul(x, q.t(), s, sa)
+    for i in range(0, 32, 8):
+        _check(torch.equal(b7[i:i + 8], quant_ops.dequant_matmul(
+            x[i:i + 8], q, s)), "B7 at 32 rows differs from its 8-row call")
+        _check(torch.equal(b8[i:i + 8], lowp.w8a8_matmul(
+            x[i:i + 8], q.t(), s, sa)),
+            "B8 at 32 rows differs from its 8-row call")
+    want = quant_ops._dequant_matmul_plain(x, q, s.reshape(-1))
+    torch.testing.assert_close(b7, want, rtol=1e-5, atol=1e-5)
+    _check(torch.equal(b8, lowp._w8a8_plain(x, q.t(), s, sa)),
+           "B8 at 32 rows differs from its plain version")
+    flush = torch.empty(32 * 1024 * 1024, device="cuda")
+    sc = s.reshape(-1)
+    out = {"b7_max_abs_err_32": (b7 - want).abs().max().item()}
+    for m in (8, 32):
+        xm = x[:m]
+        out[f"b7_ms_{m}"] = _time_ms(
+            lambda: quant_ops._dequant_matmul_kernel(xm, q, sc), flush)
+        out[f"b8_ms_{m}"] = _time_ms(
+            lambda: lowp._w8a8_kernel(xm, q.t(), s, sa), flush)
+    bw = _peaks(card)[0]
+    out["table_bound_ms"] = q.numel() / bw * 1e3
+    out["grid_32"] = _launch_grids(
+        lambda: quant_ops._dequant_matmul_kernel(x, q, sc),
+        lambda: lowp._w8a8_kernel(x, q.t(), s, sa))
+    print(json.dumps({"phase": 25, "verify_head": out}), flush=True)
+    return out
+
+
+def _launch_grids(b7, b8, n=5):
+    """The grid each of B7 (`dq_stream`) and B8 (`w8a8_stream`) launched
+    with, read from torch.profiler's trace of `n` calls of `b7` and `b8`
+    after two outside it, as the schedule warms up ({"B7": [x, y, z],
+    ...}; y is the number of x tiles). The trace has been seen to keep
+    none of these short kernels, so a trace without both is taken
+    again, up to three times; every launch kept must show one grid."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _attempt in range(3):
+        grids = {"B7": set(), "B8": set()}
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "trace.json"
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         schedule=schedule(wait=1, warmup=1, active=n,
+                                           repeat=1),
+                         on_trace_ready=lambda p: p.export_chrome_trace(
+                             str(path))) as prof:
+                for _ in range(n + 2):
+                    b7()
+                    b8()
+                    torch.cuda.synchronize()
+                    prof.step()
+            events = json.loads(path.read_text())["traceEvents"] \
+                if path.exists() else []
+        for ev in events:
+            for key, name in (("B7", "dq_stream"), ("B8", "w8a8_stream")):
+                grid = ev.get("args", {}).get("grid")
+                if ev.get("cat") == "kernel" and name in ev.get("name", "") \
+                        and grid:
+                    grids[key].add(tuple(grid))
+        if all(grids.values()):
+            break
+    _check(all(len(g) == 1 for g in grids.values()),
+           f"the trace showed B7 / B8 launch grids {grids}")
+    return {key: list(next(iter(g))) for key, g in grids.items()}
+
+
+class _LoraRecorder:
+    """Mixin of phase 26's engine: keeps, for each request, the hidden
+    row and the logits behind its first pick, the adapter id and the
+    step that made them, and the step count when a bank swap landed."""
+
+    def _head(self, rows, quant):
+        if rows.dim() == 2:
+            self.last_rows = rows.detach().clone()
+        return super()._head(rows, quant)
+
+    def _step_plain(self):
+        super()._step_plain()
+        steps = self.metrics.get("steps")
+        for i, slot in enumerate(self._slots):
+            if slot is not None and slot.state == "decode" \
+                    and slot.produced == 0 and slot.req.id not in self.first:
+                self.first[slot.req.id] = (
+                    int(self._aid[i]), self.last_rows[i].cpu(),
+                    slot.next_logits.copy(), steps)
+
+    def _apply_adapter_swap(self, lora_a, lora_b, version):
+        out = super()._apply_adapter_swap(lora_a, lora_b, version)
+        self.swapped_at = self.metrics.get("steps")
+        return out
+
+
+def _lora_bank(seed, n, rank, hidden, vocab):
+    """A seeded [n, r, H] / [n, V, r] bank, row 0 (base model) zero."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    la = (rng.randn(n, rank, hidden) * 0.02).astype(np.float32)
+    lb = (rng.randn(n, vocab, rank) * 0.5).astype(np.float32)
+    la[0] = 0.0
+    lb[0] = 0.0
+    return la, lb
+
+
+# phase 26: first-step logits against B7's plus the plain delta; the
+# delta is two f32 einsums (768 and 8 terms) summed on the card and on
+# the CPU in other orders, ~1e-6 of logits of order 1
+LORA_TOL = 1e-4
+
+
+def phase_lora(model, ref, device="cuda"):
+    """Phase 26: the int8 engine with max_adapters=4, lora_rank=8 under
+    phase 4's traffic. The even prompts use adapter 0 and must equal
+    phase 4's (bank-less) int8 leg bit for bit; the odd ones adapters
+    1-3 of a seeded bank, and each one's first-step logits must equal
+    B7's logits of its hidden row plus the plain delta within LORA_TOL.
+    A second bank is swapped in mid-traffic from the caller's thread: no
+    request fails, and every first step after the swap is held to the
+    new bank. Returns the B7 launches."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.nlp.transformers.gpt import lora_logits_delta
+    from paddle_tpu_torch.ops import lowp, quant_ops
+    from paddle_tpu_torch.serving import SlotEngine
+
+    class Engine(_LoraRecorder, SlotEngine):
+        pass
+
+    cfg = model.config
+    prompts = _serving_prompts(cfg.vocab_size)
+    adapters = [0 if i % 2 == 0 else 1 + (i // 2) % 3
+                for i in range(len(prompts))]
+    banks = [_lora_bank(s, 4, 8, cfg.hidden_size, cfg.vocab_size)
+             for s in (1, 2)]
+    # the engine Server builds, with the recorder mixed in
+    eng = Engine(model, device=device, quantize=True, max_adapters=4,
+                 lora_rank=8, **SERVING)
+    eng.first, eng.swapped_at = {}, None
+    eng.swap_adapters(*banks[0])
+    quant_ops.dequant_matmul.launches = 0
+    lowp.w8a8_matmul.launches = 0
+    eng.warmup()
+    eng.start()
+    t0 = time.monotonic()
+    futs = [eng.submit(p, max_new_tokens=SERVING_MAX_NEW, timeout=600.0,
+                       adapter_id=a) for p, a in zip(prompts, adapters)]
+    while eng.metrics.get("steps") < 8:
+        time.sleep(0.002)
+    version = eng.swap_adapters(*banks[1], timeout=60.0)
+    outs = [np.asarray(f.result(600.0)) for f in futs]
+    wall = time.monotonic() - t0
+    eng.shutdown(drain=True)
+    launches = {"B7": quant_ops.dequant_matmul.launches,
+                "B8": lowp.w8a8_matmul.launches}
+    snap = eng.metrics.snapshot()
+    steps = snap["counters"]["steps"]
+    _check(snap["counters"]["completed"] == len(prompts) and
+           snap["counters"].get("failed", 0) == 0,
+           f"lora: not every request completed: {snap['counters']}")
+    _check(launches == {"B7": steps + 1, "B8": 0},
+           f"lora: launches {launches} in {steps} steps")
+    toks = [o[p.size:] for p, o in zip(prompts, outs)]
+    for i in range(0, len(prompts), 2):
+        _check(np.array_equal(toks[i], ref["tokens"]["int8"][i]),
+               f"lora: adapter-0 request {i} differs from the bank-less "
+               "int8 leg")
+    qk, sk = eng._head_key
+    q, s = eng._values[qk], eng._values[sk]
+    worst, held = 0.0, {"old": 0, "new": 0}
+    cpu_banks = [tuple(torch.from_numpy(t) for t in b) for b in banks]
+    for aid, row, logits, step in eng.first.values():
+        if aid == 0:
+            continue
+        which = "new" if step > eng.swapped_at else "old"
+        la, lb = cpu_banks[1 if which == "new" else 0]
+        base = quant_ops.dequant_matmul(row[None].to(device), q, s).cpu()
+        want = base[0] + lora_logits_delta(
+            row[None], torch.tensor([aid]), la, lb)[0]
+        err = float((torch.from_numpy(logits) - want).abs().max())
+        _check(err <= LORA_TOL, f"lora: adapter {aid}'s first-step logits "
+               f"{err} from B7 + the plain delta ({which} bank)")
+        worst = max(worst, err)
+        held[which] += 1
+    _check(held["old"] > 0 and held["new"] > 0,
+           f"lora: first steps held to each bank: {held}")
+    _leg_line(26, "lora int8, 4 adapters, rank 8", snap, wall,
+              len(prompts) * SERVING_MAX_NEW, launches,
+              adapter_version=version, swapped_at_step=eng.swapped_at,
+              first_steps_held=held, max_abs_err=worst,
+              token_agreement_vs_phase4=_agreement(
+                  toks, ref["tokens"]["int8"]))
+    return launches["B7"]
+
+
+def phase_spill_migrate(model, tmp, device="cuda"):
+    """Phase 27: the int8 engine's spill tier and KV migration. Turn 1
+    serves 8 prompts of 256 tokens (32 new each); the drained server
+    spills its radix cache to `tmp`. Turn 2, on a new server sharing the
+    tier, extends each turn-1 sequence by 32 tokens: every spilled block
+    must come back from disk (restored = spilled > 0, no spill error,
+    fenced or corrupt read) and its tokens equal a cold engine's bit for
+    bit. Migration: an engine that served turn 1
+    exports each turn-2 prompt's cached blocks, a second engine on the
+    card adopts them through a `KVMailbox`, and both continue alike.
+    Record bytes, restore ms and the re-prefill ms it saved are
+    printed. Returns the B7 launches."""
+    import numpy as np
+
+    from paddle_tpu_torch.serving import (
+        KVMailbox, SlotEngine, migrate_prefix, payload_bytes,
+        reset_spill_stores,
+    )
+
+    vocab = model.config.vocab_size
+    rng = np.random.RandomState(27)
+    turn1 = [rng.randint(1, vocab, (256,)).astype(np.int32)
+             for _ in range(8)]
+    n = SERVING_MAX_NEW
+    b7 = 0
+    first, snap1, eng1, _, l1 = _serve(model, turn1, n, device,
+                                       quantize=True, spill_dir=tmp)
+    store = eng1.spill_store
+    stats = store.stats()
+    b7 += l1["B7"]
+    turn2 = [np.concatenate([p, t, rng.randint(1, vocab, (n,))]).astype(
+        np.int32) for p, t in zip(turn1, first)]
+    warm, snap2, eng2, wall2, l2 = _serve(model, turn2, n, device,
+                                          quantize=True, spill_dir=tmp)
+    cold, snap3, _, wall3, l3 = _serve(model, turn2, n, device,
+                                       quantize=True)
+    b7 += l2["B7"] + l3["B7"]
+    spilled = snap1["counters"].get("kv_spilled_blocks", 0)
+    restored = snap2["counters"].get("kv_restored_blocks", 0)
+    _check(restored > 0, "spill: turn 2 restored nothing from disk")
+    _check(restored == spilled,
+           f"spill: {restored} blocks restored of {spilled} spilled")
+    # the shared store counts its corrupt reads on turn 1's metrics
+    errs = [snap["counters"].get(key, 0) for snap in (snap1, snap2)
+            for key in ("kv_spill_errors", "kv_restore_fenced")]
+    errs.append(store.metrics.get("kv_restore_corrupt"))
+    _check(not any(errs), f"spill: errors, fenced and corrupt {errs}")
+    for w, c in zip(warm, cold):
+        _check(np.array_equal(w, c),
+               "spill: the restored turn 2 differs from a cold engine")
+
+    def total_ms(snap, kind):
+        return snap["latency_s"].get(kind, {}).get("sum", 0.0) * 1e3
+
+    print(json.dumps({
+        "phase": 27, "spill": {
+            "records": stats["records"], "file_bytes": stats["bytes"],
+            "bytes_per_record": stats["bytes"] / max(stats["records"], 1),
+            "spilled_blocks": spilled,
+            "restored_blocks": restored,
+            "restore_ms": total_ms(snap2, "kv_restore"),
+            "prefill_ms_warm": total_ms(snap2, "prefill"),
+            "prefill_ms_cold": total_ms(snap3, "prefill"),
+            "reprefill_ms_saved": total_ms(snap3, "prefill")
+            - total_ms(snap2, "prefill"),
+            "prefill_tokens_warm": snap2["counters"].get("prefill_tokens"),
+            "prefill_tokens_cold": snap3["counters"].get("prefill_tokens"),
+            "turn2_wall_s_warm": wall2, "turn2_wall_s_cold": wall3,
+            "launches": {"turn1": l1, "turn2_warm": l2, "turn2_cold": l3},
+        }}), flush=True)
+    reset_spill_stores()
+
+    # migration: src serves turn 1 (its radix cache keeps the blocks),
+    # dst adopts each turn-2 prompt's cached prefix and both continue
+    src = SlotEngine(model, device=device, quantize=True, name="src",
+                     **SERVING)
+    dst = SlotEngine(model, device=device, quantize=True, name="dst",
+                     **SERVING)
+    for eng in (src, dst):
+        eng.warmup()
+    _drain(src, turn1[:4], n)
+    box, adopted, moved, t_mig = KVMailbox(), [], 0, 0.0
+    for p in turn2[:4]:
+        t0 = time.monotonic()
+        adopted.append(migrate_prefix(src, dst, p, mailbox=box))
+        t_mig += time.monotonic() - t0
+        moved += payload_bytes(src.export_prefix_blocks(p))
+    _check(all(a > 0 for a in adopted), f"migration adopted {adopted}")
+    want = _drain(src, turn2[:4], n)
+    got = _drain(dst, turn2[:4], n)
+    for w, g in zip(want, got):
+        _check(np.array_equal(w, g),
+               "migration: the adopting engine's continuation differs")
+    _check(dst.metrics.get("prefix_hit_tokens") >= sum(adopted),
+           "migration: the adopted blocks were not reused")
+    print(json.dumps({"phase": 27, "migration": {
+        "prompts": 4, "adopted_tokens": adopted, "payload_bytes": moved,
+        "migrate_ms_total": t_mig * 1e3}}), flush=True)
+    return b7
+
+
+def _drain(eng, prompts, max_new):
+    """Submit, then admit + step synchronously until every request is
+    done (the serve loop without its thread); generated tokens."""
+    import numpy as np
+
+    futs = [eng.submit(p, max_new_tokens=max_new, timeout=None)
+            for p in prompts]
+    while True:
+        eng._admit()
+        if not eng.active:
+            break
+        eng._step()
+    return [np.asarray(f.result(60))[p.size:] for p, f in zip(prompts, futs)]
+
+
+# phase 28: a served sample's logits against its own bucket-1 forward.
+# Both are bf16 O1 forwards of the same weights; cuBLAS picks its bf16
+# GEMM by M, so the rounding of each layer's outputs differs with the
+# bucket and 12 layers carry it to logits of order 1: held to 2^-4
+# (8 bf16 ulps at 1.0)
+BATCH_TOL = 2.0 ** -4
+
+
+def phase_batch(card, device="cuda", cfg_kw=None, seq=None, n=64,
+                threads=8):
+    """Phase 28: `Server(mode="batch", max_batch=32)` over ERNIE-1.0
+    sequence classification (bench.py's widths: vocab 18000, hidden
+    768, 12 layers, 2 classes, random weights from seed 0), eval, bf16
+    O1 entered by the batch function itself (the batcher's worker
+    thread runs it), s 512. The ladder 1-32 is warmed, then 64 single
+    samples arrive from 8 threads. Gates: B1 launches exactly 12 a
+    forward; each output bitwise the direct forward of the same padded
+    bucket, and within BATCH_TOL of the sample's bucket-1 forward.
+    Prints requests/s, batch occupancy and latency p50 / p99. Returns
+    the B1 launches of the serving run."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nlp.transformers import (
+        ErnieConfig, ErnieForSequenceClassification,
+    )
+    from paddle_tpu_torch.ops import fused_ops
+    from paddle_tpu_torch.serving import Server
+
+    cfg = ErnieConfig(**(cfg_kw or ERNIE))
+    seq = seq or ERNIE_SEQ
+    model = ErnieForSequenceClassification(
+        cfg, num_classes=2, device=device,
+        generator=torch.Generator().manual_seed(0))
+    model.eval()
+    flushes = []
+
+    def forward(x):
+        # autocast is thread-local: the batcher's worker enters it here
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return model(torch.from_numpy(x).to(device).long()).float()
+
+    def classify(x):
+        out = forward(x)
+        flushes.append((x, out))
+        return out
+
+    rng = np.random.RandomState(28)
+    samples = [rng.randint(1, cfg.vocab_size, (seq,)) for _ in range(n)]
+    srv = Server(mode="batch", fn=classify, max_batch=32, max_wait_s=0.005)
+    fused_ops.flash_attention.launches["B1"] = 0
+    t0 = time.monotonic()
+    counts = srv.batcher.warmup(samples[0])
+    warm_s = time.monotonic() - t0
+    b1 = fused_ops.flash_attention.launches["B1"]
+    layers = cfg.num_layers
+    _check(b1 == layers * len(counts),
+           f"batch warmup: B1 ran {b1}x in {len(counts)} forwards")
+    del flushes[:]
+    fused_ops.flash_attention.launches["B1"] = 0
+    srv.start()
+    results = [None] * n
+
+    def client(k):
+        mine = list(range(k, n, threads))
+        futs = [(i, srv.submit(samples[i], timeout=600.0)) for i in mine]
+        for i, f in futs:
+            results[i] = f.result(600.0)
+
+    t0 = time.monotonic()
+    pool = [threading.Thread(target=client, args=(k,))
+            for k in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join()
+    wall = time.monotonic() - t0
+    srv.shutdown(drain=True)
+    b1 = fused_ops.flash_attention.launches["B1"]
+    snap = srv.snapshot()
+    batches = snap["counters"].get("batches", 0)
+    _check(snap["counters"].get("completed") == n and
+           not snap["counters"].get("failed"),
+           f"batch: not every sample completed: {snap['counters']}")
+    _check(b1 == layers * batches == layers * len(flushes),
+           f"batch: B1 ran {b1}x in {batches} forwards")
+    worst = 0.0
+    with torch.no_grad():
+        for x, out in flushes:
+            _check(torch.equal(forward(x), out),
+                   "batch: a flush's direct forward differs")
+        for i, s in enumerate(samples):
+            x, out = next((x, out) for x, out in flushes
+                          if any(np.array_equal(r, s) for r in x))
+            row = next(j for j, r in enumerate(x) if np.array_equal(r, s))
+            _check(np.array_equal(results[i], out[row].cpu().numpy()),
+                   "batch: a result differs from its flush's row")
+            one = forward(s[None]).cpu().numpy()[0]
+            err = float(np.abs(results[i] - one).max())
+            _check(np.isfinite(results[i]).all() and err <= BATCH_TOL,
+                   f"batch: sample {i} is {err} from its bucket-1 forward")
+            worst = max(worst, err)
+    lat = snap["latency_s"]["e2e"]
+    print(json.dumps({
+        "phase": 28, "batch_mode": "ernie-1.0 seq-cls, s512, bf16 O1",
+        "samples": n, "threads": threads, "wall_s": wall,
+        "requests_per_s": n / wall, "batches": batches,
+        "occupancy_avg": snap["batch_occupancy"]["avg"],
+        "e2e_p50_ms": lat["p50"] * 1e3, "e2e_p99_ms": lat["p99"] * 1e3,
+        "warmup_s": warm_s, "buckets": sorted(counts),
+        "b1_launches": b1, "max_abs_dev_vs_bucket1": worst}), flush=True)
+    return b1
+
+
 def main():
     try:
         import torch
@@ -2469,11 +3143,34 @@ def main():
 
     rows = timed("kernels", phase_kernels, name)
     timed("slice", phase_slice)
-    launches, model = timed("full_width", phase_full_width)
+    launches, model, ref = timed("full_width", phase_full_width)
     timed("profile", phase_profile, model)
     for key in ("B7", "B8"):
         rows[key]["launches"] = sum(leg[key] for leg in launches.values())
+
+    # serving features on the same gpt2-small (phases 24-27), batch
+    # mode over ERNIE-1.0 classification (28)
+    extra = {"B7": {}, "B8": {}}
+    extra["B7"]["bf16_pool"] = timed("bf16_pool", phase_bf16_pool, model,
+                                     ref)
+    spec = timed("spec", phase_spec, model, ref)
+    for key in ("B7", "B8"):
+        extra[key]["spec"] = spec[key]
+    head = timed("verify_head", phase_verify_head, name)
+    extra["B7"]["lora"] = timed("lora", phase_lora, model, ref)
+    spill_dir = tempfile.mkdtemp(prefix="chip_smoke_spill_")
+    try:
+        extra["B7"]["spill_migrate"] = timed(
+            "spill_migrate", phase_spill_migrate, model, spill_dir)
+    finally:
+        shutil.rmtree(spill_dir, ignore_errors=True)
+    for key in ("B7", "B8"):
+        rows[key]["launches"] += sum(extra[key].values())
+        rows[key]["serving_feature_launches"] = extra[key]
+        rows[key]["ms_32_rows"] = head[f"{key.lower()}_ms_32"]
     del model
+    torch.cuda.empty_cache()
+    b1_batch = timed("batch", phase_batch, name)
     torch.cuda.empty_cache()
     rows.update(timed("flash", phase_flash, name))
     rows.update(timed("fused_loss", phase_fused_loss, name))
@@ -2489,6 +3186,8 @@ def main():
     for key in ("B1", "B2", "B3", "B4", "B5", "B6"):
         rows[key]["launches"] = int(fused_leg["launches_per_step"][key] *
                                     fused_leg["steps"])
+    rows["B1"]["launches"] += b1_batch
+    rows["B1"]["batch_mode_launches"] = b1_batch
     del eng, step
     torch.cuda.empty_cache()
     plain_leg, eng, step = timed("train_unfused", phase_train_full, name,

@@ -14,9 +14,13 @@ restarts". The port fires these sites:
     train.batch               each Engine.train_batch; payload = the
                               host batch {"inputs": ..., "labels": ...}
     preempt.poll              each preemption poll (step boundary)
+    serving.*                 the single-card serving sites, fired by
+                              serving/queueing.py, batcher.py,
+                              paging.py, kvstore.py and engine.py (see
+                              `SITES` for each)
 
-The reference's other sites (elastic, serving, dist, gang, ps, rec)
-join `SITES` as their modules are ported. `fault_point` refuses to fire
+The reference's other sites (elastic, the fleet's serving sites, dist,
+gang, ps, rec) join `SITES` as their modules are ported. `fault_point` refuses to fire
 for an unregistered site that no active spec names.
 
 Faults are scheduled programmatically::
@@ -68,6 +72,34 @@ SITES = {
     "checkpoint.after_commit": "after the rename; payload = ckpt dir",
     "train.batch": "each Engine.train_batch",
     "preempt.poll": "each preemption poll (step boundary)",
+    "serving.submit": "each admission attempt (drop = shed as a full "
+                      "queue would)",
+    "serving.dequeue": "each queue pop by the batcher or decode engine",
+    "serving.batch": "each dynamic-batcher flush (raise fails every "
+                     "member)",
+    "serving.step": "each continuous-batching decode step (raise fails "
+                    "every in-flight request, the engine stays up)",
+    "serving.alloc_block": "each physical KV-block allocation",
+    "serving.cow_split": "before each copy-on-write block copy",
+    "serving.draft": "before each speculative draft phase (a fault "
+                     "degrades the round to plain decode)",
+    "serving.verify": "before each speculative verify step",
+    "serving.dequant": "each decode step of an int8-frozen engine, "
+                       "before the step",
+    "serving.w8a8": "each decode step of a w8a8 engine before the "
+                    "activation-quant head (a fault degrades that step "
+                    "to the weights-only head, leak-free)",
+    "serving.spill": "each evicted-KV-block spill append to the SSD "
+                     "tier, before the record write (a fault loses "
+                     "durability, never blocks)",
+    "serving.kv_restore": "each KV-block restore from a spilled record "
+                          "(tag = engine name; all-or-nothing, falls "
+                          "back to re-prefill)",
+    "serving.kv_migrate": "each KV-block adoption of a migrated prefix "
+                          "(tag = adopting engine name; all-or-nothing)",
+    "serving.adapter_swap": "each adapter-bank hot-swap, before any "
+                            "mutation (tag = engine name; the old bank "
+                            "keeps serving bitwise)",
 }
 
 

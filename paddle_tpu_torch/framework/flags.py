@@ -48,6 +48,13 @@ _DEFS = {
         "serving: index finished sequences' KV blocks by cumulative "
         "token-prefix hash so later requests sharing a prefix reuse "
         "physical blocks, with copy-on-write on divergence"),
+    "FLAGS_serving_spec_len": (
+        0, int,
+        "serving: speculative-decoding draft length k — each decode "
+        "round proposes up to k tokens from the draft model and "
+        "verifies them in one unified step (the draft step is k+1 "
+        "columns wide, verify rides the decode step). 0 disables "
+        "speculation; the engine then builds no draft pools at all"),
     "FLAGS_serving_quantize": (
         False, bool,
         "serving: freeze 2-D float weights to int8 with per-tensor "
@@ -62,6 +69,29 @@ _DEFS = {
         "per-tensor scale calibrated during warmup and the first steps "
         "(ops/lowp.py). Requires the int8-frozen tied head; ignored "
         "otherwise"),
+    "FLAGS_serving_max_adapters": (
+        0, int,
+        "serving: capacity of the engine's stacked LoRA adapter bank "
+        "([n, r, H] / [n, V, r] device tensors of the decode step; each "
+        "slot gathers its own adapter row by index). Row 0 is the base "
+        "model (all-zero). 0 disables adapters and keeps every existing "
+        "path byte-identical"),
+    "FLAGS_serving_lora_rank": (
+        8, int,
+        "serving: low-rank dimension r of the batched LoRA adapter "
+        "bank (used only when FLAGS_serving_max_adapters > 0)"),
+    "FLAGS_serving_kv_spill_dir": (
+        "", str,
+        "serving: directory for the persistent SSD KV spill tier — "
+        "cold KV blocks evicted from the radix prefix cache append "
+        "their payloads here (crc32-framed, append-before-evict) and "
+        "restore on session resume through the all-or-nothing "
+        "admission path. Empty = spill tier disabled"),
+    "FLAGS_serving_kv_spill_cap_mb": (
+        256, int,
+        "serving: soft cap in MiB on a spill file; crossing it triggers "
+        "a tmp+rename compaction that drops invalidated and superseded "
+        "records (0 = never compact on size)"),
     "FLAGS_lowp_matmul": (
         "off", str,
         "low precision: route eligible matmuls (nn.Linear, the fused "

@@ -20,7 +20,8 @@ from ... import nn, resolve_device
 from ...nn import functional as F
 
 __all__ = ["GPTConfig", "gpt_config", "GPTModel", "GPTForPretraining",
-           "GPTAttention", "GPTMLP", "GPTDecoderLayer", "GPTEmbeddings"]
+           "GPTAttention", "GPTMLP", "GPTDecoderLayer", "GPTEmbeddings",
+           "lora_logits_delta"]
 
 
 class GPTConfig:
@@ -369,3 +370,26 @@ class GPTForPretraining(nn.Layer):
         finally:
             if was_training:
                 self.train()
+
+
+def lora_logits_delta(hrows, aid, lora_a, lora_b):
+    """Batched low-rank LM-head delta for multi-adapter serving: each
+    slot's hidden rows pick up ``B[aid] @ A[aid] @ h`` with its own
+    adapter gathered by index — row 0 is the base model's all-zero
+    pair, so base slots add exactly ``0.0``.
+
+    ``hrows`` is ``[S, H]`` (one row per slot) or ``[S, C, H]`` (the
+    speculative verify columns); ``aid`` is ``[S]`` integer;
+    ``lora_a`` is ``[n_adapters, r, H]`` and ``lora_b`` is
+    ``[n_adapters, V, r]``. Returns f32 logits deltas shaped like the
+    head's output (``[S, V]`` / ``[S, C, V]``). Plain einsums, as in
+    the reference."""
+    h = hrows.float()
+    a = lora_a[aid]
+    b = lora_b[aid]
+    if h.dim() == 2:         # [S, H] x [S, r, H] -> [S, r] -> [S, V]
+        low = torch.einsum("sh,srh->sr", h, a)
+        return torch.einsum("sr,svr->sv", low, b)
+    # [S, C, H] x [S, r, H] -> [S, C, r] -> [S, C, V]
+    low = torch.einsum("sch,srh->scr", h, a)
+    return torch.einsum("scr,svr->scv", low, b)

@@ -6,8 +6,17 @@ Counter names mirror the admission queue's (`submitted`, `accepted`,
 the engine's `admitted`, `completed`, `failed`, `steps`, `tokens_out`,
 `prefills`, `prefill_tokens`, `prompt_tokens`, `prefix_lookups`,
 `prefix_hit_blocks`, `prefix_hit_tokens`, `cow_splits`,
-`rejected_capacity` and `step_errors`. Latency series: `queue`, `e2e`,
-`prefill`, `decode` and `step` (seconds). Every inc() also bumps the
+`rejected_capacity` and `step_errors`; speculative decoding's
+`spec_drafted_tokens` / `spec_accepted_tokens` / `spec_rejected_tokens`
+/ `spec_rounds` / `spec_draft_faults` (fed by `observe_spec`, surfaced
+under snapshot()["speculative"] with per-slot acceptance rates); the
+adapter bank's `adapter_swaps`; the spill tier's `kv_spilled_blocks` /
+`kv_restored_blocks` / `kv_invalidated_blocks` / `kv_spill_bytes` /
+`kv_restore_corrupt` / `kv_restore_fenced` / `kv_spill_errors`
+(surfaced under snapshot()["kvstore"]); KV migration's
+`kv_migrations` / `kv_migrate_blocks` / `kv_migrate_bytes`; and the
+batcher's `batches`. Latency series: `queue`, `e2e`, `prefill`,
+`decode`, `step` and `kv_restore` (seconds). Every inc() also bumps the
 global `framework.monitor` counter ``serving.<name>``.
 """
 
@@ -40,6 +49,7 @@ class ServingMetrics:
         self._blk_sum = 0.0
         self._blk_n = 0
         self._blk_max = 0.0
+        self._spec_slots: dict = {}   # slot -> [drafted, accepted]
         self._started = time.monotonic()
 
     def set_gauge(self, name, value):
@@ -47,6 +57,18 @@ class ServingMetrics:
         int8-frozen engine serves)."""
         with self._lock:
             self._gauges[name] = float(value)
+
+    def observe_spec(self, slot, drafted, accepted):
+        """One speculative round's outcome for one slot: `drafted`
+        proposals went into the verify step, `accepted` survived.
+        Feeds the spec_* counters and the per-slot acceptance rates."""
+        with self._lock:
+            cell = self._spec_slots.setdefault(int(slot), [0, 0])
+            cell[0] += int(drafted)
+            cell[1] += int(accepted)
+        self.inc("spec_drafted_tokens", int(drafted))
+        self.inc("spec_accepted_tokens", int(accepted))
+        self.inc("spec_rejected_tokens", int(drafted) - int(accepted))
 
     def inc(self, name, n=1):
         with self._lock:
@@ -84,7 +106,7 @@ class ServingMetrics:
     def snapshot(self, queue_depth=None):
         """One JSON-able view: counters, gauges, QPS, tokens/s,
         occupancy, KV blocks, prefix cache, chunked prefill and
-        p50/p95/p99 per latency series."""
+        p50/p95/p99 (and the sum) per latency series."""
         with self._lock:
             counters = dict(self._counters)
             gauges = dict(self._gauges)
@@ -96,6 +118,7 @@ class ServingMetrics:
             blk_avg = self._blk_sum / self._blk_n if self._blk_n else 0.0
             blk_max = self._blk_max
             elapsed = max(time.monotonic() - self._started, 1e-9)
+            spec_slots = {k: tuple(v) for k, v in self._spec_slots.items()}
         snap = {
             "counters": counters,
             "gauges": gauges,
@@ -121,6 +144,36 @@ class ServingMetrics:
                 "prompt_tokens": prompt,
                 "hit_rate": hit / prompt if prompt else 0.0,
             }
+        if counters.get("kv_spilled_blocks") \
+                or counters.get("kv_restored_blocks") \
+                or counters.get("kv_invalidated_blocks") \
+                or counters.get("kv_restore_corrupt"):
+            snap["kvstore"] = {
+                "spilled_blocks": counters.get("kv_spilled_blocks", 0),
+                "restored_blocks": counters.get("kv_restored_blocks", 0),
+                "invalidated_blocks":
+                    counters.get("kv_invalidated_blocks", 0),
+                "spill_bytes": counters.get("kv_spill_bytes", 0),
+                "restore_corrupt": counters.get("kv_restore_corrupt", 0),
+                "restore_fenced": counters.get("kv_restore_fenced", 0),
+                "spill_errors": counters.get("kv_spill_errors", 0),
+            }
+        if counters.get("spec_drafted_tokens") or spec_slots \
+                or gauges.get("dequant_path"):
+            drafted = counters.get("spec_drafted_tokens", 0)
+            accepted = counters.get("spec_accepted_tokens", 0)
+            snap["speculative"] = {
+                "drafted_tokens": drafted,
+                "accepted_tokens": accepted,
+                "rejected_tokens": counters.get("spec_rejected_tokens", 0),
+                "rounds": counters.get("spec_rounds", 0),
+                "draft_faults": counters.get("spec_draft_faults", 0),
+                "acceptance_rate": accepted / drafted if drafted else 0.0,
+                "per_slot_acceptance": {
+                    str(s): a / d if d else 0.0
+                    for s, (d, a) in sorted(spec_slots.items())},
+                "dequant_path": gauges.get("dequant_path", 0.0),
+            }
         if counters.get("prefill_tokens"):
             steps = counters.get("steps", 0)
             snap["chunked_prefill"] = {
@@ -138,6 +191,7 @@ class ServingMetrics:
                     "p95": percentile(series, 95),
                     "p99": percentile(series, 99),
                     "max": max(series),
+                    "sum": sum(series),
                 }
         return snap
 

@@ -1,8 +1,7 @@
 """Host-side bookkeeping for the block-paged KV cache: a refcounted
 block allocator over a fixed physical pool, and a radix-style prefix
 cache that lets requests sharing a token prefix share physical blocks.
-(Own copy of paddle_tpu/serving/paging.py, without its fault sites and
-its spill hook.)
+(Own copy of paddle_tpu/serving/paging.py.)
 
 - The device pool is `[num_blocks, nh, block_size, hd]` per layer;
   every logical sequence position `t` of a slot maps through its block
@@ -17,7 +16,13 @@ its spill hook.)
   only reusable under its exact left context). Lookup walks the hash
   chain block by block; a partial match inside the next block yields a
   copy-on-write candidate. Entries are evicted leaf-first in LRU order
-  when the allocator runs dry (`reclaim`).
+  when the allocator runs dry (`reclaim`). An entry whose block the
+  eviction frees is first handed to the optional `spill_hook` (the SSD
+  spill tier, kvstore.py) while its rows still exist.
+
+Fault site: ``serving.alloc_block`` fires on every physical block
+allocation (a `raise` action is deterministic pool exhaustion mid-
+admission).
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from __future__ import annotations
 import hashlib
 
 import numpy as np
+
+from ..framework import faults
 
 __all__ = ["NULL_BLOCK", "PoolExhausted", "BlockAllocator", "PrefixCache",
            "positions_to_rows"]
@@ -78,7 +85,8 @@ class BlockAllocator:
         return self.usable - len(self._free)
 
     def alloc(self):
-        """One fresh block (refcount 1)."""
+        """One fresh block (refcount 1). Fault site serving.alloc_block."""
+        faults.fault_point("serving.alloc_block")
         if not self._free:
             raise PoolExhausted(
                 f"all {self.usable} usable KV blocks are referenced")
@@ -124,6 +132,14 @@ class PrefixCache:
         self._children: dict = {}   # key -> set of child keys
         self._lru: dict = {}        # key -> last-touch tick
         self._clock = 0
+        #: optional spill donation: ``hook(key, prefix_tokens, bid,
+        #: n_rows)`` called on eviction of an entry whose block is about
+        #: to be freed, BEFORE the freeing decref (append-before-evict:
+        #: the hook must copy the rows out before it returns, since the
+        #: block is reused right after). The hook must not raise: a
+        #: failed spill loses durability for that block, never the
+        #: eviction itself.
+        self.spill_hook = None
 
     def __len__(self):
         return len(self._blocks)
@@ -197,7 +213,24 @@ class PrefixCache:
             parent = key
         return added
 
+    def prefix_tokens(self, key):
+        """The full cumulative token prefix an entry covers (root chunk
+        through this entry's own chunk, concatenated in order)."""
+        chunks = []
+        while key != _ROOT:
+            chunks.append(self._chunks[key])
+            key = self._parent[key]
+        return np.concatenate(chunks[::-1]) if chunks else \
+            np.zeros((0,), np.int32)
+
     def _evict(self, key):
+        bid = self._blocks[key]
+        if self.spill_hook is not None \
+                and self._alloc.refcount(bid) == 1:
+            # append-before-evict: persist the rows while the block
+            # still exists — the decref below frees it for reuse
+            self.spill_hook(key, self.prefix_tokens(key), bid,
+                            len(self._chunks[key]))
         self._children.get(self._parent[key], set()).discard(key)
         self._children.pop(key, None)
         bid = self._blocks.pop(key)
@@ -224,3 +257,11 @@ class PrefixCache:
                 freed += 1
         return freed
 
+    def clear(self):
+        """Drop every entry (and its allocator reference). Leaves go
+        before parents so the spill hook can still resolve each
+        entry's full token prefix through a live parent chain."""
+        while self._blocks:
+            for key in [k for k in self._blocks
+                        if not self._children.get(k)]:
+                self._evict(key)

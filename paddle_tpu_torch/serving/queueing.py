@@ -1,6 +1,10 @@
 """Bounded admission queue + request futures for the serving runtime
 (own copy of the single-engine part of paddle_tpu/serving/queueing.py,
-without its fault sites and the fleet/tenant error types).
+without the fleet/tenant error types and `TenantFairQueue`).
+
+Fault sites: ``serving.submit`` on each admission attempt (a `drop`
+action sheds exactly as a full queue would) and ``serving.dequeue`` on
+each request a pop hands out.
 
 `submit` never blocks the engine — it either admits within capacity or
 sheds immediately (429-style `QueueFullError`), and every request
@@ -14,7 +18,7 @@ import threading
 import time
 from collections import deque
 
-from ..framework import monitor
+from ..framework import faults, monitor
 
 __all__ = [
     "ServingError", "QueueFullError", "CapacityExhaustedError",
@@ -177,6 +181,12 @@ class AdmissionQueue:
     def submit(self, request: Request):
         """Admit or shed. Returns `request` for chaining."""
         self._count("submitted")
+        if faults.fault_point("serving.submit", request) is faults.DROP:
+            # deterministic overload: the drop action sheds exactly as a
+            # full queue would
+            self._count("rejected_queue_full")
+            raise QueueFullError(
+                f"request {request.id} shed (injected overload)")
         with self._cond:
             if self._closed:
                 self._count("rejected_closed")
@@ -236,6 +246,7 @@ class AdmissionQueue:
                 self._count(name)
                 req._fail(err)
             if got is not None:
+                faults.fault_point("serving.dequeue", got)
                 return got
             if finished:
                 return None

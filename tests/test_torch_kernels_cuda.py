@@ -31,7 +31,11 @@ through the stride-2 lowering and the dx parity planes, at each of the
 bf16 kernel's three tile widths: f32 within rtol 1e-5 and 1e-5 of the
 largest element (sums in another order), bf16 y within one bf16 ulp
 and the moments within 1e-4 relative, repeating bit for bit; each
-launch counted; B5 repeating bit for bit at the ERNIE head. Without a card every test skips.
+launch counted; B5 repeating bit for bit at the ERNIE head; B7 and
+B8 giving each row the bits of its own one-row call at 8-40 rows (the
+speculative verify head), and B1 each (batch, head) the same bits at
+batch sizes 1-32 (the dynamic batcher's buckets). Without a card every
+test skips.
 
 This file imports neither jax nor paddle_tpu, so it also runs on a
 machine that has only the port's dependencies:
@@ -154,6 +158,41 @@ def test_w8a8_kernel_rounds_half_to_even():
     sb, sa = torch.tensor(0.05).cuda(), sa.cuda()
     assert torch.equal(lowp.w8a8_matmul(x, q.t(), sb, sa),
                        lowp._w8a8_plain(x, q.t(), sb, sa))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 16, 32, 40])
+def test_serving_head_rows_independent_of_row_count(m):
+    """The speculative verify head projects 8·(k+1) rows where decode
+    projects 8: B7 and B8 give every row the bits its own one-row call
+    gives it, whatever the number of rows beside it (x tiles of 8 and
+    16 rows, one or more of them a block column)."""
+    _card()
+    x, q, s = _inputs(m, 768, 50304)
+    sa = x.abs().max()
+    b7 = quant_ops.dequant_matmul(x, q, s)
+    b8 = lowp.w8a8_matmul(x, q.t(), s, sa)
+    for i in range(m):
+        assert torch.equal(b7[i:i + 1], quant_ops.dequant_matmul(
+            x[i:i + 1], q, s)), i
+        assert torch.equal(b8[i:i + 1], lowp.w8a8_matmul(
+            x[i:i + 1], q.t(), s, sa)), i
+
+
+@pytest.mark.cuda
+def test_flash_forward_rows_independent_of_batch():
+    """B1 in eval (dropout 0) at the ERNIE shape gives each (b, h) the
+    same bits whatever the batch it sits in: the dynamic batcher pads a
+    sample into any bucket of 1-32."""
+    _card()
+    gen = torch.Generator().manual_seed(7)
+    qkv = torch.randn((32, 512, 3, 12, 64), generator=gen).to(
+        torch.bfloat16).cuda()
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    full = fused_ops.flash_attention(q, k, v)
+    for b in (1, 2, 3, 4, 8, 16, 31):
+        got = fused_ops.flash_attention(q[-b:], k[-b:], v[-b:])
+        assert torch.equal(got, full[-b:]), b
 
 
 # B9: (m, k, n) ragged against its 128 x 128 x 128 tiles (K off the
