@@ -172,6 +172,50 @@ after it:
     direct forward and within 2^-4 of the sample's bucket-1 forward;
     requests/s, occupancy, latency p50 / p99.
 
+29-32 run right after 27, on the same gpt2-small, the fleet's replicas
+built as recording engines (each keeps per prompt the logits row behind
+each greedy pick, counts its steps and its B7 / B8 head calls); the B7 /
+B8 counts are set to 0 just before each leg and read just after it, and
+every leg of 29 and 30 holds B7 launches == steps + (re)builds exactly
+(each build warms up with one B7 launch, each step launches one), with
+two replica threads launching at once:
+29. The fleet: `Router(replicas=2)` of int8 replicas (phase 4's engine
+    settings, least-loaded placement) serves phase 4's 16 prompts; the
+    tokens are held to one recording engine of phase 4's int8 leg under
+    phase 3's near-tie rule; tokens/s of one replica and of two. Then a
+    crash (``serving.replica_heartbeat[fleet.r0]@4:raise`` kills r0's
+    thread mid-flight) and a hang (r0's third step sleeps 4 s, past the
+    2 s liveness timeout): every request resolves exactly once, at
+    least one is replayed, r0 is rebuilt; the abandoned engine is
+    collected once its thread wakes and exits, and
+    ``torch.cuda.memory_allocated()`` then is within one replica's KV
+    pool and weight copy of its value before the kill (all three
+    printed). Then `add_replica` under load (the newcomer steps) and
+    `remove_replica(drain=True)` under load, nothing lost or duplicated.
+30. Disaggregated prefill/decode on the w8a8 leg (a prefill replica of
+    prefill_chunk 256, a decode replica of 16): B8 on both roles, the
+    B7 / B8 counts equal to the two engines' head calls, every decode
+    leg adopting migrated KV (16 migrations, no fault). Then a real
+    `Autoscaler.tick` grows a one-replica int8 fleet under a backlog of
+    16 requests and, after a quiet cooldown, one shrinks it again.
+31. Rollout: v1 (phase 4's weights plus seeded noise, frozen int8) saved
+    with `save_state`, loaded by `WeightRegistry.load_dir`; its golden
+    chain launches B7 exactly 24 times (4 prompts x 6 tokens); each
+    golden prompt's smallest top-2 margin and largest logit gap to the
+    canary's served decode are printed; `RolloutController` rolls two
+    int8 replicas from v0 to v1 under traffic and commits,
+    `version_info()` shows v1 on both, a spilled v0 record is fenced; a
+    v2 whose golden digests were made from other values is refused by
+    the gate and the rollback serves v1's tokens bit for bit.
+32. Tenancy: `Server(replicas=2, tenancy=...)` behind `http_front`, two
+    tenants weighted 3:1, "b" budgeted at 150 tokens/s; a seeded
+    `Scenario.swing` trace (tenant mix, shared 16-token user prefixes)
+    replayed open loop, every other arrival through ``POST
+    /v1/generate`` with ``X-Tenant``: every arrival resolves (tokens or
+    a typed shed of "b"), at least one HTTP 429 carries "b"'s own
+    Retry-After; each tenant's share of tokens, e2e p50 / p99 and
+    ``GET /v1/version`` are printed.
+
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line
 and ``{"ok": true, "device": {...}}``. Without a CUDA card, or outside a
 checkout of the repository, it exits with status 2 and prints no result.
@@ -2986,6 +3030,717 @@ def _drain(eng, prompts, max_new):
     return [np.asarray(f.result(60))[p.size:] for p, f in zip(prompts, futs)]
 
 
+# ---------------------------------------------------------------------------
+# phases 29-32: the serving fleet on phase 4's gpt2-small
+# ---------------------------------------------------------------------------
+
+# phase 4's int8 engine settings, the fleet's replicas
+FLEET = dict(SERVING, quantize=True)
+# the liveness timeout of phase 29's fleet and the hang it must detect
+LIVENESS_S = 2.0
+HANG_S = 4.0
+
+
+def _recording_cls():
+    """A SlotEngine that counts its own steps and its B7 / B8 head
+    calls and, while ``Recording.rows`` is a dict, keeps per prompt the
+    logits row behind each greedy pick."""
+    from paddle_tpu_torch.serving import SlotEngine
+
+    class Recording(SlotEngine):
+        rows = None     # {prompt bytes: [logits rows]} while recording
+        keep = None     # record only these prompts' bytes (None = all)
+
+        def __init__(self, *a, **kw):
+            self.steps_run = 0
+            self.head_calls = {"B7": 0, "B8": 0}
+            super().__init__(*a, **kw)
+
+        def _pick(self, slot):
+            key = slot.req.payload.tobytes()
+            if Recording.rows is not None and (
+                    Recording.keep is None or key in Recording.keep):
+                Recording.rows.setdefault(key, []).append(
+                    slot.next_logits.copy())
+            return super()._pick(slot)
+
+        def _step(self):
+            self.steps_run += 1
+            return super()._step()
+
+        def _head(self, rows, quant):
+            self.head_calls["B8" if quant else "B7"] += 1
+            return super()._head(rows, quant)
+
+    return Recording
+
+
+def _counts():
+    from paddle_tpu_torch.ops import lowp, quant_ops
+
+    return {"B7": quant_ops.dequant_matmul.launches,
+            "B8": lowp.w8a8_matmul.launches}
+
+
+def _zero_counts():
+    from paddle_tpu_torch.ops import lowp, quant_ops
+
+    quant_ops.dequant_matmul.launches = 0
+    lowp.w8a8_matmul.launches = 0
+
+
+def _fleet_submit(router, prompts, max_new):
+    """Submit every prompt at once through `router` (greedy); the leg's
+    state for `_fleet_collect`."""
+    resolved = []
+    m = router.metrics
+    counts = (m.get("fleet_submitted"), m.get("fleet_completed"),
+              m.get("fleet_failed"))
+    t0 = time.monotonic()
+    futs = []
+    for p in prompts:
+        f = router.submit(p, max_new_tokens=max_new, timeout=600.0)
+        f.add_done_callback(lambda r: resolved.append(r.id))
+        futs.append(f)
+    return futs, resolved, counts, t0
+
+
+def _fleet_leg(router, prompts, max_new):
+    return _fleet_collect(router, prompts, max_new,
+                          _fleet_submit(router, prompts, max_new))
+
+
+def _fleet_collect(router, prompts, max_new, leg):
+    """Wait for a submitted leg. Every client future must resolve
+    exactly once (one done-callback each) with a well-formed result.
+    Returns (generated tokens, wall seconds)."""
+    import numpy as np
+
+    futs, resolved, (sub0, done0, fail0), t0 = leg
+    m = router.metrics
+    outs = [np.asarray(f.result(600.0)) for f in futs]
+    wall = time.monotonic() - t0
+    vocab = router.replica_set.model.config.vocab_size
+    for p, o in zip(prompts, outs):
+        _check(o.shape == (p.size + max_new,) and
+               np.array_equal(o[:p.size], p) and
+               o.min() >= 0 and o.max() < vocab, "fleet: malformed result")
+    _check(sorted(resolved) == sorted(f.id for f in futs),
+           f"fleet: {len(resolved)} resolutions of {len(futs)} requests")
+    _check(m.get("fleet_submitted") - sub0 == len(prompts) and
+           m.get("fleet_completed") - done0 == len(prompts) and
+           m.get("fleet_failed") == fail0,
+           f"fleet: lost or failed requests {m.snapshot()['counters']}")
+    return [o[p.size:] for p, o in zip(prompts, outs)], wall
+
+
+def _near_ties(name, prompts, got, want, got_rows, want_rows):
+    """Phase 3's rule: equal greedy tokens, except at a near-tie — a
+    flip where the two runs' logits differ by at least half the
+    reference row's top-2 margin is legitimate and the sequence is not
+    compared past it. Anything else raises."""
+    import numpy as np
+
+    compared = total = flips = 0
+    worst = 0.0
+    for p, g, w in zip(prompts, got, want):
+        rg, rw = got_rows[p.tobytes()], want_rows[p.tobytes()]
+        stop = w.size
+        for j in range(w.size):
+            gap = float(np.abs(rg[j] - rw[j]).max())
+            if g[j] != w[j]:
+                top2 = np.sort(rw[j])[-2:]
+                _check(top2[1] - top2[0] <= 2 * gap,
+                       f"{name}: token {j} differs at a margin of "
+                       f"{top2[1] - top2[0]} with logits within {gap}")
+                stop, flips = j, flips + 1
+                break
+            worst = max(worst, gap)
+        compared, total = compared + stop, total + w.size
+    _check(compared >= 0.75 * total,
+           f"{name}: too many near-ties to compare ({compared}/{total})")
+    return {"tokens_compared": compared, "tokens": total,
+            "near_tie_flips": flips, "max_logit_gap": worst}
+
+
+def _wait_for(cond, what, timeout=120.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return
+        time.sleep(0.01)
+    _check(cond(), f"timed out waiting for {what}")
+
+
+def _builds(router, gone=()):
+    return sum(r.generation for r in
+               list(router.replica_set.replicas) + list(gone))
+
+
+def _accounting(router, before, what, gone=()):
+    """Every B7 launch of an int8 fleet is a step of some replica or the
+    warm-up of a (re)build: launches == steps + builds, exactly, since
+    `before` = (launches, steps, builds). `gone`: replicas that left
+    the membership during the leg (their builds count too)."""
+    b7 = _counts()["B7"] - before[0]
+    steps = router.metrics.get("steps") - before[1]
+    builds = _builds(router, gone) - before[2]
+    _check(b7 == steps + builds,
+           f"{what}: {b7} B7 launches for {steps} steps + {builds} builds")
+    return {"B7": b7, "steps": steps, "builds": builds}
+
+
+def _mark(router):
+    return (_counts()["B7"], router.metrics.get("steps"), _builds(router))
+
+
+def _allocated(device):
+    """Bytes the caching allocator holds for live tensors on `device`
+    after a collection (None off the card)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    if device != "cuda":
+        return None
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def phase_fleet(model, card, Recording, device="cuda"):
+    """Phase 29: `Router(replicas=2)` of int8 replicas on phase 4's
+    prompts, held to one recording engine of phase 4's int8 leg under
+    the near-tie rule; tokens/s of one replica and of two; a crash
+    (``serving.replica_heartbeat`` raise kills r0's thread mid-flight),
+    a hang (``serving.replica_step`` delay past the liveness timeout)
+    with the memory gate on the abandoned engine, and a scale-up under
+    load then a drained removal. Every request resolves exactly once in
+    every leg; B7 launches == steps + builds in every leg. Returns the
+    router (kept for nothing else: shut down here) and the B7
+    launches."""
+    import weakref
+
+    import numpy as np
+
+    from paddle_tpu_torch.framework import faults
+    from paddle_tpu_torch.serving import Router
+
+    prompts = _serving_prompts(model.config.vocab_size)
+    n = SERVING_MAX_NEW
+    b7 = 0
+    # the reference: phase 4's int8 leg, served by one recording engine
+    Recording.rows = want_rows = {}
+    eng = Recording(model, device=device, **FLEET)
+    eng.warmup()
+    eng.start()
+    futs = [eng.submit(p, max_new_tokens=n, timeout=600.0) for p in prompts]
+    want = [np.asarray(f.result(600.0))[p.size:]
+            for p, f in zip(prompts, futs)]
+    eng.shutdown(drain=True)
+    del eng
+    out = {"phase": 29, "card": card, "tokens_per_s": {}}
+    routers = {}
+    for k, name in ((1, "one"), (2, "fleet")):
+        Recording.rows = rows = {}
+        _zero_counts()
+        # least-loaded placement (no prefix affinity): every leg
+        # spreads the same prompts over both replicas
+        r = Router(model, replicas=k, engine_kw=FLEET, device=device,
+                   hedge=False, liveness_timeout_s=LIVENESS_S,
+                   backoff_base_s=0.05, prefix_affinity=False,
+                   name=name).start()
+        toks, wall = _fleet_leg(r, prompts, n)
+        acc = _accounting(r, (0, 0, 0), f"{k} replica(s)")
+        _check(all(x.engine.steps_run > 0 for x in r.replica_set.replicas),
+               f"{k} replica(s): a replica took no step")
+        b7 += acc["B7"]
+        out["tokens_per_s"][f"{k}_replica"] = len(prompts) * n / wall
+        out[f"leg_{k}_replica"] = dict(acc, wall_s=wall, **_near_ties(
+            f"fleet x{k}", prompts, toks, want, rows, want_rows))
+        routers[k] = r
+    Recording.rows = None
+    routers[1].shutdown(drain=True, timeout=60.0)
+    router = routers[2]
+    rs = router.replica_set
+    m = router.metrics
+    try:
+        # a crash: r0's engine thread dies at its 4th heartbeat, mid-flight
+        mark, replays = _mark(router), m.get("replays")
+        with faults.inject("serving.replica_heartbeat[fleet.r0]@4:raise"):
+            _fleet_leg(router, prompts, n)
+        _wait_for(lambda: all(x.state == "healthy" for x in rs.replicas),
+                  "the crashed replica's rebuild")
+        _check(m.get("replays") > replays, "crash: no request was replayed")
+        _check(rs.replicas[0].generation == 2,
+               f"crash: r0 is at generation {rs.replicas[0].generation}")
+        out["crash"] = dict(_accounting(router, mark, "crash"),
+                            replays=m.get("replays") - replays,
+                            deaths=m.get("replica_deaths"))
+        b7 += out["crash"]["B7"]
+        # a hang: r0's 3rd step sleeps past the liveness timeout
+        victim = rs.replicas[0]
+        old = victim.engine
+        thread, ref = old._thread, weakref.ref(old)
+        pool = old.kv_pool_bytes
+        weight_bytes = sum(v.numel() * v.element_size()
+                           for v in old._values.values())
+        del old
+        mem0 = _allocated(device)
+        mark, replays = _mark(router), m.get("replays")
+        with faults.inject(
+                f"serving.replica_step[fleet.r0]@3:delay:{HANG_S}"):
+            leg = _fleet_submit(router, prompts, n)
+            _wait_for(lambda: victim.state == "healthy" and
+                      victim.engine is not ref(), "the hung replica's "
+                      "rebuild")
+            mem1 = _allocated(device)
+            hung_at_rebuild = thread.is_alive()
+            _fleet_collect(router, prompts, n, leg)
+        thread.join(60.0)
+        _check(not thread.is_alive(), "hang: the hung thread never exited")
+        del thread
+        mem2 = _allocated(device)
+        _check(ref() is None, "hang: the abandoned engine is still alive")
+        _check(m.get("replays") > replays, "hang: no request was replayed")
+        _check(device != "cuda" or mem2 - mem0 <= pool + weight_bytes,
+               f"hang: memory {mem0} -> {mem2} after the hung thread "
+               f"exited (one replica: {pool + weight_bytes} bytes)")
+        out["hang"] = dict(_accounting(router, mark, "hang"),
+                           replays=m.get("replays") - replays,
+                           memory_allocated={"before_kill": mem0,
+                                             "after_rebuild": mem1,
+                                             "after_hung_exit": mem2},
+                           hung_thread_alive_at_rebuild=hung_at_rebuild,
+                           replica_bytes={"kv_pool": pool,
+                                          "weights": weight_bytes})
+        b7 += out["hang"]["B7"]
+        # membership: a scale-up under load, then a drained removal
+        mark = _mark(router)
+        futs = [router.submit(p, max_new_tokens=n, timeout=600.0)
+                for p in prompts]
+        newcomer = router.add_replica()
+        for f in futs:
+            f.result(600.0)
+        _check(newcomer.state == "healthy", "scale-up: newcomer not healthy")
+        _fleet_leg(router, prompts, n)
+        _check(newcomer.engine.steps_run > 0 and
+               newcomer.engine.head_calls["B7"] > 1,
+               "scale-up: the newcomer served no step")
+        resolved = []
+        futs = []
+        for p in prompts:
+            f = router.submit(p, max_new_tokens=n, timeout=600.0)
+            f.add_done_callback(lambda q: resolved.append(q.id))
+            futs.append(f)
+        router.remove_replica(newcomer.name, drain=True)
+        for f in futs:
+            f.result(600.0)
+        _check(sorted(resolved) == sorted(f.id for f in futs),
+               "drain: a request was lost or duplicated")
+        _wait_for(lambda: newcomer.name not in
+                  [x.name for x in rs.replicas], "the drained eviction")
+        out["membership"] = dict(_accounting(router, mark, "membership",
+                                             gone=(newcomer,)),
+                                 newcomer_steps=newcomer.engine.steps_run,
+                                 replicas=[x.name for x in rs.replicas])
+        b7 += out["membership"]["B7"]
+        _check(m.get("fleet_failed") == 0,
+               f"fleet: {m.get('fleet_failed')} requests failed")
+    finally:
+        router.shutdown(drain=True, timeout=60.0)
+    print(json.dumps(out), flush=True)
+    return b7
+
+
+def phase_disagg_autoscale(model, card, Recording, device="cuda"):
+    """Phase 30: disaggregated prefill/decode on the w8a8 leg (a prefill
+    replica of prefill_chunk 256, a decode replica of 16): B8 on both
+    roles, every decode leg adopting migrated KV. Then one real
+    `Autoscaler.tick` grows a one-replica int8 fleet under a backlog and
+    one shrinks it when idle. Returns the B7 and B8 launches."""
+    from paddle_tpu_torch.serving import Autoscaler, Router
+
+    prompts = _serving_prompts(model.config.vocab_size)
+    n = SERVING_MAX_NEW
+    out = {"phase": 30, "card": card}
+    _zero_counts()
+    router = Router(model, replicas=2, device=device, hedge=False,
+                    engine_kw=dict(FLEET, w8a8=True), disagg=True,
+                    roles=["prefill", "decode"],
+                    role_kw={"prefill": dict(prefill_chunk=256),
+                             "decode": dict(prefill_chunk=16)},
+                    name="disagg").start()
+    try:
+        _toks, wall = _fleet_leg(router, prompts, n)
+        pre, dec = (x.engine for x in router.replica_set.replicas)
+        m = router.metrics
+        got = _counts()
+        heads = {"prefill": dict(pre.head_calls),
+                 "decode": dict(dec.head_calls)}
+        _check(pre.head_calls["B8"] > 0 and dec.head_calls["B8"] > 0,
+               f"disagg: B8 did not run on both roles {heads}")
+        _check(got["B8"] == pre.head_calls["B8"] + dec.head_calls["B8"]
+               and got["B7"] == pre.head_calls["B7"] + dec.head_calls["B7"],
+               f"disagg: launches {got} against head calls {heads}")
+        _check(m.get("kv_migrations") == len(prompts) and
+               not m.get("kv_migrate_faults"),
+               f"disagg: {m.get('kv_migrations')} migrations, "
+               f"{m.get('kv_migrate_faults')} faults for {len(prompts)}")
+        out["disagg"] = {
+            "wall_s": wall, "tokens_per_s": len(prompts) * n / wall,
+            "launches": got, "head_calls": heads,
+            "prefill_chunk": [pre.prefill_chunk, dec.prefill_chunk],
+            "kv_migrations": m.get("kv_migrations"),
+            "kv_migrate_bytes": m.get("kv_migrate_bytes")}
+    finally:
+        router.shutdown(drain=True, timeout=60.0)
+    launches = dict(got)
+    # autoscaling: a backlog of 16 requests on one replica's 8 slots
+    _zero_counts()
+    clock = [0.0]
+    router = Router(model, replicas=1, device=device, hedge=False,
+                    engine_kw=FLEET, name="auto").start()
+    asc = Autoscaler(router, min_replicas=1, max_replicas=2,
+                     slo_p99_ms=600000.0, cooldown_s=1.0,
+                     backlog_factor=1.5, clock=lambda: clock[0])
+    router.autoscaler = None       # ticked here, not by the supervisor
+    try:
+        futs = [router.submit(p, max_new_tokens=n, timeout=600.0)
+                for p in prompts]
+        up = asc.tick()
+        _check(up["overloaded"] and asc.decisions["up"] == 1,
+               f"autoscale: no scale-up under a backlog {up}")
+        asc._scale_thread.join(120.0)
+        _check(not asc._scale_thread.is_alive() and
+               router.replica_set.member_replicas() == 2,
+               "autoscale: the scale-up did not land")
+        for f in futs:
+            f.result(600.0)
+        surge = router.replica_set.replicas[-1]
+        clock[0] = 10.0
+        _check(asc.tick()["idle"], "autoscale: the drained fleet not idle")
+        clock[0] = 11.5
+        asc.tick()
+        _check(asc.decisions["down"] == 1, "autoscale: no scale-down")
+        _wait_for(lambda: len(router.replica_set.replicas) == 1,
+                  "the autoscaler's drained eviction")
+        acc = _accounting(router, (0, 0, 0), "autoscale", gone=(surge,))
+        out["autoscale"] = dict(acc, pressure_at_up=up["pressure"],
+                                decisions=dict(asc.decisions))
+        launches["B7"] += acc["B7"]
+    finally:
+        asc.close()
+        router.shutdown(drain=True, timeout=60.0)
+    print(json.dumps(out), flush=True)
+    return launches
+
+
+def phase_rollout(model, card, Recording, tmp, device="cuda"):
+    """Phase 31: v1 (phase 4's weights plus seeded noise, frozen int8)
+    saved with the port's `save_state` and loaded through
+    `WeightRegistry.load_dir`; its golden chain (24 B7 launches: 4
+    prompts x 6 tokens) and each prompt's smallest top-2 margin and
+    largest logit gap to the canary's served decode; a
+    `RolloutController` rolls two int8 replicas from v0 to v1 under
+    traffic (commit), v0's spilled KV is fenced; a v2 whose golden
+    digests were made from other values is refused and the rollback
+    serves v1's tokens bit for bit. Returns the B7 launches."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.quantization import quantize_state_int8
+    from paddle_tpu_torch.serving import (
+        RolloutController, Router, Server, SpillFencedError, WeightRegistry,
+        WeightVersion, golden_digests, reset_spill_stores, rollout,
+    )
+
+    out = {"phase": 31, "card": card}
+    v0 = {k: v.detach() for k, v in model.state_dict().items()}
+    gen = torch.Generator(device=device).manual_seed(31)
+
+    def noisy(scale):
+        return quantize_state_int8({
+            k: v + scale * torch.randn(v.shape, generator=gen, device=device)
+            for k, v in v0.items()})
+
+    mgr = ckpt.CheckpointManager(tmp, max_to_keep=4)
+    mgr.save(1, noisy(0.004))
+    reg = WeightRegistry(model, template=quantize_state_int8(v0))
+    wv1 = reg.load_dir(f"{tmp}/ckpt-1")
+    _check(wv1.version == 1 and wv1.quant, "rollout: v1 did not load")
+    _zero_counts()
+    router = Router(model, replicas=2, device=device, hedge=False,
+                    engine_kw=dict(FLEET, spill_dir=f"{tmp}/spill"),
+                    retry_budget=3, name="ro").start()
+    try:
+        ro = RolloutController(router, reg, canary_secs=0.5, wave_size=1,
+                               poll_s=0.01, slo_p99_ms=600000.0)
+        prompts = ro._prompts()
+        Recording.rows = rows = {}
+        Recording.keep = {np.asarray(p, np.int32).tobytes()
+                          for p in prompts}
+        # the golden chain, its B7 launches and margins
+        before = _counts()["B7"]
+        chains = [rollout.golden_logits(model, wv1.values, p,
+                                        max_new=ro.golden_max_new)
+                  for p in prompts]
+        chain_b7 = _counts()["B7"] - before
+        _check(chain_b7 == len(prompts) * ro.golden_max_new,
+               f"rollout: the golden chain launched B7 {chain_b7}x")
+        wv1.golden = {f"p{i}": rollout._digest_ids(t)
+                      for i, (t, _) in enumerate(chains)}
+        # v0 traffic, spilled to the tier before the commit
+        probe = _serving_prompts(model.config.vocab_size)[:4]
+        for p in probe:
+            router.generate(p, max_new_tokens=8, timeout=600.0)
+        for r in router.replica_set.replicas:
+            r.engine.spill_cache()
+        store = router.replica_set.replicas[0].engine.spill_store
+        _check(len(store) > 0, "rollout: nothing spilled under v0")
+        v0_key = next(iter(store._index))
+        stop, errs = threading.Event(), []
+
+        def traffic():
+            i = 0
+            while not stop.is_set():
+                try:
+                    router.generate(probe[i % 4], max_new_tokens=8,
+                                    timeout=600.0)
+                except Exception as e:  # noqa: BLE001 — gated below
+                    errs.append(repr(e))
+                i += 1
+
+        t = threading.Thread(target=traffic, daemon=True)
+        t0 = time.monotonic()
+        t.start()
+        try:
+            ok = ro.roll_to(1)
+        finally:
+            stop.set()
+            t.join(600.0)
+        roll_s = time.monotonic() - t0
+        margins = []
+        for i, (p, (toks, crow)) in enumerate(zip(prompts, chains)):
+            served = rows.get(np.asarray(p, np.int32).tobytes(), [])
+            margins.append({
+                "prompt": i,
+                "min_top2_margin": min(float(np.diff(np.sort(r)[-2:])[0])
+                                       for r in crow),
+                "max_logit_gap": max((float(np.abs(a - b).max())
+                                      for a, b in zip(crow, served)),
+                                     default=None)})
+        # printed before the gates, so a refusal shows its margins
+        print(json.dumps({"phase": 31, "card": card, "golden": {
+            "chain_b7": chain_b7, "margins": margins}}), flush=True)
+        _check(ok, f"rollout: v1 did not commit: {ro.error}")
+        _check(not errs, f"rollout: traffic failed {errs[:3]}")
+        info = router.version_info()
+        _check(set(info["replicas"].values()) == {1} and
+               info["current"] == 1 and info["state"] == "committed",
+               f"rollout: version_info {info}")
+        try:
+            store.get(v0_key)
+            fenced = False
+        except SpillFencedError:
+            fenced = True
+        _check(fenced, "rollout: v0's spilled KV was not fenced")
+        pre = [np.asarray(router.generate(p, max_new_tokens=8,
+                                          timeout=600.0)) for p in probe]
+        # v2: golden digests from other values — the gate must refuse
+        v2 = WeightVersion(2, noisy(0.004), golden=golden_digests(
+            model, noisy(0.004), prompts, max_new=ro.golden_max_new))
+        reg.add(v2)
+        t0 = time.monotonic()
+        refused = not ro.roll_to(2)
+        refuse_s = time.monotonic() - t0
+        _check(refused and "golden-prompt digest mismatch" in ro.error,
+               f"rollout: v2 was not refused by the gate: {ro.state} "
+               f"{ro.error}")
+        post = [np.asarray(router.generate(p, max_new_tokens=8,
+                                           timeout=600.0)) for p in probe]
+        _check(all(np.array_equal(a, b) for a, b in zip(pre, post)),
+               "rollout: the rollback does not serve v1's tokens")
+        _check(set(router.version_info()["replicas"].values()) == {1},
+               "rollout: the rollback left a replica off v1")
+        out.update(commit_s=roll_s, refuse_s=refuse_s,
+                   version_info=router.version_info(),
+                   kv_invalidated_blocks=router.metrics.get(
+                       "kv_invalidated_blocks"),
+                   launches=_counts())
+    finally:
+        Recording.rows = Recording.keep = None
+        router.shutdown(drain=True, timeout=60.0)
+        reset_spill_stores()
+    print(json.dumps(out), flush=True)
+    return out["launches"]["B7"]
+
+
+def phase_tenancy(model, card, device="cuda"):
+    """Phase 32: `Server(replicas=2, tenancy=...)` of int8 replicas, two
+    tenants weighted 3:1, "b" budgeted, behind `http_front`; a seeded
+    `Scenario.swing` trace (tenant mix, 16-token user prefixes) replayed
+    open loop, every other arrival through ``POST /v1/generate`` with
+    ``X-Tenant``. Gates: every arrival resolves (tokens or a typed
+    shed), only "b" sheds, and at least one of its HTTP 429s carries
+    its own Retry-After. Prints each tenant's share of tokens, e2e p50 /
+    p99 and ``GET /v1/version``. Returns the B7 launches."""
+    import urllib.error
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from paddle_tpu_torch.serving import (
+        Scenario, Server, ServingError, TenantBudgetError, TenantDirectory,
+        TenantSpec, http_front, replay,
+    )
+
+    vocab = model.config.vocab_size
+    ten = TenantDirectory([
+        TenantSpec("a", weight=3.0, slo_class="gold"),
+        TenantSpec("b", weight=1.0, budget_tokens_per_s=150.0,
+                   burst_s=1.0)])
+    sc = Scenario.swing(low_rps=4.0, high_rps=32.0, low_s=1.0, high_s=2.0,
+                        seed=32, vocab=vocab, n_users=16,
+                        user_prefix_len=16, prompt_len=(16, 64),
+                        max_new=(8, 24), tenants={"a": {"weight": 3.0},
+                                                  "b": {"weight": 1.0}})
+    trace = sc.trace()
+    _zero_counts()
+    srv = Server(model, replicas=2, device=device, tenancy=ten,
+                 fleet=dict(hedge=False, name="tenants"), **FLEET).start()
+    httpd = http_front(srv, port=0)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    pool = ThreadPoolExecutor(16)
+
+    def post(arrival):
+        req = urllib.request.Request(
+            f"{url}/v1/generate", data=json.dumps({
+                "prompt": arrival.prompt.tolist(),
+                "max_new_tokens": arrival.max_new,
+                "timeout": 600.0}).encode(),
+            headers={"Content-Type": "application/json",
+                     "X-Tenant": arrival.tenant})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return 200, json.loads(r.read()), None
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read()), e.headers["Retry-After"]
+
+    def submit(arrival):
+        """Every other arrival over HTTP (on a pool thread, so the
+        replay stays open loop), the rest in process."""
+        if len(calls) % 2:
+            calls.append("http")
+            return "http", pool.submit(post, arrival)
+        calls.append("local")
+        return "local", srv.submit(arrival.prompt,
+                                   max_new_tokens=arrival.max_new,
+                                   timeout=600.0, tenant=arrival.tenant)
+
+    calls = []
+    try:
+        t0 = time.monotonic()
+        recs = replay(submit, trace)
+        outcomes = {"ok": 0, "shed": {}, "http_429": []}
+        for rec in recs:
+            a, err = rec["arrival"], rec["error"]
+            if err is None:
+                kind, fut = rec["future"]
+                if kind == "http":
+                    code, body, retry_after = fut.result(600.0)
+                    if code != 200:
+                        _check(code == 429 and a.tenant == "b" and
+                               body["type"] == "TenantBudgetError" and
+                               float(retry_after) > 0,
+                               f"tenancy: HTTP {code} {body} for "
+                               f"{a.tenant}")
+                        outcomes["http_429"].append(float(retry_after))
+                        continue
+                    ids = body["ids"]
+                else:
+                    try:
+                        ids = np.asarray(fut.result(600.0))
+                    except TenantBudgetError as e:
+                        err = e
+                if err is None:
+                    _check(len(ids) == a.prompt.size + a.max_new,
+                           "tenancy: malformed result")
+                    outcomes["ok"] += 1
+                    continue
+            _check(isinstance(err, ServingError) and a.tenant == "b",
+                   f"tenancy: {a.tenant} lost a request: {err!r}")
+            outcomes["shed"][a.tenant] = outcomes["shed"].get(a.tenant, 0) + 1
+        wall = time.monotonic() - t0
+        _check(outcomes["http_429"],
+               "tenancy: the budgeted tenant got no HTTP 429")
+        with urllib.request.urlopen(f"{url}/v1/version", timeout=60) as r:
+            version = json.loads(r.read())
+        snap = srv.snapshot()
+        tenants = snap["tenants"]
+        total = sum(t["counters"].get("tokens_out", 0)
+                    for t in tenants.values())
+        out = {"phase": 32, "card": card, "arrivals": len(trace),
+               "wall_s": wall, "outcomes": outcomes,
+               "version": version, "launches": _counts(),
+               "tenants": {
+                   name: {"token_share": t["counters"].get(
+                       "tokens_out", 0) / max(total, 1),
+                       "completed": t["counters"].get("completed", 0),
+                       "shed": t["counters"].get("shed", 0),
+                       "e2e_p50_s": t.get("latency_s", {}).get("p50"),
+                       "e2e_p99_s": t.get("latency_s", {}).get("p99")}
+                   for name, t in tenants.items()}}
+        _check(outcomes["ok"] + sum(outcomes["shed"].values()) +
+               len(outcomes["http_429"]) == len(trace),
+               "tenancy: an arrival did not resolve")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        pool.shutdown(wait=True)
+        srv.shutdown(drain=True)
+    print(json.dumps(out), flush=True)
+    return out["launches"]["B7"]
+
+
+def phase_fleet_all(model, card, device="cuda"):
+    """Phases 29-32 with the fleet's replicas built as recording engines
+    (`_recording_cls`); returns each phase's B7 / B8 launches. A Router
+    and its ReplicaSet reference each other (the death hook), so a shut
+    fleet's engines, KV pools included, wait for the cycle collector:
+    each phase ends with a collection, so later phases (and their peak
+    memory) start clean."""
+    import gc
+
+    from paddle_tpu_torch.serving import fleet
+
+    Recording = _recording_cls()
+    saved, fleet.SlotEngine = fleet.SlotEngine, Recording
+    launches = {"B7": {}, "B8": {}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rollout_")
+    try:
+        launches["B7"]["fleet"] = phase_fleet(model, card, Recording,
+                                              device)
+        gc.collect()
+        got = phase_disagg_autoscale(model, card, Recording, device)
+        launches["B7"]["disagg_autoscale"] = got["B7"]
+        launches["B8"]["disagg"] = got["B8"]
+        gc.collect()
+        launches["B7"]["rollout"] = phase_rollout(model, card, Recording,
+                                                  tmp, device)
+        gc.collect()
+        launches["B7"]["tenancy"] = phase_tenancy(model, card, device)
+    finally:
+        fleet.SlotEngine = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+    return launches
+
+
 # phase 28: a served sample's logits against its own bucket-1 forward.
 # Both are bf16 O1 forwards of the same weights; cuBLAS picks its bf16
 # GEMM by M, so the rounding of each layer's outputs differs with the
@@ -3168,6 +3923,11 @@ def main():
         rows[key]["launches"] += sum(extra[key].values())
         rows[key]["serving_feature_launches"] = extra[key]
         rows[key]["ms_32_rows"] = head[f"{key.lower()}_ms_32"]
+    # the serving fleet on the same gpt2-small (phases 29-32)
+    fleet = timed("fleet_29_32", phase_fleet_all, model, card)
+    for key in ("B7", "B8"):
+        rows[key]["launches"] += sum(fleet[key].values())
+        rows[key]["fleet_launches"] = fleet[key]
     del model
     torch.cuda.empty_cache()
     b1_batch = timed("batch", phase_batch, name)

@@ -14,14 +14,16 @@ restarts". The port fires these sites:
     train.batch               each Engine.train_batch; payload = the
                               host batch {"inputs": ..., "labels": ...}
     preempt.poll              each preemption poll (step boundary)
-    serving.*                 the single-card serving sites, fired by
+    serving.*                 the serving sites, fired by
                               serving/queueing.py, batcher.py,
-                              paging.py, kvstore.py and engine.py (see
-                              `SITES` for each)
+                              paging.py, kvstore.py, engine.py,
+                              fleet.py and rollout.py (see `SITES` for
+                              each)
 
-The reference's other sites (elastic, the fleet's serving sites, dist,
-gang, ps, rec) join `SITES` as their modules are ported. `fault_point` refuses to fire
-for an unregistered site that no active spec names.
+The reference's other sites (elastic, ``serving.shard_step``, dist,
+gang, ps, rec) join `SITES` as their modules are ported.
+`fault_point` refuses to fire for an unregistered site that no active
+spec names.
 
 Faults are scheduled programmatically::
 
@@ -100,6 +102,30 @@ SITES = {
     "serving.adapter_swap": "each adapter-bank hot-swap, before any "
                             "mutation (tag = engine name; the old bank "
                             "keeps serving bitwise)",
+    "serving.replica_step": "each decode step of a supervised (fleet) "
+                            "engine, tag = replica name (raise = step "
+                            "error, delay = a hang the watchdog sees)",
+    "serving.replica_heartbeat": "each supervised engine loop heartbeat, "
+                                 "tag = replica name (raise kills the "
+                                 "engine thread: a crash)",
+    "serving.route": "each fleet Router dispatch attempt (raise / drop = "
+                     "a retriable routing failure)",
+    "serving.replay": "each failover replay of a dead replica's request",
+    "serving.scale_up": "each ReplicaSet.add_replica before the build "
+                        "(tag = replica name)",
+    "serving.scale_down": "each ReplicaSet.remove_replica before the "
+                          "drain (tag = replica name)",
+    "serving.drain": "each drained-victim eviction attempt (tag = replica "
+                     "name; raise = retried at the next poll)",
+    "serving.affinity": "each prefix-affinity routing decision (raise = "
+                        "that decision falls back to least-loaded)",
+    "serving.admit_tenant": "each tenant admission decision in the "
+                            "TenantFairQueue (tag = tenant; drop = a "
+                            "budget shed)",
+    "serving.canary": "before the canary replica's gate evaluation (tag = "
+                      "replica name)",
+    "serving.rollout_load": "each weight-registry checkpoint-dir load",
+    "serving.rollback": "each rollout rollback attempt (tag = version)",
 }
 
 

@@ -1,6 +1,7 @@
 """Runtime flags registry: set_flags / get_flags + FLAGS_* env.
 
-The serving subset of paddle_tpu's registry plus the ERNIE head's
+The serving subset of paddle_tpu's registry (the engine's, the
+fleet's, the rollout's and tenancy's flags) plus the ERNIE head's
 `FLAGS_use_fused_lm_loss`, the ResNet convs' `FLAGS_use_pallas_conv`,
 the low-precision training flags (`FLAGS_lowp_*`), and those of the
 anomaly guard's rollback, checkpointing, simulated preemption and the
@@ -92,6 +93,64 @@ _DEFS = {
         "serving: soft cap in MiB on a spill file; crossing it triggers "
         "a tmp+rename compaction that drops invalidated and superseded "
         "records (0 = never compact on size)"),
+    "FLAGS_tenant_default_budget": (
+        0, int,
+        "serving: default per-tenant token budget in tokens/second "
+        "(token bucket, lazily refilled) for tenants the directory "
+        "auto-creates; over-budget admissions shed with a 429 whose "
+        "Retry-After derives from the bucket's refill. 0 = unlimited"),
+    "FLAGS_tenant_wfq_quantum": (
+        256, int,
+        "serving: deficit-round-robin quantum in tokens credited to a "
+        "tenant's queue per scheduler visit; a tenant's effective "
+        "share is quantum * weight (TenantFairQueue)"),
+    "FLAGS_serving_prefix_affinity": (
+        True, bool,
+        "serving: route each request to the fleet replica holding the "
+        "longest live prefix-cache match for its token prefix (sticky "
+        "session affinity with clean failover when the affine replica "
+        "is dead, draining, or breaker-open); False = pure "
+        "least-loaded placement"),
+    "FLAGS_serving_disagg": (
+        False, bool,
+        "serving: disaggregate prefill and decode — the Router sends "
+        "each request's prefill to a prefill-role replica, streams the "
+        "finished KV blocks to a decode-role replica over the "
+        "deadline-guarded migration mailbox, and pins the decode leg "
+        "to the prefill leg's weight version"),
+    "FLAGS_fleet_min_replicas": (
+        1, int,
+        "fleet: autoscaler floor — the Autoscaler never drains the "
+        "membership below this many replicas"),
+    "FLAGS_fleet_max_replicas": (
+        8, int,
+        "fleet: autoscaler ceiling — add_replica stops here even if "
+        "the SLO error budget is still burning"),
+    "FLAGS_fleet_scale_cooldown_s": (
+        5.0, float,
+        "fleet: hysteresis cooldown between autoscaler actions; an "
+        "overload must also persist this long before a scale-up, and "
+        "idleness before a scale-down (prevents flapping)"),
+    "FLAGS_fleet_slo_p99_ms": (
+        500.0, float,
+        "fleet: the e2e latency SLO in milliseconds; the autoscaler "
+        "treats windowed p99 above this as error-budget burn and "
+        "accrues fleet.slo_violation_ms while it lasts"),
+    "FLAGS_rollout_canary_secs": (
+        2.0, float,
+        "rollout: how long the canary replica must hold the SLO burn "
+        "gate (windowed e2e p99 under FLAGS_fleet_slo_p99_ms) before "
+        "the staged waves start; also the default wave sustain period"),
+    "FLAGS_rollout_wave_size": (
+        1, int,
+        "rollout: replicas upgraded per wave after the canary passes; "
+        "within a wave replicas still drain->rebuild one at a time so "
+        "serving capacity never drops by more than one replica"),
+    "FLAGS_rollout_golden_prompts": (
+        4, int,
+        "rollout: number of pinned golden prompts synthesized (seeded, "
+        "deterministic) for the canary bitwise gate when the caller "
+        "does not supply an explicit prompt set"),
     "FLAGS_lowp_matmul": (
         "off", str,
         "low precision: route eligible matmuls (nn.Linear, the fused "

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -11,6 +12,22 @@ from . import _build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+
+
+_counts_lock = threading.Lock()
+
+
+def count(holder, key="launches"):
+    """Add one to a kernel's launch counter, exactly however many
+    threads launch at once (fleet replicas step from their own
+    threads): ``holder.<key>`` for an attribute counter (B7-B9's
+    ``fn.launches``), ``holder[key]`` for a dict of counters (B1-B6).
+    Every read-add-store of a counter goes through this one lock."""
+    with _counts_lock:
+        if isinstance(holder, dict):
+            holder[key] += 1
+        else:
+            setattr(holder, key, getattr(holder, key) + 1)
 
 
 def route(x):

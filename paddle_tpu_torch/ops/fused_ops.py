@@ -266,7 +266,7 @@ def _launch_pass(pass_, q, k, v, do, out, out2, lse, lse_in, delta, seed,
         float(1.0 / (1.0 - dropout_p)) if drop else 1.0,
         _thresh(dropout_p) if drop else 0,
         seed.data_ptr() if drop else None)
-    flash_attention.launches[("B1", "B2", "B3")[pass_]] += 1
+    _launch.count(flash_attention.launches, ("B1", "B2", "B3")[pass_])
 
 
 def _flash_fwd_kernel(q, k, v, seed, scale, causal, dropout_p):

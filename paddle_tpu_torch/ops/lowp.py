@@ -144,7 +144,7 @@ def _w8a8_kernel(a, qb, sb, sa):
                    a.data_ptr(), qb.data_ptr(), sa.data_ptr(),
                    sb.data_ptr(), out.data_ptr(), m, n, k, a.stride(0),
                    qb.stride(0), qb.stride(1))
-    w8a8_matmul.launches += 1
+    _launch.count(w8a8_matmul)
     return out
 
 
@@ -237,7 +237,7 @@ def _smm_kernel(a, b, sa, sb, qdtype):
                    b.stride(1), sa.data_ptr(), sb.data_ptr(), qa.data_ptr(),
                    qb.data_ptr(), out.data_ptr(), m, n, k, mp, np_, kp,
                    int(qdtype == "fp8"))
-    scaled_matmul.launches += 1
+    _launch.count(scaled_matmul)
     return out
 
 

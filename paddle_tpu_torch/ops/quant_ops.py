@@ -76,7 +76,7 @@ def _dequant_matmul_kernel(x2, q, sc):
                    x2.data_ptr(), q.data_ptr(), sc.data_ptr(),
                    out.data_ptr(), m, n, k, x2.stride(0), q.stride(0),
                    0 if sc.numel() == 1 else 1)
-    dequant_matmul.launches += 1
+    _launch.count(dequant_matmul)
     return out
 
 

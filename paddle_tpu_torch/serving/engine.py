@@ -80,9 +80,20 @@ slot sharing one starts writing past it, and a divergence inside one
 is copied first (copy-on-write). Its match and pinning take the host
 lock the serve loop holds through each admission and step. There is no compiled trace (PyTorch
 runs eagerly), so there are no compile counters — the kernels' launch
-counters show the path instead. Left for later slices: mesh sharding,
-fleet supervision (``supervised=``, `abandon`, the
-``serving.replica_*`` sites) and tenancy.
+counters show the path instead. Every step runs `functional_call` on
+the engine's own module shell (`module_shell`: the model's module tree
+sharing its parameter tensors), because `functional_call` swaps the
+attributes of the modules it runs: fleet replicas built on one model
+step from their threads at once. Left for later slices: mesh sharding.
+
+Fleet supervision: a ``supervised=True`` engine (a fleet replica) beats
+a heartbeat (`heartbeats`, `last_beat`) each loop iteration and fires
+``serving.replica_heartbeat`` there (a `raise` kills the engine thread:
+the watchdog sees a crash) and ``serving.replica_step`` before each
+decode step (a `raise` is a step error, a `delay` a hang), both tagged
+with the engine's name. `abandon` is the supervisor's takeover of a
+dead or hung replica. Requests may carry a ``tenant`` (billed per
+tenant in the metrics) and a ``priority``.
 
 Fault sites: ``serving.step`` fires once per decode step (a `raise`
 fails every in-flight request while the engine stays up);
@@ -106,6 +117,8 @@ reference, so sampled tokens agree too given equal logits.
 
 from __future__ import annotations
 
+import copy
+import itertools
 import threading
 import time
 
@@ -129,7 +142,19 @@ from .queueing import (
     RequestCancelled,
 )
 
-__all__ = ["SlotEngine", "speculative_accept"]
+__all__ = ["SlotEngine", "speculative_accept", "module_shell"]
+
+
+def module_shell(model):
+    """A structural copy of `model` sharing every parameter and buffer
+    tensor (no weight is copied). `functional_call` swaps the
+    attributes of the modules it runs, so each engine, and the
+    rollout's golden chain, runs its own shell: engines built on one
+    model step from their threads at once without seeing each other's
+    weights."""
+    memo = {id(t): t for t in itertools.chain(model.parameters(),
+                                              model.buffers())}
+    return copy.deepcopy(model, memo)
 
 
 def speculative_accept(p_list, q_list, proposals, rng):
@@ -254,10 +279,10 @@ class SlotEngine:
     def __init__(self, model, *, max_slots=None, max_seq_len=None,
                  block_size=None, num_blocks=None, prefill_chunk=None,
                  prefix_cache=None, cache_dtype=None, metrics=None,
-                 queue=None, name=None, values=None, weight_version=0,
-                 draft_model=None, spec_len=None, quantize=None, w8a8=None,
-                 spill_dir=None, max_adapters=None, lora_rank=None,
-                 device=None):
+                 queue=None, name=None, supervised=False, values=None,
+                 weight_version=0, draft_model=None, spec_len=None,
+                 quantize=None, w8a8=None, spill_dir=None,
+                 max_adapters=None, lora_rank=None, device=None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(
@@ -266,7 +291,11 @@ class SlotEngine:
         model.eval()
         self.model = model
         self.name = name or "engine"
-        self._net = _StepNet(model)
+        self._net = _StepNet(module_shell(model))
+        self.supervised = supervised
+        self.last_beat = time.monotonic()
+        self.heartbeats = 0
+        self._abort_error = None
         cfg = model.config
         self.max_slots = max_slots or flag("FLAGS_serving_max_batch")
         self.max_seq_len = min(max_seq_len or cfg.max_seq_len,
@@ -433,7 +462,7 @@ class SlotEngine:
             if draft_model is not None else dict(self._values)
         if is_quantized_state(self._dvalues):
             self._dvalues = dequantize_state(self._dvalues)
-        self._dnet = _StepNet(self.draft_model)
+        self._dnet = _StepNet(module_shell(self.draft_model))
         self._dks, self._dvs = self._pools(dcfg)
         self._draft_chunk = self.spec_len + 1
 
@@ -633,8 +662,8 @@ class SlotEngine:
     # -- request lifecycle --------------------------------------------------
 
     def submit(self, prompt_ids, *, max_new_tokens=16, eos_token_id=None,
-               timeout=None, do_sample=False, temperature=1.0, top_k=0,
-               seed=0, adapter_id=0):
+               timeout=None, priority=0, do_sample=False, temperature=1.0,
+               top_k=0, seed=0, adapter_id=0, tenant=None):
         """Admit one request (or shed); returns its `Request` future.
 
         Length beyond the model's positional range is a hard
@@ -661,10 +690,10 @@ class SlotEngine:
                 f"request needs {need} KV blocks but the pool holds "
                 f"{self._alloc.usable} (block_size={self.block_size})")
         return self.queue.submit(Request(
-            ids, timeout=timeout, max_new_tokens=max_new_tokens,
-            eos_token_id=eos_token_id, do_sample=do_sample,
-            temperature=temperature, top_k=top_k, seed=seed,
-            adapter_id=adapter_id))
+            ids, timeout=timeout, priority=priority,
+            max_new_tokens=max_new_tokens, eos_token_id=eos_token_id,
+            do_sample=do_sample, temperature=temperature, top_k=top_k,
+            seed=seed, adapter_id=adapter_id, tenant=tenant))
 
     def _stage_blocks(self, ids, need_total):
         """Reserve the physical blocks for one admission: reuse every
@@ -1035,13 +1064,22 @@ class SlotEngine:
         self._bt[idx, :] = NULL_BLOCK
         self._pos[idx] = 0
         self._aid[idx] = 0
+        tenant = slot.req.gen.get("tenant")
         if error is not None:
             self.metrics.inc("failed")
+            if tenant:
+                self.metrics.tenant_inc(tenant, "failed")
             slot.req._fail(error)
         else:
             self.metrics.inc("completed")
             self.metrics.observe_latency(
                 "e2e", time.monotonic() - slot.req.arrival)
+            if tenant:
+                self.metrics.tenant_inc(tenant, "completed")
+                self.metrics.tenant_inc(tenant, "tokens_out",
+                                        slot.produced)
+                self.metrics.tenant_observe_latency(
+                    tenant, time.monotonic() - slot.req.arrival)
             slot.req._complete(np.asarray(slot.tokens, np.int32))
 
     def _fail_all_active(self, error):
@@ -1438,18 +1476,31 @@ class SlotEngine:
         self._thread.start()
         return self
 
+    def _beat(self):
+        """One liveness heartbeat per loop iteration. The fault point
+        fires only for supervised (fleet-owned) engines, so a standalone
+        engine's loop never consumes fleet fault occurrences; a `delay`
+        here stalls the beat (the watchdog declares the replica dead), a
+        `raise` kills the engine THREAD (detected as a crash)."""
+        if self.supervised:
+            faults.fault_point("serving.replica_heartbeat", tag=self.name)
+        self.heartbeats += 1
+        self.last_beat = time.monotonic()
+
     def _loop(self):
         if self.device.type == "cuda":
             # the kernels launch on the current device's current stream,
             # both read in this thread
             torch.cuda.set_device(self.device)
         while True:
+            self._beat()
             with self._host_lock:
                 self._drain_adoptions()
                 self._drain_adapter_swaps()
                 if self._abort.is_set():
-                    self._fail_all_active(RequestCancelled(
-                        "server aborted (non-drain shutdown)"))
+                    self._fail_all_active(
+                        self._abort_error or RequestCancelled(
+                            "server aborted (non-drain shutdown)"))
                     return
                 self._admit()
                 active = self.active
@@ -1460,11 +1511,31 @@ class SlotEngine:
                 continue
             with self._host_lock:
                 try:
+                    if self.supervised:
+                        faults.fault_point("serving.replica_step",
+                                           tag=self.name)
                     self._step()
                 except Exception as e:  # noqa: BLE001 — engine stays up
                     # the error reaches every in-flight request's future
                     self.metrics.inc("step_errors")
                     self._fail_all_active(e)
+
+    def abandon(self, error):
+        """Supervisor-side takeover of a dead or hung replica: stop the
+        loop at its next boundary and fail every in-flight and queued
+        request with `error` (typically `ReplicaDiedError`, which the
+        fleet Router intercepts and replays elsewhere). Never joins the
+        thread: a hung replica's thread may sleep inside an injected
+        delay (or real stuck I/O) for a long time; it keeps this
+        engine's pools and weights alive until it wakes and exits."""
+        self._abort_error = error
+        self._abort.set()
+        self.queue.close(drain=False)
+        # a thread already dead (crashed loop) never reaches the abort
+        # branch: sweep its stranded slots from the supervisor thread
+        if self._thread is not None and not self._thread.is_alive():
+            with self._host_lock:
+                self._fail_all_active(error)
 
     def shutdown(self, drain=True, timeout=None):
         """Stop. drain=True finishes queued + in-flight requests first

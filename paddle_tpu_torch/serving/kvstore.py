@@ -1,7 +1,6 @@
 """Persistent SSD KV tier: crash-safe cold storage for evicted
 prefix-cache blocks (counterpart of paddle_tpu/serving/kvstore.py, in
-its on-disk format; the rollout registry hook `attach_registry` waits
-for the fleet's rollout module).
+its on-disk format).
 
 * **Spill on eviction** — when the radix `PrefixCache` evicts a cold
   block whose last reference is about to drop, the owning engine copies
@@ -18,6 +17,8 @@ for the fleet's rollout module).
   KV was computed under; `fence` retires a version, and a resume
   against one of its records raises the typed retriable
   `SpillFencedError` so the caller re-prefills on the live weights.
+  `attach_registry` subscribes to a rollout `WeightRegistry`: every
+  commit fences the records of the versions it retired.
 
 Records are framed ``<I crc32> <I len> payload``; the payload is
 `_META` (digest, generation, token count, block size, layers, heads,
@@ -252,6 +253,22 @@ class KVSpillStore:
             if n:
                 self._inc("kv_invalidated_blocks", n)
             return n
+
+    def fence_retired(self, is_live):
+        """Fence every indexed generation for which ``is_live(gen)`` is
+        False — the rollout-commit hook."""
+        with self._lock:
+            gens = {g for (_o, _n, g) in self._index.values()}
+        return sum(self.fence(g) for g in sorted(gens)
+                   if g not in self._fenced and not is_live(g))
+
+    def attach_registry(self, registry):
+        """Subscribe to a `WeightRegistry` (serving/rollout.py): every
+        commit fences the spilled records of versions the commit
+        retired."""
+        registry.subscribe(
+            lambda _wv: self.fence_retired(registry.is_live))
+        return self
 
     # -- compaction ----------------------------------------------------------
 

@@ -1,5 +1,6 @@
 """Serving metrics registry: counters, occupancy, latency percentiles
-(the single-engine part of paddle_tpu/serving/metrics.py).
+(counterpart of paddle_tpu/serving/metrics.py; the Prometheus
+exposition waits for the port's observe/ exporter).
 
 Counter names mirror the admission queue's (`submitted`, `accepted`,
 `rejected_queue_full`, `rejected_closed`, `timeouts`, `cancelled`) plus
@@ -16,12 +17,25 @@ adapter bank's `adapter_swaps`; the spill tier's `kv_spilled_blocks` /
 (surfaced under snapshot()["kvstore"]); KV migration's
 `kv_migrations` / `kv_migrate_blocks` / `kv_migrate_bytes`; and the
 batcher's `batches`. Latency series: `queue`, `e2e`, `prefill`,
-`decode`, `step` and `kv_restore` (seconds). Every inc() also bumps the
-global `framework.monitor` counter ``serving.<name>``.
+`decode`, `step` and `kv_restore` (seconds). The fleet (fleet.py) adds
+its own family over the same registry: `fleet_submitted` /
+`fleet_completed` / `fleet_failed` (client-level, exactly-once),
+`routed`, `retries`, `replays`, `hedges`, `hedge_wins`,
+`duplicates_suppressed`, `stale_attempts`, `parked`, `replica_deaths`,
+`replica_restarts`, `brownout_entries`, `brownout_sheds`,
+`retry_budget_exhausted`, `supervisor_errors`, `replicas_added` /
+`replicas_removed`, `drains_started`, `drain_errors`, `scale_failures`,
+`affinity_hits` / `affinity_faults` and `kv_migrate_faults`; a
+disaggregated replica's role (`note_role`) shows under
+snapshot()["disagg"]. Multi-tenant serving bills per-tenant counters,
+latency and gauges via `tenant_inc` / `tenant_observe_latency` /
+`tenant_set_gauge`, surfaced under snapshot()["tenants"]. Every inc()
+also bumps the global `framework.monitor` counter ``serving.<name>``.
 """
 
 from __future__ import annotations
 
+import json
 import threading
 import time
 
@@ -50,7 +64,18 @@ class ServingMetrics:
         self._blk_n = 0
         self._blk_max = 0.0
         self._spec_slots: dict = {}   # slot -> [drafted, accepted]
+        self._role = None             # disagg role ('prefill'/'decode')
+        # tenant name -> {"counters": {...}, "latency": [s],
+        # "gauges": {...}}; created lazily, absent without tenancy
+        self._tenants: dict = {}
         self._started = time.monotonic()
+
+    def note_role(self, role):
+        """Disaggregation role of the replica this registry serves
+        ('any' / 'prefill' / 'decode'), shown under
+        snapshot()["disagg"]."""
+        with self._lock:
+            self._role = str(role)
 
     def set_gauge(self, name, value):
         """Last-write-wins scalar (e.g. `dequant_path` = 1.0 while an
@@ -79,6 +104,57 @@ class ServingMetrics:
         with self._lock:
             return self._counters.get(name, 0)
 
+    # -- per-tenant accounting -----------------------------------------------
+
+    def _tenant_cell(self, tenant):
+        # caller holds self._lock
+        cell = self._tenants.get(tenant)
+        if cell is None:
+            cell = {"counters": {}, "latency": [], "gauges": {}}
+            self._tenants[str(tenant)] = cell
+        return cell
+
+    def tenant_inc(self, tenant, name, n=1):
+        """Bump one tenant-scoped counter (`submitted`, `shed`,
+        `completed`, `failed`, `tokens_out`, ...)."""
+        if tenant is None:
+            return
+        with self._lock:
+            c = self._tenant_cell(tenant)["counters"]
+            c[name] = c.get(name, 0) + n
+        monitor.stat_add(f"serving.tenant.{tenant}.{name}", n)
+
+    def tenant_observe_latency(self, tenant, seconds):
+        """One end-to-end latency sample billed to `tenant`."""
+        if tenant is None:
+            return
+        with self._lock:
+            series = self._tenant_cell(tenant)["latency"]
+            series.append(float(seconds))
+            if len(series) > _MAX_SAMPLES:
+                del series[:len(series) - _MAX_SAMPLES]
+
+    def tenant_set_gauge(self, tenant, name, value):
+        """Last-write-wins tenant-scoped scalar (e.g. remaining token
+        budget)."""
+        if tenant is None:
+            return
+        with self._lock:
+            self._tenant_cell(tenant)["gauges"][name] = float(value)
+
+    def tenant_get(self, tenant, name):
+        with self._lock:
+            cell = self._tenants.get(tenant)
+            return cell["counters"].get(name, 0) if cell else 0
+
+    def tenant_latency_percentiles(self, tenant, ps=(50, 95, 99)):
+        with self._lock:
+            cell = self._tenants.get(tenant)
+            series = list(cell["latency"]) if cell else []
+        if not series:
+            return {p: None for p in ps}
+        return {p: percentile(series, p) for p in ps}
+
     def observe_latency(self, kind, seconds):
         with self._lock:
             series = self._latency.setdefault(kind, [])
@@ -102,6 +178,19 @@ class ServingMetrics:
             self._blk_sum += frac
             self._blk_n += 1
             self._blk_max = max(self._blk_max, frac)
+
+    def latency_percentiles(self, kind, ps=(50, 95, 99), last=None):
+        """{p: seconds} over the recorded `kind` series. ``last``
+        restricts to the most recent N samples — the autoscaler's
+        sliding SLO window, so old congestion doesn't pin the signal
+        high after the fleet recovers."""
+        with self._lock:
+            series = list(self._latency.get(kind, ()))
+        if last is not None:
+            series = series[-int(last):]
+        if not series:
+            return {p: None for p in ps}
+        return {p: percentile(series, p) for p in ps}
 
     def snapshot(self, queue_depth=None):
         """One JSON-able view: counters, gauges, QPS, tokens/s,
@@ -181,6 +270,42 @@ class ServingMetrics:
                 "tokens_per_step":
                     counters["prefill_tokens"] / steps if steps else 0.0,
             }
+        with self._lock:
+            role = self._role
+            tenants = {
+                t: {"counters": dict(c["counters"]),
+                    "latency": list(c["latency"]),
+                    "gauges": dict(c["gauges"])}
+                for t, c in self._tenants.items()}
+        if role is not None or counters.get("kv_migrations") \
+                or counters.get("kv_migrate_faults"):
+            snap["disagg"] = {
+                "role": role or "any",
+                "kv_migrations": counters.get("kv_migrations", 0),
+                "kv_migrate_blocks": counters.get("kv_migrate_blocks", 0),
+                "kv_migrate_bytes": counters.get("kv_migrate_bytes", 0),
+                "kv_migrate_faults": counters.get("kv_migrate_faults", 0),
+            }
+        if tenants:
+            snap["tenants"] = {}
+            for t in sorted(tenants):
+                cell = tenants[t]
+                c, series = cell["counters"], cell["latency"]
+                entry = {
+                    "counters": c,
+                    "qps": c.get("completed", 0) / elapsed,
+                    "tokens_per_s": c.get("tokens_out", 0) / elapsed,
+                    "gauges": cell["gauges"],
+                }
+                if series:
+                    entry["latency_s"] = {
+                        "count": len(series),
+                        "p50": percentile(series, 50),
+                        "p95": percentile(series, 95),
+                        "p99": percentile(series, 99),
+                        "max": max(series),
+                    }
+                snap["tenants"][t] = entry
         if queue_depth is not None:
             snap["queue_depth"] = queue_depth
         for kind, series in latency.items():
@@ -195,3 +320,6 @@ class ServingMetrics:
                 }
         return snap
 
+    def to_json(self, queue_depth=None, **dump_kw):
+        return json.dumps(self.snapshot(queue_depth=queue_depth),
+                          **dump_kw)

@@ -34,8 +34,12 @@ and the moments within 1e-4 relative, repeating bit for bit; each
 launch counted; B5 repeating bit for bit at the ERNIE head; B7 and
 B8 giving each row the bits of its own one-row call at 8-40 rows (the
 speculative verify head), and B1 each (batch, head) the same bits at
-batch sizes 1-32 (the dynamic batcher's buckets). Without a card every
-test skips.
+batch sizes 1-32 (the dynamic batcher's buckets); a 2-replica int8
+fleet (B7 in both replica threads) with the CPU fleet's greedy tokens
+up to a near-tie (a flip only where the two devices' logits differ by
+at least half the CPU row's top-2 margin), and B7's launch counter
+equal to the replicas' summed steps plus their warm-ups. Without a card
+every test skips.
 
 This file imports neither jax nor paddle_tpu, so it also runs on a
 machine that has only the port's dependencies:
@@ -740,3 +744,112 @@ def test_conv_launch_count_and_bitwise_repeat():
     z.sum().backward()
     # one forward launch, four parity planes of dx
     assert fused_conv.LAUNCHES == before + 5
+
+
+# ---------------------------------------------------------------------------
+# the serving fleet on the card: B7 inside replica threads
+# ---------------------------------------------------------------------------
+
+
+def _tiny_gpt(device):
+    """The parity tests' tiny GPT (vocab 97, hidden 64, 2 layers) on
+    `device`, weights drawn with numpy from seed 0 at 0.1 scale."""
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.nlp.transformers import gpt
+
+    cfg = gpt.GPTConfig(vocab_size=97, hidden_size=64, num_layers=2,
+                        num_heads=4, max_seq_len=64, dropout=0.0,
+                        attn_dropout=0.0, use_parallel=False)
+    model = gpt.GPTForPretraining(cfg, device=device)
+    rng = np.random.RandomState(0)
+    vals = {}
+    for name, t in model.state_dict().items():
+        shape = tuple(t.shape)
+        if len(shape) >= 2:
+            v = rng.randn(*shape) * 0.1
+        elif "norm" in name and name.endswith("weight"):
+            v = 1.0 + 0.1 * rng.randn(*shape)
+        else:
+            v = 0.05 * rng.randn(*shape)
+        vals[name] = v.astype(np.float32)
+    weights.from_paddle_tpu_values(vals, model)
+    return model
+
+
+def _recording_fleet(monkeypatch, device, name):
+    """A started 2-replica int8 Router whose engines keep, per prompt,
+    the logits row behind each greedy pick."""
+    from paddle_tpu_torch.serving import Router, SlotEngine, fleet
+
+    rows = {}
+
+    class Recording(SlotEngine):
+        def _pick(self, slot):
+            key = slot.req.payload.tobytes()
+            rows.setdefault(key, []).append(slot.next_logits.copy())
+            return super()._pick(slot)
+
+    monkeypatch.setattr(fleet, "SlotEngine", Recording)
+    router = Router(_tiny_gpt(device), replicas=2, device=device,
+                    engine_kw=dict(max_slots=2, block_size=8,
+                                   quantize=True),
+                    hedge=False, liveness_timeout_s=60.0, name=name)
+    return router.start(), rows
+
+
+@pytest.mark.cuda
+def test_fleet_on_card_matches_cpu_fleet(monkeypatch):
+    """A 2-replica int8 fleet on the card (B7 in both replica threads)
+    against the same fleet on the CPU (B7's plain version): equal greedy
+    tokens, except at a near-tie — where the two devices' logits differ
+    by at least half the CPU row's top-2 margin a flip is legitimate
+    and the sequences part there."""
+    _card()
+    prompts = [np.random.RandomState(s).randint(1, 97, (n,)).astype(
+        np.int32) for s, n in ((3, 5), (50, 20), (9, 12), (11, 7))]
+    outs, rows = {}, {}
+    for dev in ("cuda", "cpu"):
+        router, rows[dev] = _recording_fleet(monkeypatch, dev, "cf")
+        try:
+            futs = [router.submit(p, max_new_tokens=10) for p in prompts]
+            outs[dev] = [np.asarray(f.result(120))[p.size:]
+                         for p, f in zip(prompts, futs)]
+        finally:
+            router.shutdown(drain=True, timeout=60.0)
+    compared = total = 0
+    for p, c, q in zip(prompts, outs["cuda"], outs["cpu"]):
+        rc, rq = rows["cuda"][p.tobytes()], rows["cpu"][p.tobytes()]
+        stop = q.size
+        for j in range(q.size):
+            if c[j] != q[j]:
+                top2 = np.sort(rq[j])[-2:]
+                gap = float(np.abs(rc[j] - rq[j]).max())
+                assert top2[1] - top2[0] <= 2 * gap, (j, c, q)
+                stop = j
+                break
+        compared, total = compared + stop, total + q.size
+    assert compared >= 0.75 * total, (compared, total)
+
+
+@pytest.mark.cuda
+def test_fleet_launch_counts_equal_summed_steps(monkeypatch):
+    """B7's launch counter across two replica threads stepping at once:
+    exactly one launch per step of either replica plus one per warm-up
+    (no count lost to a racing read-add-store)."""
+    _card()
+    quant_ops.dequant_matmul.launches = 0
+    router, _ = _recording_fleet(monkeypatch, "cuda", "lc")
+    try:
+        assert quant_ops.dequant_matmul.launches == 2   # two warm-ups
+        futs = [router.submit(np.random.RandomState(i).randint(
+            1, 97, (6 + i,)).astype(np.int32), max_new_tokens=12)
+            for i in range(8)]
+        for f in futs:
+            f.result(120)
+        steps = router.metrics.get("steps")
+        assert all(r.engine.heartbeats > 0
+                   for r in router.replica_set.replicas)
+    finally:
+        router.shutdown(drain=True, timeout=60.0)
+    assert steps > 0
+    assert quant_ops.dequant_matmul.launches == steps + 2
