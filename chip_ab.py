@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Before / after timings of the flash-attention dq kernel (B2), the
 LM-head loss kernels (B4-B6), the serving head's int8 kernels (B7, B8),
-the scaled int8 / fp8 matmul (B9) and the fused conv (B10) of two
+the scaled int8 / fp8 matmul (B9), the fused conv (B10) and three
+end-to-end paths (the cost of the runtime's always-on spans) of two
 checkouts of the port, on one card.
 
     python3 chip_ab.py PARENT_DIR [GROUP ...]
@@ -29,7 +30,18 @@ choose what each process times, in this order:
 - B10: at every conv of one ResNet-50 training step at b128 (bf16,
   recorded from the tree's own model), checked within one bf16 ulp of
   the plain version, summed over the step's 114 launches in all and by
-  class.
+  class;
+- spans: three paths through the tree's engines, each repeated
+  `SPAN_REPEATS` times: chip_smoke.py phase 4's int8 leg (gpt2-small,
+  16 prompts x 32 new tokens through `Server`, tokens/s), phase 5's
+  decode step (the w8a8 engine, 8 slots decoding, host ms a step over 10
+  steps) and phase 9's ERNIE-1.0 step (b32 x s512 bf16, the fused loss,
+  AdamW; p50 of 10 steps after 2 warm-up steps, each ending in a
+  synchronise), with the cyclic collector's passes over those steps
+  and the same steps with the collector off; then, where the tree has
+  observe/, the host us of one phase span, one RecordEvent and one
+  decode-step signature. Only the tree's public engine APIs are used,
+  so a parent without the observe/ spans runs the same code.
 
 Every time is taken as chip_smoke.py takes it (median of CUDA events, L2
 flushed before each launch). With B4-B6 chosen, a fifth process then
@@ -43,10 +55,12 @@ without one.
 from __future__ import annotations
 
 import ctypes
+import gc
 import importlib.util
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -61,7 +75,8 @@ def _smoke():
     return mod
 
 
-GROUPS = ("B2", "B4-B6", "B7", "B8", "B9", "B10")
+GROUPS = ("B2", "B4-B6", "B7", "B8", "B9", "B10", "spans")
+SPAN_REPEATS = 3
 
 
 def one(tree, groups):
@@ -81,6 +96,10 @@ def one(tree, groups):
         out.update(b9_step(sm, gen, flush))
     if "B10" in groups:
         out.update(b10_step(sm, gen, flush))
+    if "spans" in groups:
+        del flush
+        torch.cuda.empty_cache()
+        out.update(spans(sm))
     print(json.dumps(out), flush=True)
 
 
@@ -286,6 +305,133 @@ def b10_step(sm, gen, flush):
     return {"B10_step_ms": total, "B10_step_launches":
             sum(train_calls.values()), "B10_by_class_ms": by_class,
             "B10_max_ulps": ulps}
+
+
+def spans(sm):
+    """Phase 4's int8 tokens/s, phase 5's decode-step host ms and phase
+    9's ERNIE-1.0 p50, `SPAN_REPEATS` times each, through the tree's
+    engines (chip_smoke.py's settings and inputs)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nlp.transformers import (
+        ErnieConfig, GPTForPretraining, gpt_config,
+    )
+    from paddle_tpu_torch.serving import Server
+
+    cfg = gpt_config("gpt2-small", dropout=0.0, attn_dropout=0.0,
+                     use_parallel=False)
+    model = GPTForPretraining(cfg, device="cuda",
+                              generator=torch.Generator().manual_seed(0))
+    prompts = sm._serving_prompts(cfg.vocab_size)
+    n_new = sm.SERVING_MAX_NEW
+    out = {"int8_tokens_per_s": [], "decode_step_host_ms": [],
+           "ernie_step_ms_p50": []}
+    for _ in range(SPAN_REPEATS):
+        srv = Server(model, device="cuda", quantize=True,
+                     **sm.SERVING).start()
+        t0 = time.monotonic()
+        futs = [srv.submit(p, max_new_tokens=n_new, timeout=600.0)
+                for p in prompts]
+        for f in futs:
+            f.result(600.0)
+        wall = time.monotonic() - t0
+        srv.shutdown(drain=True)
+        out["int8_tokens_per_s"].append(len(prompts) * n_new / wall)
+    eng = sm._decode_engine(model, quantize=True, w8a8=True)
+    for _ in range(SPAN_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            eng._step()
+        out["decode_step_host_ms"].append(
+            (time.perf_counter() - t0) * 1e3 / 10)
+    del eng, srv, model
+    torch.cuda.empty_cache()
+    ecfg = ErnieConfig(**sm.ERNIE)
+    ids, labels = sm._ernie_batch(ecfg.vocab_size, sm.ERNIE_BATCH,
+                                  sm.ERNIE_SEQ)
+    eng = sm._ernie_engine(ecfg, "cuda", 0, 0, 1e-4)
+
+    def step():
+        with amp.auto_cast(enable=True, dtype="bfloat16"):
+            return eng.train_batch(ids, labels)
+
+    def timed_steps():
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times)) * 1e3
+
+    # the cyclic collector's passes over the timed steps, and the same
+    # steps with it off: a host-side difference between the trees that
+    # the collector explains shows as a gap between the two
+    collections = {0: 0, 1: 0, 2: 0}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            collections[info["generation"]] += 1
+
+    out["ernie_step_ms_p50_gc_off"] = []
+    for _ in range(SPAN_REPEATS):
+        for _ in range(2):
+            step()
+        gc.callbacks.append(on_gc)
+        try:
+            out["ernie_step_ms_p50"].append(timed_steps())
+        finally:
+            gc.callbacks.remove(on_gc)
+        gc.collect()
+        gc.disable()
+        try:
+            out["ernie_step_ms_p50_gc_off"].append(timed_steps())
+        finally:
+            gc.enable()
+    out["ernie_gc_collections"] = collections
+    del eng
+    out.update(span_cost_us())
+    torch.cuda.empty_cache()
+    return out
+
+
+def span_cost_us(n=20000):
+    """Host us of one `observe.phase`, one `profiler.RecordEvent` and
+    one decode-step `signature_of`, each the median of 5 runs of `n`,
+    where the tree has them (a parent without observe/ gives none)."""
+    import numpy as np
+
+    from paddle_tpu_torch import observe
+
+    if not hasattr(observe, "phase"):
+        return {}
+    from paddle_tpu_torch import profiler
+
+    tok, pos, bt = (np.zeros(s, np.int32) for s in ((8, 64), (8,), (8, 64)))
+    cases = {"phase": lambda: observe.phase("span-cost"),
+             "record_event": lambda: profiler.RecordEvent("span-cost")}
+    out = {}
+    for key, make in cases.items():
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                with make():
+                    pass
+            runs.append((time.perf_counter() - t0) / n * 1e6)
+        out[f"{key}_us"] = float(np.median(runs))
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            observe.signature_of(tok, pos, bt)
+        runs.append((time.perf_counter() - t0) / n * 1e6)
+    out["signature_of_us"] = float(np.median(runs))
+    return {"span_cost_us": out}
 
 
 def b6_in_turns(parent, rounds=8):

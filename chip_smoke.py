@@ -27,10 +27,16 @@ Phases (any failure raises and the script exits non-zero):
    prefill_chunk=64 in three legs (f32, int8, w8a8): 16 greedy
    requests, prompt lengths 32-256 from a seeded RNG, half of them
    sharing a 64-token prefix, 32 new tokens each. Kernel launch counts
-   are set to 0 just before each leg and read just after it.
+   are set to 0 just before each leg and read just after it. After each
+   leg (here and in 24-27) `Server.metrics_prometheus()` must parse as
+   exposition text with the snapshot's served tokens, and the engine
+   must end at `compile_counts` {"decode": 1, "cow": 1} (with "draft": 1
+   when speculating) and compile nothing in a second `warmup()`.
 5. Where a decode step's time goes: host step time, device kernel time
    and launches per step of the w8a8 engine, and the LM head's kernel
-   time by name (B8 `w8a8_stream` must show), from torch.profiler.
+   time by name (B8 `w8a8_stream` must show), from the port's profiler
+   (`profiler.start_trace` / `device_op_table`, torch.profiler
+   underneath).
 6. Flash attention: B1-B3 against their plain versions (f32 and bf16 at
    ragged shapes, sq != sk, head dims 32 / 64 / 128, causal and not; the
    ERNIE shape [32, 12, 512, 64] in f32 and bf16 with dropout 0.1; the
@@ -62,7 +68,13 @@ Phases (any failure raises and the script exits non-zero):
    FLAGS_use_fused_lm_loss on, its default; 10 timed steps with step
    time, tokens/s, MFU, peak memory, 12 launches per step of each of
    B1, B2, B3 and 1 of each of B4, B5, B6.
-10. Where a train step of that leg goes, from torch.profiler.
+10. Where a train step of that leg goes, from the port's profiler: the
+    device time a step by bucket (`observe.classify_kernel`: matmul,
+    attention, collective, elementwise, other) with the kernel ids and
+    library families under each, and the host<->device copies. The
+    timed steps of 9 and the profiled ones run under
+    `observe.no_retrace()`, and each training leg records exactly one
+    ``train_step`` compile (its first warm-up step).
 11. The same at the same width with the flag off (the tied bf16 matmul
     and an f32 cross_entropy over [16384, 18000] logits), for
     comparison, profiled as in 10 (the device time of the two legs is
@@ -110,7 +122,7 @@ Phases (any failure raises and the script exits non-zero):
     synthetic batch), 2 warm-up and 10 timed steps: finite losses and
     exactly the B10 launches derived from the model (114 a step), step
     time, images/s, MFU (bench.py's FLOP count), peak memory.
-20. Where that step's time goes, from torch.profiler.
+20. Where that step's time goes, as in 10.
 21. model.eval() forwards at b128: the affine epilogue, 53 B10 launches
     a forward, images/s.
 22. Checkpointing, leg A, resume after a preemption: the ERNIE-1.0 leg
@@ -215,6 +227,25 @@ two replica threads launching at once:
     a typed shed of "b"), at least one HTTP 429 carries "b"'s own
     Retry-After; each tenant's share of tokens, e2e p50 / p99 and
     ``GET /v1/version`` are printed.
+
+33-36 read the runtime's own telemetry (observe/, profiler/):
+33. Right after 10: `Engine.attribute_step(steps=3)` on the fused
+    leg's engine (bf16 auto_cast, under `observe.no_retrace()`) and
+    `overlap_report(steps=1)`: the five buckets in ms a step and the top
+    rows. Gates: B1-B3 in attention and B4, B5 / B6 in matmul with
+    exactly 12 / 12 / 12 / 1 / 2 launches a step; "other" holds no
+    hand-written kernel; the bucket total within 3% of 10's counted
+    rows (its busy time less its host copies); no collective time.
+34. Right after 20, the same on the ResNet-50 engine: B10 in matmul
+    with exactly its derived launches, the total within 3% of 20's.
+35. In 29-32: `Router.compile_counts()` gives every live replica
+    {"decode": 1, "cow": 1}; in 32, `metrics_prometheus()` parses as
+    exposition with one ``paddle_serving_replica_state`` gauge per
+    replica, and `http_front`'s ``/metrics`` asked for ``text/plain``
+    serves the same families.
+36. After 22-23 (the step timeline emptied before them): `goodput()`,
+    whose checkpoint and restore seconds, the async writes' overlapped
+    seconds and the productive seconds must be above 0.
 
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line
 and ``{"ok": true, "device": {...}}``. Without a CUDA card, or outside a
@@ -641,37 +672,61 @@ def _decode_engine(model, max_new=40, device="cuda", **kw):
     return eng
 
 
-def _profile_steps(eng, n=10):
-    """`n` decode steps of `eng` under torch.profiler: the device's
-    kernel ms a step, the launch calls a step, the kernel rows."""
+def _capture(fn, n):
+    """`fn` run `n` times under the port's profiler capture
+    (`profiler.start_trace` on the card, synchronised before it stops):
+    the rows of `profiler.device_op_table` (kernels, memsets, device
+    copies), the host<->device copies' us, the cudaLaunchKernel calls
+    and the host seconds of the `n` runs, from the capture's trace."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            eng._step()
-        torch.cuda.synchronize()
-    rows = prof.key_averages()
-    kernels = [r for r in rows
-               if r.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(_device_us(r) for r in kernels) / 1e3 / n
-    launches = sum(r.count for r in rows
-                   if r.key.startswith("cudaLaunchKernel")) / n
-    return busy_ms, launches, kernels
+    from paddle_tpu_torch import profiler
+
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        profiler.start_trace(logdir)
+        try:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t0
+        finally:
+            path = profiler.stop_trace()
+        _, rows = profiler.device_op_table(logdir)
+        with open(path) as f:
+            evs = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    copies = sum(e.get("dur", 0.0) for e in evs
+                 if e.get("cat") == "gpu_memcpy" and "DtoD" not in e["name"])
+    launches = sum(1 for e in evs if e.get("cat") == "cuda_runtime" and
+                   e["name"].startswith("cudaLaunchKernel"))
+    return rows, copies, launches, host_s
+
+
+def _profile_steps(eng, n=10):
+    """`n` decode steps of `eng` under the port's profiler: the device's
+    busy ms a step (kernels and copies), the launch calls a step, the
+    kernel rows."""
+    rows, copies, launches, _ = _capture(eng._step, n)
+    busy_ms = (sum(r["total"] for r in rows) + copies) / 1e3 / n
+    return busy_ms, launches / n, rows
 
 
 def _top_kernels(kernels, n, k=6):
-    top = sorted(kernels, key=_device_us, reverse=True)[:k]
-    return {r.key[:60]: _device_us(r) / 1e3 / n for r in top}
+    return {r["name"][:60]: r["total"] / 1e3 / n for r in kernels[:k]}
 
 
 def phase_profile(model):
     """Phase 5: where a decode step's time goes. A w8a8 engine with all
     8 slots decoding takes 10 steps on the host clock (each ends in the
-    logits' copy to the host), then 10 more under torch.profiler for the
-    device's kernel time, the launches and the costliest kernels."""
+    logits' copy to the host), then 10 more under the port's profiler
+    for the device's kernel time by bucket, the launches and the
+    costliest kernels."""
     import torch
+
+    from paddle_tpu_torch import observe
 
     eng = _decode_engine(model, quantize=True, w8a8=True)
     n = 10
@@ -682,17 +737,21 @@ def phase_profile(model):
     host_ms = (time.perf_counter() - t0) * 1e3 / n
     busy_ms, launches, kernels = _profile_steps(eng, n)
     _check(eng.metrics.get("failed") == 0, "profiled steps failed")
+    _compiled_once(eng)
     # the LM head's device time by kernel name (B7 runs while the
     # activation scale calibrates, B8 once it is frozen)
-    head = {key: sum(_device_us(r) for r in kernels if name in r.key)
+    head = {key: sum(r["total"] for r in kernels if name in r["name"])
             / 1e3 / n for key, name in (("B7", "dq_stream"),
                                         ("B8", "w8a8_stream"))}
     _check(head["B8"] > 0, "the profile saw no B8 (w8a8_stream) time")
+    buckets = observe.attribute_rows(kernels)["buckets"]
     print(json.dumps({
         "profile": "w8a8 decode step, 8 slots",
         "step_ms": host_ms, "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / host_ms),
         "launches_per_step": launches,
+        "ms_per_step_by_bucket": {b: us / 1e3 / n
+                                  for b, us in buckets.items()},
         "head_ms_per_step": head,
         "top_kernels_ms_per_step": _top_kernels(kernels, n),
     }), flush=True)
@@ -1215,7 +1274,7 @@ def phase_train_full(card, fused, n=10, recompute=False, warm=2,
     import numpy as np
     import torch
 
-    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import amp, observe
     from paddle_tpu_torch.engine import LOWP_SCALE_KEY
     from paddle_tpu_torch.framework import monitor
     from paddle_tpu_torch.framework.flags import set_flags
@@ -1225,6 +1284,7 @@ def phase_train_full(card, fused, n=10, recompute=False, warm=2,
     from paddle_tpu_torch.quantization import publish_scale_state
 
     set_flags({"FLAGS_use_fused_lm_loss": fused, "FLAGS_lowp_matmul": lowp})
+    compiles0 = len(observe.compile_events("train_step"))
     cfg = ErnieConfig(**ERNIE, recompute=recompute)
     eng = _ernie_engine(cfg, "cuda", 0, 0, 1e-4)
     ids, labels = _ernie_batch(cfg.vocab_size, ERNIE_BATCH, ERNIE_SEQ)
@@ -1248,14 +1308,18 @@ def phase_train_full(card, fused, n=10, recompute=False, warm=2,
     fused_ops.flash_attention.launches.update(B1=0, B2=0, B3=0)
     fused_loss.launches.update(B4=0, B5=0, B6=0)
     lowp_ops.scaled_matmul.launches = 0
-    for _ in range(n):
-        t0 = time.perf_counter()
-        loss = step()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(float(loss))
+    # a leg without warm-up compiles its step in the first timed one
+    with observe.no_retrace(allow=() if warm else ("train_step",)):
+        for _ in range(n):
+            t0 = time.perf_counter()
+            loss = step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
     launches = {**fused_ops.flash_attention.launches, **fused_loss.launches,
                 "B9": lowp_ops.scaled_matmul.launches}
+    compiles = len(observe.compile_events("train_step")) - compiles0
+    _check(compiles == 1, f"{compiles} train_step compiles in the leg")
     peak = torch.cuda.max_memory_allocated()
     _check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     _check(losses[-1] < losses[0], f"loss did not fall: {losses}")
@@ -1302,7 +1366,7 @@ def phase_train_full(card, fused, n=10, recompute=False, warm=2,
         "mfu": flops_tok * tok_s / bf16_peak,
         "peak_mem_bytes": peak, "losses": losses,
         "launches_per_step": {k: c / n for k, c in launches.items()},
-        "scale_state": scale_state,
+        "scale_state": scale_state, "train_step_compiles": compiles,
     }
     print(json.dumps(out), flush=True)
     if calls is not None:
@@ -1311,61 +1375,129 @@ def phase_train_full(card, fused, n=10, recompute=False, warm=2,
 
 
 def phase_train_profile(step, label):
-    """Where a train step's time goes: 3 steps under torch.profiler.
-    Returns the device time of a step (ms), which repeats between runs
-    where the host clock does not."""
+    """Where a train step's time goes: 3 steps under the port's profiler
+    capture, under `observe.no_retrace()` (the leg compiled its one step
+    in its warm-up). The device's time a step by bucket
+    (`observe.classify_kernel`, the port's one table of kernel names),
+    with the kernel ids and library families under each bucket, and the
+    host<->device copies beside them. Returns {"busy_ms": kernels and
+    copies, "kernel_ms": the counted rows alone} a step; device times
+    repeat between runs where the host clock does not."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import observe
 
     n = 3
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3 / n
-    rows = prof.key_averages()
-
-    kernels = [r for r in rows
-               if r.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(_device_us(r) for r in kernels) / 1e3 / n
+    with observe.no_retrace():
+        rows, copies, launches, host_s = _capture(step, n)
+    host_ms = host_s * 1e3 / n
+    kernel_ms = sum(r["total"] for r in rows) / 1e3 / n
+    busy_ms = kernel_ms + copies / 1e3 / n
     _check(busy_ms > 0, "the profiler saw no device time")
-    # summed by name prefix: kernels whose names share the printed
-    # prefix (torch's elementwise templates) are one entry
-    by_name = {}
-    for r in kernels:
-        by_name[r.key[:90]] = by_name.get(r.key[:90], 0.0) + _device_us(r)
-    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:8]
-    # device time by kind, from the kernels' names (the port's kernels by
-    # their own names; cuDNN's weight gradients carry "wgrad", cuBLAS's
-    # Hopper GEMMs "nvjet")
-    kinds = (("B9", ("qmm_wg", "quant_rows", "quant_cols")),
-             ("B10", ("wg_conv", "f32_conv")),
-             ("flash B1-B3", ("fwd_kernel", "dq_kernel", "dkv_kernel")),
-             ("fused loss B4-B6", ("lse_kernel", "tc_kernel", "wg_kernel",
-                                   "f32_kernel")),
-             ("conv weight grad (cuDNN)", ("wgrad",)),
-             ("gemm", ("gemm", "Gemm", "sm90_xmma", "nvjet")),
-             ("elementwise", ("elementwise",)), ("reduce", ("reduce",)),
-             ("host-device copy", ("Memcpy",)))
-    groups = {}
-    for name, us in by_name.items():
-        kind = next((k for k, keys in kinds if any(t in name for t in keys)),
-                    "other")
-        groups[kind] = groups.get(kind, 0.0) + us / 1e3 / n
+    buckets = {b: {"ms": 0.0, "kernels": {}} for b in observe.BUCKETS}
+    for r in rows:
+        bucket, kernel = observe.classify_kernel(r["name"])
+        cell = buckets[bucket]
+        cell["ms"] += r["total"] / 1e3 / n
+        key = kernel or "other kernels"
+        cell["kernels"][key] = cell["kernels"].get(key, 0.0) + \
+            r["total"] / 1e3 / n
     print(json.dumps({
         "profile": label,
         "step_ms": host_ms, "device_busy_ms": busy_ms,
+        "host_copy_ms": copies / 1e3 / n,
         "device_idle_share": max(0.0, 1.0 - busy_ms / host_ms),
-        "kernels_per_step": sum(r.count for r in kernels) / n,
-        "launch_calls_per_step": sum(
-            r.count for r in rows if r.key.startswith("cudaLaunchKernel")) / n,
-        "top_kernels_ms_per_step": {k: us / 1e3 / n for k, us in top},
-        "ms_per_step_by_kind": groups,
+        "kernels_per_step": sum(r["calls"] for r in rows) / n,
+        "launch_calls_per_step": launches / n,
+        "top_kernels_ms_per_step": {r["name"][:90]: r["total"] / 1e3 / n
+                                    for r in rows[:8]},
+        "ms_per_step_by_bucket": buckets,
     }), flush=True)
-    return busy_ms
+    return {"busy_ms": busy_ms, "kernel_ms": kernel_ms}
+
+
+def _csrc_kernels():
+    """Names of the __global__ functions in paddle_tpu_torch/csrc/."""
+    import re
+
+    pattern = (r"__global__\s+void\s+"
+               r"(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(")
+    names = set()
+    for path in (ROOT / "paddle_tpu_torch" / "csrc").glob("*.cu*"):
+        names.update(re.findall(pattern, path.read_text()))
+    return names
+
+
+# the buckets the port's table gives the hand-written kernels of the
+# training paths (kernel id -> bucket)
+KERNEL_BUCKETS = {"B1": "attention", "B2": "attention", "B3": "attention",
+                  "B4": "matmul", "B5-B6": "matmul", "B9": "matmul",
+                  "B10": "matmul"}
+
+
+def phase_attribute(eng, label, profile, calls):
+    """Phases 33-34: `Engine.attribute_step(steps=3)` replays the leg's
+    last batch under the port's profiler (bf16 auto_cast, under
+    `observe.no_retrace()`), then `Engine.overlap_report(steps=1)`.
+    Gates: each hand-written kernel of `calls` ({kernel id: launches a
+    step}) shows with exactly those launches and in its bucket of
+    `KERNEL_BUCKETS`; "other" holds no hand-written kernel; the bucket
+    total is within 3% of the leg's profile (`phase_train_profile`'s
+    counted rows, the device's busy time less its host copies); one card
+    launches no collective. Prints the five buckets in ms a step and the
+    top rows."""
+    import re
+
+    from paddle_tpu_torch import amp, observe
+
+    n = 3
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_attrib_")
+    try:
+        with amp.auto_cast(enable=True, dtype="bfloat16"), \
+                observe.no_retrace():
+            t0 = time.monotonic()
+            rep = eng.attribute_step(logdir=f"{logdir}/a", steps=n,
+                                     top=1 << 30)
+            attribute_s = time.monotonic() - t0
+            ov = eng.overlap_report(logdir=f"{logdir}/o", steps=1)
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    ids, other = {}, []
+    hand = re.compile(r"\b(%s)\b" % "|".join(sorted(_csrc_kernels())))
+    for r in rep["top_ops"]:
+        _bucket, kid = observe.classify_kernel(r["name"])
+        if kid in KERNEL_BUCKETS:
+            _check(r["bucket"] == KERNEL_BUCKETS[kid],
+                   f"{label}: {kid} row in {r['bucket']}: {r['name'][:90]}")
+            ids[kid] = ids.get(kid, 0) + r["calls"]
+        if r["bucket"] == "other":
+            _check(not hand.search(r["name"]),
+                   f"{label}: a hand-written kernel in other: {r['name']}")
+            other.append(r)
+    want = {k: c * n for k, c in calls.items()}
+    _check(ids == want, f"{label}: kernel launches {ids}, want {want}")
+    total_ms = rep["total_us"] / 1e3 / n
+    dev = abs(total_ms - profile["kernel_ms"]) / profile["kernel_ms"]
+    _check(dev <= 0.03, f"{label}: buckets {total_ms} ms a step against "
+           f"the profile's {profile['kernel_ms']} ms")
+    _check(ov["collective_us"] == 0.0, f"{label}: collectives {ov}")
+    out = {
+        "attribute": label, "steps": n, "attribute_s": attribute_s,
+        "ms_per_step": {b: us / 1e3 / n for b, us in rep["buckets"].items()},
+        "fractions": rep["fractions"], "total_ms_per_step": total_ms,
+        "profile_kernel_ms": profile["kernel_ms"], "rel_dev": dev,
+        "kernel_launches": ids,
+        "top_rows": [{"name": r["name"][:90], "bucket": r["bucket"],
+                      "ms_per_step": r["total"] / 1e3 / n}
+                     for r in rep["top_ops"][:8]],
+        "other_ms_per_step": {r["name"][:90]: r["total"] / 1e3 / n
+                              for r in other[:5]},
+        "overlap": ov,
+        "train_step_compiles": len(observe.compile_events("train_step")),
+    }
+    print(json.dumps(out), flush=True)
+    return out
 
 
 def _b9_per_step(model):
@@ -2148,7 +2280,7 @@ def phase_resnet_full(card, n=10, warm=2):
     import numpy as np
     import torch
 
-    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import amp, observe
     from paddle_tpu_torch.ops import fused_conv
 
     model = _resnet_model("cuda", space_to_depth_stem=True)
@@ -2165,12 +2297,13 @@ def phase_resnet_full(card, n=10, warm=2):
     torch.cuda.reset_peak_memory_stats()
     times = []
     fused_conv.LAUNCHES = 0
-    for _ in range(n):
-        t0 = time.perf_counter()
-        loss = step()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(float(loss))
+    with observe.no_retrace():
+        for _ in range(n):
+            t0 = time.perf_counter()
+            loss = step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
     launches = fused_conv.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     _check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
@@ -2504,10 +2637,14 @@ def phase_ckpt_rollback(resnet_leg, tmp, n=10):
 
 def phase_checkpoint(fused_leg, resnet_leg):
     """Phases 22-23 in one temporary directory, removed at the end (the
-    flight recorder's dumps go there too)."""
+    flight recorder's dumps go there too); then phase 36, their goodput:
+    the step timeline is emptied before the legs, and after them its
+    checkpoint and restore categories, the async writes' overlapped
+    seconds and the productive (device-step) seconds must be above 0."""
     import shutil
     import tempfile
 
+    from paddle_tpu_torch import observe
     from paddle_tpu_torch.framework.flags import get_flags, set_flags
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -2515,12 +2652,20 @@ def phase_checkpoint(fused_leg, resnet_leg):
                        "FLAGS_anomaly_max_bad_steps",
                        "FLAGS_anomaly_check_interval"])
     set_flags({"FLAGS_flight_recorder_dir": tmp})
+    observe.timeline.reset()
     try:
         resume = phase_ckpt_resume(fused_leg, tmp)
         rollback = phase_ckpt_rollback(resnet_leg, tmp)
     finally:
         set_flags(saved)
         shutil.rmtree(tmp, ignore_errors=True)
+    gp = observe.goodput()
+    cats = gp["categories_s"]
+    _check(cats["checkpoint"] > 0 and cats["restore"] > 0 and
+           gp["overlapped_s"] > 0 and cats["productive"] > 0,
+           f"goodput of the checkpoint legs: {gp}")
+    print(json.dumps({"phase": 36, "goodput": gp,
+                      "phases": observe.timeline.aggregates()}), flush=True)
     return resume, rollback
 
 
@@ -2560,8 +2705,55 @@ def _serve(model, prompts, max_new, device="cuda", adapters=None, **kw):
     _check(snap["counters"]["completed"] == len(prompts) and
            snap["counters"].get("failed", 0) == 0,
            f"not every request completed: {snap['counters']}")
+    _, samples = _exposition(srv.metrics_prometheus())
+    _check(samples["paddle_serving_tokens_out_total"] ==
+           snap["counters"]["tokens_out"],
+           "the exposition's served tokens differ from the snapshot's")
+    _compiled_once(srv.engine)
     return ([o[p.size:] for p, o in zip(prompts, outs)], snap, srv.engine,
             wall, launches)
+
+
+# one line of Prometheus text exposition (a HELP / TYPE comment or a
+# sample), as tests/test_torch_observe.py parses it
+_PROM_LINE = (r"^(# (HELP|TYPE) [a-zA-Z_:][a-zA-Z0-9_:]* .+"
+              r"|[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^{}]*\})? -?[0-9].*)$")
+
+
+def _exposition(text):
+    """(family names, {series: value}) of Prometheus text; every line
+    must parse as exposition."""
+    import re
+
+    fams, samples = set(), {}
+    for ln in filter(None, text.splitlines()):
+        _check(re.match(_PROM_LINE, ln), f"not exposition text: {ln!r}")
+        if ln.startswith("# TYPE "):
+            fams.add(ln.split()[2])
+        elif not ln.startswith("#"):
+            key, value = ln.rsplit(" ", 1)
+            samples[key] = float(value)
+    return fams, samples
+
+
+def _compiled_once(eng):
+    """The engine compiled each of its step functions once (at its
+    warm-up: the unified step, the copy-on-write copy and, speculating,
+    the draft step), and a second warm-up, which runs under
+    `observe.no_retrace()`, compiles nothing."""
+    want = dict(decode=1, cow=1, **({"draft": 1} if eng.spec_len else {}))
+    _check(eng.compile_counts == want,
+           f"{eng.name}: compile_counts {eng.compile_counts}, want {want}")
+    _check(eng.warmup() == want, f"{eng.name}: a second warm-up compiled")
+
+
+def _fleet_compiled_once(router):
+    """`Router.compile_counts()`: every live replica's engine at one
+    compile of each step function."""
+    got = {k: v for k, v in router.compile_counts().items() if v}
+    _check(got and all(v == {"decode": 1, "cow": 1} for v in got.values()),
+           f"fleet compile_counts {got}")
+    return got
 
 
 def _agreement(a, b):
@@ -2641,6 +2833,7 @@ def _pool_pair(model, rounds=10, steps=5, device="cuda"):
                    for s in eng._slots)
         _check(live == 8 and eng.metrics.get("failed") == 0,
                f"pool pair {key}: {live} slots decoding at the end")
+        _compiled_once(eng)
         out[key] = {"step_ms_p50": float(np.median(times[key])),
                     "step_ms": times[key], "device_busy_ms": busy,
                     "launches_per_step": launches,
@@ -2881,6 +3074,7 @@ def phase_lora(model, ref, device="cuda"):
            f"lora: not every request completed: {snap['counters']}")
     _check(launches == {"B7": steps + 1, "B8": 0},
            f"lora: launches {launches} in {steps} steps")
+    _compiled_once(eng)
     toks = [o[p.size:] for p, o in zip(prompts, outs)]
     for i in range(0, len(prompts), 2):
         _check(np.array_equal(toks[i], ref["tokens"]["int8"][i]),
@@ -3009,6 +3203,8 @@ def phase_spill_migrate(model, tmp, device="cuda"):
                "migration: the adopting engine's continuation differs")
     _check(dst.metrics.get("prefix_hit_tokens") >= sum(adopted),
            "migration: the adopted blocks were not reused")
+    for eng in (src, dst):
+        _compiled_once(eng)
     print(json.dumps({"phase": 27, "migration": {
         "prompts": 4, "adopted_tokens": adopted, "payload_bytes": moved,
         "migrate_ms_total": t_mig * 1e3}}), flush=True)
@@ -3187,6 +3383,7 @@ def _accounting(router, before, what, gone=()):
     builds = _builds(router, gone) - before[2]
     _check(b7 == steps + builds,
            f"{what}: {b7} B7 launches for {steps} steps + {builds} builds")
+    _fleet_compiled_once(router)
     return {"B7": b7, "steps": steps, "builds": builds}
 
 
@@ -3238,6 +3435,7 @@ def phase_fleet(model, card, Recording, device="cuda"):
     want = [np.asarray(f.result(600.0))[p.size:]
             for p, f in zip(prompts, futs)]
     eng.shutdown(drain=True)
+    _compiled_once(eng)
     del eng
     out = {"phase": 29, "card": card, "tokens_per_s": {}}
     routers = {}
@@ -3392,7 +3590,8 @@ def phase_disagg_autoscale(model, card, Recording, device="cuda"):
             "launches": got, "head_calls": heads,
             "prefill_chunk": [pre.prefill_chunk, dec.prefill_chunk],
             "kv_migrations": m.get("kv_migrations"),
-            "kv_migrate_bytes": m.get("kv_migrate_bytes")}
+            "kv_migrate_bytes": m.get("kv_migrate_bytes"),
+            "compile_counts": _fleet_compiled_once(router)}
     finally:
         router.shutdown(drain=True, timeout=60.0)
     launches = dict(got)
@@ -3570,7 +3769,8 @@ def phase_rollout(model, card, Recording, tmp, device="cuda"):
                    version_info=router.version_info(),
                    kv_invalidated_blocks=router.metrics.get(
                        "kv_invalidated_blocks"),
-                   launches=_counts())
+                   launches=_counts(),
+                   compile_counts=_fleet_compiled_once(router))
     finally:
         Recording.rows = Recording.keep = None
         router.shutdown(drain=True, timeout=60.0)
@@ -3698,6 +3898,7 @@ def phase_tenancy(model, card, device="cuda"):
         _check(outcomes["ok"] + sum(outcomes["shed"].values()) +
                len(outcomes["http_429"]) == len(trace),
                "tenancy: an arrival did not resolve")
+        out["prometheus"] = _tenancy_exposition(srv, url)
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -3705,6 +3906,32 @@ def phase_tenancy(model, card, device="cuda"):
         srv.shutdown(drain=True)
     print(json.dumps(out), flush=True)
     return out["launches"]["B7"]
+
+
+def _tenancy_exposition(srv, url):
+    """Phase 32's Prometheus export: `metrics_prometheus()` parses as
+    exposition, with one state gauge per replica of the fleet, and
+    `http_front`'s ``/metrics`` asked for ``text/plain`` serves the same
+    families; the replicas' compile counters."""
+    import urllib.request
+
+    fams, samples = _exposition(srv.metrics_prometheus())
+    req = urllib.request.Request(f"{url}/metrics",
+                                 headers={"Accept": "text/plain"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        ctype = r.headers["Content-Type"]
+        http_fams, _ = _exposition(r.read().decode())
+    _check("text/plain" in ctype and http_fams == fams,
+           f"tenancy: /metrics served {ctype} with "
+           f"{sorted(fams ^ http_fams)} differing")
+    states = [k for k in samples
+              if k.startswith("paddle_serving_replica_state{")]
+    replicas = srv.router.snapshot()["replicas"]
+    _check(len(states) == len(replicas),
+           f"tenancy: {len(states)} state gauges, {len(replicas)} replicas")
+    return {"families": len(fams), "series": len(samples),
+            "replica_state_gauges": len(states),
+            "compile_counts": _fleet_compiled_once(srv.router)}
 
 
 def phase_fleet_all(model, card, device="cuda"):
@@ -3940,9 +4167,14 @@ def main():
     set_flags({"FLAGS_use_fused_lm_loss": True})
     timed("train_slice", phase_train_slice)
     fused_leg, eng, step = timed("train_full", phase_train_full, name, True)
-    fused_leg["device_busy_ms"] = timed(
-        "train_profile", phase_train_profile, step,
-        "ernie-1.0 train step (b32 s512 bf16, fused loss)")
+    prof = timed("train_profile", phase_train_profile, step,
+                 "ernie-1.0 train step (b32 s512 bf16, fused loss)")
+    fused_leg["device_busy_ms"] = prof["busy_ms"]
+    # phase 33: the same step's device time by bucket, attribute_step
+    timed("train_attribute", phase_attribute, eng,
+          "ernie-1.0 train step (b32 s512 bf16, fused loss)", prof,
+          {"B1": ERNIE["num_layers"], "B2": ERNIE["num_layers"],
+           "B3": ERNIE["num_layers"], "B4": 1, "B5-B6": 2})
     for key in ("B1", "B2", "B3", "B4", "B5", "B6"):
         rows[key]["launches"] = int(fused_leg["launches_per_step"][key] *
                                     fused_leg["steps"])
@@ -3954,7 +4186,7 @@ def main():
                                  False)
     plain_leg["device_busy_ms"] = timed(
         "train_unfused_profile", phase_train_profile, step,
-        "ernie-1.0 train step (b32 s512 bf16, unfused)")
+        "ernie-1.0 train step (b32 s512 bf16, unfused)")["busy_ms"]
     del eng, step
     torch.cuda.empty_cache()
     _check(fused_leg["peak_mem_bytes"] < plain_leg["peak_mem_bytes"],
@@ -3990,7 +4222,7 @@ def main():
         if mode == "int8":
             leg["device_busy_ms"] = timed(
                 "train_int8_profile", phase_train_profile, step,
-                "ernie-1.0 train step (b32 s512 bf16, lowp int8)")
+                "ernie-1.0 train step (b32 s512 bf16, lowp int8)")["busy_ms"]
         del eng, step
         torch.cuda.empty_cache()
         dev = max(abs(a - b) / abs(b)
@@ -4029,9 +4261,13 @@ def main():
                                                   phase_resnet_full, name)
     rows["B10"]["launches"] = int(resnet_leg["b10_launches_per_step"] *
                                   resnet_leg["steps"])
-    resnet_leg["device_busy_ms"] = timed(
-        "resnet_profile", phase_train_profile, step,
-        "resnet-50 train step (b128 224 s2d bf16, Momentum)")
+    prof = timed("resnet_profile", phase_train_profile, step,
+                 "resnet-50 train step (b128 224 s2d bf16, Momentum)")
+    resnet_leg["device_busy_ms"] = prof["busy_ms"]
+    # phase 34: the same step by bucket
+    timed("resnet_attribute", phase_attribute, eng,
+          "resnet-50 train step (b128 224 s2d bf16, Momentum)", prof,
+          {"B10": resnet_leg["derived_per_step"]})
     del eng, step
     torch.cuda.empty_cache()
     timed("resnet_eval", phase_resnet_eval, model, per_fwd)

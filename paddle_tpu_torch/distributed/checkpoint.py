@@ -40,9 +40,14 @@ Entry points:
 - AsyncCheckpointManager           — same contract, background writer
 - save_persistables / load_persistables, train_epoch_range
 
-The reference's ``observe.phase`` spans on these paths, its gang
-checkpoints (`GangCheckpointManager`), ``save_hybrid_state`` and
-resharded restores are not ported yet.
+Each path runs under the reference's ``observe.phase`` spans, which
+goodput reads: ``checkpoint-restore`` (load_state),
+``checkpoint-write`` (a synchronous manager's save and save_with),
+``checkpoint-snapshot`` (the async manager's device->host copy on the
+step thread) and ``checkpoint-write-async`` (its background write,
+overlapped with training). The reference's gang checkpoints
+(`GangCheckpointManager`), ``save_hybrid_state`` and resharded restores
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ import torch
 from ..framework import faults as _faults
 from ..framework import monitor as _monitor
 from ..framework.errors import retry_with_backoff
+from ..observe import phase as _phase
 
 __all__ = ["MANIFEST_NAME", "META_NAME", "leaf_digests", "load_manifest",
            "verify_manifest", "save_state", "load_state", "load_metadata",
@@ -289,30 +295,32 @@ def load_state(path, template, *, verify=None):
     from ..framework import flags as _flags
 
     path = os.path.abspath(path)
-    with open(os.path.join(path, DATA_DIR, INDEX_NAME)) as f:
-        index = json.load(f)
-    read = {}
-    for key, like in _flatten(template):
-        if key not in index:
-            raise KeyError(f"checkpoint {path} holds no leaf {key}")
-        ent = index[key]
-        words = np.load(os.path.join(path, DATA_DIR, ent["file"]),
-                        allow_pickle=False)
-        shape = tuple(like.shape) if hasattr(like, "shape") else ()
-        if tuple(words.shape) != shape or ent["dtype"] != _dtype_name(like):
-            raise ValueError(
-                f"checkpoint {path}: leaf {key} is {ent['dtype']}"
-                f"{list(words.shape)}, the template wants "
-                f"{_dtype_name(like)}{list(shape)}")
-        read[key] = (words, ent["dtype"])
-    if verify is None:
-        verify = _flags.flag("FLAGS_ckpt_verify_checksums")
-    if verify:
-        manifest = load_manifest(path)
-        if manifest is not None:
-            _check_digests(path, manifest,
-                           [(k, _digest(w)) for k, (w, _) in read.items()])
-    return _map(lambda k, like: _restored_leaf(*read[k], like), template)
+    with _phase("checkpoint-restore", cat="checkpoint"):
+        with open(os.path.join(path, DATA_DIR, INDEX_NAME)) as f:
+            index = json.load(f)
+        read = {}
+        for key, like in _flatten(template):
+            if key not in index:
+                raise KeyError(f"checkpoint {path} holds no leaf {key}")
+            ent = index[key]
+            words = np.load(os.path.join(path, DATA_DIR, ent["file"]),
+                            allow_pickle=False)
+            shape = tuple(like.shape) if hasattr(like, "shape") else ()
+            if tuple(words.shape) != shape or \
+                    ent["dtype"] != _dtype_name(like):
+                raise ValueError(
+                    f"checkpoint {path}: leaf {key} is {ent['dtype']}"
+                    f"{list(words.shape)}, the template wants "
+                    f"{_dtype_name(like)}{list(shape)}")
+            read[key] = (words, ent["dtype"])
+        if verify is None:
+            verify = _flags.flag("FLAGS_ckpt_verify_checksums")
+        if verify:
+            manifest = load_manifest(path)
+            if manifest is not None:
+                _check_digests(path, manifest,
+                               [(k, _digest(w)) for k, (w, _) in read.items()])
+        return _map(lambda k, like: _restored_leaf(*read[k], like), template)
 
 
 def load_metadata(path):
@@ -481,8 +489,9 @@ class CheckpointManager:
         meta = dict(metadata or {})
         meta.setdefault("step", int(step))
         meta.update(_rng_metadata())
-        save_state(self._path(step), state, metadata=meta)
-        self._gc()
+        with _phase("checkpoint-write", cat="checkpoint"):
+            save_state(self._path(step), state, metadata=meta)
+            self._gc()
 
     def save_engine(self, step, engine):
         """Numbered full-fidelity engine.Engine snapshot."""
@@ -518,8 +527,9 @@ class CheckpointManager:
         """Numbered save through an external writer (e.g.
         save_train_state): writer_fn(path) persists, then retention
         applies — keeps the numbering+gc contract in one place."""
-        writer_fn(self._path(step))
-        self._gc()
+        with _phase("checkpoint-write", cat="checkpoint"):
+            writer_fn(self._path(step))
+            self._gc()
 
     def restore_with(self, reader_fn, *, step=None):
         """Numbered restore through an external reader, falling back to
@@ -604,12 +614,13 @@ class AsyncCheckpointManager(CheckpointManager):
                 return leaf.copy()
             return leaf
 
-        tree = _map(copy, state)
-        event = None
-        if streams:
-            (stream,) = streams.values()   # one process, one card
-            event = torch.cuda.Event()
-            event.record(stream)
+        with _phase("checkpoint-snapshot", cat="checkpoint"):
+            tree = _map(copy, state)
+            event = None
+            if streams:
+                (stream,) = streams.values()   # one process, one card
+                event = torch.cuda.Event()
+                event.record(stream)
         return _Snapshot(tree, event)
 
     def save(self, step, state, *, metadata=None):
@@ -636,10 +647,14 @@ class AsyncCheckpointManager(CheckpointManager):
         return fut
 
     def _write(self, step, snapshot, meta):
-        if snapshot.event is not None:
-            snapshot.event.synchronize()
-        save_state(self._path(step), snapshot.tree, metadata=meta)
-        self._gc()
+        # background-writer time: a phase of its own, so goodput
+        # reports it without charging the step thread (it overlaps
+        # training)
+        with _phase("checkpoint-write-async", cat="checkpoint"):
+            if snapshot.event is not None:
+                snapshot.event.synchronize()
+            save_state(self._path(step), snapshot.tree, metadata=meta)
+            self._gc()
 
     def _raise_failed(self):
         done = [f for f in self._pending if f.done()]

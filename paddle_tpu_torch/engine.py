@@ -6,7 +6,15 @@ in float32), backward, coupled weight decay, gradient clipping, then the
 optimizer's update (``engine.py:414-520`` of the reference). Dropout
 draws from the engine's own `framework.random.RngState` on its device,
 installed for the forward with `rng_scope`. There is no compile
-step: PyTorch runs each op as it comes.
+step: PyTorch runs each op as it comes. Each step runs under the
+reference's `observe.phase` spans (``host-prep``, ``compile`` /
+``device-step``, ``anomaly-readback``; host wall time, no
+synchronisation), and the first step at a new batch signature (shapes
+and dtypes of the host batch) records one ``train_step`` event in
+`observe.retrace` — under `observe.no_retrace()` it raises
+`RetraceError` before the step touches any state. `attribute_step` /
+`overlap_report` replay the last batch under a `profiler` capture and
+bucket its device time.
 
 ``loss_scale`` (None, a float, "dynamic" or a dict of GradScaler knobs)
 scales the loss and unscales the gradients, and ``anomaly_guard``
@@ -59,6 +67,7 @@ import numpy as np
 import torch
 
 from . import observe as _observe
+from . import profiler as _profiler
 from . import resolve_device
 from .framework import faults as _faults
 from .framework import flags as _flags
@@ -161,6 +170,8 @@ class Engine:
             bufs[GRAD_NORM_KEY] = torch.zeros((), dtype=torch.float32,
                                               device=self.device)
         self._ckpt_manager = None
+        self._batch_sigs = set()    # batch signatures stepped so far
+        self._last_batch = None
         if _lowp.mode() != "off":
             from .quantization.scaling import init_scale_state
 
@@ -184,16 +195,51 @@ class Engine:
         (no host synchronisation, unless a guarded engine reads its
         counter this step)."""
         t_step0 = time.perf_counter()
-        if not isinstance(inputs, (list, tuple)):
-            inputs = (inputs,)
-        if not isinstance(labels, (list, tuple)):
-            labels = (labels,)
-        # a scheduled 'nan' fault poisons the float leaves of the HOST
-        # batch: the deterministic way to exercise the anomaly guard
-        batch = _faults.fault_point("train.batch",
-                                    {"inputs": inputs, "labels": labels})
-        inputs = [self._tensor(x) for x in batch["inputs"]]
-        labels = [self._tensor(x) for x in batch["labels"]]
+        with _observe.phase("host-prep"):
+            if not isinstance(inputs, (list, tuple)):
+                inputs = (inputs,)
+            if not isinstance(labels, (list, tuple)):
+                labels = (labels,)
+            # kept (host references) so attribute_step can replay the
+            # live step shape under a capture
+            self._last_batch = (inputs, labels)
+            # a scheduled 'nan' fault poisons the float leaves of the
+            # HOST batch: the deterministic way to exercise the guard
+            batch = _faults.fault_point("train.batch",
+                                        {"inputs": inputs, "labels": labels})
+            sig = _observe.signature_of(batch)
+            inputs = [self._tensor(x) for x in batch["inputs"]]
+            labels = [self._tensor(x) for x in batch["labels"]]
+        compiling = sig not in self._batch_sigs
+        t_fn0 = time.perf_counter()
+        with _observe.phase("compile" if compiling else "device-step"):
+            if compiling:
+                # may raise RetraceError (no_retrace): before any state
+                # changes, so the engine steps on at its old shapes
+                _observe.record_compile("train_step", signature=sig)
+                self._batch_sigs.add(sig)
+            loss = self._step(inputs, labels)
+        if compiling:
+            _observe.annotate("train_step",
+                              wall_s=time.perf_counter() - t_fn0)
+        self.state.step += 1
+        if self.anomaly_guard:
+            # the counter's host read blocks dispatch until the card
+            # catches up, so it is amortised: the device skips every bad
+            # update at once, the host only decides the ROLLBACK, up to
+            # interval - 1 (bad, already skipped) steps late
+            interval = _flags.flag("FLAGS_anomaly_check_interval")
+            if interval <= 1 or self.state.step % interval == 0:
+                with _observe.phase("anomaly-readback"):
+                    self._check_anomaly()
+        self._flight_record(loss, time.perf_counter() - t_step0)
+        if _profiler.is_op_profiling_enabled():
+            _profiler.record_device_memory("train_batch", self.device)
+        return loss
+
+    def _step(self, inputs, labels):
+        """Forward, backward and update of one batch of device tensors;
+        returns the detached float32 loss."""
         params = self.state.params
         bufs = self.state.buffers
         model_bufs = {k: b for k, b in bufs.items() if k not in _RESERVED}
@@ -268,18 +314,46 @@ class Engine:
             bufs[GRAD_NORM_KEY] = gnorm
         if self._dynamic:
             self._update_scale(finite)
-        self.state.step += 1
-        loss = loss.detach()
-        if self.anomaly_guard:
-            # the counter's host read blocks dispatch until the card
-            # catches up, so it is amortised: the device skips every bad
-            # update at once, the host only decides the ROLLBACK, up to
-            # interval - 1 (bad, already skipped) steps late
-            interval = _flags.flag("FLAGS_anomaly_check_interval")
-            if interval <= 1 or self.state.step % interval == 0:
-                self._check_anomaly()
-        self._flight_record(loss, time.perf_counter() - t_step0)
-        return loss
+        return loss.detach()
+
+    def attribute_step(self, logdir=None, steps=1, top=10):
+        """Where does the device time of a training step go?  Captures a
+        `profiler` trace of `steps` replays of the LAST train_batch
+        (real steps: training advances by `steps`), synchronised with
+        the engine's device before the capture stops, and classifies its
+        device time into matmul / attention / collective / elementwise /
+        other buckets (observe.attribute). Returns the report (buckets,
+        fractions, total_us, top_ops); the capture stays under
+        `logdir`. Runs the replays in the caller's autocast."""
+        logdir = self._capture(logdir, steps, "paddle-attrib-")
+        return _observe.attribute(logdir, top=top)
+
+    def overlap_report(self, logdir=None, steps=1):
+        """Capture `steps` real steps as attribute_step does and pair the
+        collective bucket against concurrently-resident matmul /
+        attention time (observe.overlap_report's dict; one process on
+        one card launches no collective, so its collective time is 0)."""
+        logdir = self._capture(logdir, steps, "paddle-overlap-")
+        return _observe.overlap_report(logdir)
+
+    def _capture(self, logdir, steps, prefix):
+        if self._last_batch is None:
+            raise RuntimeError("run train_batch() once first")
+        if logdir is None:
+            import tempfile
+
+            logdir = tempfile.mkdtemp(prefix=prefix)
+        inputs, labels = self._last_batch
+        _profiler.start_trace(logdir, device=self.device)
+        try:
+            for _ in range(steps):
+                self.train_batch(inputs, labels)
+            # every step's kernels land inside the capture window
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        finally:
+            _profiler.stop_trace()
+        return logdir
 
     def _flight_record(self, loss, step_s):
         """One flight-recorder entry per step. The loss, the grad norm

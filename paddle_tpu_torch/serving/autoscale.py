@@ -31,9 +31,9 @@ Gauges land in the global monitor registry each tick —
 ``fleet.target_replicas``, ``fleet.live_replicas``,
 ``fleet.slo_violation_ms`` (error-budget burn while windowed p99 is
 over SLO) — next to the ``fleet.scale_events_up/down`` counters the
-ReplicaSet bumps on every membership change (manual or autoscaled).
-The ``paddle_fleet_*`` Prometheus family over them waits for the
-port's observe/ exporter.
+ReplicaSet bumps on every membership change (manual or autoscaled);
+`observe.prometheus_text()` exports them as the ``paddle_fleet_*``
+family.
 """
 
 from __future__ import annotations

@@ -5,8 +5,13 @@ paddle_tpu/serving/batcher.py).
 Every flush pads up to a bucket ladder (powers of two capped at
 `max_batch`), so a batch function sees only a handful of shapes — the
 ones `warmup` runs once each before traffic. PyTorch runs eagerly, so
-there is no trace and no ``jit`` option: `compile_counts` counts each
-bucket's first use (the reference's ``jit=False`` meaning).
+there is no trace and no ``jit`` option: a compile is the first run at
+a new padded-batch (shape, dtype) signature, recorded as
+``serving.batch`` in `observe.retrace` and counted per bucket in
+`compile_counts` (a sample shape drifting inside a bucket counts
+again, as a retrace does in the reference). A ``strict_shapes=True``
+batcher, once warmed, runs every flush under `observe.no_retrace()`,
+so such a drift raises. Every flush runs in a ``serving.batch`` span.
 
 The batch function runs on the batcher's worker thread, so it enters
 its own thread-local modes (``torch.no_grad``, autocast): modes entered
@@ -25,6 +30,7 @@ import time
 import numpy as np
 import torch
 
+from .. import observe, profiler
 from ..framework import faults
 from ..framework.flags import flag
 from .queueing import AdmissionQueue, Request
@@ -84,20 +90,23 @@ class DynamicBatcher:
     """
 
     def __init__(self, fn, *, max_batch=None, max_wait_s=0.002,
-                 queue_cap=None, metrics=None):
+                 queue_cap=None, metrics=None, strict_shapes=False):
         self._fn = fn
+        self._strict = strict_shapes
+        self._warmed = False
         self.max_batch = max_batch or flag("FLAGS_serving_max_batch")
         self.max_wait_s = max_wait_s
         self.ladder = bucket_ladder(self.max_batch)
         self.metrics = metrics
         self.queue = AdmissionQueue(
             queue_cap or flag("FLAGS_serving_queue_cap"), metrics=metrics)
-        self._compiles: dict = {}   # bucket -> first uses (always 1)
+        self._compiles: dict = {}   # bucket -> compiles (new signatures)
+        self._signatures: set = set()
         self._thread = None
 
     @property
     def compile_counts(self):
-        """bucket size -> number of first uses (1 per bucket seen)."""
+        """bucket size -> number of compilations (new signatures)."""
         return dict(self._compiles)
 
     # -- synchronous bucketed execution (also the worker's core) ------------
@@ -106,18 +115,27 @@ class DynamicBatcher:
         """Pad `samples` to their bucket, run once, return the first
         len(samples) outputs as numpy. Deterministic (no queue/thread
         involved) — this is what warmup calls."""
+        import contextlib
+
         bucket = bucket_for(len(samples), self.ladder)
         x = pad_batch(samples, bucket)
-        if bucket not in self._compiles:
-            self._compiles[bucket] = 1
-        with torch.no_grad():
-            out = self._fn(x)
+        guard = observe.no_retrace() if self._strict and self._warmed \
+            else contextlib.nullcontext()
+        with profiler.RecordEvent("serving.batch", cat="serving"), guard:
+            sig = observe.signature_of(x)
+            if sig not in self._signatures:
+                observe.record_compile("serving.batch", signature=sig)
+                self._signatures.add(sig)
+                self._compiles[bucket] = self._compiles.get(bucket, 0) + 1
+            with torch.no_grad():
+                out = self._fn(x)
         return [_row(out, i) for i in range(len(samples))]
 
     def warmup(self, sample):
         """Run every rung of the ladder once before traffic."""
         for bucket in self.ladder:
             self.run_batch([sample] * bucket)
+        self._warmed = True
         return dict(self._compiles)
 
     # -- threaded serving ---------------------------------------------------

@@ -78,13 +78,29 @@ may gather from another thread while a step runs because the blocks it
 gathers are pinned and cached, and no step writes a cached block — a
 slot sharing one starts writing past it, and a divergence inside one
 is copied first (copy-on-write). Its match and pinning take the host
-lock the serve loop holds through each admission and step. There is no compiled trace (PyTorch
-runs eagerly), so there are no compile counters — the kernels' launch
-counters show the path instead. Every step runs `functional_call` on
-the engine's own module shell (`module_shell`: the model's module tree
-sharing its parameter tensors), because `functional_call` swaps the
-attributes of the modules it runs: fleet replicas built on one model
-step from their threads at once. Left for later slices: mesh sharding.
+lock the serve loop holds through each admission and step. Every step
+runs `functional_call` on the engine's own module shell
+(`module_shell`: the model's module tree sharing its parameter
+tensors), because `functional_call` swaps the attributes of the
+modules it runs: fleet replicas built on one model step from their
+threads at once. Left for later slices: mesh sharding.
+
+Compile counters and spans. PyTorch runs eagerly; what the engine
+counts as a compile is the first call of each of its step functions
+at a new (shape, dtype) signature — the unified step (``decode``,
+recorded as ``serving.step`` in `observe.retrace`), the copy-on-write
+copy (``cow``, ``serving.cow``) and, with ``spec_len`` > 0, the draft
+step (``draft``, ``serving.draft``). The token matrix and tables never
+change shape, so `compile_counts` stays at one each for the engine's
+life. `warmup()` runs all of them and returns `compile_counts`; a
+repeat warmup runs under `observe.no_retrace()`, and a
+``strict_shapes=True`` engine serves its whole loop under it once
+warmed. Each step runs in the reference's spans: the ``sample`` phase
+(host-side picks and staging), ``draft`` (speculative rounds), the
+``serving.step`` span around the ``device-step`` phase (the step's
+launches; the logits' copy to the host follows it), and the
+``serving.cow`` / ``serving.draft`` spans around each copy-on-write
+copy and draft micro-step.
 
 Fleet supervision: a ``supervised=True`` engine (a fleet replica) beats
 a heartbeat (`heartbeats`, `last_beat`) each loop iteration and fires
@@ -126,7 +142,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from .. import resolve_device
+from .. import observe, profiler, resolve_device
 from ..framework import faults
 from ..framework.flags import flag
 from ..nlp.transformers.gpt import lora_logits_delta
@@ -282,7 +298,8 @@ class SlotEngine:
                  queue=None, name=None, supervised=False, values=None,
                  weight_version=0, draft_model=None, spec_len=None,
                  quantize=None, w8a8=None, spill_dir=None,
-                 max_adapters=None, lora_rank=None, device=None):
+                 max_adapters=None, lora_rank=None, strict_shapes=False,
+                 device=None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(
@@ -409,6 +426,10 @@ class SlotEngine:
         self._slots: list = [None] * self.max_slots
         self._free = list(range(self.max_slots))
         self._warmed = False
+        self._strict = strict_shapes
+        # compile counters: step key -> first calls at a new signature
+        self._compiles: dict = {}
+        self._signatures: set = set()
         self._abort = threading.Event()
         self._thread = None
         # KV adoptions and adapter-bank swaps land at step boundaries:
@@ -521,12 +542,37 @@ class SlotEngine:
             net, {"model." + k: v for k, v in values.items()},
             (tok_t, posmat, nv_t, caches, project, ncols))
 
+    def _note_call(self, key, name, *arrays):
+        """Count the first call of step function `key` at a new shape /
+        dtype signature of its `arrays` as one compile (`compile_counts`,
+        and `name` in observe.retrace — which raises inside no_retrace()
+        before the step runs). The copy-on-write copy takes two block
+        ids, the reference's ``(block, block)``."""
+        seen = (key,) + tuple((a.shape, a.dtype.str) for a in arrays)
+        if seen in self._signatures:
+            return
+        observe.record_compile(
+            name, signature=observe.signature_of(*arrays) if arrays
+            else "(block, block)")
+        self._signatures.add(seen)
+        self._compiles[key] = self._compiles.get(key, 0) + 1
+
+    @property
+    def compile_counts(self):
+        """'decode' -> compiles of the unified prefill+decode step,
+        'cow' -> of the copy-on-write block copy, 'draft' -> of the
+        speculative draft micro-step (present only when spec_len > 0).
+        The engine's invariant is every value == 1: the step's shapes
+        are fixed for the engine's life."""
+        return dict(self._compiles)
+
     def _device_step(self, tok, pos, nvalid):
         """One step over the whole pool: scatter the chunk's KV into the
         paged pools (in place), return the f32 logits of each slot's
         last valid row [S, V], of the first k+1 columns [S, k+1, V]
         under speculation (else None) and, for w8a8, the last rows'
         abs-max."""
+        self._note_call("decode", "serving.step", tok, pos, self._bt)
         with torch.no_grad():
             fvals = dequantize_state(self._values) if self.quantized \
                 else self._values
@@ -557,6 +603,7 @@ class SlotEngine:
         """One draft step over the draft pools (in place): the f32
         logits of each slot's last valid row through the draft model's
         own head."""
+        self._note_call("draft", "serving.draft", tok, pos, self._bt)
         with torch.no_grad():
             _, lv, _, _ = self._run(self._dnet, self._dvalues, self._dks,
                                     self._dvs, tok, pos, nvalid, True, 0)
@@ -575,6 +622,7 @@ class SlotEngine:
     def _cow(self, src, dst):
         """Copy-on-write: physical block `src` -> `dst` in every target
         pool (the draft cache re-feeds a new slot from position 0)."""
+        self._note_call("cow", "serving.cow")
         for pool in self._ks + self._vs:
             pool[dst].copy_(pool[src])
 
@@ -643,21 +691,31 @@ class SlotEngine:
     # -- warmup -------------------------------------------------------------
 
     def warmup(self):
-        """Run one dummy step (and one draft step) before traffic: every
-        table points at the null block, so their writes land in reserved
-        scratch. Builds the head kernel on first use and, for w8a8,
-        absorbs the first activation abs-max."""
-        tok = np.zeros((self.max_slots, self.prefill_chunk), np.int32)
-        pos = np.zeros((self.max_slots,), np.int32)
-        nvalid = np.ones((self.max_slots,), np.int32)
-        _, _, amax = self._device_step(tok, pos, nvalid)
-        if self.w8a8:
-            self._absorb_act_amax(amax)
-        if self.spec_len:
-            self._draft_step(
-                np.zeros((self.max_slots, self._draft_chunk), np.int32),
-                pos, nvalid)
+        """Run one dummy step, one copy-on-write copy (null block onto
+        itself) and one draft step before traffic: every table points at
+        the null block, so their writes land in reserved scratch. Builds
+        the head kernel on first use and, for w8a8, absorbs the first
+        activation abs-max. Returns `compile_counts`. A repeat warmup
+        (re-entering the serve path) runs under `observe.no_retrace()`:
+        the same shapes compile nothing new for the engine's life."""
+        import contextlib
+
+        guard = observe.no_retrace() if self._warmed \
+            else contextlib.nullcontext()
+        with guard:
+            tok = np.zeros((self.max_slots, self.prefill_chunk), np.int32)
+            pos = np.zeros((self.max_slots,), np.int32)
+            nvalid = np.ones((self.max_slots,), np.int32)
+            _, _, amax = self._device_step(tok, pos, nvalid)
+            if self.w8a8:
+                self._absorb_act_amax(amax)
+            self._cow(NULL_BLOCK, NULL_BLOCK)
+            if self.spec_len:
+                self._draft_step(
+                    np.zeros((self.max_slots, self._draft_chunk), np.int32),
+                    pos, nvalid)
         self._warmed = True
+        return self.compile_counts
 
     # -- request lifecycle --------------------------------------------------
 
@@ -744,7 +802,8 @@ class SlotEngine:
             if cow is not None:
                 src, rows = cow
                 faults.fault_point("serving.cow_split")
-                self._cow(src, new[0])
+                with profiler.RecordEvent("serving.cow", cat="serving"):
+                    self._cow(src, new[0])
                 self.metrics.inc("cow_splits")
                 fill += rows
         except Exception:
@@ -1120,15 +1179,18 @@ class SlotEngine:
         tok = np.zeros((self.max_slots, self.prefill_chunk), np.int32)
         nvalid = np.ones((self.max_slots,), np.int32)
         live: list = []
-        prefill_tokens = self._consume_slots(now, tok, nvalid, live)
+        with observe.phase("sample", cat="serving"):
+            prefill_tokens = self._consume_slots(now, tok, nvalid, live)
         if not live:
             return
         n_pref = sum(1 for i in live
                      if self._slots[i].state == "prefill")
         t0 = time.monotonic()
-        logits, _, amax = self._device_step(tok, self._pos, nvalid)
-        if self.w8a8:
-            self._absorb_act_amax(amax)
+        with profiler.RecordEvent("serving.step", cat="serving"):
+            with observe.phase("device-step", cat="serving"):
+                logits, _, amax = self._device_step(tok, self._pos, nvalid)
+                if self.w8a8:
+                    self._absorb_act_amax(amax)
         logits = logits.cpu().numpy()
         self._observe_step_latency(time.monotonic() - t0,
                                    prefill_tokens, len(live) - n_pref)
@@ -1241,7 +1303,9 @@ class SlotEngine:
         nvalid = np.ones((self.max_slots,), np.int32)
         live: list = []
         plan: list = []   # (slot_idx, slot, next_token, s_i)
-        prefill_tokens = self._consume_spec(now, tok, nvalid, live, plan)
+        with observe.phase("sample", cat="serving"):
+            prefill_tokens = self._consume_spec(now, tok, nvalid, live,
+                                                plan)
         if not live:
             return
         # prefilling slots join the draft phase with s_i = 0 so the
@@ -1252,7 +1316,8 @@ class SlotEngine:
         drafted_ok = True
         try:
             faults.fault_point("serving.draft")
-            self._run_draft(work)
+            with observe.phase("draft", cat="serving"):
+                self._run_draft(work)
         except Exception:  # noqa: BLE001 — degrade to plain decode
             drafted_ok = False
             self.metrics.inc("spec_draft_faults")
@@ -1267,9 +1332,11 @@ class SlotEngine:
         n_pref = sum(1 for i in live
                      if self._slots[i].state == "prefill")
         t0 = time.monotonic()
-        lv, sv, amax = self._device_step(tok, self._pos, nvalid)
-        if self.w8a8:
-            self._absorb_act_amax(amax)
+        with profiler.RecordEvent("serving.step", cat="serving"):
+            with observe.phase("device-step", cat="serving"):
+                lv, sv, amax = self._device_step(tok, self._pos, nvalid)
+                if self.w8a8:
+                    self._absorb_act_amax(amax)
         lv = lv.cpu().numpy()
         sv = sv.cpu().numpy()
         self._observe_step_latency(time.monotonic() - t0,
@@ -1365,7 +1432,9 @@ class SlotEngine:
                         feeds[i] = (slot, [d])
             if not feeds:
                 return
-            lv = self._draft_step(dtok, dpos, dnval).cpu().numpy()
+            with profiler.RecordEvent("serving.draft", cat="serving"):
+                lv = self._draft_step(dtok, dpos, dnval)
+            lv = lv.cpu().numpy()
             for i, (slot, seg) in feeds.items():
                 slot.fed.extend(int(t) for t in seg)
                 qlast[i] = lv[i]
@@ -1488,10 +1557,18 @@ class SlotEngine:
         self.last_beat = time.monotonic()
 
     def _loop(self):
+        import contextlib
+
         if self.device.type == "cuda":
             # the kernels launch on the current device's current stream,
             # both read in this thread
             torch.cuda.set_device(self.device)
+        guard = observe.no_retrace() if self._strict and self._warmed \
+            else contextlib.nullcontext()
+        with guard:
+            self._serve()
+
+    def _serve(self):
         while True:
             self._beat()
             with self._host_lock:

@@ -101,8 +101,12 @@ on every drained-victim eviction attempt (all three tagged with the
 replica name). `faults.ChaosSchedule` certifies a scripted sweep
 actually delivered every planned fire.
 
-Waiting in this port: ``ReplicaSet.compile_counts`` (the port runs
-eagerly and has no compile counters yet) and mesh-sharded replicas.
+`ReplicaSet.compile_counts()` / `Router.compile_counts()` give each
+replica's engine counters (`SlotEngine.compile_counts`): the fleet's
+compile invariant is every engine at one decode + one cow compile. The
+per-replica state, restart, heartbeat and breaker gauges are
+`observe.prometheus_text(fleet=router.snapshot())`'s. Waiting in this
+port: mesh-sharded replicas.
 
 Threading/locking: one re-entrant Router lock guards flight state;
 engine done-callbacks run on engine threads and re-enter the Router
@@ -730,6 +734,12 @@ class ReplicaSet:
                        if r.built_at is not None)
             return self._banked_replica_s + live
 
+    def compile_counts(self):
+        """{replica name: engine compile counters} — the fleet compile
+        invariant is every engine at one decode + one cow compile."""
+        return {r.name: (r.engine.compile_counts if r.engine else {})
+                for r in self.replicas}
+
     def queue_depth(self):
         return sum(r.engine.queue.depth for r in self.replicas
                    if r.state == "healthy" and r.engine is not None)
@@ -1040,6 +1050,9 @@ class Router:
     def in_flight(self):
         with self._lock:
             return len(self._flights)
+
+    def compile_counts(self):
+        return self.replica_set.compile_counts()
 
     def kill(self, name, reason="killed (admin/chaos)"):
         return self.replica_set.kill(name, reason)

@@ -1,6 +1,8 @@
 """Serving metrics registry: counters, occupancy, latency percentiles
-(counterpart of paddle_tpu/serving/metrics.py; the Prometheus
-exposition waits for the port's observe/ exporter).
+(counterpart of paddle_tpu/serving/metrics.py). `snapshot()` is the
+JSON view; `observe.prometheus_text(serving=...)` (what
+`Server.metrics_prometheus` and `http_front`'s ``/metrics`` serve)
+exports the same registry as Prometheus text.
 
 Counter names mirror the admission queue's (`submitted`, `accepted`,
 `rejected_queue_full`, `rejected_closed`, `timeouts`, `cancelled`) plus

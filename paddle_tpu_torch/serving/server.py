@@ -22,9 +22,11 @@ same `submit()/generate()` API, plus ``priority=`` and ``tenant=``.
 Extra Router knobs ride in ``fleet=dict(...)``. `http_front` is the
 stdlib HTTP front door over any of them.
 
-Waiting in this port: `metrics_prometheus` (the observe/ exporter),
-`Server.from_predictor` (the inference package) and
-``http_front(ranker=)`` / ``/v1/rank`` (the rec package).
+`metrics_prometheus()` is this server's Prometheus text
+(`observe.prometheus_text`, with the fleet's per-replica gauges in
+fleet mode); `http_front`'s ``GET /metrics`` serves it to scrapers.
+Waiting in this port: `Server.from_predictor` (the inference package)
+and ``http_front(ranker=)`` / ``/v1/rank`` (the rec package).
 """
 
 from __future__ import annotations
@@ -226,18 +228,33 @@ class Server:
     def metrics_json(self, **kw):
         return json.dumps(self.snapshot(), **kw)
 
+    def metrics_prometheus(self):
+        """Prometheus text exposition of this server's metrics unified
+        with the global monitor/timeline/goodput registries
+        (observe.prometheus_text); fleet mode adds the per-replica
+        state/restart/breaker gauges."""
+        from .. import observe
+
+        fleet = self.router.snapshot() if self.router is not None else None
+        return observe.prometheus_text(serving=self.metrics,
+                                       queue_depth=self.queue_depth(),
+                                       fleet=fleet)
+
 
 def http_front(server, host="127.0.0.1", port=0):
     """Stdlib HTTP front door over a `Server`. POST /v1/generate with a
     JSON body ``{"prompt": [ids...], "max_new_tokens": n, ...}`` returns
-    ``{"ids": [...]}``; GET /metrics returns the JSON snapshot and
-    GET /v1/version the model-version view (current / previous ids,
-    rollout state, per-replica version map). Serving errors map to
-    their HTTP status (429 shed, 504 deadline, 503 version retired ...)
-    with a ``Retry-After`` backoff hint on 429 / 503, and every error
-    body says whether the client may retry. A request may carry its
-    tenant as an ``X-Tenant`` header or a ``tenant`` body field (the
-    body wins); a tenant over its token budget gets a 429 whose
+    ``{"ids": [...]}``; GET /metrics returns the JSON snapshot (the
+    Prometheus text of `Server.metrics_prometheus` when the client asks
+    with ``Accept: text/plain`` or openmetrics, or with
+    ``?format=prometheus``) and GET /v1/version the model-version view
+    (current / previous ids, rollout state, per-replica version map).
+    Serving errors map to their HTTP status (429 shed, 504 deadline, 503
+    version retired ...) with a ``Retry-After`` backoff hint on 429 /
+    503, and every error body says whether the client may retry. A
+    request may carry its tenant as an ``X-Tenant`` header or a
+    ``tenant`` body field (the body wins); a tenant over its token
+    budget gets a 429 whose
     ``Retry-After`` is its own bucket's refill time.
 
     Returns the started `ThreadingHTTPServer`; its bound port is
@@ -259,10 +276,28 @@ def http_front(server, host="127.0.0.1", port=0):
             self.end_headers()
             self.wfile.write(body)
 
+        def _reply_text(self, code, text,
+                        ctype="text/plain; version=0.0.4; charset=utf-8"):
+            body = text.encode()
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
         def do_GET(self):
-            path = self.path.partition("?")[0]
+            path, _, query = self.path.partition("?")
             if path == "/metrics":
-                self._reply(200, server.snapshot())
+                # content negotiation: the JSON snapshot by default (a
+                # bare GET keeps working), the Prometheus exposition
+                # when a scraper asks for it
+                accept = self.headers.get("Accept", "")
+                if ("format=prometheus" in query
+                        or "text/plain" in accept
+                        or "openmetrics" in accept):
+                    self._reply_text(200, server.metrics_prometheus())
+                else:
+                    self._reply(200, server.snapshot())
             elif path == "/v1/version":
                 self._reply(200, server.version_info())
             else:

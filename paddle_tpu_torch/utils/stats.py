@@ -1,9 +1,11 @@
 """Shared order-statistics helpers: linear-interpolation percentiles
-(numpy's 'linear' method) for the serving latency series."""
+(numpy's 'linear' method), the one implementation behind both
+`profiler.percentiles` (host-span latencies) and the serving latency
+series."""
 
 from __future__ import annotations
 
-__all__ = ["percentile"]
+__all__ = ["percentile", "percentiles"]
 
 
 def _interp(data, p):
@@ -23,3 +25,16 @@ def percentile(samples, p):
         raise ValueError("no samples")
     return _interp(data, p)
 
+
+
+def percentiles(samples, ps=(50, 95, 99)):
+    """{p: value} over `samples` — one sort shared by every quantile."""
+    data = sorted(samples)
+    if not data:
+        raise ValueError("no samples")
+    out = {}
+    for p in ps:
+        if not 0 <= p <= 100:
+            raise ValueError(f"percentile must be in [0, 100], got {p}")
+        out[p] = _interp(data, p)
+    return out
