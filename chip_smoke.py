@@ -247,6 +247,43 @@ two replica threads launching at once:
     whose checkpoint and restore seconds, the async writes' overlapped
     seconds and the productive seconds must be above 0.
 
+37-40 run last, on gpt2-small at full width (vocab 50304, hidden 768, 12
+layers, 12 heads, max_seq_len 1024, dropout 0.1 / 0.1, use_parallel
+False), random weights from seed 0 that every leg starts from, b8 x
+s1024 of seeded random tokens, bf16 O1; B1-B3 run causal. Each leg's
+B1-B3 counts are set to 0 just before it and read just after it:
+37. The train step as bench_attrib.py configures it: `Engine` with
+    AdamW 1e-4, weight decay 0.01, `GPTPretrainingCriterion`; 2 warm-up
+    and 10 timed steps on a fixed batch: exactly 12 launches a step of
+    each of B1-B3, finite and falling losses, step p50 / p90, tokens/s,
+    MFU (6 P + 12 L H S flops a token at the bf16 peak),
+    `memory_analysis()` (peak > arguments > 0) and one
+    `attribute_step` (B1-B3 in attention with 12 launches each).
+38. recompute=True under FLAGS_remat_policy full, dots_saveable and
+    none, 3 steps each: B1 24 a step under full and dots_saveable (the
+    flash forward is replayed), 12 under none, B2 / B3 12; the first
+    loss bit for bit equal in all three and to 37's; the step's peak
+    memory ordered full < dots_saveable < none.
+39. SGD, Adamax, Adagrad, Adadelta, RMSProp (centered, momentum 0.9),
+    LarsMomentum, Lamb, Adam with L1Decay and a ParamAttr (lr 0.5,
+    L2Decay 1e-4) on the embeddings, AdamW(lr_ratio=), Momentum with
+    ClipGradByValue / ClipGradByNorm and a need_clip=False parameter: 3
+    Engine steps each at full width (finite losses, 12 launches a step
+    of each of B1-B3), then a tiny GPT taking the same 3 steps on the
+    card and on the CPU in f32: losses within rtol 1e-5, each update
+    within 1e-4 of the CPU's in norm (the rules that normalise the
+    gradient turn rounding-level gradients into steps of up to lr).
+40. (a) The eager loop ``loss.backward(); opt.step(); opt.clear_grad()``
+    for 3 steps: its first loss bit for bit 37's. (b)
+    `paddle_tpu_torch.Model` (AdamW on a cosine schedule, the criterion,
+    `Accuracy(topk=(1, 5))`, amp O1): `fit` over 96 sequences (12
+    steps, 2 loader workers, every batch arriving on the card) with 16
+    evaluation sequences and the `ModelCheckpoint` and `LRScheduler`
+    callbacks, `evaluate`, `save`, `load` into a fresh model and
+    `evaluate` again, bit for bit the same; B1-B3 12 a training step
+    (and B1 12 an evaluation batch); the fit's steps/s and the
+    DataLoader's share of its host time.
+
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line
 and ``{"ok": true, "device": {...}}``. Without a CUDA card, or outside a
 checkout of the repository, it exits with status 2 and prints no result.
@@ -4085,6 +4122,575 @@ def phase_batch(card, device="cuda", cfg_kw=None, seq=None, n=64,
     return b1
 
 
+# -- phases 37-40: GPT-2 small training (engine, recompute, optimizers, the
+# eager loop and hapi) --------------------------------------------------------
+
+GPT_BATCH, GPT_SEQ = 8, 1024
+
+
+def _gpt_batch(vocab, n, seq, seed=0):
+    """Seeded random ids and their next tokens as labels."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (n, seq + 1)).astype(np.int64)
+    return ids[:, :-1].copy(), ids[:, 1:].copy()
+
+
+def _flash_counts():
+    from paddle_tpu_torch.ops import fused_ops
+
+    return dict(fused_ops.flash_attention.launches)
+
+
+def _zero_flash():
+    from paddle_tpu_torch.ops import fused_ops
+
+    fused_ops.flash_attention.launches.update(B1=0, B2=0, B3=0)
+
+
+def _gpt_model():
+    """gpt2-small at full width (vocab 50304, max_seq_len 1024, dropout
+    0.1 / 0.1), random weights from seed 0, on the card, and a copy of
+    its initial state there (every leg of 37-40 starts from it)."""
+    import torch
+
+    from paddle_tpu_torch.nlp.transformers import (
+        GPTForPretraining, gpt_config,
+    )
+
+    cfg = gpt_config("gpt2-small", use_parallel=False)
+    model = GPTForPretraining(cfg, device="cuda",
+                              generator=torch.Generator().manual_seed(0))
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return cfg, model, init
+
+
+def _gpt_engine(model, init, opt, cfg, recompute=False, **kw):
+    """`model` reset to `init`, with the config's recompute switch, under
+    an `Engine` of engine seed 0 (the same dropout masks in every leg)."""
+    from paddle_tpu_torch.engine import Engine
+    from paddle_tpu_torch.nlp.transformers import GPTPretrainingCriterion
+
+    model.set_state_dict(init)
+    model.config.recompute = recompute
+    model.train()
+    return Engine(model, opt, GPTPretrainingCriterion(cfg), device="cuda",
+                  seed=0, **kw)
+
+
+def _bf16_step(eng, ids, labels):
+    from paddle_tpu_torch import amp
+
+    with amp.auto_cast(enable=True, dtype="bfloat16"):
+        return eng.train_batch(ids, labels)
+
+
+def phase_gpt_train(card):
+    """Phase 37: GPT-2 small pretraining through `Engine.train_batch` as
+    bench_attrib.py configures it (AdamW 1e-4, weight decay 0.01, bf16
+    O1, b8 x s1024): 2 warm-up and 10 timed steps on a fixed batch (each
+    ends in a synchronise); exactly 12 launches a step of each of B1-B3
+    (causal, dropout 0.1); finite, falling losses; step p50 / p90,
+    tokens/s, MFU by PERF.md's count (6 P + 12 L H S flops a token at
+    the card's bf16 peak), `memory_analysis()` (peak > arguments > 0;
+    measured on the first step as it ran, in bf16, so reading it takes no
+    step), then one `attribute_step` (device time by bucket, B1-B3 in
+    attention with their launches; it replays the last step under that
+    step's own auto_cast policy)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import observe, optimizer
+
+    cfg, model, init = _gpt_model()
+    ids, labels = _gpt_batch(cfg.vocab_size, GPT_BATCH, GPT_SEQ)
+    eng = _gpt_engine(model, init, optimizer.AdamW(
+        1e-4, parameters=model.parameters(), weight_decay=0.01), cfg)
+    losses = [float(_bf16_step(eng, ids, labels)) for _ in range(2)]
+    torch.cuda.synchronize()
+    _zero_flash()
+    times = []
+    n = 10
+    with observe.no_retrace():
+        for _ in range(n):
+            t0 = time.perf_counter()
+            loss = _bf16_step(eng, ids, labels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+    launches = _flash_counts()
+    L = cfg.num_layers
+    _check(launches == {"B1": L * n, "B2": L * n, "B3": L * n},
+           f"gpt2-small: launches over {n} steps {launches}")
+    _check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    _check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    step0 = eng.state.step
+    mem = eng.memory_analysis()
+    _check(mem["peak"] > mem["arguments"] > 0, f"memory_analysis {mem}")
+    _check(eng.memory_analysis() == mem and eng.state.step == step0,
+           "memory_analysis ran a step or changed its reading")
+    n_params = sum(p.numel() for p in eng.state.params.values())
+    flops_tok = 6.0 * n_params + 12.0 * L * cfg.hidden_size * GPT_SEQ
+    step_s = float(np.median(times))
+    tok_s = GPT_BATCH * GPT_SEQ / step_s
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_gpt_attrib_")
+    try:
+        with observe.no_retrace():
+            rep = eng.attribute_step(logdir=logdir, steps=1, top=1 << 30)
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    ids_seen = {}
+    for r in rep["top_ops"]:
+        _bucket, kid = observe.classify_kernel(r["name"])
+        if kid in ("B1", "B2", "B3"):
+            _check(r["bucket"] == "attention",
+                   f"gpt2-small: {kid} in {r['bucket']}")
+            ids_seen[kid] = ids_seen.get(kid, 0) + r["calls"]
+    _check(ids_seen == {"B1": L, "B2": L, "B3": L},
+           f"gpt2-small attribute_step: kernel launches {ids_seen}")
+    out = {
+        "train": "gpt2-small b8 s1024 bf16 dropout 0.1 AdamW", "card": card,
+        "steps": n, "step_ms_p50": step_s * 1e3,
+        "step_ms_p90": float(np.percentile(times, 90)) * 1e3,
+        "tokens_per_s": tok_s, "params": n_params,
+        "mfu": flops_tok * tok_s / _peaks(card)[3], "losses": losses,
+        "launches_per_step": {k: c / n for k, c in launches.items()},
+        "memory_analysis": mem,
+        "attribute_ms_per_step": {b: us / 1e3
+                                  for b, us in rep["buckets"].items()},
+        "attribute_total_ms": rep["total_us"] / 1e3,
+        "attribute_top_rows": [{"name": r["name"][:90],
+                                "bucket": r["bucket"],
+                                "ms": r["total"] / 1e3}
+                               for r in rep["top_ops"][:8]],
+    }
+    print(json.dumps(out), flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return out, (cfg, model, init, ids, labels)
+
+
+def phase_gpt_recompute(card, gpt, first_loss):
+    """Phase 38: recompute=True under FLAGS_remat_policy full,
+    dots_saveable and none, 3 steps each from the same weights, seed and
+    batch. B1 launches 24 a step under full and dots_saveable (the flash
+    forward is not an aten matmul, so it is replayed in the backward) and
+    12 under none; B2 / B3 12 a step. The first step's loss is bit for
+    bit the same in all three and equal to phase 37's; the step's peak
+    memory (`memory_analysis`, measured on each leg's first bf16 step) is
+    ordered full < dots_saveable < none."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.framework.flags import set_flags
+
+    cfg, model, init, ids, labels = gpt
+    L, n = cfg.num_layers, 3
+    legs = {}
+    try:
+        for policy, b1 in (("full", 2 * L), ("dots_saveable", 2 * L),
+                           ("none", L)):
+            set_flags({"FLAGS_remat_policy": policy})
+            eng = _gpt_engine(model, init, optimizer.AdamW(
+                1e-4, parameters=model.parameters(), weight_decay=0.01), cfg,
+                recompute=True)
+            torch.cuda.synchronize()
+            _zero_flash()
+            t0 = time.perf_counter()
+            losses = [float(_bf16_step(eng, ids, labels)) for _ in range(n)]
+            wall = time.perf_counter() - t0
+            launches = _flash_counts()
+            want = {"B1": b1 * n, "B2": L * n, "B3": L * n}
+            _check(launches == want,
+                   f"recompute {policy}: launches {launches}, want {want}")
+            _check(all(np.isfinite(losses)), f"{policy}: losses {losses}")
+            mem = eng.memory_analysis()
+            legs[policy] = {"losses": losses, "launches": launches,
+                            "step_ms_mean": wall / n * 1e3,
+                            "peak_bytes": mem["peak"],
+                            "temps_bytes": mem["temps"]}
+            del eng
+            torch.cuda.empty_cache()
+    finally:
+        set_flags({"FLAGS_remat_policy": "auto"})
+        model.config.recompute = False
+    firsts = [leg["losses"][0] for leg in legs.values()]
+    _check(all(f == first_loss for f in firsts),
+           f"first-step losses {firsts} vs phase 37's {first_loss}")
+    peaks = [legs[p]["peak_bytes"] for p in ("full", "dots_saveable",
+                                             "none")]
+    _check(peaks[0] < peaks[1] < peaks[2],
+           f"peak memory not ordered full < dots_saveable < none: {peaks}")
+    print(json.dumps({"gpt_recompute": legs, "card": card,
+                      "first_loss_bitwise": True}), flush=True)
+    return {k: sum(leg["launches"][k] for leg in legs.values())
+            for k in ("B1", "B2", "B3")}
+
+
+def _tiny_gpt_values(seed=3):
+    """A tiny GPT's config (vocab 128, hidden 64 in 2 heads of 32, the
+    flash kernels' smallest head, 2 layers, seq 16, dropout 0) and a
+    batch of 4 sequences."""
+    from paddle_tpu_torch.nlp.transformers import GPTConfig
+
+    cfg = GPTConfig(vocab_size=128, hidden_size=64, num_layers=2,
+                    num_heads=2, max_seq_len=16, dropout=0.0,
+                    attn_dropout=0.0, use_parallel=False)
+    ids, labels = _gpt_batch(128, 4, 16, seed=seed)
+    return cfg, ids, labels
+
+
+TINY_LR = 1e-3
+
+
+def _split_key_bias(name, a):
+    """(the parameter without the key third of a qkv bias, that third or
+    None)."""
+    import numpy as np
+
+    if not name.endswith("qkv_proj.bias"):
+        return a, None
+    h = a.shape[0] // 3
+    return np.concatenate([a[:h], a[2 * h:]]), a[h:2 * h]
+
+
+def _opt_cases():
+    """(name, optimizer factory(params, lr), switch) for phase 39;
+    `switch(model, on)` sets or clears the case's parameter attributes
+    (the embeddings' ParamAttr, a need_clip=False parameter)."""
+    from paddle_tpu_torch import ParamAttr, nn, optimizer as O
+    from paddle_tpu_torch.clip import ClipGradByNorm, ClipGradByValue
+    from paddle_tpu_torch.regularizer import L1Decay, L2Decay
+
+    def embeddings_attr(model, on):
+        """The embeddings rebuilt through `create_parameter` with a
+        ParamAttr (lr 0.5, L2Decay 1e-4), their weights kept; off puts
+        the plain ones back."""
+        emb = model.gpt.embeddings
+        if on:
+            emb._plain = (emb.word_embeddings, emb.position_embeddings)
+            for attr in ("word_embeddings", "position_embeddings"):
+                old = getattr(emb, attr)
+                new = nn.Embedding(*old.weight.shape, weight_attr=ParamAttr(
+                    learning_rate=0.5, regularizer=L2Decay(1e-4)))
+                new.to(old.weight.device).weight.data.copy_(old.weight)
+                setattr(emb, attr, new)
+        else:
+            emb.word_embeddings, emb.position_embeddings = emb._plain
+
+    def no_clip(model, on):
+        model.gpt.final_norm.weight.need_clip = not on
+
+    def none(model, on):
+        pass
+
+    return [
+        ("SGD", lambda ps, lr: O.SGD(lr, parameters=ps), none),
+        ("Adamax", lambda ps, lr: O.Adamax(lr, parameters=ps), none),
+        ("Adagrad", lambda ps, lr: O.Adagrad(lr, parameters=ps), none),
+        ("Adadelta", lambda ps, lr: O.Adadelta(lr, parameters=ps), none),
+        ("RMSProp", lambda ps, lr: O.RMSProp(
+            lr, centered=True, momentum=0.9, parameters=ps), none),
+        ("LarsMomentum", lambda ps, lr: O.LarsMomentum(
+            lr, parameters=ps), none),
+        ("Lamb", lambda ps, lr: O.Lamb(lr, parameters=ps), none),
+        ("Adam_L1_ParamAttr", lambda ps, lr: O.Adam(
+            lr, parameters=ps, weight_decay=L1Decay(1e-4)), embeddings_attr),
+        ("AdamW_lr_ratio", lambda ps, lr: O.AdamW(
+            lr, parameters=ps, lr_ratio=lambda p: 0.5), none),
+        ("Momentum_ClipGradByValue", lambda ps, lr: O.Momentum(
+            lr, parameters=ps, grad_clip=ClipGradByValue(1e-3)), no_clip),
+        ("Momentum_ClipGradByNorm", lambda ps, lr: O.Momentum(
+            lr, parameters=ps, grad_clip=ClipGradByNorm(1e-2)), no_clip),
+    ]
+
+
+def phase_gpt_optimizers(card, gpt):
+    """Phase 39: each remaining rule at full width, 3 Engine steps from
+    the initial weights (bf16 O1, the same batch), finite losses and 12
+    launches a step of each of B1-B3. Then a tiny GPT with the same
+    weights takes the same 3 steps on the card and on the CPU in f32
+    (TF32 off): losses within rtol 1e-5, and each parameter's update
+    within 1e-4 of the CPU's in norm. Not elementwise at 1e-5 / 1e-6:
+    the rules that normalise the gradient (Adam's family, Adagrad,
+    Adadelta, RMSProp, LARS, Lamb) turn an element whose gradient is
+    within rounding of 0 into a step of up to lr, and the card and the
+    CPU round differently; the key third of each qkv bias, whose true
+    gradient is 0, is held to 2 lr a step."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.engine import Engine
+    from paddle_tpu_torch.nlp.transformers import (
+        GPTForPretraining, GPTPretrainingCriterion,
+    )
+
+    cfg, model, init, ids, labels = gpt
+    L = cfg.num_layers
+    tcfg, tids, tlabels = _tiny_gpt_values()
+    out, total = {}, {"B1": 0, "B2": 0, "B3": 0}
+    for name, make, switch in _opt_cases():
+        model.set_state_dict(init)
+        switch(model, True)
+        try:
+            eng = _gpt_engine(model, init, make(model.parameters(), 1e-4),
+                              cfg)
+            _zero_flash()
+            losses = [float(_bf16_step(eng, ids, labels)) for _ in range(3)]
+            launches = _flash_counts()
+            _check(launches == {"B1": 3 * L, "B2": 3 * L, "B3": 3 * L},
+                   f"{name}: launches {launches}")
+            _check(all(np.isfinite(losses)), f"{name}: losses {losses}")
+            for k in total:
+                total[k] += launches[k]
+            del eng
+        finally:
+            switch(model, False)
+        # the tiny model, card against CPU in f32
+        params, tiny_losses = {}, {}
+        for dev in ("cuda", "cpu"):
+            tiny = GPTForPretraining(
+                tcfg, device=dev, generator=torch.Generator().manual_seed(5))
+            p0 = {k: p.detach().cpu().numpy().copy()
+                  for k, p in tiny.named_parameters()}
+            switch(tiny, True)
+            eng = Engine(tiny, make(tiny.parameters(), TINY_LR),
+                         GPTPretrainingCriterion(tcfg), device=dev, seed=0)
+            tiny_losses[dev] = [float(eng.train_batch(tids, tlabels))
+                                for _ in range(3)]
+            switch(tiny, False)
+            params[dev] = {k: p.detach().cpu().numpy()
+                           for k, p in tiny.named_parameters()}
+        np.testing.assert_allclose(tiny_losses["cuda"], tiny_losses["cpu"],
+                                   rtol=1e-5, err_msg=name)
+        err = rel = 0.0
+        off = size = 0      # elements outside rtol 1e-5 / atol 1e-6
+        for k, want in params["cpu"].items():
+            (got, got_key), (want, want_key), (v0, _) = (
+                _split_key_bias(k, a) for a in (params["cuda"][k], want,
+                                                p0[k]))
+            moved = np.linalg.norm(want - v0)
+            dev_ = np.linalg.norm((got - v0) - (want - v0))
+            _check(dev_ <= 1e-4 * moved + 1e-7,
+                   f"{name}: {k}: the card's update is {dev_} off the "
+                   f"CPU's (which moved {moved})")
+            if want_key is not None:
+                _check(np.abs(got_key - want_key).max() <=
+                       2 * TINY_LR * 3 * 1.01, f"{name}: {k} key bias")
+            err = max(err, float(np.abs(got - want).max()))
+            rel = max(rel, float(dev_ / max(moved, 1e-30)))
+            off += int(np.sum(~np.isclose(got, want, rtol=1e-5, atol=1e-6)))
+            size += got.size
+        out[name] = {"losses": losses, "tiny_losses": tiny_losses,
+                     "tiny_max_abs_err": err, "tiny_max_update_rel_dev": rel,
+                     "tiny_elements_off_1e-5": [off, size]}
+    torch.cuda.empty_cache()
+    print(json.dumps({"gpt_optimizers": out, "card": card}), flush=True)
+    return total
+
+
+def _fit_clock():
+    """A hapi callback timing each training batch on the host clock."""
+    from paddle_tpu_torch.callbacks import Callback
+
+    class FitClock(Callback):
+        def __init__(self):
+            super().__init__()
+            self.batch_s = []
+            self._t0 = None
+
+        def on_train_batch_begin(self, step, logs=None):
+            self._t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            self.batch_s.append(time.perf_counter() - self._t0)
+
+    return FitClock()
+
+
+def _timed_loader_cls():
+    """A DataLoader that times each batch handed out and checks that
+    every leaf of it lies on the card."""
+    import torch
+
+    from paddle_tpu_torch.io import DataLoader
+
+    class TimedLoader(DataLoader):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.wait_s = 0.0
+            self.batches = 0
+
+        def __iter__(self):
+            it = super().__iter__()
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                self.wait_s += time.perf_counter() - t0
+                self.batches += 1
+                leaves = batch if isinstance(batch, (list, tuple)) \
+                    else [batch]
+                _check(all(isinstance(t, torch.Tensor) and t.is_cuda
+                           for t in leaves),
+                       "a DataLoader batch did not arrive on the card")
+                yield batch
+
+    return TimedLoader
+
+
+def phase_gpt_eager_hapi(card, gpt, first_loss):
+    """Phase 40: (a) the eager loop ``loss.backward(); opt.step();
+    opt.clear_grad()`` for 3 steps from the initial weights (the
+    engine's seed installed for dropout, bf16 O1): its first loss equals
+    phase 37's bit for bit, the losses are finite, 12 launches a step of
+    each of B1-B3. (b) `paddle_tpu_torch.Model` with AdamW (a cosine
+    schedule), `GPTPretrainingCriterion`, `Accuracy(topk=(1, 5))` and
+    amp O1: `fit` over 96 sequences (12 steps, batch 8, 2 workers, the
+    batches double-buffered onto the card) with 16 evaluation sequences
+    and the `ModelCheckpoint` and `LRScheduler` callbacks, then
+    `evaluate`, `save`, `load` into a fresh model and `evaluate` again:
+    the two evaluations equal bit for bit; B1-B3 12 a training step
+    (B1 12 more per evaluation batch). Prints the fit's steps/s and the
+    DataLoader's share of the fit's host time."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import Model, amp, optimizer
+    from paddle_tpu_torch import callbacks as cbs
+    from paddle_tpu_torch import load as pload
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.nlp.transformers import (
+        GPTForPretraining, GPTPretrainingCriterion,
+    )
+
+    cfg, model, init, ids, labels = gpt
+    L = cfg.num_layers
+    # (a) the eager loop
+    model.set_state_dict(init)
+    model.train()
+    opt = optimizer.AdamW(1e-4, parameters=model.parameters(),
+                          weight_decay=0.01)
+    crit = GPTPretrainingCriterion(cfg)
+    x = torch.as_tensor(ids, device="cuda")
+    y = torch.as_tensor(labels, device="cuda")
+    _zero_flash()
+    eager = []
+    with prandom.rng_scope(prandom.RngState(0, x.device)):
+        for _ in range(3):
+            with amp.auto_cast(enable=True, dtype="bfloat16"):
+                loss = crit(model(x), y).float()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            eager.append(float(loss))
+    eager_launches = _flash_counts()
+    _check(eager_launches == {"B1": 3 * L, "B2": 3 * L, "B3": 3 * L},
+           f"eager loop: launches {eager_launches}")
+    _check(all(np.isfinite(eager)), f"eager losses {eager}")
+    _check(eager[0] == first_loss,
+           f"eager first loss {eager[0]} vs phase 37's {first_loss}")
+    del opt, loss
+    torch.cuda.empty_cache()
+
+    # (b) hapi
+    model.set_state_dict(init)
+    n_train, n_eval = 96, 16
+    train_ids, train_labels = _gpt_batch(cfg.vocab_size, n_train, GPT_SEQ,
+                                         11)
+    eval_ids, eval_labels = _gpt_batch(cfg.vocab_size, n_eval, GPT_SEQ, 12)
+    Loader = _timed_loader_cls()
+    train = Loader(TensorDataset([train_ids, train_labels]), places="cuda",
+                   batch_size=GPT_BATCH, shuffle=True, num_workers=2)
+    evald = TensorDataset([eval_ids, eval_labels])
+
+    def prepared(net):
+        sched = optimizer.lr.CosineAnnealingDecay(
+            1e-4, T_max=n_train // GPT_BATCH)
+        return Model(net).prepare(
+            optimizer.AdamW(sched, parameters=net.parameters(),
+                            weight_decay=0.01),
+            GPTPretrainingCriterion(cfg), metrics=Accuracy(topk=(1, 5)),
+            amp_configs="O1")
+
+    hapi = prepared(model)
+    clock = _fit_clock()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hapi_")
+    try:
+        _zero_flash()
+        t0 = time.perf_counter()
+        hapi.fit(train, eval_data=evald, batch_size=GPT_BATCH, epochs=1,
+                 verbose=0, num_workers=2,
+                 callbacks=[clock, cbs.ModelCheckpoint(save_dir=tmp),
+                            cbs.LRScheduler()])
+        fit_s = time.perf_counter() - t0
+        fit_launches = _flash_counts()
+        steps = len(clock.batch_s)
+        _check(steps == n_train // GPT_BATCH == train.batches,
+               f"fit took {steps} steps over {train.batches} batches")
+        want = {"B1": L * (steps + n_eval // GPT_BATCH), "B2": L * steps,
+                "B3": L * steps}
+        _check(fit_launches == want,
+               f"fit: launches {fit_launches}, want {want}")
+        t0 = time.perf_counter()
+        logs = hapi.evaluate(evald, batch_size=GPT_BATCH, verbose=0)
+        eval_s = time.perf_counter() - t0
+        path = f"{tmp}/gpt2"
+        t0 = time.perf_counter()
+        hapi.save(path)
+        save_s = time.perf_counter() - t0
+        fresh = GPTForPretraining(cfg, device="cuda",
+                                  generator=torch.Generator().manual_seed(1))
+        again = prepared(fresh)
+        t0 = time.perf_counter()
+        again.load(path)
+        load_s = time.perf_counter() - t0
+        logs2 = again.evaluate(evald, batch_size=GPT_BATCH, verbose=0)
+        pdopt = sorted(pload(path + ".pdopt"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _check(set(logs) == {"eval_loss", "eval_acc_top1", "eval_acc_top5"},
+           f"evaluate logs {logs}")
+    _check(logs == logs2, f"evaluate after the reload {logs2} vs {logs}")
+    _check(all(np.isfinite(list(logs.values()))), f"eval logs {logs}")
+    train_s = sum(clock.batch_s)
+    out = {"gpt_eager": {"losses": eager, "first_loss_bitwise": True,
+                         "launches": eager_launches},
+           "gpt_hapi": {
+               "card": card, "fit_steps": steps, "fit_s": fit_s,
+               "fit_steps_per_s": steps / train_s,
+               "fit_step_ms_p50": float(np.median(clock.batch_s)) * 1e3,
+               "loader_wait_s": train.wait_s,
+               "loader_share_of_fit_host_time": train.wait_s / fit_s,
+               "evaluate_s": eval_s, "save_s": save_s, "load_s": load_s,
+               "eval_logs": logs, "eval_bitwise_after_reload": True,
+               "pdopt_keys": pdopt, "launches": fit_launches}}
+    print(json.dumps(out), flush=True)
+    del hapi, again, fresh
+    torch.cuda.empty_cache()
+    return {k: eager_launches[k] + fit_launches[k] for k in eager_launches}
+
+
+def phase_gpt_all(card):
+    """Phases 37-40 on one gpt2-small; returns B1-B3's launches by
+    phase."""
+    leg, gpt = phase_gpt_train(card)
+    first = leg["losses"][0]
+    launches = {"train_37": {k: int(v * leg["steps"])
+                             for k, v in leg["launches_per_step"].items()}}
+    launches["recompute_38"] = phase_gpt_recompute(card, gpt, first)
+    launches["optimizers_39"] = phase_gpt_optimizers(card, gpt)
+    launches["eager_hapi_40"] = phase_gpt_eager_hapi(card, gpt, first)
+    return launches
+
+
+
 def main():
     try:
         import torch
@@ -4282,6 +4888,14 @@ def main():
     for key, n in resume["launches"].items():
         rows[key]["ckpt_leg_launches"] = n
     rows["B10"]["ckpt_leg_launches"] = rollback["b10_launches"]
+    # GPT-2 small training: the engine, recompute, the optimizers, the
+    # eager loop and hapi (phases 37-40)
+    gpt_launches = timed("gpt_train", phase_gpt_all, card)
+    for key in ("B1", "B2", "B3"):
+        rows[key]["gpt_train_launches"] = {
+            phase: leg[key] for phase, leg in gpt_launches.items()}
+        rows[key]["launches"] += sum(leg[key] for leg in
+                                     gpt_launches.values())
     for key, row in rows.items():
         _check(row["launches"] > 0, f"{key} never ran on the path")
     print(json.dumps({"total_s": time.monotonic() - t_start}), flush=True)

@@ -19,9 +19,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .framework.io import load, save
 from .framework.random import seed
+from .param_attr import ParamAttr
 
-__all__ = ["seed", "default_device", "resolve_device", "to_tensor"]
+__all__ = ["seed", "default_device", "resolve_device", "to_tensor", "save",
+           "load", "ParamAttr", "Model"]
 
 # the reference computes in float32: keep cuBLAS and cuDNN off TF32
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -55,3 +58,12 @@ def to_tensor(data, dtype=None, device=None):
     if isinstance(data, torch.Tensor):
         return data.detach().to(device=dev, dtype=dtype, copy=True)
     return torch.as_tensor(np.array(data), dtype=dtype, device=dev)
+
+
+def __getattr__(name):
+    # paddle.Model, imported on first use (it pulls in the engine)
+    if name == "Model":
+        from .hapi import Model
+
+        return Model
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

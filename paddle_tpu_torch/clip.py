@@ -1,6 +1,14 @@
-"""Gradient clipping (counterpart of paddle_tpu/clip.py): the global-norm
-clipper the engine applies to the ``{name: grad}`` dict after weight
-decay and before the update."""
+"""Gradient clipping (counterpart of paddle_tpu/clip.py).
+
+Each clipper has two faces: ``clip(params_grads)`` over ``(param,
+grad)`` pairs, which the eager optimizer calls, and ``_clip_fn(grads,
+params=None)`` over the engine's ``{name: grad}`` dict after weight
+decay and before the update, which pairs each gradient with its
+parameter from `params` (``{name: Parameter}``) and clips the pairs.
+A parameter whose ``need_clip`` is False (a `ParamAttr` of
+``need_clip=False``) is left as it is, and `ClipGradByGlobalNorm` leaves
+it out of the norm.
+"""
 
 from __future__ import annotations
 
@@ -8,10 +16,56 @@ import torch
 
 from .ops.quant_ops import true_div
 
-__all__ = ["ClipGradByGlobalNorm"]
+__all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm",
+           "ClipGradByGlobalNorm", "GradientClipByValue",
+           "GradientClipByNorm", "GradientClipByGlobalNorm"]
 
 
-class ClipGradByGlobalNorm:
+def _clips(p):
+    return getattr(p, "need_clip", True)
+
+
+class ClipGradBase:
+    def _clip_one(self, g):
+        raise NotImplementedError
+
+    def __call__(self, params_grads):
+        return [(p, g) if g is None or not _clips(p) else
+                (p, self._clip_one(g)) for p, g in params_grads]
+
+    def _clip_fn(self, grads, params=None):
+        params = params or {}
+        pairs = self([(params.get(k), g) for k, g in grads.items()])
+        return {k: g for k, (_, g) in zip(grads, pairs)}
+
+
+class ClipGradByValue(ClipGradBase):
+    """Clamp every gradient element to ``[min, max]`` (min defaults to
+    ``-max``)."""
+
+    def __init__(self, max, min=None):
+        self.max = float(max)
+        self.min = float(min) if min is not None else -self.max
+
+    def _clip_one(self, g):
+        return torch.clamp(g, self.min, self.max)
+
+
+class ClipGradByNorm(ClipGradBase):
+    """Scale each gradient by ``min(clip_norm / max(||g||, 1e-12), 1)``,
+    its own l2 norm."""
+
+    def __init__(self, clip_norm):
+        self.clip_norm = float(clip_norm)
+
+    def _clip_one(self, g):
+        norm = torch.sqrt(torch.sum(torch.square(g)))
+        scale = torch.clamp_max(
+            true_div(self.clip_norm, torch.clamp_min(norm, 1e-12)), 1.0)
+        return g * scale
+
+
+class ClipGradByGlobalNorm(ClipGradBase):
     """Scale every gradient by ``clip_norm / max(global_norm,
     clip_norm)``, the global norm taken in float32 over all of them."""
 
@@ -19,10 +73,22 @@ class ClipGradByGlobalNorm:
         self.clip_norm = float(clip_norm)
         self.group_name = group_name
 
-    def _clip_fn(self, grads):
-        sq = sum(torch.sum(torch.square(g.float())) for g in grads.values())
+    def _scale(self, grads):
+        if not grads:
+            return torch.ones(())
+        sq = sum(torch.sum(torch.square(g.float())) for g in grads)
         global_norm = torch.sqrt(sq)
-        scale = true_div(self.clip_norm,
-                         torch.clamp_min(global_norm, self.clip_norm))
-        return {k: g * scale.to(g.dtype) for k, g in grads.items()}
+        return true_div(self.clip_norm,
+                        torch.clamp_min(global_norm, self.clip_norm))
 
+    def __call__(self, params_grads):
+        scale = self._scale([g for p, g in params_grads
+                             if g is not None and _clips(p)])
+        return [(p, g) if g is None or not _clips(p) else
+                (p, g * scale.to(g.dtype)) for p, g in params_grads]
+
+
+# legacy aliases (fluid names)
+GradientClipByValue = ClipGradByValue
+GradientClipByNorm = ClipGradByNorm
+GradientClipByGlobalNorm = ClipGradByGlobalNorm

@@ -1,3 +1,5 @@
 """Fleet utilities ported so far: activation recomputation."""
 
-from .recompute import RecomputeSequential, recompute  # noqa: F401
+from .recompute import (  # noqa: F401
+    RecomputeSequential, recompute, remat_wrapper,
+)

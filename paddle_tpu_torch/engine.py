@@ -57,6 +57,13 @@ tensors until a dump. Meshes, ZeRO and buffer donation are not ported.
 updated in place) and the optimizer state under the reference's names,
 keyed by the parameters' structured names; a tied table appears once.
 Frozen parameters (``requires_grad`` False) sit in ``state.buffers``.
+Each parameter's update metadata (its regularizer, learning-rate
+multiplier and name-based overrides: ``optimizer._leaf_meta``) and
+whether clipping applies to it (``need_clip``) are read from the
+parameter itself at construction. `memory_analysis` reports the device
+memory of the first step at each batch signature and precision,
+measured on the card as that step runs; `make_eval_step` is the
+forward in eval mode without autograd.
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ import time
 import numpy as np
 import torch
 
+from . import amp as _amp
 from . import observe as _observe
 from . import profiler as _profiler
 from . import resolve_device
@@ -75,7 +83,8 @@ from .framework import monitor as _monitor
 from .framework import random as _random
 from .ops import lowp as _lowp
 
-__all__ = ["Engine", "TrainState", "LOSS_SCALE_KEY", "GOOD_STEPS_KEY",
+__all__ = ["Engine", "TrainState", "make_eval_step", "LOSS_SCALE_KEY",
+           "GOOD_STEPS_KEY",
            "BAD_STEPS_KEY", "ANOMALY_BAD_STEPS_KEY", "GRAD_NORM_KEY",
            "LOWP_SCALE_KEY", "DEFAULT_SCALE_CONFIG"]
 
@@ -98,6 +107,55 @@ DEFAULT_SCALE_CONFIG = dict(
 def _all_finite(tensors):
     """One device bool: every element of every tensor is finite."""
     return torch.stack([torch.isfinite(t).all() for t in tensors]).all()
+
+
+def _storage_bytes(tensors):
+    """Bytes of the distinct CUDA storages behind `tensors`."""
+    seen = {}
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.is_cuda:
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def _precision_key(policy):
+    """A hashable form of an `amp.policy()` (None when auto_cast is
+    off)."""
+    if policy is None:
+        return None
+    dtype, white, black = policy
+    return dtype, frozenset(white), frozenset(black)
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+
+
+def make_eval_step(layer):
+    """``eval_fn(values, *inputs)``: the layer's forward with its
+    parameters and buffers taken from `values` (``{structured name:
+    tensor}``; names left out keep the layer's own), in eval mode and
+    without autograd; the layer's training flag is restored
+    afterwards."""
+    def eval_fn(values, *inputs):
+        was_training = layer.training
+        layer.eval()
+        try:
+            with torch.no_grad():
+                return torch.func.functional_call(layer, values, inputs)
+        finally:
+            if was_training:
+                layer.train()
+
+    return eval_fn
 
 
 class TrainState:
@@ -137,11 +195,10 @@ class Engine:
             params,
             {k: optimizer._init_state(p) for k, p in params.items()},
             buffers)
-        self._metas = {k: optimizer._leaf_meta(k) for k in params}
+        self._metas = {k: optimizer._leaf_meta(p) for k, p in params.items()}
         if seed is None:
             seed = int(torch.randint(0, 2 ** 62, ()))
         self.rng = _random.RngState(seed, self.device)
-        self._lr = (None, None)     # (value, its float32 device scalar)
         self.loss_scale = loss_scale
         self.anomaly_guard = anomaly_guard
         self._scale_cfg = dict(DEFAULT_SCALE_CONFIG)
@@ -171,7 +228,9 @@ class Engine:
                                               device=self.device)
         self._ckpt_manager = None
         self._batch_sigs = set()    # batch signatures stepped so far
-        self._last_batch = None
+        self._last_batch = None     # (inputs, labels, amp policy)
+        self._mem = {}              # (signature, precision) -> analysis
+        self._mem_key = None        # the last step's key into _mem
         if _lowp.mode() != "off":
             from .quantization.scaling import init_scale_state
 
@@ -200,9 +259,10 @@ class Engine:
                 inputs = (inputs,)
             if not isinstance(labels, (list, tuple)):
                 labels = (labels,)
-            # kept (host references) so attribute_step can replay the
-            # live step shape under a capture
-            self._last_batch = (inputs, labels)
+            # kept (host references, and the step's precision) so
+            # attribute_step can replay the live step under a capture
+            amp_policy = _amp.policy()
+            self._last_batch = (inputs, labels, amp_policy)
             # a scheduled 'nan' fault poisons the float leaves of the
             # HOST batch: the deterministic way to exercise the guard
             batch = _faults.fault_point("train.batch",
@@ -211,6 +271,8 @@ class Engine:
             inputs = [self._tensor(x) for x in batch["inputs"]]
             labels = [self._tensor(x) for x in batch["labels"]]
         compiling = sig not in self._batch_sigs
+        mem_key = (sig, _precision_key(amp_policy))
+        measure = self.device.type == "cuda" and mem_key not in self._mem
         t_fn0 = time.perf_counter()
         with _observe.phase("compile" if compiling else "device-step"):
             if compiling:
@@ -218,7 +280,13 @@ class Engine:
                 # changes, so the engine steps on at its old shapes
                 _observe.record_compile("train_step", signature=sig)
                 self._batch_sigs.add(sig)
+            if measure:
+                other = self._start_peak([*inputs, *labels])
             loss = self._step(inputs, labels)
+            if measure:
+                self._mem[mem_key] = self._read_peak(other, inputs, labels,
+                                                     loss)
+        self._mem_key = mem_key
         if compiling:
             _observe.annotate("train_step",
                               wall_s=time.perf_counter() - t_fn0)
@@ -286,15 +354,11 @@ class Engine:
         opt = self.optimizer
         grads = opt.decay_gradients(params, grads, self._metas)
         if self._grad_clip is not None:
-            grads = self._grad_clip._clip_fn(grads)
-        lr = opt.get_lr()
-        if self._lr[0] != lr:
-            # torch.full passes the value as a kernel argument: a new
-            # rate (an LR scheduler's) never waits for the card
-            self._lr = (lr, torch.full((), lr, dtype=torch.float32,
-                                       device=self.device))
+            grads = self._grad_clip._clip_fn(grads, params)
+        # made by torch.full, which passes the value as a kernel
+        # argument: a new rate (an LR scheduler's) never waits for the card
         opt.apply_gradients(params, grads, self.state.opt_state,
-                            self._lr[1], self._metas, keep)
+                            opt._lr_scalar(self.device), self._metas, keep)
         if self.anomaly_guard:
             with torch.no_grad():
                 for k, b in model_bufs.items():
@@ -316,6 +380,65 @@ class Engine:
             self._update_scale(finite)
         return loss.detach()
 
+    def sync_to_layer(self):
+        """Make the layer current with the engine's state. The engine
+        trains the layer's own parameters in place, so there is nothing
+        to copy."""
+
+    def _resident_bytes(self):
+        st = self.state
+        return _storage_bytes(_leaves([st.params, st.opt_state,
+                                       st.buffers]))
+
+    def _start_peak(self, batch):
+        """Open a measurement of the next step's device memory: the
+        bytes allocated that are neither the engine's state nor the
+        step's batch on the card, then a reset of the peak. The
+        allocator's counts move as ops are issued, so neither this nor
+        `_read_peak` waits for the card."""
+        other = (torch.cuda.memory_allocated(self.device)
+                 - self._resident_bytes() - _storage_bytes(batch))
+        torch.cuda.reset_peak_memory_stats(self.device)
+        return other
+
+    def _read_peak(self, other, inputs, labels, loss):
+        resident = self._resident_bytes()
+        peak = torch.cuda.max_memory_allocated(self.device) - other
+        arguments = resident + sum(t.numel() * t.element_size()
+                                   for t in (*inputs, *labels))
+        return {"arguments": arguments, "temps": max(peak - arguments, 0),
+                "outputs": resident + loss.numel() * loss.element_size(),
+                "alias": resident, "generated_code": 0, "peak": peak,
+                "host_arguments": 0, "host_temps": 0, "host_outputs": 0}
+
+    def memory_analysis(self):
+        """The device memory of one training step, in bytes, under the
+        reference's keys, MEASURED on the card. The first real step of
+        each batch signature and precision (auto_cast policy) is taken
+        under ``torch.cuda.reset_peak_memory_stats`` /
+        ``max_memory_allocated`` and its result kept; this returns the
+        one of the last step's signature and precision, and itself runs
+        no step, so it changes no state. ``arguments`` is the resident
+        state (parameters, optimizer state, buffers) plus the batch on
+        the card; ``peak`` the step's high-water mark above the
+        allocations that are not the engine's; ``temps`` the
+        activations and workspace above the arguments; ``outputs`` the
+        state the step writes plus its loss, and ``alias`` the part of
+        it written in place over the arguments (all of the state). No
+        step program is compiled (``generated_code`` 0) and no state
+        rests in host memory (the ``host_*`` three 0). Raises before the
+        first step, and on an engine that does not run on a card."""
+        if self._last_batch is None:
+            raise RuntimeError("run train_batch() once first")
+        if self.device.type != "cuda":
+            raise RuntimeError(
+                "memory_analysis measures the card's allocator "
+                f"(torch.cuda); this engine runs on {self.device}")
+        out = dict(self._mem[self._mem_key])
+        _monitor.stat_max("device_mem_step_peak_bytes", out["peak"])
+        _observe.annotate("train_step", peak_bytes=out["peak"])
+        return out
+
     def attribute_step(self, logdir=None, steps=1, top=10):
         """Where does the device time of a training step go?  Captures a
         `profiler` trace of `steps` replays of the LAST train_batch
@@ -324,7 +447,8 @@ class Engine:
         device time into matmul / attention / collective / elementwise /
         other buckets (observe.attribute). Returns the report (buckets,
         fractions, total_us, top_ops); the capture stays under
-        `logdir`. Runs the replays in the caller's autocast."""
+        `logdir`. The replays run under the auto_cast policy of the step
+        they replay."""
         logdir = self._capture(logdir, steps, "paddle-attrib-")
         return _observe.attribute(logdir, top=top)
 
@@ -343,11 +467,12 @@ class Engine:
             import tempfile
 
             logdir = tempfile.mkdtemp(prefix=prefix)
-        inputs, labels = self._last_batch
+        inputs, labels, amp_policy = self._last_batch
         _profiler.start_trace(logdir, device=self.device)
         try:
-            for _ in range(steps):
-                self.train_batch(inputs, labels)
+            with _amp.policy_scope(amp_policy):
+                for _ in range(steps):
+                    self.train_batch(inputs, labels)
             # every step's kernels land inside the capture window
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)

@@ -4,8 +4,9 @@ The serving subset of paddle_tpu's registry (the engine's, the
 fleet's, the rollout's and tenancy's flags) plus the ERNIE head's
 `FLAGS_use_fused_lm_loss`, the ResNet convs' `FLAGS_use_pallas_conv`,
 the low-precision training flags (`FLAGS_lowp_*`), and those of the
-anomaly guard's rollback, checkpointing, simulated preemption and the
-flight recorder, with the same names and defaults. Unknown flags
+anomaly guard's rollback, checkpointing, simulated preemption, the
+flight recorder and `FLAGS_remat_policy`, with the same names and
+defaults. Unknown flags
 raise.
 """
 
@@ -216,6 +217,15 @@ _DEFS = {
         0, int,
         "testing: report a preemption at the Nth preemption poll "
         "(step/epoch boundary); 0 disables"),
+    "FLAGS_remat_policy": (
+        "auto", str,
+        "rematerialisation policy of recompute() segments: 'full' keeps "
+        "nothing inside the segment (torch.utils.checkpoint; most "
+        "recompute, least memory), 'dots_saveable' keeps the outputs of "
+        "aten mm / addmm / bmm and recomputes the rest (selective "
+        "checkpointing), 'none' disables it (all activations kept, no "
+        "recompute), 'auto' keeps each site's default (recompute() "
+        "segments recompute fully)"),
     "FLAGS_flight_recorder_capacity": (
         256, int,
         "observe: ring-buffer size of the always-on flight recorder "

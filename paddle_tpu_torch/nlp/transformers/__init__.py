@@ -7,5 +7,6 @@ from .ernie import (  # noqa: F401
     bert_config, ernie_config,
 )
 from .gpt import (  # noqa: F401
-    GPTConfig, GPTForPretraining, GPTModel, gpt_config,
+    GPTConfig, GPTForPretraining, GPTModel, GPTPretrainingCriterion,
+    gpt_config,
 )

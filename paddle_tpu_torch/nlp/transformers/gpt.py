@@ -2,7 +2,10 @@
 
 Single-device only in this slice: ``use_parallel=True`` (the tensor-
 parallel Column/RowParallelLinear layout) raises until the distributed
-slice lands. Parameter names and layouts equal
+slice lands. ``recompute=True`` runs each decoder block through
+`distributed.fleet.utils.recompute` in training (its policy from
+``FLAGS_remat_policy``); `GPTPretrainingCriterion` is the token-mean
+cross entropy with ``ignore_index`` and an optional loss mask. Parameter names and layouts equal
 ``paddle_tpu.engine.state_values`` one to one, so weights cross between
 the packages as numpy arrays (see ``paddle_tpu_torch.weights``).
 
@@ -17,11 +20,12 @@ from __future__ import annotations
 import torch
 
 from ... import nn, resolve_device
+from ...distributed.fleet.utils.recompute import recompute
 from ...nn import functional as F
 
 __all__ = ["GPTConfig", "gpt_config", "GPTModel", "GPTForPretraining",
-           "GPTAttention", "GPTMLP", "GPTDecoderLayer", "GPTEmbeddings",
-           "lora_logits_delta"]
+           "GPTPretrainingCriterion", "GPTAttention", "GPTMLP",
+           "GPTDecoderLayer", "GPTEmbeddings", "lora_logits_delta"]
 
 
 class GPTConfig:
@@ -244,8 +248,6 @@ class GPTModel(nn.Layer):
             raise NotImplementedError(
                 "use_parallel=True (tensor-parallel layers) is not ported "
                 "yet; build the config with use_parallel=False")
-        if config.recompute:
-            raise NotImplementedError("recompute is not ported yet")
         self.config = config
         self.embeddings = GPTEmbeddings(config, generator)
         self.layers = nn.LayerList(
@@ -262,8 +264,14 @@ class GPTModel(nn.Layer):
                 x, nc = layer(x, c)
                 new_caches.append(nc)
             return self.final_norm(x), new_caches
-        for layer in self.layers:
-            x = layer(x)
+        if self.config.recompute and self.training:
+            # per-block rematerialisation: each block's activations are
+            # rebuilt in the backward (the same dropout masks)
+            for layer in self.layers:
+                x = recompute(layer, x)
+        else:
+            for layer in self.layers:
+                x = layer(x)
         return self.final_norm(x)
 
     def init_caches(self, batch_size, max_len, dtype=torch.bfloat16):
@@ -370,6 +378,28 @@ class GPTForPretraining(nn.Layer):
         finally:
             if was_training:
                 self.train()
+
+
+class GPTPretrainingCriterion(nn.Layer):
+    """The mean of the token cross entropies over every token (a token
+    labelled `ignore_index` counts as 0), or, given ``loss_mask``, their
+    sum weighted by the mask over the mask's sum (at least 1)."""
+
+    def __init__(self, config: GPTConfig = None, ignore_index=-100):
+        super().__init__()
+        if config is not None and config.use_parallel:
+            raise NotImplementedError(
+                "use_parallel=True (ParallelCrossEntropy) is not ported "
+                "yet; build the config with use_parallel=False")
+        self.ignore_index = ignore_index
+
+    def forward(self, logits, labels, loss_mask=None):
+        loss = F.cross_entropy(logits, labels, reduction="none",
+                               ignore_index=self.ignore_index)
+        if loss_mask is not None:
+            m = loss_mask.reshape(loss.shape).float()
+            return (loss * m).sum() / m.sum().clamp_min(1.0)
+        return loss.mean()
 
 
 def lora_logits_delta(hrows, aid, lora_a, lora_b):

@@ -1,11 +1,12 @@
-"""The nn subset of the ported slices (ref paddle_tpu/nn): torch's
-`Module` and `ModuleList` under paddle's names (their train/eval are
-paddle's), and paddle-layout layers."""
+"""The nn subset of the ported slices (ref paddle_tpu/nn): paddle's
+`Layer` (a torch ``Module`` with ``create_parameter`` and
+``set_state_dict``) and `Parameter`, torch's ``ModuleList`` under
+paddle's name, and paddle-layout layers."""
 
-from torch.nn import Module as Layer  # noqa: F401
 from torch.nn import ModuleList as LayerList  # noqa: F401
 
 from . import functional, initializer  # noqa: F401
+from .layer.layers import Layer, Parameter  # noqa: F401
 from .layer.activation import ReLU  # noqa: F401
 from .layer.common import Dropout, Embedding, Linear  # noqa: F401
 from .layer.container import Sequential  # noqa: F401

@@ -2,14 +2,14 @@
 
 from __future__ import annotations
 
-from torch import nn
+from .layers import Layer
 
 from .. import functional as F
 
 __all__ = ["ReLU"]
 
 
-class ReLU(nn.Module):
+class ReLU(Layer):
     def __init__(self, name=None):
         super().__init__()
 

@@ -9,10 +9,9 @@ from __future__ import annotations
 
 import math
 
-from torch import nn
-
 from .. import functional as F
 from .. import initializer as I
+from .layers import Layer
 
 __all__ = ["Conv2D"]
 
@@ -21,7 +20,7 @@ def _pair(v):
     return tuple(v) if isinstance(v, (list, tuple)) else (v, v)
 
 
-class _ConvNd(nn.Module):
+class _ConvNd(Layer):
     def __init__(self, in_channels, out_channels, kernel_size, stride,
                  padding, dilation, groups, weight_attr, bias_attr,
                  data_format, ndim, generator=None):
@@ -38,14 +37,15 @@ class _ConvNd(nn.Module):
         self._data_format = data_format
         wshape = [out_channels, in_channels // groups, *self._kernel_size]
         fan_in = (in_channels // groups) * math.prod(self._kernel_size)
-        init = weight_attr or I.KaimingUniform(fan_in=fan_in)
-        self.weight = nn.Parameter(init(wshape, generator))
-        if bias_attr is False:
-            self.bias = None
-        else:
-            bound = 1.0 / math.sqrt(fan_in)
-            self.bias = nn.Parameter(
-                I.Uniform(-bound, bound)([out_channels], generator))
+        self.weight = self.create_parameter(
+            wshape, attr=weight_attr,
+            default_initializer=I.KaimingUniform(fan_in=fan_in),
+            generator=generator)
+        bound = 1.0 / math.sqrt(fan_in)
+        self.bias = self.create_parameter(
+            [out_channels], attr=bias_attr, is_bias=True,
+            default_initializer=I.Uniform(-bound, bound),
+            generator=generator)
 
     def extra_repr(self):
         return (f"{self._in_channels}, {self._out_channels}, "

@@ -2,14 +2,14 @@
 
 from __future__ import annotations
 
-from torch import nn
+from .layers import Layer
 
 from .. import functional as F
 
 __all__ = ["CrossEntropyLoss"]
 
 
-class CrossEntropyLoss(nn.Module):
+class CrossEntropyLoss(Layer):
     """Hard-label softmax cross entropy over the last axis (the
     reference's defaults); class weights, soft labels, another axis and
     ``use_softmax=False`` are not ported yet."""

@@ -11,16 +11,16 @@ norm. ``SyncBatchNorm`` waits for the distributed slice."""
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from .. import functional as F
 from .. import initializer as I
+from .layers import Layer
 
 __all__ = ["LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
            "BatchNorm3D"]
 
 
-class _BatchNormBase(nn.Module):
+class _BatchNormBase(Layer):
     def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  use_global_stats=None, name=None):
@@ -30,8 +30,11 @@ class _BatchNormBase(nn.Module):
         self._epsilon = epsilon
         self._data_format = data_format
         self._use_global_stats = use_global_stats
-        self.weight = nn.Parameter(I.Constant(1.0)([num_features]))
-        self.bias = nn.Parameter(I.Constant(0.0)([num_features]))
+        self.weight = self.create_parameter(
+            [num_features], attr=weight_attr,
+            default_initializer=I.Constant(1.0))
+        self.bias = self.create_parameter([num_features], attr=bias_attr,
+                                          is_bias=True)
         self.register_buffer("_mean", torch.zeros(num_features))
         self.register_buffer("_variance", torch.ones(num_features))
 
@@ -71,15 +74,19 @@ class BatchNorm3D(_BatchNormBase):
     pass
 
 
-class LayerNorm(nn.Module):
-    def __init__(self, normalized_shape, epsilon=1e-5):
+class LayerNorm(Layer):
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None):
         super().__init__()
         if isinstance(normalized_shape, int):
             normalized_shape = [normalized_shape]
         self.normalized_shape = list(normalized_shape)
         self.epsilon = epsilon
-        self.weight = nn.Parameter(I.Constant(1.0)(self.normalized_shape))
-        self.bias = nn.Parameter(I.Constant(0.0)(self.normalized_shape))
+        self.weight = self.create_parameter(
+            self.normalized_shape, attr=weight_attr,
+            default_initializer=I.Constant(1.0))
+        self.bias = self.create_parameter(self.normalized_shape,
+                                          attr=bias_attr, is_bias=True)
 
     def forward(self, x):
         return F.layer_norm(x, self.normalized_shape, self.weight,

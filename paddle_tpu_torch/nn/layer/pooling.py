@@ -2,14 +2,14 @@
 
 from __future__ import annotations
 
-from torch import nn
+from .layers import Layer
 
 from .. import functional as F
 
 __all__ = ["MaxPool2D", "AdaptiveAvgPool2D"]
 
 
-class MaxPool2D(nn.Module):
+class MaxPool2D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
                  return_mask=False, data_format="NCHW", name=None):
         super().__init__()
@@ -26,7 +26,7 @@ class MaxPool2D(nn.Module):
                             self.data_format)
 
 
-class AdaptiveAvgPool2D(nn.Module):
+class AdaptiveAvgPool2D(Layer):
     def __init__(self, output_size, data_format="NCHW", name=None):
         super().__init__()
         self.output_size = output_size

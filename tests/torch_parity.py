@@ -1,7 +1,7 @@
 """Shared fixtures of the port's parity tests (tests/test_torch_*.py):
-one tiny GPT and one tiny ERNIE built in both packages with the same
-numpy weights, and a synchronous helper that runs an engine to
-completion.
+one tiny GPT, one tiny ERNIE and a 2-layer MLP built in both packages
+with the same numpy weights, and a synchronous helper that runs an
+engine to completion.
 
 Weights are drawn with numpy from a fixed seed at a larger scale than
 the models' own 0.02 init (which makes a tiny random GPT repeat one
@@ -102,3 +102,76 @@ def drive(eng, prompts, max_new=8, gens=None):
             break
         eng._step()
     return [np.asarray(f.result(10)) for f in futs]
+
+
+# a 2-layer MLP (8 -> 16 -> 4) for the optimizer, clipping and io tests
+
+
+def _mlp_classes():
+    import torch
+
+    import paddle_tpu as paddle
+
+    from paddle_tpu_torch import nn as tnn
+
+    class JMLP(paddle.nn.Layer):
+        def __init__(self, attrs=None):
+            super().__init__()
+            attrs = attrs or {}
+            self.fc1 = paddle.nn.Linear(8, 16, weight_attr=attrs.get("w1"))
+            self.fc2 = paddle.nn.Linear(16, 4, bias_attr=attrs.get("b2"))
+
+        def forward(self, x):
+            return self.fc2(paddle.nn.functional.relu(self.fc1(x)))
+
+    class TMLP(tnn.Layer):
+        def __init__(self, attrs=None):
+            super().__init__()
+            attrs = attrs or {}
+            self.fc1 = tnn.Linear(8, 16, weight_attr=attrs.get("w1"))
+            self.fc2 = tnn.Linear(16, 4, bias_attr=attrs.get("b2"))
+
+        def forward(self, x):
+            return self.fc2(torch.relu(self.fc1(x)))
+
+    return JMLP, TMLP
+
+
+def mlp_values(seed=0):
+    rng = np.random.RandomState(seed)
+    return {"fc1.weight": rng.randn(8, 16).astype(np.float32) * 0.5,
+            "fc1.bias": rng.randn(16).astype(np.float32) * 0.1,
+            "fc2.weight": rng.randn(16, 4).astype(np.float32) * 0.5,
+            "fc2.bias": rng.randn(4).astype(np.float32) * 0.1}
+
+
+def mlp_batches(n=3, seed=1):
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(6, 8).astype(np.float32),
+             rng.randn(6, 4).astype(np.float32)) for _ in range(n)]
+
+
+def mlp_pair(jattrs=None, tattrs=None, seed=0):
+    """(reference MLP, port MLP) with the same weights and the same
+    automatic parameter names (both packages' name counters are reset
+    first). `jattrs` / `tattrs`: ``{"w1": fc1's weight_attr, "b2":
+    fc2's bias_attr}``."""
+    import paddle_tpu as paddle
+    from paddle_tpu.nn.layer import layers as jlayers
+
+    from paddle_tpu_torch.nn.layer import layers as tlayers
+
+    JMLP, TMLP = _mlp_classes()
+    jlayers._auto_name_counters.clear()
+    tlayers._auto_name_counters.clear()
+    jm, tm = JMLP(jattrs), TMLP(tattrs)
+    vals = mlp_values(seed)
+    jm.set_state_dict({k: paddle.to_tensor(v) for k, v in vals.items()})
+    tm.set_state_dict(vals)
+    assert [p.name for p in jm.parameters()] == \
+        [p.name for p in tm.parameters()]
+    return jm, tm
+
+
+def mlp_mse(out, y):
+    return ((out - y) * (out - y)).mean()
