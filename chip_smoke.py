@@ -40,7 +40,10 @@ Phases (any failure raises and the script exits non-zero):
 6. Flash attention: B1-B3 against their plain versions (f32 and bf16 at
    ragged shapes, sq != sk, head dims 32 / 64 / 128, causal and not; the
    ERNIE shape [32, 12, 512, 64] in f32 and bf16 with dropout 0.1; the
-   dropout mask bit for bit; in bf16 B1-B3 run on the tensor cores), B2
+   Transformer-base shapes of 41-42: [24, 8, 128, 128, 64] in bf16 with
+   dropout 0.1 and one query row against 1, 37 and 128 keys in f32 and
+   bf16; the dropout mask bit for bit; in bf16 B1-B3 run on the tensor
+   cores), B2
    repeating bit for bit at the ERNIE shape, the registers and blocks
    per SM of every pass, then timed at the
    ERNIE shape in bf16 beside the plain versions, torch SDPA at dropout
@@ -283,6 +286,40 @@ B1-B3 counts are set to 0 just before it and read just after it:
     `evaluate` again, bit for bit the same; B1-B3 12 a training step
     (and B1 12 an evaluation batch); the fit's steps/s and the
     DataLoader's share of its host time.
+
+41-43 run last, on Transformer-base (Vaswani et al. 2017, Table 3)
+built in this script from public nn pieces: `nn.Transformer()` at its
+defaults (d_model 512, 8 heads, 6 + 6 layers, FFN 2048, dropout 0.1,
+ReLU, post-LN), one `nn.Embedding(37000, 512)` shared by source, target
+and the pre-softmax projection, sinusoidal positions; weights from seed
+0 (63 M parameters). B1-B3 counts are set to 0 just before each leg and
+read just after it:
+41. Training through `Engine.train_batch((src, tgt_in), (tgt,))`: the
+    label-smoothed (0.1) soft-label cross entropy, Adam(0.9, 0.98, 1e-9)
+    on NoamDecay(512, 4000), bf16 O1, 24 x 128 source and target tokens;
+    2 warm-up and 10 timed steps: exactly 12 launches a step of each of
+    B1-B3 (6 encoder self-attentions and 6 cross-attentions; the masked
+    decoder self-attention takes the plain path), finite losses, the
+    batch's eval-mode loss lower after the steps than before, one
+    train_step compile; step p50 / p90, target tokens/s, device busy and
+    idle share, peak memory, the profile and `attribute_step`'s buckets
+    (their total within 6% of the profile's: two captures of this
+    host-bound step differ by up to ~4% in device time).
+42. Cached greedy decoding in eval: 8 sources of 128 tokens, 32 steps
+    through `TransformerDecoder.gen_cache` / ``cache=`` (B1 at one query
+    row against the growing self-attention keys and the 128 memory
+    keys: exactly 6 + 12 a step). In f32 each step's logits within rtol
+    / atol 1e-3 of the uncached forward over the same prefix (float
+    causal mask, zero memory mask: the plain masked path) and token
+    agreement 1.0; in bf16 O1 the agreements printed.
+43. The nn sweep: every case of tests/torch_nn_cases.py (every public
+    function of nn.functional and every layer class) on cuda against
+    the same call on CPU tensors in f32, forward and backward (outputs,
+    input and parameter gradients, the state after the call) within
+    rtol 1e-4 / atol 1e-5; the random ops by their properties; LSTM,
+    GRU and SimpleRNN (2 layers, bidirectional, hidden 256, b 16 x 64
+    steps) within 1e-4; BeamSearchDecoder against brute force. Prints
+    how many names were swept.
 
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line
 and ``{"ok": true, "device": {...}}``. Without a CUDA card, or outside a
@@ -737,8 +774,10 @@ def _capture(fn, n):
         shutil.rmtree(logdir, ignore_errors=True)
     copies = sum(e.get("dur", 0.0) for e in evs
                  if e.get("cat") == "gpu_memcpy" and "DtoD" not in e["name"])
+    # less the empty spin kernels that open every CUDA capture
     launches = sum(1 for e in evs if e.get("cat") == "cuda_runtime" and
-                   e["name"].startswith("cudaLaunchKernel"))
+                   e["name"].startswith("cudaLaunchKernel")) - \
+        profiler.WARMUP_SPINS
     return rows, copies, launches, host_s
 
 
@@ -878,6 +917,14 @@ def phase_flash(card):
               ((2, 2, 21, 9, 128), True, 0.1, torch.bfloat16)]
     cases += [((b, h, s, s, d), False, 0.1, torch.float32),
               ((b, h, s, s, d), False, 0.1, torch.bfloat16)]
+    # the Transformer-base path (phases 41-42): its train step's shape in
+    # bf16 with dropout, and cached decoding's one query row against a
+    # growing key length
+    cases += [((TB_BATCH, 8, TB_SEQ, TB_SEQ, 64), False, 0.1,
+               torch.bfloat16)]
+    cases += [((TB_DECODE_BATCH, 8, 1, sk, 64), False, 0.0, dt)
+              for sk in (1, 37, 128) for dt in (torch.float32,
+                                                torch.bfloat16)]
     for case in cases:
         (cb, ch, sq, sk, cd), causal, p = case[:3]
         dtype = case[3] if len(case) > 3 else torch.float32
@@ -1473,17 +1520,17 @@ KERNEL_BUCKETS = {"B1": "attention", "B2": "attention", "B3": "attention",
                   "B10": "matmul"}
 
 
-def phase_attribute(eng, label, profile, calls):
+def phase_attribute(eng, label, profile, calls, tol=0.03):
     """Phases 33-34: `Engine.attribute_step(steps=3)` replays the leg's
     last batch under the port's profiler (bf16 auto_cast, under
     `observe.no_retrace()`), then `Engine.overlap_report(steps=1)`.
     Gates: each hand-written kernel of `calls` ({kernel id: launches a
     step}) shows with exactly those launches and in its bucket of
     `KERNEL_BUCKETS`; "other" holds no hand-written kernel; the bucket
-    total is within 3% of the leg's profile (`phase_train_profile`'s
-    counted rows, the device's busy time less its host copies); one card
-    launches no collective. Prints the five buckets in ms a step and the
-    top rows."""
+    total is within `tol` (3%; phase 41 6%) of the leg's profile
+    (`phase_train_profile`'s counted rows, the device's busy time less
+    its host copies); one card launches no collective. Prints the five
+    buckets in ms a step and the top rows."""
     import re
 
     from paddle_tpu_torch import amp, observe
@@ -1516,7 +1563,7 @@ def phase_attribute(eng, label, profile, calls):
     _check(ids == want, f"{label}: kernel launches {ids}, want {want}")
     total_ms = rep["total_us"] / 1e3 / n
     dev = abs(total_ms - profile["kernel_ms"]) / profile["kernel_ms"]
-    _check(dev <= 0.03, f"{label}: buckets {total_ms} ms a step against "
+    _check(dev <= tol, f"{label}: buckets {total_ms} ms a step against "
            f"the profile's {profile['kernel_ms']} ms")
     _check(ov["collective_us"] == 0.0, f"{label}: collectives {ov}")
     out = {
@@ -2118,7 +2165,7 @@ def phase_conv(card):
     import torch.nn.functional as tF
 
     from paddle_tpu_torch.ops import fused_conv
-    from paddle_tpu_torch.ops.nn_ops import pad2d
+    from paddle_tpu_torch.ops.nn_ops import pad_nd
 
     train_calls, eval_calls = _record_resnet_convs()
     bw, _, _, bf16_peak = _peaks(card)
@@ -2167,7 +2214,7 @@ def phase_conv(card):
             plain_ms = _time_ms(
                 lambda: fused_conv._conv_plain(xp, wk, plan, **kw), flush,
                 n=5)
-            xpad = pad2d(x, pads)
+            xpad = pad_nd(x, pads)
             lib_ms = _time_ms(lambda: tF.conv2d(xpad, w, stride=s), flush,
                               n=20, spin=AUTOGRAD_SPIN)
             m, o = xs[0] * plan.ho * plan.wo, ws[0]
@@ -4691,6 +4738,542 @@ def phase_gpt_all(card):
 
 
 
+# -- Transformer-base (phases 41-43) ----------------------------------------
+
+TB_VOCAB, TB_D, TB_BATCH, TB_SEQ = 37000, 512, 24, 128
+TB_DECODE_BATCH, TB_DECODE_STEPS = 8, 32
+# f32 cached decoding against the uncached forward (B1 at sq 1 in f32
+# against the plain masked path, through 6 decoder layers and the tied
+# [512 x 37000] projection)
+TB_DECODE_RTOL, TB_DECODE_ATOL = 1e-3, 1e-3
+# the nn sweep: CUDA against the CPU in f32 (TF32 off)
+SWEEP_RTOL, SWEEP_ATOL = 1e-4, 1e-5
+RNN_RTOL, RNN_ATOL = 1e-4, 1e-4
+
+
+def _tb_model(seed=0, device="cuda"):
+    """Transformer-base (Vaswani et al. 2017, Table 3) from public nn
+    pieces: `nn.Transformer()` at its defaults (d_model 512, 8 heads, 6 +
+    6 layers, FFN 2048, dropout 0.1, ReLU, post-LN) and one
+    `nn.Embedding(37000, 512)` (N(0, 512^-0.5)) shared by source, target
+    and the pre-softmax projection ``h @ emb.T``; embeddings scaled by
+    sqrt(512) plus sinusoidal positions, then dropout 0.1. Weights from
+    `seed`."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+
+    pos = np.arange(1024)[:, None] / np.power(
+        10000.0, 2 * (np.arange(TB_D)[None, :] // 2) / TB_D)
+    pos = np.where(np.arange(TB_D) % 2 == 0, np.sin(pos), np.cos(pos))
+
+    class TransformerBase(nn.Layer):
+        def __init__(self, gen):
+            super().__init__()
+            self.emb = nn.Embedding(
+                TB_VOCAB, TB_D, generator=gen,
+                weight_attr=nn.initializer.Normal(0.0, TB_D ** -0.5))
+            self.transformer = nn.Transformer(generator=gen)
+            self.dropout = nn.Dropout(0.1)
+            self.register_buffer("pos", torch.tensor(pos, dtype=torch.float32),
+                                 persistent=False)
+
+        def embed(self, ids, offset=0):
+            x = self.emb(ids) * math.sqrt(TB_D) + \
+                self.pos[offset:offset + ids.shape[1]]
+            return self.dropout(x)
+
+        def logits(self, h):
+            return F.matmul(h, self.emb.weight, transpose_y=True)
+
+        def forward(self, src, tgt_in):
+            mask = self.transformer.generate_square_subsequent_mask(
+                tgt_in.shape[1])
+            return self.logits(self.transformer(
+                self.embed(src), self.embed(tgt_in), tgt_mask=mask))
+
+    return TransformerBase(torch.Generator().manual_seed(seed)).to(device)
+
+
+def _tb_loss(logits, tgt):
+    """Label-smoothed (0.1) soft-label cross entropy over the vocab."""
+    from paddle_tpu_torch.nn import functional as F
+
+    soft = F.label_smooth(F.one_hot(tgt, TB_VOCAB), epsilon=0.1)
+    return F.cross_entropy(logits, soft, soft_label=True)
+
+
+def _tb_batch(n, seq, seed):
+    """Seeded source ids [n, seq] and target ids [n, seq + 1] (the
+    decoder reads tgt[:, :-1] and predicts tgt[:, 1:])."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    src = rng.randint(1, TB_VOCAB, (n, seq)).astype(np.int64)
+    tgt = rng.randint(1, TB_VOCAB, (n, seq + 1)).astype(np.int64)
+    return src, tgt
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _tb_eval_loss(model, src, tgt_in, tgt_out, device):
+    """The loss of the batch in eval mode (no dropout), bf16 O1."""
+    import torch
+
+    from paddle_tpu_torch import amp
+
+    model.eval()
+    try:
+        with torch.no_grad(), amp.auto_cast(enable=True, dtype="bfloat16"):
+            return float(_tb_loss(model(*(torch.tensor(a, device=device)
+                                          for a in (src, tgt_in))),
+                                  torch.tensor(tgt_out, device=device)))
+    finally:
+        model.train()
+
+
+def phase_tb_train(card, device="cuda"):
+    """Phase 41: Transformer-base training through `Engine.train_batch`:
+    Adam(0.9, 0.98, 1e-9) on NoamDecay(512, 4000) (stepped after each
+    train step), bf16 O1, 24 x 128 source and target tokens of seeded
+    ids. 2 warm-up and 10 timed steps (each ends in a synchronise).
+    Gates: finite losses; the batch's eval-mode loss (no dropout) lower
+    after the 12 steps than before them (the train losses, drawn under
+    dropout at a warm-up learning rate of ~1e-6, are printed with their
+    slope); exactly 12 launches a step of each of B1-B3 (6 encoder
+    self-attentions and 6 cross-attentions; the masked decoder
+    self-attention takes the plain path); one train_step compile. Then
+    the step's device time by bucket (`phase_train_profile`) and
+    `attribute_step` (`phase_attribute`). With ``device="cpu"`` (a
+    rehearsal at reduced sizes) the timing and the profiles are left
+    out."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import amp, observe, optimizer
+    from paddle_tpu_torch.engine import Engine
+    from paddle_tpu_torch.optimizer import lr
+
+    compiles0 = len(observe.compile_events("train_step"))
+    model = _tb_model(device=device)
+    sched = lr.NoamDecay(d_model=TB_D, warmup_steps=4000)
+    opt = optimizer.Adam(learning_rate=sched, beta1=0.9, beta2=0.98,
+                         epsilon=1e-9, parameters=model.parameters())
+    eng = Engine(model, opt, _tb_loss, device=device, seed=0)
+    src, tgt = _tb_batch(TB_BATCH, TB_SEQ, 0)
+    tgt_in, tgt_out = tgt[:, :-1], tgt[:, 1:]
+
+    def step():
+        with amp.auto_cast(enable=True, dtype="bfloat16"):
+            loss = eng.train_batch((src, tgt_in), (tgt_out,))
+        sched.step()
+        return loss
+
+    cuda = torch.device(device).type == "cuda"
+    eval_before = _tb_eval_loss(model, src, tgt_in, tgt_out, device)
+    losses = [float(step()) for _ in range(2)]
+    _sync(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _zero_flash()
+    n, times = 10, []
+    with observe.no_retrace():
+        for _ in range(n):
+            t0 = time.perf_counter()
+            loss = step()
+            _sync(device)
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+    launches = _flash_counts()
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    compiles = len(observe.compile_events("train_step")) - compiles0
+    eval_after = _tb_eval_loss(model, src, tgt_in, tgt_out, device)
+    per_step = 2 * len(model.transformer.encoder.layers) if cuda else 0
+    _check(launches == {"B1": per_step * n, "B2": per_step * n,
+                        "B3": per_step * n},
+           f"transformer-base: launches over {n} steps {launches}")
+    _check(compiles == 1, f"{compiles} train_step compiles")
+    _check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    _check(eval_after < eval_before,
+           f"the eval loss did not fall: {eval_before} -> {eval_after}")
+    label = "transformer-base train step (b24 s128 bf16, Adam/Noam)"
+    prof, att = {"busy_ms": float("nan")}, {"ms_per_step": None}
+    if cuda:
+        prof = phase_train_profile(step, label)
+        # two captures of this host-bound step (idle ~0.85) differ in
+        # device time by up to 3.7% on one card with every bucket scaled
+        # alike (five interleaved pairs; 4.0% once in seven whole runs):
+        # the gate allows 6%, which a replay in another precision exceeds
+        att = phase_attribute(eng, label, prof, {"B1": per_step,
+                                                 "B2": per_step,
+                                                 "B3": per_step}, tol=0.06)
+    n_params = sum(p.numel() for p in eng.state.params.values())
+    step_s = float(np.median(times))
+    host_ms = step_s * 1e3
+    out = {
+        "train": "transformer-base b24 s128 bf16 dropout 0.1 Adam/Noam",
+        "card": card, "steps": n, "params": n_params,
+        "step_ms_p50": host_ms,
+        "step_ms_p90": float(np.percentile(times, 90)) * 1e3,
+        "target_tokens_per_s": TB_BATCH * TB_SEQ / step_s,
+        "device_busy_ms": prof["busy_ms"],
+        "device_idle_share": max(0.0, 1.0 - prof["busy_ms"] / host_ms),
+        "peak_mem_bytes": peak, "losses": losses,
+        "train_loss_slope": float(np.polyfit(np.arange(len(losses)),
+                                             losses, 1)[0]),
+        "last_below_first": losses[-1] < losses[0],
+        "eval_loss": [eval_before, eval_after],
+        "lr_last": sched(), "launches_per_step": {
+            k: c / n for k, c in launches.items()},
+        "train_step_compiles": compiles,
+        "attribute_ms_per_step": att["ms_per_step"],
+    }
+    print(json.dumps(out), flush=True)
+    del eng, opt
+    if cuda:
+        torch.cuda.empty_cache()
+    return out, model
+
+
+def _tb_decode(model, src, steps, bf16):
+    """Greedy cached decoding: the encoder once, then `steps` steps of one
+    token through `TransformerDecoder.gen_cache` / ``cache=`` (B1 at sq 1
+    in the self-attention against the growing key length and in the
+    cross-attention against the 128 memory keys). Returns (tokens [b,
+    steps], f32 logits [steps, b, V], memory, B1-B3 launches, seconds)."""
+    import contextlib
+
+    import torch
+
+    from paddle_tpu_torch import amp
+
+    tr = model.transformer
+    ctx = amp.auto_cast(enable=True, dtype="bfloat16") if bf16 \
+        else contextlib.nullcontext()
+    _sync(src.device)
+    _zero_flash()
+    t0 = time.perf_counter()
+    with torch.no_grad(), ctx:
+        memory = tr.encoder(model.embed(src))
+        cache = tr.decoder.gen_cache(memory)
+        ids = torch.zeros((src.shape[0], 1), dtype=torch.long,
+                          device=src.device)
+        logits_all = []
+        for t in range(steps):
+            h, cache = tr.decoder(model.embed(ids[:, -1:], offset=t), memory,
+                                  cache=cache)
+            logits = model.logits(h)[:, -1].float()
+            logits_all.append(logits)
+            ids = torch.cat([ids, logits.argmax(-1, keepdim=True)], dim=1)
+    _sync(src.device)
+    seconds = time.perf_counter() - t0
+    return (ids[:, 1:], torch.stack(logits_all), memory, _flash_counts(),
+            seconds)
+
+
+def _tb_uncached(model, memory, tokens, bf16):
+    """The uncached forward's last-position logits for every prefix
+    [BOS, tokens[:t]] under the float causal mask, with an all-zero
+    memory mask: the plain masked path throughout."""
+    import contextlib
+
+    import torch
+
+    from paddle_tpu_torch import amp
+
+    tr = model.transformer
+    ctx = amp.auto_cast(enable=True, dtype="bfloat16") if bf16 \
+        else contextlib.nullcontext()
+    prefix = torch.cat([torch.zeros_like(tokens[:, :1]), tokens[:, :-1]],
+                       dim=1)
+    mem_mask = torch.zeros((1, 1, 1, memory.shape[1]), device=memory.device)
+    out = []
+    with torch.no_grad(), ctx:
+        for t in range(tokens.shape[1]):
+            ids = prefix[:, :t + 1]
+            h = tr.decoder(model.embed(ids), memory,
+                           tgt_mask=tr.generate_square_subsequent_mask(t + 1),
+                           memory_mask=mem_mask)
+            out.append(model.logits(h)[:, -1].float())
+    return torch.stack(out)
+
+
+def phase_tb_decode(card, model, device="cuda"):
+    """Phase 42: cached greedy decoding of Transformer-base in eval: 8
+    sources of 128 seeded tokens, 32 steps. f32 gates: each step's logits
+    within rtol / atol TB_DECODE_RTOL / TB_DECODE_ATOL of the uncached
+    forward over the same prefix (the float causal mask, the plain masked
+    path), token agreement 1.0 with the uncached forward's greedy picks;
+    B1 launches exactly 6 (encoder) + 12 a step, B2 / B3 none. The same
+    in bf16 O1: its token agreement with the f32 tokens and with its own
+    uncached forward, printed."""
+    import numpy as np
+    import torch
+
+    model.eval()
+    src_np, _ = _tb_batch(TB_DECODE_BATCH, TB_SEQ, 1)
+    src = torch.tensor(src_np, device=device)
+    L = len(model.transformer.decoder.layers)
+    want_b1 = len(model.transformer.encoder.layers) + 2 * L * TB_DECODE_STEPS
+    if torch.device(device).type != "cuda":
+        want_b1 = 0
+    out = {"decode": "transformer-base greedy, 8 x 128 sources, 32 steps",
+           "card": card}
+    tokens = {}
+    for bf16 in (False, True):
+        key = "bf16" if bf16 else "f32"
+        toks, logits, memory, launches, secs = _tb_decode(
+            model, src, TB_DECODE_STEPS, bf16)
+        _check(launches == {"B1": want_b1, "B2": 0, "B3": 0},
+               f"decode {key}: launches {launches}, want B1 {want_b1}")
+        full = _tb_uncached(model, memory, toks, bf16)
+        agree = float((full.argmax(-1).T == toks).float().mean())
+        err = float((logits - full).abs().max())
+        tokens[key] = toks
+        out[key] = {"launches": launches, "max_abs_err_vs_uncached": err,
+                    "token_agreement_vs_uncached": agree,
+                    "decode_s": secs,
+                    "tokens_per_s": toks.numel() / secs}
+        if not bf16:
+            torch.testing.assert_close(logits, full, rtol=TB_DECODE_RTOL,
+                                       atol=TB_DECODE_ATOL)
+            _check(agree == 1.0, f"f32 token agreement {agree}")
+    out["bf16"]["token_agreement_vs_f32"] = float(
+        (tokens["bf16"] == tokens["f32"]).float().mean())
+    print(json.dumps(out), flush=True)
+    model.train()
+    return {"B1": 2 * want_b1}
+
+
+def _sweep_run(call, arrays, grad, device, layer=None):
+    """(outputs, {name: grad}) of one sweep case on `device` (f32): the
+    float inputs, and a layer's trainable parameters, differentiated
+    against fixed cotangents."""
+    import numpy as np
+    import torch
+
+    ts = [torch.tensor(a, device=device) for a in arrays]
+    for t in ts:
+        if grad and t.is_floating_point():
+            t.requires_grad_(True)
+    if layer is None:
+        from paddle_tpu_torch.nn import functional as F
+
+        out = call(F, *ts)
+    else:
+        out = call(layer, *ts) if call else layer(*ts)
+
+    def flat(o):
+        return [y for x in o for y in flat(x)] \
+            if isinstance(o, (tuple, list)) else [o]
+
+    outs = flat(out)
+    got = [o.detach().cpu() for o in outs]
+    grads = {}
+    if grad:
+        rng = np.random.default_rng(7)
+        loss = sum((o * torch.tensor(rng.standard_normal(tuple(o.shape))
+                                     .astype(np.float32), device=device))
+                   .sum() for o in outs if o.is_floating_point())
+        loss.backward()
+        params = {f"in{i}": t for i, t in enumerate(ts)
+                  if t.is_floating_point()}
+        if layer is not None:
+            params.update({k: p for k, p in layer.named_parameters()
+                           if p.requires_grad})
+        grads = {k: None if p.grad is None else p.grad.detach().cpu()
+                 for k, p in params.items()}
+    return got, grads
+
+
+def _sweep_compare(got, want, what, rtol=SWEEP_RTOL, atol=SWEEP_ATOL):
+    """Max abs error; raises beyond the tolerance."""
+    import torch
+
+    if isinstance(want, dict):
+        _check(set(got) == set(want), f"{what}: names differ")
+        got, want = [got[k] for k in sorted(want)], \
+            [want[k] for k in sorted(want)]
+    _check(len(got) == len(want), f"{what}: {len(got)} vs {len(want)}")
+    err = 0.0
+    for g, w in zip(got, want):
+        if g is None or w is None:
+            _check(g is None and w is None, f"{what}: a gradient is None")
+            continue
+        if w.is_floating_point():
+            torch.testing.assert_close(g, w, rtol=rtol, atol=atol,
+                                       msg=lambda m: f"{what}: {m}")
+            err = max(err, float((g - w).abs().max()) if g.numel() else 0.)
+        else:
+            _check(torch.equal(g, w), f"{what}: integer outputs differ")
+    return err
+
+
+def _sweep_random_ops(device):
+    """The random ops on the card by their properties: the kept share,
+    the scaling, whole channels, the one-hot rows."""
+    import torch
+
+    from paddle_tpu_torch.framework import random as trandom
+    from paddle_tpu_torch.nn import functional as F
+
+    with trandom.rng_scope(trandom.RngState(5, device)):
+        x = torch.ones(512, 512, device=device)
+        y = F.dropout(x, 0.3)
+        kept = y != 0
+        _check(abs(kept.float().mean().item() - 0.7) < 0.01, "dropout share")
+        _check(bool(torch.isclose(y[kept], torch.tensor(1 / 0.7,
+                                                        device=device))
+                    .all()), "dropout scale")
+        for fn, shape in ((F.dropout2d, (16, 64, 3, 3)),
+                          (F.dropout3d, (8, 64, 2, 2, 2))):
+            y = fn(torch.ones(shape, device=device), 0.4).flatten(2)
+            _check(bool((y.amin(-1) == y.amax(-1)).all()),
+                   f"{fn.__name__}: channels not whole")
+            _check(abs((y[..., 0] != 0).float().mean().item() - 0.6) < 0.1,
+                   f"{fn.__name__}: share")
+        z = torch.randn(400, 500, device=device)
+        a = F.alpha_dropout(z, 0.2)
+        _check(abs(a.mean().item()) < 0.02 and abs(a.std().item() - 1) <
+               0.02, "alpha_dropout moments")
+        g = F.gumbel_softmax(torch.randn(64, 10, device=device), 0.5,
+                             hard=True)
+        _check(bool(((g > 0.5).sum(-1) == 1).all()), "gumbel_softmax hard")
+
+
+def _sweep_beam(device):
+    """BeamSearchDecoder / dynamic_decode on the card over a fixed-table
+    cell (the logits depend on the previous token only): the best beam is
+    the brute-force best path, every beam's score its path's score."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import nn
+
+    vocab, end, steps = 5, 0, 4
+    table = np.random.default_rng(0).standard_normal(
+        (vocab, vocab)).astype(np.float32) * 2.0
+    table[:, end] = -5.0
+
+    def score(path):
+        s, prev = 0.0, 1
+        for tok in path:
+            row = table[prev].astype(np.float64)
+            s += row[tok] - np.log(np.exp(row).sum())
+            prev = tok
+        return s
+
+    class FixedCell(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.table = torch.tensor(table, device=device)
+
+        def forward(self, tokens, states):
+            return self.table[tokens], states
+
+    ids, scores = nn.dynamic_decode(
+        nn.BeamSearchDecoder(FixedCell(), 1, end, 4),
+        torch.zeros(2, 1, device=device), max_step_num=steps)
+    best = max((p for p in itertools.product(range(vocab), repeat=steps)
+                if end not in p), key=score)
+    _check(ids[0, :, 0].tolist() == list(best), "beam search: best path")
+    for b in range(2):
+        for w in range(4):
+            _check(abs(score(ids[b, :, w].tolist()) - float(scores[b, w]))
+                   < 1e-4, "beam search: a beam's score")
+
+
+def phase_nn_sweep(card, device="cuda"):
+    """Phase 43: every case of tests/torch_nn_cases.py (every public
+    function of nn.functional and every layer class) on CUDA against the
+    same call on CPU tensors, f32, forward and (where differentiable)
+    backward: outputs, the gradients of the float inputs and of every
+    parameter, and the state after the call, within rtol SWEEP_RTOL /
+    atol SWEEP_ATOL; the random ops by their properties; LSTM, GRU and
+    SimpleRNN (2 layers, bidirectional, hidden 256, b 16 x 64 steps)
+    within RNN_RTOL / RNN_ATOL; BeamSearchDecoder against brute force.
+    Any mismatch raises."""
+    import copy
+
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_nn_cases as cases
+
+    from paddle_tpu_torch import nn
+
+    names, errs = set(), {}
+    t0 = time.monotonic()
+    for case in cases.F_CASES:
+        arrays = case.inputs()
+        want, want_g = _sweep_run(case.call, arrays, case.grad, "cpu")
+        got, got_g = _sweep_run(case.call, arrays, case.grad, device)
+        e = _sweep_compare(got, want, case.id)
+        if case.grad:
+            e = max(e, _sweep_compare(got_g, want_g, f"{case.id} grad"))
+        errs[case.id] = e
+        names.add(case.fn)
+    _sweep_random_ops(device)
+    names.update(cases.RANDOM_FUNCTIONS)
+    rnn = [cases.Case(cls, (lambda r: (r.standard_normal((16, 64, 128))
+                                       .astype("float32"),)),
+                      ((lambda c: lambda m: getattr(m, c)(
+                          128, 256, 2, direction="bidirect"))(cls), None))
+           for cls in ("LSTM", "GRU", "SimpleRNN")]
+    for case in cases.L_CASES + rnn:
+        ctor, call = case.call
+        cpu = ctor(nn)
+        shapes = {k: tuple(v.shape) for k, v in cpu.state_dict().items()}
+        cpu.set_state_dict(cases.layer_values(shapes))
+        cpu.train() if case.train else cpu.eval()
+        dev = copy.deepcopy(cpu).to(device)
+        arrays = case.inputs()
+        want, want_g = _sweep_run(call, arrays, case.grad, "cpu", cpu)
+        got, got_g = _sweep_run(call, arrays, case.grad, device, dev)
+        big = case in rnn
+        tol = dict(rtol=RNN_RTOL, atol=RNN_ATOL) if big else {}
+        cid = f"{case.id}-h256" if big else case.id
+        e = _sweep_compare(got, want, cid, **tol)
+        if case.grad:
+            e = max(e, _sweep_compare(got_g, want_g, f"{cid} grad", **tol))
+        e = max(e, _sweep_compare(
+            {k: v.cpu() for k, v in dev.state_dict().items()},
+            dict(cpu.state_dict()), f"{cid} state", **tol))
+        errs[cid] = e
+        names.add(case.fn)
+    _sweep_beam(device)
+    names.update(("BeamSearchDecoder", "dynamic_decode"))
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:8]
+    out = {"nn_sweep": "cuda against cpu, f32", "card": card,
+           "names_swept": len(names), "cases": len(errs),
+           "seconds": time.monotonic() - t0,
+           "largest_abs_err": dict(worst)}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def phase_transformer_base(card):
+    """Phases 41-43; returns B1-B3's launches by phase."""
+    train, model = phase_tb_train(card)
+    launches = {"train_41": {k: int(v * train["steps"])
+                             for k, v in train["launches_per_step"].items()}}
+    launches["decode_42"] = phase_tb_decode(card, model)
+    del model
+    phase_nn_sweep(card)
+    return launches
+
+
 def main():
     try:
         import torch
@@ -4896,6 +5479,14 @@ def main():
             phase: leg[key] for phase, leg in gpt_launches.items()}
         rows[key]["launches"] += sum(leg[key] for leg in
                                      gpt_launches.values())
+    # Transformer-base from the nn layers: training, cached decoding and
+    # the nn sweep (phases 41-43)
+    tb_launches = timed("transformer_base", phase_transformer_base, card)
+    for key in ("B1", "B2", "B3"):
+        rows[key]["transformer_base_launches"] = {
+            phase: leg.get(key, 0) for phase, leg in tb_launches.items()}
+        rows[key]["launches"] += sum(leg.get(key, 0) for leg in
+                                     tb_launches.values())
     for key, row in rows.items():
         _check(row["launches"] > 0, f"{key} never ran on the path")
     print(json.dumps({"total_s": time.monotonic() - t_start}), flush=True)

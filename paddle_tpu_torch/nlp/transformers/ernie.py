@@ -130,7 +130,8 @@ class ErnieSelfAttention(nn.Layer):
         q, k, v = qkv.unbind(0)
         out = F.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask,
-            dropout_p=self.attn_dropout if self.training else 0.0)
+            dropout_p=self.attn_dropout if self.training else 0.0,
+            qkv_layout="bhsd")
         return self.out_proj(out.reshape(b, s, h))
 
 

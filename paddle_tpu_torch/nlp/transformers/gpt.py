@@ -118,7 +118,8 @@ class GPTAttention(nn.Layer):
             return self.out_proj(out), new_cache
         out = F.scaled_dot_product_attention(
             q, k, v, is_causal=True,
-            dropout_p=self.attn_dropout if self.training else 0.0)
+            dropout_p=self.attn_dropout if self.training else 0.0,
+            qkv_layout="bhsd")
         return self.out_proj(out.reshape(b, s, h))
 
     def _attend_cached(self, q, k, v, cache):

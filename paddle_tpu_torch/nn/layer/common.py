@@ -2,7 +2,8 @@
 
 Parameters keep paddle's layouts so state dicts map one to one onto
 ``paddle_tpu.engine.state_values``: `Linear.weight` is ``[in, out]``
-and computes ``x @ W + b``; `Embedding.weight` is ``[num, dim]``.
+and computes ``x @ W + b``; `Embedding.weight` is ``[num, dim]``;
+`Bilinear.weight` is ``[out, in1, in2]`` with a ``[1, out]`` bias.
 Parameters are made by `Layer.create_parameter` from ``weight_attr`` /
 ``bias_attr`` (a `ParamAttr`, an initializer, a name, or False for no
 bias), initialised on the CPU from the given generator (the default
@@ -14,18 +15,28 @@ from __future__ import annotations
 
 import torch
 
+from ... import amp
 from .. import functional as F
 from .. import initializer as I
 from .layers import Layer
 
-__all__ = ["Linear", "Embedding", "Dropout"]
+__all__ = ["Identity", "Linear", "Embedding", "Dropout", "Dropout2D",
+           "Dropout3D", "AlphaDropout", "Flatten", "Upsample",
+           "UpsamplingBilinear2D", "UpsamplingNearest2D", "Pad1D", "Pad2D",
+           "Pad3D", "PixelShuffle", "Unfold", "CosineSimilarity",
+           "PairwiseDistance", "Bilinear"]
+
+
+class Identity(Layer):
+    def forward(self, x):
+        return x
 
 
 class Linear(Layer):
     """y = x @ W + b, W: [in_features, out_features]."""
 
     def __init__(self, in_features, out_features, weight_attr=None,
-                 bias_attr=None, generator=None, name=None):
+                 bias_attr=None, name=None, generator=None):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
@@ -45,21 +56,205 @@ class Linear(Layer):
 
 
 class Embedding(Layer):
-    def __init__(self, num_embeddings, embedding_dim, weight_attr=None,
-                 generator=None, name=None):
+    """Rows of ``weight [num_embeddings, embedding_dim]``; the row at
+    `padding_idx` starts at zero and always looks up as zero."""
+
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None, generator=None):
         super().__init__()
+        if sparse:
+            raise NotImplementedError(
+                "Embedding(sparse=True) (SelectedRows gradients) is not "
+                "ported")
+        self._num_embeddings = num_embeddings
+        self._embedding_dim = embedding_dim
+        self._padding_idx = padding_idx
         self.weight = self.create_parameter(
             [num_embeddings, embedding_dim], attr=weight_attr,
             default_initializer=I.XavierNormal(), generator=generator)
+        if padding_idx is not None:
+            with torch.no_grad():
+                self.weight[padding_idx] = 0.0
 
-    def forward(self, ids):
-        return torch.nn.functional.embedding(ids, self.weight)
+    def forward(self, x):
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx)
+
+    def extra_repr(self):
+        return f"{self._num_embeddings}, {self._embedding_dim}"
 
 
 class Dropout(Layer):
-    def __init__(self, p=0.5):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):
+        super().__init__()
+        self.p = p
+        self.axis = axis
+        self.mode = mode
+
+    def forward(self, x):
+        return F.dropout(x, p=self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)
+
+    def extra_repr(self):
+        return f"p={self.p}"
+
+
+class Dropout2D(Layer):
+    def __init__(self, p=0.5, data_format="NCHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout2d(x, p=self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class Dropout3D(Layer):
+    def __init__(self, p=0.5, data_format="NCDHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout3d(x, self.p, self.training, self.data_format)
+
+
+class AlphaDropout(Layer):
+    def __init__(self, p=0.5, name=None):
         super().__init__()
         self.p = p
 
     def forward(self, x):
-        return F.dropout(x, self.p, training=self.training)
+        return F.alpha_dropout(x, self.p, self.training)
+
+
+class Flatten(Layer):
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        return x.flatten(self.start_axis, self.stop_axis)
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+        self.align_mode = align_mode
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.align_mode,
+                             self.data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear", True, 0, data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest", False, 0, data_format)
+
+
+class Pad1D(Layer):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCL", name=None):
+        super().__init__()
+        self.padding = padding
+        self.mode = mode
+        self.value = value
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pad(x, self.padding, self.mode, self.value,
+                     self.data_format)
+
+
+class Pad2D(Pad1D):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad3D(Pad1D):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.upscale_factor = upscale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.upscale_factor, self.data_format)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.kernel_sizes = kernel_sizes
+        self.strides = strides
+        self.paddings = paddings
+        self.dilations = dilations
+
+    def forward(self, x):
+        return F.unfold(x, self.kernel_sizes, self.strides, self.paddings,
+                        self.dilations)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis = axis
+        self.eps = eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, axis=self.axis, eps=self.eps)
+
+
+class PairwiseDistance(Layer):
+    def __init__(self, p=2.0, epsilon=1e-6, keepdim=False, name=None):
+        super().__init__()
+        self.p = p
+        self.epsilon = epsilon
+        self.keepdim = keepdim
+
+    def forward(self, x, y):
+        return F.pairwise_distance(x, y, self.p, self.epsilon, self.keepdim)
+
+
+class Bilinear(Layer):
+    """out[b, o] = x1[b, i] W[o, i, j] x2[b, j] + bias[0, o] (op
+    ``einsum``, AMP white list)."""
+
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None,
+                 generator=None):
+        super().__init__()
+        self.weight = self.create_parameter(
+            [out_features, in1_features, in2_features], attr=weight_attr,
+            generator=generator)
+        self.bias = self.create_parameter(
+            [1, out_features], attr=bias_attr, is_bias=True,
+            generator=generator)
+
+    def forward(self, x1, x2):
+        x1, w, x2 = amp.cast("einsum", x1, self.weight, x2)
+        out = torch.einsum("bi,oij,bj->bo", x1, w, x2)
+        return out if self.bias is None else out + self.bias

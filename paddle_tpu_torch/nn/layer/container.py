@@ -1,22 +1,150 @@
-"""Containers (ref paddle_tpu/nn/layer/container.py)."""
+"""Containers (ref paddle_tpu/nn/layer/container.py): paddle `Layer`s
+whose children are named by position (``layers.<i>.…`` in a state dict,
+as in the reference) or by key."""
 
 from __future__ import annotations
 
 from collections import OrderedDict
 
-from torch import nn
+from .layers import Layer
 
-__all__ = ["Sequential"]
+__all__ = ["Sequential", "LayerList", "ParameterList", "LayerDict"]
 
 
-class Sequential(nn.Sequential):
-    """paddle's Sequential: layers, an OrderedDict of named layers, or
-    ``(name, layer)`` tuples; indexable, sliceable, with a length."""
+class Sequential(Layer):
+    """paddle's Sequential: layers (named "0", "1", ...), an OrderedDict
+    of named layers, or ``(name, layer)`` tuples; indexable, sliceable,
+    with a length; its forward chains them."""
 
     def __init__(self, *layers):
+        super().__init__()
         if len(layers) == 1 and isinstance(layers[0], OrderedDict):
-            super().__init__(layers[0])
-        elif layers and all(isinstance(lyr, tuple) for lyr in layers):
-            super().__init__(OrderedDict(layers))
-        else:
-            super().__init__(*layers)
+            layers = tuple(layers[0].items())
+        for i, layer in enumerate(layers):
+            if isinstance(layer, tuple):
+                self.add_sublayer(layer[0], layer[1])
+            else:
+                self.add_sublayer(str(i), layer)
+
+    def __getitem__(self, idx):
+        layers = list(self._modules.values())
+        if isinstance(idx, slice):
+            return Sequential(*layers[idx])
+        return layers[idx]
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def forward(self, x):
+        for layer in self._modules.values():
+            x = layer(x)
+        return x
+
+
+class LayerList(Layer):
+    """A list of sublayers named "0", "1", ...; indexable (negative and
+    slices too), iterable, with append / insert / extend."""
+
+    def __init__(self, sublayers=None):
+        super().__init__()
+        for i, layer in enumerate(sublayers or ()):
+            self.add_sublayer(str(i), layer)
+
+    def __getitem__(self, idx):
+        layers = list(self._modules.values())
+        if isinstance(idx, slice):
+            return LayerList(layers[idx])
+        return layers[idx]
+
+    def __setitem__(self, idx, layer):
+        n = len(self._modules)
+        self.add_sublayer(str(idx + n if idx < 0 else idx), layer)
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def append(self, layer):
+        self.add_sublayer(str(len(self._modules)), layer)
+        return self
+
+    def insert(self, index, layer):
+        layers = list(self._modules.values())
+        layers.insert(index, layer)
+        self._modules.clear()
+        for i, lyr in enumerate(layers):
+            self.add_sublayer(str(i), lyr)
+
+    def extend(self, layers):
+        for layer in layers:
+            self.append(layer)
+        return self
+
+
+class ParameterList(Layer):
+    """Parameters named "0", "1", ..."""
+
+    def __init__(self, parameters=None):
+        super().__init__()
+        for i, p in enumerate(parameters or ()):
+            self.add_parameter(str(i), p)
+
+    def __getitem__(self, idx):
+        return self._parameters[str(idx)]
+
+    def __len__(self):
+        return len(self._parameters)
+
+    def __iter__(self):
+        return iter(self._parameters.values())
+
+    def append(self, parameter):
+        self.add_parameter(str(len(self._parameters)), parameter)
+        return self
+
+
+class LayerDict(Layer):
+    """Sublayers by key, in insertion order."""
+
+    def __init__(self, sublayers=None):
+        super().__init__()
+        if sublayers is not None:
+            self.update(sublayers)
+
+    def __getitem__(self, key):
+        return self._modules[key]
+
+    def __setitem__(self, key, layer):
+        self.add_sublayer(key, layer)
+
+    def __delitem__(self, key):
+        del self._modules[key]
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __iter__(self):
+        return iter(self._modules)
+
+    def __contains__(self, key):
+        return key in self._modules
+
+    def keys(self):
+        return self._modules.keys()
+
+    def values(self):
+        return self._modules.values()
+
+    def items(self):
+        return self._modules.items()
+
+    def update(self, sublayers):
+        items = sublayers.items() if isinstance(sublayers, dict) \
+            else sublayers
+        for key, layer in items:
+            self.add_sublayer(key, layer)

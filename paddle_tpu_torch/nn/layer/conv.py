@@ -1,9 +1,9 @@
 """Convolution layers (ref paddle_tpu/nn/layer/conv.py): the weight is
-``[out, in / groups, kh, kw]``, KaimingUniform over ``fan_in = in /
-groups * kh * kw``; the bias U(-1/sqrt(fan_in), 1/sqrt(fan_in)), none
-with ``bias_attr=False``. Parameters are made on the CPU from the given
-generator (the default generator when None); the owning model moves
-them."""
+``[out, in / groups, *k]`` (a transposed conv's ``[in, out / groups,
+*k]``), KaimingUniform over ``fan_in = in / groups * prod(k)``; the bias
+U(-1/sqrt(fan_in), 1/sqrt(fan_in)), none with ``bias_attr=False``.
+Parameters are made on the CPU from the given generator (the default
+generator when None); the owning model moves them."""
 
 from __future__ import annotations
 
@@ -13,7 +13,8 @@ from .. import functional as F
 from .. import initializer as I
 from .layers import Layer
 
-__all__ = ["Conv2D"]
+__all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose",
+           "Conv2DTranspose", "Conv3DTranspose"]
 
 
 def _pair(v):
@@ -23,7 +24,8 @@ def _pair(v):
 class _ConvNd(Layer):
     def __init__(self, in_channels, out_channels, kernel_size, stride,
                  padding, dilation, groups, weight_attr, bias_attr,
-                 data_format, ndim, generator=None):
+                 data_format, ndim, generator=None, transpose=False,
+                 output_padding=0):
         super().__init__()
         self._in_channels = in_channels
         self._out_channels = out_channels
@@ -32,10 +34,13 @@ class _ConvNd(Layer):
         self._kernel_size = tuple(ks)
         self._stride = stride
         self._padding = padding
+        self._output_padding = output_padding
         self._dilation = dilation
         self._groups = groups
         self._data_format = data_format
-        wshape = [out_channels, in_channels // groups, *self._kernel_size]
+        wshape = [in_channels, out_channels // groups, *self._kernel_size] \
+            if transpose else \
+            [out_channels, in_channels // groups, *self._kernel_size]
         fan_in = (in_channels // groups) * math.prod(self._kernel_size)
         self.weight = self.create_parameter(
             wshape, attr=weight_attr,
@@ -82,3 +87,63 @@ class Conv2D(_ConvNd):
                 and _pair(self._dilation) == (1, 1)
                 and not self._forward_pre_hooks
                 and not self._forward_hooks)
+
+
+class Conv1D(_ConvNd):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, dilation=1, groups=1, padding_mode="zeros",
+                 weight_attr=None, bias_attr=None, data_format="NCL",
+                 generator=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, groups, weight_attr, bias_attr,
+                         data_format, 1, generator)
+
+    def forward(self, x):
+        return F.conv1d(x, self.weight, self.bias, self._stride,
+                        self._padding, self._dilation, self._groups,
+                        self._data_format)
+
+
+class Conv3D(_ConvNd):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, dilation=1, groups=1, padding_mode="zeros",
+                 weight_attr=None, bias_attr=None, data_format="NCDHW",
+                 generator=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, groups, weight_attr, bias_attr,
+                         data_format, 3, generator)
+
+    def forward(self, x):
+        return F.conv3d(x, self.weight, self.bias, self._stride,
+                        self._padding, self._dilation, self._groups,
+                        self._data_format)
+
+
+class _ConvTransposeNd(_ConvNd):
+    _ndim, _fn, _format = 2, None, "NCHW"
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, dilation=1, groups=1,
+                 weight_attr=None, bias_attr=None, data_format=None,
+                 generator=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, groups, weight_attr, bias_attr,
+                         data_format or self._format, self._ndim, generator,
+                         transpose=True, output_padding=output_padding)
+
+    def forward(self, x, output_size=None):
+        return self._fn(x, self.weight, self.bias, self._stride,
+                        self._padding, self._output_padding, self._dilation,
+                        self._groups, self._data_format)
+
+
+class Conv1DTranspose(_ConvTransposeNd):
+    _ndim, _fn, _format = 1, staticmethod(F.conv1d_transpose), "NCL"
+
+
+class Conv2DTranspose(_ConvTransposeNd):
+    _ndim, _fn, _format = 2, staticmethod(F.conv2d_transpose), "NCHW"
+
+
+class Conv3DTranspose(_ConvTransposeNd):
+    _ndim, _fn, _format = 3, staticmethod(F.conv3d_transpose), "NCDHW"

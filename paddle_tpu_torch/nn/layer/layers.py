@@ -125,6 +125,17 @@ class Layer(torch.nn.Module):
         p.need_clip = attr.need_clip
         return p
 
+    def add_parameter(self, name, parameter):
+        """Register `parameter` (a `Parameter` or None) under `name`."""
+        if parameter is not None and not isinstance(parameter, Parameter):
+            raise TypeError("add_parameter expects a Parameter")
+        self.register_parameter(name, parameter)
+        return parameter
+
+    def add_sublayer(self, name, sublayer):
+        self.add_module(str(name), sublayer)
+        return sublayer
+
     @torch.no_grad()
     def set_state_dict(self, state_dict, use_structured_name=True):
         """Copy `state_dict` (``{structured name: numpy array or

@@ -48,7 +48,7 @@ import torch.nn.functional as tF
 from .. import amp
 from ..framework.flags import flag
 from . import _launch
-from .nn_ops import _BnActCore, _conv_padding, _pair, _same_pads, pad2d
+from .nn_ops import _BnActCore, _conv_padding, _pair, _same_pads, pad_nd
 
 __all__ = ["fused_conv2d_bn_act", "conv2d_maybe_pallas", "LAUNCHES"]
 
@@ -106,17 +106,17 @@ def _lower(x, w, plan):
     o, _, kh, kw = w.shape
     (plh, phh), (plw, phw) = plan.pads
     if plan.s == 1:
-        xp = pad2d(x, plan.pads)
+        xp = pad_nd(x, plan.pads)
         wk = w
     else:
         # one extra zero row/col parity-pads odd extents so both planes
         # have equal length (the zeros land on taps past the support)
         eh = (h + plh + phh) % 2
         ew = (wd + plw + phw) % 2
-        xpad = pad2d(x, ((plh, phh + eh), (plw, phw + ew)))
+        xpad = pad_nd(x, ((plh, phh + eh), (plw, phw + ew)))
         al, bl = range(min(2, kh)), range(min(2, kw))
         xp = torch.cat([xpad[:, :, a::2, b::2] for a in al for b in bl], 1)
-        wpad = pad2d(w, ((0, 2 * plan.kkh - kh), (0, 2 * plan.kkw - kw)))
+        wpad = pad_nd(w, ((0, 2 * plan.kkh - kh), (0, 2 * plan.kkw - kw)))
         wk = torch.cat([wpad[:, :, a::2, b::2] for a in al for b in bl], 1)
     # exactly the rows/cols the VALID conv reads (even-k lowering can
     # leave one unused trailing plane row)
@@ -371,7 +371,7 @@ def _weight_grad(x, dz, w, cfg):
     if plh == phh and plw == phw:
         pad = [plh, plw]
     else:
-        x, pad = pad2d(x, ((plh, phh), (plw, phw))), [0, 0]
+        x, pad = pad_nd(x, ((plh, phh), (plw, phw))), [0, 0]
     _, dw, _ = torch.ops.aten.convolution_backward(
         dz, x, w, None, [s, s], pad, [1, 1], False, [0, 0], 1,
         [False, True, False])

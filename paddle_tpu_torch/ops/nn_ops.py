@@ -1,5 +1,5 @@
-"""Neural-network ops of the ResNet slice (counterpart of the conv, pool
-and batch-norm parts of paddle_tpu/ops/nn_ops.py).
+"""Neural-network ops (counterpart of paddle_tpu/ops/nn_ops.py: convs,
+pools, norms, resize and layout ops).
 
 `conv2d` sends an eligible NCHW conv through `ops.fused_conv` (kernel
 B10 on CUDA tensors) and any other conv through torch's convolution, as
@@ -16,17 +16,35 @@ old + (1 - momentum) * batch``: neither ``torch.nn.BatchNorm2d`` nor
 `fused_bn_act` trains through `_BnActCore`, the reference's
 minimal-residual VJP: it saves only its inputs ``(x, scale, bias, m,
 inv, residual)`` and its backward recomputes the normalised activation.
+
+The other convs (1-D, 3-D, transposed) are torch's convolutions under
+the reference's padding rules; a transposed conv is torch's with no
+padding, from which the window that the reference's conv over the
+dilated input produces is cut (any lo / hi padding; 'SAME' / 'VALID'
+at stride 1).
+The pools with indices pad with -inf and return flat indices into the
+unpadded input map, the first maximum of a window winning. `interpolate`
+is the arithmetic of ``jax.image.resize``, which the reference calls
+whatever ``align_corners`` says: half-pixel centres, a triangle or Keys
+cubic kernel widened by the scale when downsampling, and nearest as
+``floor((i + 0.5) * in / out)``.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch
 import torch.nn.functional as tF
 
-__all__ = ["conv2d", "pool2d", "batch_norm", "batch_norm_apply",
-           "fused_bn_act", "adaptive_bounds"]
+__all__ = ["conv2d", "conv1d", "conv3d", "conv_transpose", "pad_nd",
+           "pool2d", "pool_nd", "adaptive_pool_nd", "max_pool_with_index",
+           "adaptive_max_pool_with_index",
+           "batch_norm", "batch_norm_apply", "fused_bn_act",
+           "adaptive_bounds", "instance_norm", "group_norm", "rms_norm",
+           "local_response_norm", "l2_normalize", "interpolate", "pad",
+           "pixel_shuffle", "unfold", "temporal_shift"]
 
 
 def _pair(v, n=2):
@@ -71,13 +89,14 @@ def _same_pads(sizes, ksizes, strides, dilations=(1, 1)):
     return out
 
 
-def pad2d(x, pads, value=0.0):
-    """Pad (or, for negative amounts, crop, as ``lax.pad`` does) the last
-    two dims of `x` by ``((top, bottom), (left, right))``."""
-    (t, b), (lf, r) = pads
-    if t == b == lf == r == 0:
-        return x
-    return tF.pad(x, (lf, r, t, b), value=value)
+def pad_nd(x, pads, value=0.0):
+    """Pad (or, for negative amounts, crop, as ``lax.pad`` does) the
+    trailing ``len(pads)`` dims of `x` by ``[(lo, hi), ...]``, the first
+    pair on the first of them."""
+    flat = []
+    for lo, hi in reversed(pads):
+        flat += [lo, hi]
+    return tF.pad(x, flat, value=value) if any(flat) else x
 
 
 def conv2d(x, weight, *, stride=1, padding=0, dilation=1, groups=1,
@@ -101,7 +120,7 @@ def conv2d(x, weight, *, stride=1, padding=0, dilation=1, groups=1,
     if isinstance(pad, str):
         pad = [(0, 0)] * 2 if pad == "VALID" else _same_pads(
             x.shape[2:], (kh, kw), strides, dilations)
-    out = tF.conv2d(pad2d(x, pad), weight, stride=strides,
+    out = tF.conv2d(pad_nd(x, pad), weight, stride=strides,
                     dilation=dilations, groups=groups)
     return out.permute(0, 2, 3, 1) if data_format != "NCHW" else out
 
@@ -109,37 +128,37 @@ def conv2d(x, weight, *, stride=1, padding=0, dilation=1, groups=1,
 # -- pooling ---------------------------------------------------------------
 
 
-def _pool2d(x, ksize, stride, padding, ceil_mode, mode, exclusive,
-            data_format):
-    if data_format != "NCHW":
-        x = x.permute(0, 3, 1, 2)
-    ks = _pair(ksize)
-    st = _pair(stride) if stride is not None else ks
+def pool_nd(x, nd, *, ksize, stride=None, padding=0, ceil_mode=False,
+            pooling_type="max", exclusive=True):
+    """Max / average pooling over the trailing `nd` (2 or 3) dims of NC...
+    `x`, as the reference's ``reduce_window`` with its pads: max pads
+    with -inf (the dtype's least integer), ``ceil_mode`` extends the hi
+    pads so ceil-division windows are produced, and an exclusive average
+    divides by the real elements of each window when any pad is not 0."""
+    ks = _pair(ksize, nd)
+    st = ks if stride is None else _pair(stride, nd)
     if isinstance(padding, str):
-        pads = _same_pads(x.shape[2:], ks, st) \
-            if padding.upper() == "SAME" else [(0, 0), (0, 0)]
+        pads = _same_pads(x.shape[2:], ks, st, (1,) * nd) \
+            if padding.upper() == "SAME" else [(0, 0)] * nd
     else:
-        pads = list(_conv_padding(padding, 2, st, (1, 1), ks))
-        if ceil_mode:
-            # extra hi padding so ceil-division windows are produced
-            extra = []
-            for dim, k, s, (lo, hi) in zip(x.shape[2:], ks, st, pads):
-                rem = (dim + lo + hi - k) % s
-                extra.append((lo, hi + (s - rem) % s if rem else hi))
-            pads = extra
-    if mode == "max":
+        pads = list(_conv_padding(padding, nd, st, (1,) * nd, ks))
+    if ceil_mode:
+        for i, (dim, k, s) in enumerate(zip(x.shape[2:], ks, st)):
+            lo, hi = pads[i]
+            rem = (dim + lo + hi - k) % s
+            if rem:
+                pads[i] = (lo, hi + (s - rem))
+    if pooling_type == "max":
         init = -math.inf if x.is_floating_point() else \
             torch.iinfo(x.dtype).min
-        out = tF.max_pool2d(pad2d(x, pads, init), ks, st)
-    else:
-        summed = tF.avg_pool2d(pad2d(x, pads), ks, st, divisor_override=1)
-        if exclusive and any(p != (0, 0) for p in pads):
-            counts = tF.avg_pool2d(pad2d(torch.ones_like(x), pads), ks, st,
-                                   divisor_override=1)
-            out = summed / counts
-        else:
-            out = summed / (ks[0] * ks[1])
-    return out.permute(0, 2, 3, 1) if data_format != "NCHW" else out
+        fn = tF.max_pool2d if nd == 2 else tF.max_pool3d
+        return fn(pad_nd(x, pads, init), ks, st)
+    avg = tF.avg_pool2d if nd == 2 else tF.avg_pool3d
+    summed = avg(pad_nd(x, pads), ks, st, divisor_override=1)
+    if exclusive and any(p != (0, 0) for p in pads):
+        return summed / avg(pad_nd(torch.ones_like(x), pads), ks, st,
+                            divisor_override=1)
+    return summed / math.prod(ks)
 
 
 def pool2d(x, *, ksize, stride=None, padding=0, ceil_mode=False,
@@ -150,10 +169,15 @@ def pool2d(x, *, ksize, stride=None, padding=0, ceil_mode=False,
         if pooling_type == "max":
             return x.amax(dim=axes, keepdim=True)
         return x.mean(dim=axes, keepdim=True)
+    if data_format != "NCHW":
+        x = x.permute(0, 3, 1, 2)
     if adaptive:
-        return _adaptive_pool2d(x, ksize, pooling_type, data_format)
-    return _pool2d(x, ksize, stride, padding, ceil_mode, pooling_type,
-                   exclusive, data_format)
+        out = adaptive_pool_nd(x, ksize, pooling_type)
+    else:
+        out = pool_nd(x, 2, ksize=ksize, stride=stride, padding=padding,
+                      ceil_mode=ceil_mode, pooling_type=pooling_type,
+                      exclusive=exclusive)
+    return out.permute(0, 2, 3, 1) if data_format != "NCHW" else out
 
 
 def adaptive_bounds(i, size, bins):
@@ -162,28 +186,24 @@ def adaptive_bounds(i, size, bins):
     return (i * size) // bins, -(-((i + 1) * size) // bins)
 
 
-def _adaptive_pool2d(x, output_size, mode, data_format):
-    os_ = _pair(output_size)
-    axes = (2, 3) if data_format == "NCHW" else (1, 2)
-    h, w = x.shape[axes[0]], x.shape[axes[1]]
-    if h % os_[0] == 0 and w % os_[1] == 0:
-        ks = (h // os_[0], w // os_[1])
-        return _pool2d(x, ks, ks, 0, False, mode, True, data_format)
-    # non-divisible: paddle's bins overlap (start floor, end ceil)
-    if data_format != "NCHW":
-        x = x.movedim(-1, 1)
-    rows = []
-    for i in range(os_[0]):
-        s0, e0 = adaptive_bounds(i, h, os_[0])
-        cols = []
-        for j in range(os_[1]):
-            s1, e1 = adaptive_bounds(j, w, os_[1])
-            win = x[:, :, s0:e0, s1:e1]
-            cols.append(win.amax(dim=(2, 3)) if mode == "max"
-                        else win.mean(dim=(2, 3)))
-        rows.append(torch.stack(cols, dim=-1))
-    out = torch.stack(rows, dim=-2)
-    return out.movedim(1, -1) if data_format != "NCHW" else out
+def adaptive_pool_nd(x, output_size, mode):
+    """Adaptive max / average pooling of the trailing dims of NC... `x`:
+    the uniform pool when every dim divides, else one reduction a cell
+    over paddle's overlapping bins (start floor, end ceil)."""
+    sp = tuple(x.shape[2:])
+    os_ = _pair(output_size, len(sp))
+    if all(s % o == 0 for s, o in zip(sp, os_)):
+        ks = tuple(s // o for s, o in zip(sp, os_))
+        return pool_nd(x, len(sp), ksize=ks, stride=ks, pooling_type=mode)
+    axes = tuple(range(2, x.dim()))
+    cells = []
+    for cell in itertools.product(*(range(o) for o in os_)):
+        win = x[(slice(None), slice(None)) + tuple(
+            slice(*adaptive_bounds(c, s, o))
+            for c, s, o in zip(cell, sp, os_))]
+        cells.append(win.amax(dim=axes) if mode == "max"
+                     else win.mean(dim=axes))
+    return torch.stack(cells, -1).reshape(*x.shape[:2], *os_)
 
 
 # -- batch norm ------------------------------------------------------------
@@ -305,3 +325,330 @@ def fused_bn_act(x, scale, bias, mean, variance, residual=None, *,
     new_mean = momentum * mean + (1 - momentum) * use_mean
     new_var = momentum * variance + (1 - momentum) * use_var
     return y, (new_mean.detach(), new_var.detach())
+
+
+# -- 1-D, 3-D and transposed convs -------------------------------------------
+
+
+def _window(x, dim, start, n):
+    """`n` elements of `x` along `dim` from `start`, zero beyond its
+    ends (start may be negative)."""
+    lo, hi = max(0, -start), max(0, start + n - x.shape[dim])
+    if lo or hi:
+        pads = [0, 0] * (x.dim() - 1 - dim) + [lo, hi]
+        x = tF.pad(x, pads)
+    return x.narrow(dim, start + lo, n)
+
+
+def _pads_nd(x, pad, ksizes, strides, dilations):
+    """[(lo, hi), ...] for the trailing len(ksizes) dims of NC... `x`."""
+    if isinstance(pad, str):
+        return [(0, 0)] * len(ksizes) if pad == "VALID" else _same_pads(
+            x.shape[2:], ksizes, strides, dilations)
+    return pad
+
+
+def conv1d(x, weight, *, stride=1, padding=0, dilation=1, groups=1):
+    """The reference's conv1d: conv2d over ``x[:, :, None, :]`` with
+    padding on L only (symmetric), NCL whatever the data format."""
+    s = stride if isinstance(stride, int) else stride[0]
+    d = dilation if isinstance(dilation, int) else dilation[0]
+    k = weight.shape[-1]
+    if isinstance(padding, str):
+        pad = _pads_nd(x, padding.upper(), (k,), (s,), (d,))
+    else:
+        pv = padding if isinstance(padding, int) else padding[0]
+        pad = [(pv, pv)]
+    return tF.conv1d(pad_nd(x, pad), weight, stride=s, dilation=d,
+                     groups=groups)
+
+
+def conv3d(x, weight, *, stride=1, padding=0, dilation=1, groups=1):
+    """NCDHW (the reference's layout whatever the data format)."""
+    strides, dilations = _pair(stride, 3), _pair(dilation, 3)
+    ks = tuple(weight.shape[2:])
+    pad = _pads_nd(x, _conv_padding(padding, 3, strides, dilations, ks),
+                   ks, strides, dilations)
+    return tF.conv3d(pad_nd(x, pad), weight, stride=strides,
+                     dilation=dilations, groups=groups)
+
+
+def conv_transpose(x, weight, spatial, *, stride=1, padding=0,
+                   output_padding=0, dilation=1, groups=1,
+                   data_format="NCHW"):
+    """The reference's `_conv_transpose`: a conv of the stride-dilated
+    input with the flipped, regrouped ``[C_in, C_out / groups, *k]``
+    weight under padding ``d (k - 1) - lo`` / ``d (k - 1) - hi +
+    output_padding`` (lax's 'SAME' / 'VALID', which it takes at stride 1
+    only), that is torch's unpadded transposed conv cut to
+    ``[lo, lo + n)``."""
+    strides = _pair(stride, spatial)
+    dilations = _pair(dilation, spatial)
+    opad = _pair(output_padding, spatial)
+    ks = tuple(weight.shape[2:])
+    spans = [d * (k - 1) for d, k in zip(dilations, ks)]
+    channel_last = data_format in ("NHWC", "NDHWC", "NLC")
+    if channel_last:
+        x = x.movedim(-1, 1)
+    if isinstance(padding, str):
+        if any(st != 1 for st in strides):
+            raise ValueError("conv_transpose: string padding needs stride "
+                             "1, as the reference's lax op does")
+        lax_pads = [(0, 0)] * spatial if padding.upper() == "VALID" else \
+            [(t // 2, t - t // 2) for t in spans]
+        pad = [(sp - a, sp - b) for sp, (a, b) in zip(spans, lax_pads)]
+        opad = (0,) * spatial
+    else:
+        pad = _conv_padding(padding, spatial, strides, dilations, ks,
+                            channel_last=channel_last)
+    fn = (tF.conv_transpose1d, tF.conv_transpose2d,
+          tF.conv_transpose3d)[spatial - 1]
+    out = fn(x, weight, stride=strides, groups=groups, dilation=dilations)
+    for i, ((lo, hi), size) in enumerate(zip(pad, x.shape[2:])):
+        n = (size - 1) * strides[i] + spans[i] + 1 - lo - hi + opad[i]
+        out = _window(out, 2 + i, lo, n)
+    return out.movedim(1, -1) if channel_last else out
+
+
+# -- pooling with indices, n-d pooling ---------------------------------------
+
+
+def max_pool_with_index(x, ks, st, pd):
+    """Max pool over the trailing dims of NC... `x` with -inf padding and
+    the argmax as a flat int32 index into the unpadded spatial map (the
+    reference's `max_pool_with_index_nd`)."""
+    nd = x.dim() - 2
+    maxf = tF.max_pool2d if nd == 2 else tF.max_pool3d
+    xp = pad_nd(x, [(p, p) for p in pd], -math.inf)
+    out, idx = maxf(xp, ks, st, return_indices=True)
+    psp = xp.shape[2:]
+    coords, rem = [], idx
+    for d in reversed(range(nd)):
+        coords.append(rem % psp[d] - pd[d])
+        rem = rem // psp[d]
+    coords.reverse()
+    flat, mult = 0, 1
+    for d in reversed(range(nd)):
+        flat = flat + coords[d] * mult
+        mult *= x.shape[2 + d]
+    flat = flat.to(torch.int32)
+    # values gathered from the input by the index, as the reference does
+    vals = torch.gather(x.flatten(2), 2, flat.long().flatten(2)).reshape(
+        out.shape)
+    return vals, flat
+
+
+def adaptive_max_pool_with_index(x, os_):
+    """Adaptive max pool with indices over the trailing dims: the
+    uniform pool when every dim divides, else one window per cell over
+    paddle's [floor(i S / o), ceil((i + 1) S / o)) bins."""
+    n, c, *sp = x.shape
+    nd = len(sp)
+    if all(sp[d] % os_[d] == 0 for d in range(nd)):
+        ks = tuple(sp[d] // os_[d] for d in range(nd))
+        return max_pool_with_index(x, ks, ks, (0,) * nd)
+    vals, idxs = [], []
+    for cell in itertools.product(*[range(o) for o in os_]):
+        bounds = [adaptive_bounds(cell[d], sp[d], os_[d]) for d in range(nd)]
+        win = x[(slice(None), slice(None))
+                + tuple(slice(s, e) for s, e in bounds)]
+        wshape = [e - s for s, e in bounds]
+        flat = win.reshape(n, c, -1)
+        v, rel = flat.max(dim=2)
+        pos, rem, mult = 0, rel, 1
+        for d in reversed(range(nd)):
+            pos = pos + (bounds[d][0] + rem % wshape[d]) * mult
+            rem = rem // wshape[d]
+            mult *= sp[d]
+        vals.append(v)
+        idxs.append(pos.to(torch.int32))
+    return (torch.stack(vals, -1).reshape(n, c, *os_),
+            torch.stack(idxs, -1).reshape(n, c, *os_))
+
+
+# -- normalisation ---------------------------------------------------------
+
+
+def _f32(x):
+    return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+
+
+def instance_norm(x, scale=None, bias=None, *, epsilon=1e-5):
+    """Per-sample, per-channel stats over the spatial dims in f32, one
+    pass (``E[x^2] - E[x]^2`` clamped at 0)."""
+    axes = tuple(range(2, x.dim()))
+    x32 = _f32(x)
+    mean = x32.mean(dim=axes, keepdim=True)
+    var = torch.clamp_min((x32 * x32).mean(dim=axes, keepdim=True)
+                          - mean * mean, 0.0)
+    y = ((x32 - mean) * torch.rsqrt(var + epsilon)).to(x.dtype)
+    bshape = [1, x.shape[1]] + [1] * (x.dim() - 2)
+    if scale is not None:
+        y = y * scale.reshape(bshape)
+    if bias is not None:
+        y = y + bias.reshape(bshape)
+    return y
+
+
+def group_norm(x, scale=None, bias=None, *, epsilon=1e-5, groups=1):
+    """Channels in `groups` (dim 1, whatever the data format, as the
+    reference reads it)."""
+    n, c = x.shape[0], x.shape[1]
+    xg = _f32(x.reshape((n, groups, c // groups) + tuple(x.shape[2:])))
+    axes = tuple(range(2, xg.dim()))
+    mean = xg.mean(dim=axes, keepdim=True)
+    var = torch.clamp_min((xg * xg).mean(dim=axes, keepdim=True)
+                          - mean * mean, 0.0)
+    y = ((xg - mean) * torch.rsqrt(var + epsilon)).reshape(x.shape).to(
+        x.dtype)
+    bshape = [1, c] + [1] * (x.dim() - 2)
+    if scale is not None:
+        y = y * scale.reshape(bshape)
+    if bias is not None:
+        y = y + bias.reshape(bshape)
+    return y
+
+
+def rms_norm(x, scale=None, *, epsilon=1e-6):
+    x32 = _f32(x)
+    ms = (x32 * x32).mean(dim=-1, keepdim=True)
+    y = (x32 * torch.rsqrt(ms + epsilon)).to(x.dtype)
+    return y * scale if scale is not None else y
+
+
+def local_response_norm(x, *, size, alpha=1e-4, beta=0.75, k=1.0):
+    """``x / (k + alpha * sum of x^2 over size channels) ** beta`` (alpha
+    not divided by size, as in the reference)."""
+    half = size // 2
+    padded = tF.pad(x * x, [0, 0] * (x.dim() - 2) + [half, size - half - 1])
+    acc = sum(padded[:, i:i + x.shape[1]] for i in range(size))
+    return x / (k + alpha * acc) ** beta
+
+
+def l2_normalize(x, *, axis=-1, epsilon=1e-12):
+    norm = torch.sqrt((x * x).sum(dim=axis, keepdim=True))
+    return x / torch.clamp_min(norm, epsilon)
+
+
+# -- resize ----------------------------------------------------------------
+
+
+def _triangle(t):
+    return torch.clamp_min(1 - t.abs(), 0.0)
+
+
+def _keys_cubic(t):
+    out = ((1.5 * t - 2.5) * t) * t + 1.0
+    out = torch.where(t >= 1.0, ((-0.5 * t + 2.5) * t - 4.0) * t + 2.0, out)
+    return torch.where(t >= 2.0, torch.zeros_like(t), out)
+
+
+def _resize_weights(m, n, kernel, dtype, device):
+    """``jax.image``'s ``compute_weight_mat`` (antialias on, translation
+    0) for input size m and output size n: [m, n]."""
+    scale = n / m
+    inv = 1.0 / scale
+    kscale = max(inv, 1.0)
+    sample = (torch.arange(n, dtype=torch.float32, device=device) + 0.5) \
+        * inv - 0.5
+    t = (sample[None, :] - torch.arange(m, dtype=torch.float32,
+                                        device=device)[:, None]).abs() \
+        / kscale
+    w = kernel(t)
+    tot = w.sum(dim=0, keepdim=True)
+    eps = 1000.0 * torch.finfo(torch.float32).eps
+    w = torch.where(tot.abs() > eps,
+                    w / torch.where(tot != 0, tot, torch.ones_like(tot)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= m - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w)).to(dtype)
+
+
+def interpolate(x, *, size=None, scale_factor=None, mode="nearest",
+                data_format="NCHW"):
+    """The reference's ``jax.image.resize`` of the spatial dims."""
+    nsp = x.dim() - 2
+    channel_last = data_format in ("NWC", "NHWC", "NDHWC")
+    axes = tuple(range(1, 1 + nsp)) if channel_last \
+        else tuple(range(2, 2 + nsp))
+    in_sizes = [x.shape[a] for a in axes]
+    if size is None:
+        sf = scale_factor if isinstance(scale_factor, (list, tuple)) \
+            else [scale_factor] * nsp
+        size = [int(s * f) for s, f in zip(in_sizes, sf)]
+    kernels = {"linear": _triangle, "bilinear": _triangle,
+               "trilinear": _triangle, "area": _triangle,
+               "bicubic": _keys_cubic}
+    if mode != "nearest" and mode not in kernels:
+        raise ValueError(f"interpolate: unknown mode {mode!r}")
+    if not x.is_floating_point() and mode != "nearest":
+        x = x.float()
+    for a, m, n in zip(axes, in_sizes, size):
+        n = int(n)
+        if m == n:
+            continue
+        if mode == "nearest":
+            off = torch.floor((torch.arange(n, dtype=torch.float32,
+                                            device=x.device) + 0.5)
+                              * m / n).long()
+            x = x.index_select(a, off)
+            continue
+        w = _resize_weights(m, n, kernels[mode], x.dtype, x.device)
+        x = torch.tensordot(x.movedim(a, -1), w, dims=1).movedim(-1, a)
+    return x
+
+
+# -- layout ----------------------------------------------------------------
+
+
+def _pad_index(n, lo, hi, mode, device):
+    i = torch.arange(-lo, n + hi, device=device)
+    if mode == "replicate":
+        return i.clamp(0, n - 1)
+    if mode == "circular":
+        return i % n
+    # reflect about the edges without repeating them (numpy 'reflect')
+    period = 2 * (n - 1)
+    r = i.abs() % period if period else torch.zeros_like(i)
+    return torch.where(r > n - 1, period - r, r)
+
+
+def pad(x, *, paddings, mode="constant", value=0.0):
+    """paddings: a ``[lo, hi]`` pair per dim (flat, 2 * ndim entries);
+    non-constant modes gather indices, so any dim may be padded."""
+    pairs = [(int(paddings[2 * i]), int(paddings[2 * i + 1]))
+             for i in range(x.dim())]
+    if mode == "constant":
+        return pad_nd(x, pairs, value)
+    if mode not in ("reflect", "replicate", "circular"):
+        raise ValueError(f"pad: unknown mode {mode!r}")
+    for d, (lo, hi) in enumerate(pairs):
+        if lo or hi:
+            x = x.index_select(d, _pad_index(x.shape[d], lo, hi, mode,
+                                             x.device))
+    return x
+
+
+def pixel_shuffle(x, *, upscale_factor):
+    r = upscale_factor
+    n, c, h, w = x.shape
+    x = x.reshape(n, c // (r * r), r, r, h, w).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(n, c // (r * r), h * r, w * r)
+
+
+def unfold(x, *, kernel_sizes, strides=1, paddings=0, dilations=1):
+    ph, pw = _pair(paddings)[:2]
+    return tF.unfold(x, _pair(kernel_sizes), dilation=_pair(dilations),
+                     padding=(ph, pw), stride=_pair(strides))
+
+
+def temporal_shift(x, *, seg_num, shift_ratio=0.25):
+    nt, c, h, w = x.shape
+    x5 = x.reshape(nt // seg_num, seg_num, c, h, w)
+    fold = int(c * shift_ratio)
+    left = torch.cat([x5[:, 1:, :fold], torch.zeros_like(x5[:, :1, :fold])],
+                     1)
+    right = torch.cat([torch.zeros_like(x5[:, :1, fold:2 * fold]),
+                       x5[:, :-1, fold:2 * fold]], 1)
+    return torch.cat([left, right, x5[:, :, 2 * fold:]], 2).reshape(
+        nt, c, h, w)

@@ -197,6 +197,11 @@ _capture = None          # the running capture: dict(prof, logdir, kind, t0)
 _capture_ids = itertools.count()
 
 
+# empty kernels that open each CUDA capture (see _start_capture)
+WARMUP_SPINS = 32
+_SPIN = "spin_kernel"
+
+
 def _start_capture(kind, logdir):
     global _capture
     from torch.profiler import ProfilerActivity
@@ -209,6 +214,16 @@ def _start_capture(kind, logdir):
     prof = torch.profiler.profile(activities=acts)
     t0 = _now_us()
     prof.start()
+    if kind == "cuda":
+        # in a long process on the card the first 7-12 kernel launches of
+        # a capture were seen to leave no kernel record (their runtime
+        # launch events present): the window opens with WARMUP_SPINS
+        # empty spin kernels, which take that loss and which the readers
+        # below do not count
+        torch.cuda.synchronize()
+        for _ in range(WARMUP_SPINS):
+            torch.cuda._sleep(0)
+        torch.cuda.synchronize()
     _capture = {"prof": prof, "logdir": logdir, "kind": kind, "t0": t0}
 
 
@@ -395,8 +410,9 @@ def export_chrome_tracing(path):
 def start_trace(logdir, device=None):
     """Start a device-trace capture (ref device_tracer.cc): a
     `torch.profiler.profile` with the CPU and, on a card, the CUDA
-    activity (CUPTI). `device` (default cuda) decides which rows the
-    capture's readers count; `stop_trace` writes it into `logdir`."""
+    activity (CUPTI), opened by `WARMUP_SPINS` empty spin kernels that
+    the readers do not count. `device` (default cuda) decides which rows
+    the capture's readers count; `stop_trace` writes it into `logdir`."""
     from .. import resolve_device
 
     _start_capture(resolve_device(device).type, os.path.abspath(logdir))
@@ -440,6 +456,8 @@ def _device_rows(path):
     for e in evs:
         cat = e.get("cat")
         if cat == "kernel":
+            if e["name"].startswith(_SPIN):
+                continue            # the capture's own warm-up launches
             kernels += 1
         elif not (cat == "gpu_memset" or (cat == "gpu_memcpy"
                                           and "DtoD" in e["name"])):

@@ -4,7 +4,11 @@ names and layouts are equal one to one: GPT, ERNIE pretraining and
 ``ErnieForSequenceClassification``, whose ``classifier.weight`` is
 ``[hidden, classes]`` as the reference's ``Linear``; the ResNet family,
 whose state also holds the batch norms' ``_mean`` / ``_variance``
-running stats, loaded as buffers), and the engine state that a resumed
+running stats, loaded as buffers; and any model built from `nn` layers:
+a `Transformer`, the RNN family under ``weight_ih_l{k}[_reverse]`` ...,
+`SpectralNorm`'s ``weight_u`` / ``weight_v``, a weight-normed layer's
+``weight_g`` / ``weight_v`` and a spectral-normed one's ``weight_orig``
+/ ``weight_u`` / ``weight_v``), and the engine state that a resumed
 trajectory needs: the optimizer's moments and the low-precision
 ScaleState."""
 
@@ -23,14 +27,20 @@ __all__ = ["from_paddle_tpu_values", "from_paddle_tpu_opt_state",
 
 
 def from_paddle_tpu_values(values, model, device=None):
-    """Load a ``{name: array}`` state-values dict into the port's `model`.
+    """Load a ``{name: array}`` state-values dict into the port's `model`
+    (by default onto the model's device: its ``device`` attribute, else
+    where its state lies).
 
     A pre-frozen int8 dict (``quantize_state_int8`` output: int8 leaves
     plus ``@scale`` companions) loads as its canonical dequant. Returns
     the dict as tensors on `device` (default: the model's device) with
     int8 leaves kept int8, ready for ``SlotEngine(values=...)``. Raises
     on missing or unexpected names and on shape mismatches."""
-    dev = resolve_device(device) if device is not None else model.device
+    if device is not None:
+        dev = resolve_device(device)
+    else:
+        dev = getattr(model, "device", None) or next(
+            iter(model.state_dict().values())).device
     tvals = {k: torch.as_tensor(np.array(v)).to(dev)
              for k, v in values.items()}
     fvals = dequantize_state(tvals) if is_quantized_state(tvals) else tvals

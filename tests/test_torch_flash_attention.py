@@ -126,7 +126,7 @@ def test_masked_sdpa_matches_reference():
         attn_mask=paddle.to_tensor(mask), qkv_layout="bhsd")
     got = TF.scaled_dot_product_attention(
         *(torch.from_numpy(a) for a in (q, k, v)),
-        attn_mask=torch.from_numpy(mask))
+        attn_mask=torch.from_numpy(mask), qkv_layout="bhsd")
     np.testing.assert_allclose(got.numpy(), np.asarray(want._value),
                                rtol=1e-5, atol=1e-5)
 
@@ -157,7 +157,8 @@ def test_masked_sdpa_dropout_matches_reference_bitwise(p, monkeypatch):
     with trandom.rng_scope(trandom.RngState(0, "cpu")):
         got = TF.scaled_dot_product_attention(
             *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, q, v)),
-            attn_mask=torch.from_numpy(mask), dropout_p=p, training=True)
+            attn_mask=torch.from_numpy(mask), dropout_p=p, training=True,
+            qkv_layout="bhsd")
     np.testing.assert_array_equal(
         got.float().numpy(),
         np.asarray(jnp.asarray(want._value).astype(jnp.float32)))
@@ -230,7 +231,8 @@ def test_dropout_backward_matches_autograd_of_plain_forward(causal):
 def test_sdpa_without_mask_is_flash_attention_in_paddle_layout():
     q, k, v, _ = _inputs(1, 2, 10, 10, 8, seed=2)
     tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
-    got = TF.scaled_dot_product_attention(tq, tk, tv, is_causal=True)
+    got = TF.scaled_dot_product_attention(tq, tk, tv, is_causal=True,
+                                          qkv_layout="bhsd")
     want = tfo.flash_attention(tq, tk, tv, is_causal=True).transpose(1, 2)
     assert got.shape == (1, 10, 2, 8)
     assert torch.equal(got, want)
