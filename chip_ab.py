@@ -153,9 +153,9 @@ def b4_b6_head(sm, gen, flush):
         nll, lse = fl._fwd_kernel(x, w, lbl)
         dw = fl._bwd_dw_kernel(x, w, lbl32, lse, g)
         dw_p = fl._bwd_plain(x, w, lbl, lse, g, 1024)[1]
-        out[f"B6_ulps_{label}"] = sm._bf16_ulps(dw, dw_p)
+        out[f"B6_ulps_{label}"] = sm._ulps(dw, dw_p)
         dx = fl._bwd_dx_kernel(x, w, lbl32, lse, g)
-        out[f"B5_ulps_{label}"] = sm._bf16_ulps(
+        out[f"B5_ulps_{label}"] = sm._ulps(
             dx, fl._bwd_plain(x, w, lbl, lse, g, 1024)[0])
         if label == "ernie":
             out["B4_ms"] = sm._time_ms(lambda: fl._fwd_kernel(x, w, lbl),
@@ -295,7 +295,7 @@ def b10_step(sm, gen, flush):
         _x, _w, plan, xp, wk, kw = sm._conv_operands(key, torch.bfloat16,
                                                      gen)
         got = fused_conv._conv_kernel(xp, wk, plan, **kw)[0]
-        ulps = max(ulps, sm._bf16_ulps(
+        ulps = max(ulps, sm._ulps(
             got, fused_conv._conv_plain(xp, wk, plan, **kw)[0]))
         ms = sm._time_ms(lambda: fused_conv._conv_kernel(xp, wk, plan, **kw),
                          flush, n=20, spin=sm.AUTOGRAD_SPIN)

@@ -893,10 +893,19 @@ def _sdpa_backend(fn):
     return "math"
 
 
+# the float16 gates of the kernel checks: the bf16 gates scaled by the
+# ratio of the two formats' epsilons (2^-10 / 2^-7)
+F16_OVER_BF16 = 2.0 ** -3
+
+
 def phase_flash(card):
     """B1-B3 against their plain versions (f32 ragged shapes, then the
-    ERNIE shape in bf16 and f32 with dropout, the mask bit for bit),
-    then timed at the ERNIE shape as the train step runs them."""
+    ERNIE shape in bf16 and f32 with dropout, the mask bit for bit; the
+    float16 instantiation at ragged shapes and at the ERNIE and GPT-2
+    shapes, within the bf16 gate scaled by the epsilons), then timed at
+    the ERNIE shape as the train step runs them, in bf16 and in f16
+    (`_flash_times`), beside the plain versions and SDPA in the same
+    dtype."""
     import torch
 
     from paddle_tpu_torch.ops import fused_ops
@@ -925,11 +934,20 @@ def phase_flash(card):
     cases += [((TB_DECODE_BATCH, 8, 1, sk, 64), False, 0.0, dt)
               for sk in (1, 37, 128) for dt in (torch.float32,
                                                 torch.bfloat16)]
+    # float16 (the f16 instantiation of B1-B3): the bf16 ragged shapes,
+    # the ERNIE shape (phase 44) and GPT-2 small's causal one (phase 45)
+    f16 = torch.float16
+    cases += [((1, 2, 70, 70, 32), True, 0.1, f16),
+              ((2, 3, 9, 21, 64), False, 0.0, f16),
+              ((2, 2, 21, 9, 128), True, 0.1, f16),
+              ((b, h, s, s, d), False, 0.1, f16),
+              ((GPT_BATCH, 12, GPT_SEQ, GPT_SEQ, 64), True, 0.1, f16)]
+    err16 = {"B1": 0.0, "B2": 0.0, "B3": 0.0}
     for case in cases:
         (cb, ch, sq, sk, cd), causal, p = case[:3]
         dtype = case[3] if len(case) > 3 else torch.float32
-        if sq == s and sk == s:
-            q, k, v = _packed_qkv(cb, ch, s, cd, dtype, gen)
+        if sq == sk and sq in (s, GPT_SEQ):
+            q, k, v = _packed_qkv(cb, ch, sq, cd, dtype, gen)
         else:
             q, k, v = (torch.randn((cb, ch, n, cd), generator=gen).to(
                 dtype).cuda() for n in (sq, sk, sk))
@@ -938,13 +956,16 @@ def phase_flash(card):
         got, want = _flash_vs_plain(q, k, v, do, causal, p, seed)
         tol_o, tol_g = (1e-5, 2e-4) if dtype == torch.float32 else \
             (2e-2, 2e-2)
+        if dtype == f16:
+            tol_o, tol_g = tol_o * F16_OVER_BF16, tol_g * F16_OVER_BF16
         for i, (g, w) in enumerate(zip(got, want)):
             tol = tol_o if i == 0 else tol_g
             torch.testing.assert_close(g, w, rtol=tol, atol=tol)
         e = [(g - w).abs().max().item() for g, w in zip(got, want)]
-        if cb == b:         # the main path's shape: the error reported
-            errs = {"B1": max(errs["B1"], e[0]), "B2": max(errs["B2"], e[1]),
-                    "B3": max(errs["B3"], e[2], e[3])}
+        if cb == b and sq == s:   # the main path's shape: the error reported
+            into = err16 if dtype == f16 else errs
+            into.update(B1=max(into["B1"], e[0]), B2=max(into["B2"], e[1]),
+                        B3=max(into["B3"], e[2], e[3]))
         print(json.dumps({"flash_check": [cb, ch, sq, sk, cd],
                           "dtype": str(dtype), "causal": causal,
                           "dropout": p, "max_abs_err": e}), flush=True)
@@ -957,7 +978,7 @@ def phase_flash(card):
     del keep_k, keep_p
     print(json.dumps({"flash_mask_bitwise": True, "keep_rate": keep_rate}),
           flush=True)
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
         for hd in fused_ops._HEAD_DIMS:
             for pass_, key in enumerate(("B1", "B2", "B3")):
                 print(json.dumps({"flash_occupancy": key, "dtype": str(dtype),
@@ -965,99 +986,107 @@ def phase_flash(card):
                                   **fused_ops._occupancy(pass_, dtype, hd)}),
                       flush=True)
 
-    # timed as the train step runs them: bf16, dropout 0.1, q/k/v views
-    # of the packed projection, the output gradient in [b, s, h, d]
-    # (`dropout0_ms`: the same launch without dropout, for the hash's
-    # share)
+    # timed as the train step runs them, in bf16 and in f16 (`fp16_*`)
     bw, _, _, bf16_peak = _peaks(card)
-    p, scale = 0.1, 1.0 / d ** 0.5
-    q, k, v = _packed_qkv(b, h, s, d, torch.bfloat16, gen)
-    do = torch.randn((b, s, h, d), generator=gen).to(
-        torch.bfloat16).cuda().transpose(1, 2)
+    flush = torch.empty(32 * 1024 * 1024, device="cuda")   # 128 MB
+    times = {dt: _flash_times(dt, gen, seed, flush, b, h, s, d, 0.1)
+             for dt in (torch.bfloat16, f16)}
+    n_el, rows = b * h * s * d, b * h * s
+    flops = 2 * b * h * s * s * d        # one [s, s] x d product
+    rows_out = {
+        "B1": dict(name="flash_attention_fwd",
+                   replaces="paddle_tpu/ops/fused_ops.py:184 (_fwd_kernel)",
+                   nbytes=4 * n_el * 2 + rows * 4, ops=2 * flops),
+        "B2": dict(name="flash_attention_bwd_dq",
+                   replaces="paddle_tpu/ops/fused_ops.py:319 "
+                   "(_bwd_dq_kernel)",
+                   nbytes=5 * n_el * 2 + 2 * rows * 4, ops=3 * flops),
+        "B3": dict(name="flash_attention_bwd_dkv",
+                   replaces="paddle_tpu/ops/fused_ops.py:363 "
+                   "(_bwd_dkv_kernel)",
+                   nbytes=6 * n_el * 2 + 2 * rows * 4, ops=4 * flops),
+    }
+    for key, row in rows_out.items():
+        t_bytes = row.pop("nbytes") / bw * 1e3
+        t_ops = row.pop("ops") / bf16_peak * 1e3
+        row.update(times[torch.bfloat16][key])
+        row.update(route="cuda", source="paddle_tpu_torch/csrc/flash_attn.cu",
+                   max_abs_err=errs[key], bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   fp16_max_abs_err=err16[key],
+                   **{f"fp16_{k}": v for k, v in times[f16][key].items()})
+        print(json.dumps({"kernel": key, **row}), flush=True)
+    return rows_out
+
+
+def _flash_times(dtype, gen, seed, flush, b, h, s, d, p):
+    """B1-B3 in `dtype` timed as the train step runs them (dropout `p`,
+    q / k / v views of the packed projection, the output gradient in
+    [b, s, h, d]; `dropout0_ms` the same launch without dropout, for the
+    hash's share), beside the plain versions and SDPA forward and
+    backward on the same operands at dropout 0 and `p` (the library
+    yardstick, never called by the port). B2 owns its q tile (no
+    atomics): two launches must agree bit for bit. Returns ``{key:
+    {ms, dropout0_ms, plain_ms, library_ms, library_dropout_ms}}``."""
+    import torch
+
+    from paddle_tpu_torch.ops import fused_ops
+
+    scale = 1.0 / d ** 0.5
+    q, k, v = _packed_qkv(b, h, s, d, dtype, gen)
+    do = torch.randn((b, s, h, d), generator=gen).to(dtype).cuda().transpose(
+        1, 2)
     o, lse = fused_ops._flash_fwd_kernel(q, k, v, seed, scale, False, p)
     delta = (do.float() * o.float()).sum(-1).contiguous()
-    dq, dk, dv = (torch.empty((b, h, s, d), dtype=torch.bfloat16,
-                              device="cuda") for _ in range(3))
-    to3 = fused_ops._to3
-    q3, k3, v3, o3, do3 = (to3(t) for t in (q, k, v, o, do))
-    lse3 = to3(lse)
-    # the library yardstick: SDPA at dropout 0 and at the step's 0.1 (the
-    # same work as B1-B3, with its own random bits)
+    dq, dk, dv = (torch.empty((b, h, s, d), dtype=dtype, device="cuda")
+                  for _ in range(3))
+    q3, k3, v3, o3, do3, lse3 = (fused_ops._to3(t) for t in
+                                 (q, k, v, o, do, lse))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lq, lk, lv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
     o_lib = {dp: sdpa(lq, lk, lv, dropout_p=dp) for dp in (0.0, p)}
-    flush = torch.empty(32 * 1024 * 1024, device="cuda")   # 128 MB
-    plain_bwd_ms = _time_ms(lambda: fused_ops._flash_bwd_plain(
+    lib = {
+        "B1": {dp: _time_ms(lambda: sdpa(q, k, v, dropout_p=dp), flush)
+               for dp in (0.0, p)},
+        "B2": {dp: _time_ms(lambda: torch.autograd.grad(
+            o_lib[dp], (lq, lk, lv), do, retain_graph=True), flush,
+            spin=AUTOGRAD_SPIN) for dp in (0.0, p)}}
+    lib["B3"] = lib["B2"]
+    plain = {"B1": _time_ms(lambda: fused_ops._flash_fwd_plain(
+        q3, k3, v3, seed, scale, False, p), flush, n=10)}
+    plain["B2"] = plain["B3"] = _time_ms(lambda: fused_ops._flash_bwd_plain(
         q3, k3, v3, o3, lse3, do3, seed, scale, False, p), flush, n=10)
-    lib_bwd_ms = {dp: _time_ms(lambda: torch.autograd.grad(
-        o_lib[dp], (lq, lk, lv), do, retain_graph=True), flush,
-        spin=AUTOGRAD_SPIN) for dp in (0.0, p)}
-    lib_fwd_ms = {dp: _time_ms(lambda: sdpa(q, k, v, dropout_p=dp), flush)
-                  for dp in (0.0, p)}
-    # B2 owns its q tile (no atomics): two launches agree bit for bit
     fused_ops._launch_pass(1, q, k, v, do, dq, None, None, lse, delta, seed,
                            scale, False, p)
     first = dq.clone()
     fused_ops._launch_pass(1, q, k, v, do, dq, None, None, lse, delta, seed,
                            scale, False, p)
-    _check(torch.equal(first, dq), "B2 does not repeat bit for bit")
-    print(json.dumps({"bitwise_repeat": "B2", "shape": [b, h, s, s, d],
-                      "dropout": p, "equal": True}), flush=True)
-    del first
+    _check(torch.equal(first, dq), f"B2 in {dtype} does not repeat bit for "
+           "bit")
+    print(json.dumps({"bitwise_repeat": "B2", "dtype": str(dtype),
+                      "shape": [b, h, s, s, d], "dropout": p,
+                      "equal": True}), flush=True)
     print(json.dumps({"sdpa_backend": {
         f"{what}@{dp}": _sdpa_backend(fn) for dp in (0.0, p)
         for what, fn in (
             ("fwd", lambda: sdpa(q, k, v, dropout_p=dp)),
             ("bwd", lambda: torch.autograd.grad(
-                o_lib[dp], (lq, lk, lv), do, retain_graph=True)))}}),
-          flush=True)
-    n_el, rows = b * h * s * d, b * h * s
-    flops = 2 * b * h * s * s * d        # one [s, s] x d product
-    rows_out = {
-        "B1": dict(
-            name="flash_attention_fwd",
-            replaces="paddle_tpu/ops/fused_ops.py:184 (_fwd_kernel)",
-            ms=_time_ms(lambda: fused_ops._flash_fwd_kernel(
-                q, k, v, seed, scale, False, p), flush),
-            dropout0_ms=_time_ms(lambda: fused_ops._flash_fwd_kernel(
-                q, k, v, seed, scale, False, 0.0), flush),
-            plain_ms=_time_ms(lambda: fused_ops._flash_fwd_plain(
-                q3, k3, v3, seed, scale, False, p), flush, n=10),
-            library_ms=lib_fwd_ms[0.0], library_dropout_ms=lib_fwd_ms[p],
-            nbytes=4 * n_el * 2 + rows * 4, ops=2 * flops),
-        "B2": dict(
-            name="flash_attention_bwd_dq",
-            replaces="paddle_tpu/ops/fused_ops.py:319 (_bwd_dq_kernel)",
-            ms=_time_ms(lambda: fused_ops._launch_pass(
-                1, q, k, v, do, dq, None, None, lse, delta, seed, scale,
-                False, p), flush),
-            dropout0_ms=_time_ms(lambda: fused_ops._launch_pass(
-                1, q, k, v, do, dq, None, None, lse, delta, seed, scale,
-                False, 0.0), flush),
-            plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms[0.0],
-            library_dropout_ms=lib_bwd_ms[p],
-            nbytes=5 * n_el * 2 + 2 * rows * 4, ops=3 * flops),
-        "B3": dict(
-            name="flash_attention_bwd_dkv",
-            replaces="paddle_tpu/ops/fused_ops.py:363 (_bwd_dkv_kernel)",
-            ms=_time_ms(lambda: fused_ops._launch_pass(
-                2, q, k, v, do, dk, dv, None, lse, delta, seed, scale,
-                False, p), flush),
-            dropout0_ms=_time_ms(lambda: fused_ops._launch_pass(
-                2, q, k, v, do, dk, dv, None, lse, delta, seed, scale,
-                False, 0.0), flush),
-            plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms[0.0],
-            library_dropout_ms=lib_bwd_ms[p],
-            nbytes=6 * n_el * 2 + 2 * rows * 4, ops=4 * flops),
-    }
-    for key, row in rows_out.items():
-        t_bytes = row.pop("nbytes") / bw * 1e3
-        t_ops = row.pop("ops") / bf16_peak * 1e3
-        row.update(route="cuda", source="paddle_tpu_torch/csrc/flash_attn.cu",
-                   max_abs_err=errs[key], bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations")
-        print(json.dumps({"kernel": key, **row}), flush=True)
-    return rows_out
+                o_lib[dp], (lq, lk, lv), do, retain_graph=True)))},
+        "dtype": str(dtype)}), flush=True)
+    launch = {
+        "B1": lambda dp: fused_ops._flash_fwd_kernel(q, k, v, seed, scale,
+                                                     False, dp),
+        "B2": lambda dp: fused_ops._launch_pass(
+            1, q, k, v, do, dq, None, None, lse, delta, seed, scale, False,
+            dp),
+        "B3": lambda dp: fused_ops._launch_pass(
+            2, q, k, v, do, dk, dv, None, lse, delta, seed, scale, False,
+            dp)}
+    return {key: dict(ms=_time_ms(lambda: fn(p), flush),
+                      dropout0_ms=_time_ms(lambda: fn(0.0), flush),
+                      plain_ms=plain[key], library_ms=lib[key][0.0],
+                      library_dropout_ms=lib[key][p])
+            for key, fn in launch.items()}
 
 
 def _lce_case(n, h, v, masked, dtype, gen, x_std=0.5, w_std=0.1):
@@ -1074,18 +1103,19 @@ def _lce_case(n, h, v, masked, dtype, gen, x_std=0.5, w_std=0.1):
     return x, w, lbl.cuda(), g.cuda()
 
 
-def _lce_exact_case(n, h, v, masked, gen):
-    """bf16 x [n, h] in quarters and w [v, h] in sixteenths of -2..2, so
-    every score is exact in f32 whatever the order of its sums: given
-    one lse, the kernel and the plain version then round the same d to
-    bf16, and dx / dw differ only by their own f32 sums (within one bf16
-    ulp). Labels with a `masked` share of -100, g = 1 / #valid."""
+def _lce_exact_case(n, h, v, masked, gen, dtype=None):
+    """bf16 (or `dtype`) x [n, h] in quarters and w [v, h] in sixteenths
+    of -2..2, so every score is exact in f32 whatever the order of its
+    sums: given one lse, the kernel and the plain version then round the
+    same d to the operand dtype, and dx / dw differ only by their own f32
+    sums (within one ulp of that dtype). Labels with a `masked` share of
+    -100, g = 1 / #valid."""
     import torch
 
-    x = (torch.randint(-2, 3, (n, h), generator=gen) / 4.0).to(
-        torch.bfloat16).cuda()
+    dtype = dtype or torch.bfloat16
+    x = (torch.randint(-2, 3, (n, h), generator=gen) / 4.0).to(dtype).cuda()
     w = (torch.randint(-2, 3, (v, h), generator=gen) / 16.0).to(
-        torch.bfloat16).cuda()
+        dtype).cuda()
     lbl = torch.randint(0, v, (n,), generator=gen)
     lbl[torch.rand((n,), generator=gen) < masked] = -100
     valid = (lbl != -100).float()
@@ -1093,23 +1123,27 @@ def _lce_exact_case(n, h, v, masked, gen):
     return x, w, lbl.cuda(), g.cuda()
 
 
-def _bf16_ulps(got, want):
-    """Largest |got - want| in bf16 ulps of each element (of the largest
-    element's 2^-8 near 0)."""
+def _ulps(got, want, dtype=None):
+    """Largest |got - want| in bf16 (or `dtype`: float16) ulps of each
+    element (of the largest element's 2^-8 near 0; in float16 at least
+    its subnormal spacing 2^-24)."""
     import torch
 
     got, want = got.float(), want.float()
-    ulp = torch.maximum(want.abs(), want.abs().max() * 2 ** -8) * 2 ** -7
+    eps = 2.0 ** -10 if dtype == torch.float16 else 2.0 ** -7
+    ulp = torch.maximum(want.abs(), want.abs().max() * 2 ** -8) * eps
+    if dtype == torch.float16:
+        ulp = ulp.clamp_min(2.0 ** -24)
     err = (got - want).abs()
     # an all-zero `want` (every row ignored) has no ulp: equal reads 0
     return float(torch.where(err == 0, 0.0, err / ulp).max())
 
 
 def phase_fused_loss(card):
-    """B4-B6 against their plain versions (f32 ragged shapes; the ERNIE
-    shape in bf16), then timed at the ERNIE shape as the train step runs
-    them: x the head's [16384, 768] bf16 hidden states, w the bf16 tied
-    table [18000, 768], MLM labels at 15%, g the mean's gradient."""
+    """B4-B6 against their plain versions (f32 ragged shapes; bf16 and
+    f16 at ragged shapes with exact scores; the ERNIE shape in bf16 and
+    f16, `_lce_ernie`), then the ERNIE shape's times in both dtypes
+    (`fp16_*` the f16 ones) beside the bound."""
     import torch
 
     from paddle_tpu_torch.ops import fused_loss as fl
@@ -1136,88 +1170,229 @@ def phase_fused_loss(card):
                           "masked": masked, "chunk": cv,
                           "max_abs_err": errs}), flush=True)
 
-    # bf16 at ragged shapes against B4's 128-row and B6's 64-row tiles
-    # (every hidden size, V and N not multiples of 64, every row ignored):
-    # exact scores, B4 within 1e-4 (a label in the last, partial vocab
-    # tile), the kernel's lse on both sides of B5 / B6, within one bf16 ulp
-    for n, h, v, masked in ((37, 64, 301, 0.3), (130, 128, 1000, 0.85),
-                            (300, 256, 777, 1.0), (200, 512, 300, 0.5),
-                            (129, 768, 65, 0.0), (257, 768, 4001, 0.5),
-                            (70, 1024, 513, 0.5)):
-        x, w, lbl, g = _lce_exact_case(n, h, v, masked, gen)
-        if masked < 1.0:
-            lbl[-1] = v - 1
-        nll, lse = fl._fwd_kernel(x, w, lbl)
-        nll_p, lse_p = fl._fwd_plain(x, w, lbl, 128)
-        dx, dw = fl._bwd_kernel(x, w, lbl, lse, g)
-        dx_p, dw_p = fl._bwd_plain(x, w, lbl, lse, g, 128)
-        torch.cuda.synchronize()
-        valid = lbl != -100
-        torch.testing.assert_close(lse, lse_p, rtol=1e-4, atol=1e-4)
-        torch.testing.assert_close(nll[valid], nll_p[valid], rtol=1e-4,
-                                   atol=1e-4)
-        ulps = {"B5": _bf16_ulps(dx, dx_p), "B6": _bf16_ulps(dw, dw_p)}
-        _check(all(u <= 1.0 for u in ulps.values()),
-               f"B5/B6 beyond one bf16 ulp at {(n, h, v)}: {ulps}")
-        print(json.dumps({"fused_loss_check": [n, h, v], "dtype": "bf16",
-                          "masked": masked, "ulps": ulps,
-                          "B4_max_abs_err": max(
-                              (lse - lse_p).abs().max().item(),
-                              (nll - nll_p)[valid].abs().max().item()
-                              if bool(valid.any()) else 0.0)}), flush=True)
+    # bf16 and f16 at ragged shapes against B4's 128-row and B6's 64-row
+    # tiles (every hidden size, V and N not multiples of 64, every row
+    # ignored): exact scores, B4 within 1e-4 (a label in the last,
+    # partial vocab tile), the kernel's lse on both sides of B5 / B6,
+    # within one ulp of the operand dtype
+    for dtype in (torch.bfloat16, torch.float16):
+        for n, h, v, masked in ((37, 64, 301, 0.3), (130, 128, 1000, 0.85),
+                                (300, 256, 777, 1.0), (200, 512, 300, 0.5),
+                                (129, 768, 65, 0.0), (257, 768, 4001, 0.5),
+                                (70, 1024, 513, 0.5)):
+            x, w, lbl, g = _lce_exact_case(n, h, v, masked, gen, dtype)
+            if masked < 1.0:
+                lbl[-1] = v - 1
+            nll, lse = fl._fwd_kernel(x, w, lbl)
+            nll_p, lse_p = fl._fwd_plain(x, w, lbl, 128)
+            dx, dw = fl._bwd_kernel(x, w, lbl, lse, g)
+            dx_p, dw_p = fl._bwd_plain(x, w, lbl, lse, g, 128)
+            torch.cuda.synchronize()
+            valid = lbl != -100
+            torch.testing.assert_close(lse, lse_p, rtol=1e-4, atol=1e-4)
+            torch.testing.assert_close(nll[valid], nll_p[valid], rtol=1e-4,
+                                       atol=1e-4)
+            ulps = {"B5": _ulps(dx, dx_p, dtype),
+                    "B6": _ulps(dw, dw_p, dtype)}
+            _check(all(u <= 1.0 for u in ulps.values()),
+                   f"B5/B6 beyond one {dtype} ulp at {(n, h, v)}: {ulps}")
+            print(json.dumps({"fused_loss_check": [n, h, v],
+                              "dtype": str(dtype), "masked": masked,
+                              "ulps": ulps, "B4_max_abs_err": max(
+                                  (lse - lse_p).abs().max().item(),
+                                  (nll - nll_p)[valid].abs().max().item()
+                                  if bool(valid.any()) else 0.0)}),
+                  flush=True)
+    del x, w, lbl, g, nll, lse, nll_p, lse_p, dx, dw, dx_p, dw_p
 
-    # the ERNIE shape in bf16
-    n, h, v = ERNIE_BATCH * ERNIE_SEQ, ERNIE["hidden_size"], \
-        ERNIE["vocab_size"]
-    x, w, lbl, g = _lce_case(n, h, v, 0.85, torch.bfloat16, gen, 1.0, 0.02)
-    lbl32 = lbl.to(torch.int32)
-    nll, lse = fl._fwd_kernel(x, w, lbl)
-    dx, dw = fl._bwd_kernel(x, w, lbl, lse, g)
-    nll_p, lse_p = fl._fwd_plain(x, w, lbl, 1024)
-    dx_p, dw_p = fl._bwd_plain(x, w, lbl, lse_p, g, 1024)
-    torch.cuda.synchronize()
-    valid = lbl != -100
-    loss, loss_p = nll[valid].mean().item(), nll_p[valid].mean().item()
-    _check(abs(loss - loss_p) <= 1e-3 * abs(loss_p),
-           f"B4 loss {loss} vs plain {loss_p}")
-    # row by row: the mean alone would hide a wrong picked logit
-    torch.testing.assert_close(nll[valid], nll_p[valid], rtol=1e-4,
-                               atol=1e-4)
-    torch.testing.assert_close(lse, lse_p, rtol=1e-4, atol=1e-4)
-    ulps = {"B5": _bf16_ulps(dx, dx_p), "B6": _bf16_ulps(dw, dw_p)}
-    _check(all(u <= 1.0 for u in ulps.values()),
-           f"B5/B6 beyond one bf16 ulp of the plain version: {ulps}")
-    errs = {"B4": max((nll - nll_p).abs().max().item(),
-                      (lse - lse_p).abs().max().item()),
-            "B5": (dx.float() - dx_p.float()).abs().max().item(),
-            "B6": (dw.float() - dw_p.float()).abs().max().item()}
-    print(json.dumps({"fused_loss_check": [n, h, v], "dtype": "bf16",
-                      "loss": loss, "plain_loss": loss_p, "ulps": ulps,
-                      "max_abs_err": errs}), flush=True)
-    del dx_p, dw_p
-    # B4 and B5 own their token rows, B6 its vocab rows (no atomics): two
-    # launches agree bit for bit
-    again = fl._fwd_kernel(x, w, lbl)
-    _check(torch.equal(again[0], nll) and torch.equal(again[1], lse),
-           "B4 does not repeat bit for bit")
-    _check(torch.equal(fl._bwd_dx_kernel(x, w, lbl32, lse, g), dx),
-           "B5 does not repeat bit for bit")
-    _check(torch.equal(fl._bwd_dw_kernel(x, w, lbl32, lse, g), dw),
-           "B6 does not repeat bit for bit")
-    del again
-    for key in ("B4", "B5", "B6"):
-        print(json.dumps({"bitwise_repeat": key, "shape": [n, h, v],
-                          "equal": True}), flush=True)
-    for dtype in (torch.bfloat16, torch.float32):
+    flush = torch.empty(32 * 1024 * 1024, device="cuda")   # 128 MB
+    res = {dt: _lce_ernie(dt, gen, flush)
+           for dt in (torch.bfloat16, torch.float16)}
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
         for hd in fl._HIDDEN:
             for mode, key in enumerate(("B4", "B5", "B6")):
                 print(json.dumps({"fused_loss_occupancy": key,
                                   "dtype": str(dtype), "hidden": hd,
                                   **fl._occupancy(mode, dtype, hd)}),
                       flush=True)
+    n, h, v = ERNIE_BATCH * ERNIE_SEQ, ERNIE["hidden_size"], \
+        ERNIE["vocab_size"]
+    bw, _, _, bf16_peak = _peaks(card)
+    xh, wh, row = n * h * 2, v * h * 2, n * 4
+    flops = 2 * n * v * h               # one [N, V] x H product
+    library = "two-call composition: torch.matmul in the operands' dtype " \
+        "(bf16; fp16_* in f16), F.cross_entropy of its f32 upcast"
+    rows_out = {
+        "B4": dict(
+            name="fused_lce_fwd",
+            replaces="paddle_tpu/ops/fused_loss.py:177 (_fwd_kernel)",
+            library=library + " (forward)",
+            nbytes=xh + wh + row + 2 * row, ops=flops),
+        "B5": dict(
+            name="fused_lce_bwd_dx",
+            replaces="paddle_tpu/ops/fused_loss.py:234 (_bwd_dx_kernel)",
+            library=library + " (backward, dx only)",
+            nbytes=xh + wh + 3 * row + xh, ops=2 * flops),
+        "B6": dict(
+            name="fused_lce_bwd_dw",
+            replaces="paddle_tpu/ops/fused_loss.py:255 (_bwd_dw_kernel)",
+            library=library + " (backward, dx and dw)",
+            nbytes=xh + wh + 3 * row + wh, ops=2 * flops),
+    }
+    (errs, times), (errs16, times16) = res[torch.bfloat16], \
+        res[torch.float16]
+    for key, row in rows_out.items():
+        t_bytes = row.pop("nbytes") / bw * 1e3
+        t_ops = row.pop("ops") / bf16_peak * 1e3
+        row.update(times[key])
+        row.update(route="cuda", source="paddle_tpu_torch/csrc/fused_loss.cu",
+                   max_abs_err=errs[key], bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   fp16_max_abs_err=errs16[key],
+                   **{f"fp16_{k}": v for k, v in times16[key].items()})
+        print(json.dumps({"kernel": key, **row}), flush=True)
+    return rows_out
 
-    # the yardstick: the unfused two-call composition, forward and
-    # backward by autograd (timed here, never called by the port)
+
+def _lce_bwd_sums(x, w, lbl, lse, g, d_dtype, cv=1024):
+    """The fused loss's backward as `_bwd_plain` computes it but with d
+    rounded to `d_dtype` (f32 sums, outputs in x's dtype), and the sums
+    of the absolute products behind dx and dw, ``|d| @ |w|`` [N, H] and
+    ``|d|^T @ |x|`` [V, H], with d rounded to x's dtype as the kernels
+    round it, chunk by chunk. Returns (dx, dw, dx sums, dw sums)."""
+    import torch
+
+    xf = x.float()
+    dx, dx_abs = torch.zeros_like(xf), torch.zeros_like(xf)
+    dw = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+    dw_abs = torch.empty_like(dw)
+    for off in range(0, w.shape[0], cv):
+        wk = w[off:off + cv].float()
+        s = xf @ wk.t()
+        col = torch.arange(off, off + s.shape[1], device=x.device)
+        hit = (col[None, :] == lbl[:, None]).float()
+        d = (torch.exp(s - lse[:, None]) - hit) * g[:, None]
+        dr, da = d.to(d_dtype).float(), d.to(x.dtype).float().abs()
+        dx += dr @ wk
+        dw[off:off + cv] = dr.t() @ xf
+        dx_abs += da @ wk.abs()
+        dw_abs[off:off + cv] = da.t() @ xf.abs()
+    return dx.to(x.dtype), dw.to(w.dtype), dx_abs, dw_abs
+
+
+# the f16 gate's multiple of sqrt(k) 2^-24 of the absolute products' sum
+F16_SUMS_K = 4.0
+
+
+def _f16_gate(got, want, acc, k):
+    """An f16 dx / dw against the f16 gate: one f16 ulp of each element
+    (of the largest element's 2^-8 near 0, at least f16's smallest
+    normal's), plus ``F16_SUMS_K * sqrt(k) * 2^-24`` of the sum of the
+    absolute products `acc` behind it (f32 sums of `k` products an
+    element in another order than the plain version's: independent
+    roundings grow as sqrt(k)). Returns (the largest |got - want| over
+    the gate, the least multiple of ``sqrt(k) * 2^-24 * acc`` beyond
+    the ulp that `got` needs)."""
+    import torch
+
+    want = want.float()
+    err = (got.float() - want).abs()
+    ulp = torch.maximum(want.abs(), want.abs().max() * 2 ** -8).clamp_min(
+        2.0 ** -14) * 2 ** -10
+    sums = k ** 0.5 * 2.0 ** -24 * acc
+    need = torch.where(err <= ulp, 0.0, (err - ulp) / sums)
+    return (float((err / (ulp + F16_SUMS_K * sums)).max()),
+            float(need.max()))
+
+
+def _lce_ernie(dtype, gen, flush):
+    """B4-B6 in `dtype` at the ERNIE shape as the train step runs them:
+    x the head's [16384, 768] hidden states, w the tied table [18000,
+    768], MLM labels at 15%, g the mean's gradient; in f16 times the
+    engine's initial loss scale 2^15 (a float16 step's d: unscaled it
+    would lie below f16's subnormals). Against the plain versions: the
+    loss within 1e-3, nll and lse row by row within 1e-4; B5 / B6 in
+    bf16 within one bf16 ulp of the plain backward on the plain lse; in
+    f16 on B4's lse (the two lse differ in their last f32 bits, which
+    f16's finer d carries past one ulp) within `_f16_gate`, which the
+    plain backward with d rounded to bf16 instead (the control) must
+    fail. B4-B6 own their rows (no atomics): two launches agree bit for
+    bit. Then timed beside the plain versions and the two-call
+    composition in `dtype` (forward; backward asked for dx, and for dx
+    and dw; never called by the port). Returns ({key: max abs err},
+    {key: {ms, plain_ms, library_ms}})."""
+    import torch
+
+    from paddle_tpu_torch.ops import fused_loss as fl
+
+    f16 = dtype == torch.float16
+    n, h, v = ERNIE_BATCH * ERNIE_SEQ, ERNIE["hidden_size"], \
+        ERNIE["vocab_size"]
+    x, w, lbl, g = _lce_case(n, h, v, 0.85, dtype, gen, 1.0, 0.02)
+    if f16:
+        g = g * 2.0 ** 15
+    lbl32 = lbl.to(torch.int32)
+    nll, lse = fl._fwd_kernel(x, w, lbl)
+    dx, dw = fl._bwd_kernel(x, w, lbl, lse, g)
+    nll_p, lse_p = fl._fwd_plain(x, w, lbl, 1024)
+    dx_p, dw_p = fl._bwd_plain(x, w, lbl, lse if f16 else lse_p, g, 1024)
+    torch.cuda.synchronize()
+    valid = lbl != -100
+    loss, loss_p = nll[valid].mean().item(), nll_p[valid].mean().item()
+    _check(abs(loss - loss_p) <= 1e-3 * abs(loss_p),
+           f"B4 {dtype} loss {loss} vs plain {loss_p}")
+    # row by row: the mean alone would hide a wrong picked logit
+    torch.testing.assert_close(nll[valid], nll_p[valid], rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-4, atol=1e-4)
+    _check(all(bool(torch.isfinite(t).all()) for t in (dx, dw)),
+           f"B5/B6 {dtype} overflowed at the ERNIE shape")
+    ulps = {"B5": _ulps(dx, dx_p, dtype), "B6": _ulps(dw, dw_p, dtype)}
+    report = {}
+    if f16:
+        ctl_dx, ctl_dw, dx_abs, dw_abs = _lce_bwd_sums(
+            x, w, lbl, lse, g, torch.bfloat16)
+        for key, got, want, ctl, acc, k in (
+                ("B5", dx, dx_p, ctl_dx, dx_abs, v),
+                ("B6", dw, dw_p, ctl_dw, dw_abs, n)):
+            (r, need), (r_ctl, need_ctl) = (_f16_gate(t, want, acc, k)
+                                            for t in (got, ctl))
+            report[key] = {"of_gate": r, "sums_k_needed": need,
+                           "control_of_gate": r_ctl,
+                           "control_sums_k_needed": need_ctl}
+        del ctl_dx, ctl_dw, dx_abs, dw_abs
+        print(json.dumps({"fused_loss_f16_gate": report,
+                          "sums_k": F16_SUMS_K}), flush=True)
+        for key, rep in report.items():
+            _check(rep["of_gate"] <= 1.0,
+                   f"f16 {key} at {rep['of_gate']} of its gate")
+            _check(rep["control_of_gate"] > 1.0,
+                   f"f16 {key}: the bf16-rounded control passes the gate "
+                   f"({rep['control_of_gate']} of it)")
+    else:
+        _check(all(u <= 1.0 for u in ulps.values()),
+               f"B5/B6 beyond one bf16 ulp of the plain version: {ulps}")
+    errs = {"B4": max((nll - nll_p).abs().max().item(),
+                      (lse - lse_p).abs().max().item()),
+            "B5": (dx.float() - dx_p.float()).abs().max().item(),
+            "B6": (dw.float() - dw_p.float()).abs().max().item()}
+    print(json.dumps({"fused_loss_check": [n, h, v], "dtype": str(dtype),
+                      "g_scale": 2.0 ** 15 if f16 else 1.0, "loss": loss,
+                      "plain_loss": loss_p, "ulps": ulps, "gate": report,
+                      "max_abs_err": errs}), flush=True)
+    del dx_p, dw_p, nll_p, lse_p
+    again = fl._fwd_kernel(x, w, lbl)
+    _check(torch.equal(again[0], nll) and torch.equal(again[1], lse),
+           f"B4 {dtype} does not repeat bit for bit")
+    _check(torch.equal(fl._bwd_dx_kernel(x, w, lbl32, lse, g), dx),
+           f"B5 {dtype} does not repeat bit for bit")
+    _check(torch.equal(fl._bwd_dw_kernel(x, w, lbl32, lse, g), dw),
+           f"B6 {dtype} does not repeat bit for bit")
+    del again, dx, dw
+    for key in ("B4", "B5", "B6"):
+        print(json.dumps({"bitwise_repeat": key, "dtype": str(dtype),
+                          "shape": [n, h, v], "equal": True}), flush=True)
+
     xl, wl = (t.detach().clone().requires_grad_(True) for t in (x, w))
 
     def lib_fwd():
@@ -1225,59 +1400,27 @@ def phase_fused_loss(card):
             torch.matmul(xl, wl.t()).float(), lbl, ignore_index=-100)
 
     lib_loss = lib_fwd()
-    flush = torch.empty(32 * 1024 * 1024, device="cuda")   # 128 MB
-    bw, _, _, bf16_peak = _peaks(card)
-    lib_fwd_ms = _time_ms(lambda: lib_fwd(), flush, n=20,
-                          spin=AUTOGRAD_SPIN)
-    lib_bwd_ms = _time_ms(lambda: torch.autograd.grad(
-        lib_loss, (xl, wl), retain_graph=True), flush, n=20,
-        spin=AUTOGRAD_SPIN)
-    # B5's own function in library calls: the same autograd backward
-    # asked for dx alone (cross_entropy's softmax - onehot, the dx GEMM;
-    # no dw GEMM)
-    lib_dx_ms = _time_ms(lambda: torch.autograd.grad(
-        lib_loss, xl, retain_graph=True), flush, n=20, spin=AUTOGRAD_SPIN)
+    lib = {"B4": _time_ms(lib_fwd, flush, n=20, spin=AUTOGRAD_SPIN),
+           # B5's own function in library calls: the same autograd
+           # backward asked for dx alone (no dw GEMM)
+           "B5": _time_ms(lambda: torch.autograd.grad(
+               lib_loss, xl, retain_graph=True), flush, n=20,
+               spin=AUTOGRAD_SPIN),
+           "B6": _time_ms(lambda: torch.autograd.grad(
+               lib_loss, (xl, wl), retain_graph=True), flush, n=20,
+               spin=AUTOGRAD_SPIN)}
     del lib_loss
-    plain_bwd_ms = _time_ms(lambda: fl._bwd_plain(x, w, lbl, lse, g, 1024),
-                            flush, n=5)
-    xh, wh, row = n * h * 2, v * h * 2, n * 4
-    flops = 2 * n * v * h               # one [N, V] x H product
-    library = "two-call composition: bf16 torch.matmul, F.cross_entropy " \
-        "of its f32 upcast"
-    rows_out = {
-        "B4": dict(
-            name="fused_lce_fwd",
-            replaces="paddle_tpu/ops/fused_loss.py:177 (_fwd_kernel)",
-            ms=_time_ms(lambda: fl._fwd_kernel(x, w, lbl), flush),
-            plain_ms=_time_ms(lambda: fl._fwd_plain(x, w, lbl, 1024),
-                              flush, n=5),
-            library_ms=lib_fwd_ms, library=library + " (forward)",
-            nbytes=xh + wh + row + 2 * row, ops=flops),
-        "B5": dict(
-            name="fused_lce_bwd_dx",
-            replaces="paddle_tpu/ops/fused_loss.py:234 (_bwd_dx_kernel)",
-            ms=_time_ms(lambda: fl._bwd_dx_kernel(x, w, lbl32, lse, g),
-                        flush),
-            plain_ms=plain_bwd_ms, library_ms=lib_dx_ms,
-            library=library + " (backward, dx only)",
-            nbytes=xh + wh + 3 * row + xh, ops=2 * flops),
-        "B6": dict(
-            name="fused_lce_bwd_dw",
-            replaces="paddle_tpu/ops/fused_loss.py:255 (_bwd_dw_kernel)",
-            ms=_time_ms(lambda: fl._bwd_dw_kernel(x, w, lbl32, lse, g),
-                        flush),
-            plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
-            library=library + " (backward, dx and dw)",
-            nbytes=xh + wh + 3 * row + wh, ops=2 * flops),
-    }
-    for key, row in rows_out.items():
-        t_bytes = row.pop("nbytes") / bw * 1e3
-        t_ops = row.pop("ops") / bf16_peak * 1e3
-        row.update(route="cuda", source="paddle_tpu_torch/csrc/fused_loss.cu",
-                   max_abs_err=errs[key], bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations")
-        print(json.dumps({"kernel": key, **row}), flush=True)
-    return rows_out
+    plain_bwd = _time_ms(lambda: fl._bwd_plain(x, w, lbl, lse, g, 1024),
+                         flush, n=5)
+    plain = {"B4": _time_ms(lambda: fl._fwd_plain(x, w, lbl, 1024), flush,
+                            n=5), "B5": plain_bwd, "B6": plain_bwd}
+    ms = {"B4": _time_ms(lambda: fl._fwd_kernel(x, w, lbl), flush),
+          "B5": _time_ms(lambda: fl._bwd_dx_kernel(x, w, lbl32, lse, g),
+                         flush),
+          "B6": _time_ms(lambda: fl._bwd_dw_kernel(x, w, lbl32, lse, g),
+                         flush)}
+    return errs, {key: dict(ms=ms[key], plain_ms=plain[key],
+                            library_ms=lib[key]) for key in ms}
 
 
 def _ernie_batch(vocab, batch, seq, seed=0):
@@ -1291,7 +1434,7 @@ def _ernie_batch(vocab, batch, seq, seed=0):
     return ids, labels
 
 
-def _ernie_engine(cfg, device, weights_seed, engine_seed, lr):
+def _ernie_engine(cfg, device, weights_seed, engine_seed, lr, **kw):
     import torch
 
     from paddle_tpu_torch import optimizer
@@ -1307,7 +1450,7 @@ def _ernie_engine(cfg, device, weights_seed, engine_seed, lr):
     opt = optimizer.AdamW(learning_rate=lr, parameters=model.parameters(),
                           weight_decay=0.01)
     return Engine(model, opt, lambda out, mlm: crit(out[0], out[1], mlm),
-                  device=device, seed=engine_seed)
+                  device=device, seed=engine_seed, **kw)
 
 
 def phase_train_slice():
@@ -1781,7 +1924,13 @@ B9_RAGGED = [(1, 100, 2, "float32", "float32", "weight"),
              (1, 3072, 333, "float32", "float32", "chunk"),
              (129, 129, 257, "float32", "float32", "weight"),
              (257, 200, 129, "bfloat16", "bfloat16", "chunk"),
-             (129, 3000, 130, "bfloat16", "float32", "weight")]
+             (129, 3000, 130, "bfloat16", "float32", "weight"),
+             # float16 operands (float16 amp: f16 activations, and f16
+             # weights after amp.decorate)
+             (7, 100, 3, "float16", "float32", "weight"),
+             (33, 768, 333, "float16", "float16", "chunk"),
+             (257, 200, 129, "float32", "float16", "chunk"),
+             (129, 3000, 130, "float16", "bfloat16", "weight")]
 
 
 def _b9_operands(m, k, n, a_dtype, lda, b_dtype, layout, gen):
@@ -1922,6 +2071,7 @@ def phase_lowp_kernels(card, calls):
     for q in ("int8", "fp8"):
         print(json.dumps({"scaled_matmul_occupancy": q,
                           **lowp._occupancy(q)}), flush=True)
+    fp16_call = _b9_f16_call(calls, gen, flush)
     launches = sum(calls.values())
     print(json.dumps({"b9_per_step": step, "launches": launches,
                       "distinct_calls": len(calls),
@@ -1940,7 +2090,37 @@ def phase_lowp_kernels(card, calls):
         fp8_ms=f8["ms"], fp8_plain_ms=f8["plain_ms"],
         fp8_library_ms=f8["library_ms"],
         library="; ".join(sorted(lib_notes.get("int8", ()))),
-        per="one int8 training step's calls, summed (fp8_* the fp8 step's)")
+        per="one int8 training step's calls, summed (fp8_* the fp8 step's)",
+        fp16_call=fp16_call)
+
+
+def _b9_f16_call(calls, gen, flush):
+    """The largest recorded B9 call with float16 operands (a and b as a
+    float16 amp step hands them over) against the same call in bf16, in
+    int8: bit for bit the plain version, timed beside the library
+    yardstick (the codes through ``torch._int_mm``)."""
+    import torch
+
+    from paddle_tpu_torch.ops import lowp
+
+    m, k, n, _a, lda, _b, layout = max(calls, key=lambda c: c[0] * c[1] *
+                                       c[2])
+    out = dict(m=m, k=k, n=n, b_layout=layout)
+    for dt in ("float16", "bfloat16"):
+        a, b = _b9_operands(m, k, n, dt, lda, dt, layout, gen)
+        sa, sb = lowp.amax_of(a), lowp.amax_of(b)
+        want = lowp._smm_plain(a, b, sa, sb, "int8")
+        _check(torch.equal(lowp._smm_kernel(a, b, sa, sb, "int8"), want),
+               f"B9 int8 differs from its plain version with {dt} operands")
+        lib, _note = _smm_yardstick(a, b, sa, sb, "int8", want, None)
+        key = "fp16" if dt == "float16" else "bf16"
+        out[f"{key}_ms"] = _time_ms(
+            lambda: lowp._smm_kernel(a, b, sa, sb, "int8"), flush, n=20)
+        out[f"{key}_library_ms"] = _time_ms(lib, flush, n=20) if lib \
+            else None
+        del a, b, want
+    print(json.dumps({"b9_f16_call": out}), flush=True)
+    return out
 
 
 # ResNet-50 training as bench.py:184-214 runs it
@@ -2150,17 +2330,18 @@ def _conv_operands(key, dtype, gen):
 
 def phase_conv(card):
     """B10 against its plain version at every distinct conv of the
-    ResNet-50 path at batch 128 (bf16 under O1): the training forward
-    (moments epilogue), the dx parity planes (none), the eval forward
-    (affine, with and without the residual, ReLU or identity), recorded
-    from one training step and one eval forward of the real model; f32
-    at three of them. Each timed with CUDA events (L2 flushed, the long
-    spin) beside the plain version, cuDNN's bf16 F.conv2d on the same
-    NCHW operands (the yardstick, never called by the port) and the
-    bound, summed
-    over a step's launches in all and by class (`_conv_class`); the
-    registers and blocks per SM of each bf16 tile. Returns the B10 row
-    summed over one training step's launches."""
+    ResNet-50 path at batch 128 (bf16 under O1), in bf16 and in f16:
+    the training forward (moments epilogue), the dx parity planes
+    (none), the eval forward (affine, with and without the residual,
+    ReLU or identity), recorded from one training step and one eval
+    forward of the real model; y within one ulp of the operand dtype,
+    the moments within 1e-4; f32 at three of them. Each timed with CUDA
+    events (L2 flushed, the long spin) beside the plain version,
+    cuDNN's F.conv2d in the same dtype on the same NCHW operands (the
+    yardstick, never called by the port) and the bound, summed over a
+    step's launches in all and by class (`_conv_class`); the registers
+    and blocks per SM of each tile. Returns the B10 row summed over one
+    training step's launches (bf16; `fp16_*` f16)."""
     import torch
     import torch.nn.functional as tF
 
@@ -2171,33 +2352,36 @@ def phase_conv(card):
     bw, _, _, bf16_peak = _peaks(card)
     flush = torch.empty(32 * 1024 * 1024, device="cuda")   # 128 MB
     gen = torch.Generator().manual_seed(10)
-    shapes, step = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
-                            bound_ms=0.0)
-    by_class = {}
-    err = ulps_max = 0.0
+    half = (torch.bfloat16, torch.float16)
+    shapes = []
+    step = {dt: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+            for dt in half}
+    by_class = {str(dt): {} for dt in half}
+    err = {dt: 0.0 for dt in half}
+    ulps_max = {dt: 0.0 for dt in half}
     keys = sorted(set(train_calls) | set(eval_calls))
     f32_keys = {max(keys, key=lambda k_: k_[1][1] * k_[1][2] * k_[1][3]),
                 keys[0], keys[-1]}
     for key in keys:
         xs, ws, s, pads, epi = key
         per_step = train_calls.get(key, 0)
-        for dtype in ([torch.bfloat16, torch.float32] if key in f32_keys
-                      else [torch.bfloat16]):
+        for dtype in half + ((torch.float32,) if key in f32_keys else ()):
             x, w, plan, xp, wk, kw = _conv_operands(key, dtype, gen)
             got = fused_conv._conv_kernel(xp, wk, plan, **kw)
             want = fused_conv._conv_plain(xp, wk, plan, **kw)
             torch.cuda.synchronize()
             y, yw = got[0].float(), want[0].float()
-            if dtype == torch.bfloat16:
-                ulps = _bf16_ulps(y, yw)
-                _check(ulps <= 1.0, f"B10 {key}: {ulps} bf16 ulps off plain")
-                ulps_max = max(ulps_max, ulps)
-                err = max(err, (y - yw).abs().max().item())
-                mtol = 1e-4
-            else:
+            if dtype == torch.float32:
                 torch.testing.assert_close(
                     y, yw, rtol=1e-5, atol=1e-5 * float(yw.abs().max()))
                 mtol = 1e-5
+            else:
+                ulps = _ulps(y, yw, dtype)
+                _check(ulps <= 1.0,
+                       f"B10 {key}: {ulps} {dtype} ulps off plain")
+                ulps_max[dtype] = max(ulps_max[dtype], ulps)
+                err[dtype] = max(err[dtype], (y - yw).abs().max().item())
+                mtol = 1e-4
             for gm, wm in zip(got[1:], want[1:]):
                 torch.testing.assert_close(
                     gm, wm, rtol=mtol, atol=mtol * float(wm.abs().max()))
@@ -2226,20 +2410,22 @@ def phase_conv(card):
                 (2 * o * 4 if epi != "none" else 0)
             t_bytes, t_ops = nbytes / bw * 1e3, real / bf16_peak * 1e3
             row = dict(x=list(xs), w=list(ws), stride=s, pads=list(pads),
-                       epilogue=epi, launches_per_step=per_step,
+                       epilogue=epi, dtype=str(dtype),
+                       launches_per_step=per_step,
                        eval_launches=eval_calls.get(key, 0), ms=ms,
                        plain_ms=plain_ms, cudnn_ms=lib_ms,
                        bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                        real_gflop=real / 1e9, lowered_gflop=lowered / 1e9,
                        ulps=ulps)
-            shapes.append(row)
+            if dtype == torch.bfloat16:
+                shapes.append(row)
             print(json.dumps({"conv_shape": row}), flush=True)
             for k_, v in (("ms", ms), ("plain_ms", plain_ms),
                           ("library_ms", lib_ms),
                           ("bound_ms", row["bound_ms"])):
-                step[k_] += per_step * v
-            cls = by_class.setdefault(_conv_class(key), dict(
+                step[dtype][k_] += per_step * v
+            cls = by_class[str(dtype)].setdefault(_conv_class(key), dict(
                 launches=0, ms=0.0, cudnn_ms=0.0, bound_ms=0.0))
             cls["launches"] += per_step
             for k_, v in (("ms", ms), ("cudnn_ms", lib_ms),
@@ -2248,24 +2434,34 @@ def phase_conv(card):
             del x, w, xp, wk, got, want
     t_bytes = sum(r["launches_per_step"] * r["bound_ms"] for r in shapes
                   if r["bound_by"] == "bytes")
-    t_ops = step["bound_ms"] - t_bytes
+    bf16, f16 = step[torch.bfloat16], step[torch.float16]
+    t_ops = bf16["bound_ms"] - t_bytes
     per_step_total = sum(train_calls.values())
-    print(json.dumps({"b10_per_step": step, "launches": per_step_total,
+    print(json.dumps({"b10_per_step": {str(dt): v for dt, v in step.items()},
+                      "launches": per_step_total,
                       "distinct_shapes": len(keys),
-                      "max_bf16_ulps": ulps_max}), flush=True)
+                      "max_ulps": {str(dt): v for dt, v in
+                                   ulps_max.items()}}), flush=True)
     print(json.dumps({"b10_per_step_by_class": by_class}), flush=True)
     for tile_n in (64, 128, 256):
-        print(json.dumps({"conv_occupancy": f"bf16 tile_n {tile_n}",
-                          **fused_conv._occupancy(tile_n)}), flush=True)
+        for dtype in half:
+            print(json.dumps({"conv_occupancy": f"{dtype} tile_n {tile_n}",
+                              **fused_conv._occupancy(tile_n, dtype)}),
+                  flush=True)
     return dict(
         name="fused_conv2d_bn_act",
         route="cuda", source="paddle_tpu_torch/csrc/fused_conv.cu",
         replaces="paddle_tpu/ops/fused_conv.py:232 (_conv_kernel)",
-        max_abs_err=err, ms=step["ms"], plain_ms=step["plain_ms"],
-        library_ms=step["library_ms"], bound_ms=step["bound_ms"],
+        max_abs_err=err[torch.bfloat16], ms=bf16["ms"],
+        plain_ms=bf16["plain_ms"], library_ms=bf16["library_ms"],
+        bound_ms=bf16["bound_ms"],
         bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library="cuDNN bf16 F.conv2d on the NCHW operands, no epilogue",
-        per="one training step's launches, summed")
+        library="cuDNN F.conv2d in the operands' dtype (bf16; fp16_* in "
+        "f16) on the NCHW operands, no epilogue",
+        per="one training step's launches, summed",
+        fp16_max_abs_err=err[torch.float16],
+        fp16_max_ulps=ulps_max[torch.float16], fp16_ms=f16["ms"],
+        fp16_plain_ms=f16["plain_ms"], fp16_library_ms=f16["library_ms"])
 
 
 SLICE_MODELS = ((18, 64), (50, 16))     # (depth, width)
@@ -5274,6 +5470,403 @@ def phase_transformer_base(card):
     return launches
 
 
+# -- mixed precision complete (phases 44-46) ---------------------------------
+
+def _b1_b6():
+    from paddle_tpu_torch.ops import fused_loss, fused_ops
+
+    return {**fused_ops.flash_attention.launches, **fused_loss.launches}
+
+
+def _zero_b1_b6():
+    from paddle_tpu_torch.ops import fused_loss, fused_ops
+
+    fused_ops.flash_attention.launches.update(B1=0, B2=0, B3=0)
+    fused_loss.launches.update(B4=0, B5=0, B6=0)
+
+
+_DTYPE_NAMES = {0: "float32", 1: "bfloat16", 2: "float16"}
+# where each kernel entry takes its dtype code (ops/_launch.dtype_code)
+_DTYPE_ARG = {"flash_attn_fwd": ("B1", 1), "flash_attn_bwd_dq": ("B2", 1),
+              "flash_attn_bwd_dkv": ("B3", 1), "fused_lce_fwd": ("B4", 1),
+              "fused_lce_dx": ("B5", 1), "fused_lce_dw": ("B6", 1),
+              "fused_conv": ("B10", 0),
+              # B9's quantise passes read a and b each in its own dtype
+              "scaled_matmul": ("B9", (1, 4))}
+
+
+class _DtypeRecorder:
+    """Which instantiation each launch of B1-B6, B9 and B10 took: counts
+    by (kernel, dtype) of the calls through `ops._launch.launch` inside
+    the block (the wrappers pass each kernel its dtype code; B9's key
+    names a's and b's, "float16xfloat32")."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops import _launch
+
+        self.counts = {}
+        self._orig = orig = _launch.launch
+
+        def launch(lib, fn, what, device, *args):
+            if what in _DTYPE_ARG:
+                key, at = _DTYPE_ARG[what]
+                k = (key, "x".join(_DTYPE_NAMES[args[i]] for i in at)
+                     if isinstance(at, tuple) else _DTYPE_NAMES[args[at]])
+                self.counts[k] = self.counts.get(k, 0) + 1
+            return orig(lib, fn, what, device, *args)
+
+        _launch.launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.ops import _launch
+
+        _launch.launch = self._orig
+
+    def by_dtype(self):
+        return {f"{k}/{dt}": n for (k, dt), n in sorted(self.counts.items())}
+
+
+def _scale_rule_ok(before, after, cfg):
+    """Whether one step's (scale, good, bad) transition is the
+    reference's dynamic loss-scaling rule for a finite or a non-finite
+    step (`engine._update_scale`, the reference's in-graph rule)."""
+    s, g, b = before
+    finite = (s * cfg["incr_ratio"], 0, 0) if g + 1 >= \
+        cfg["incr_every_n_steps"] else (s, g + 1, 0)
+    bad = (s * cfg["decr_ratio"], 0, 0) if b + 1 >= \
+        cfg["decr_every_n_nan_or_inf"] else (s, 0, b + 1)
+    return after in (finite, bad), after == bad and after != finite
+
+
+def phase_ernie_amp(card, n=3):
+    """Phase 44: ERNIE-1.0 at bench.py's full width (b32 x s512, dropout
+    0.1, AdamW, the fused LM loss on). (a) `n` steps of
+    ``Engine(comm_dtype="bfloat16")``: O2 autocast over f32 parameters,
+    then its profile (the device's busy time beside the O1 fused leg's).
+    (b) `n` steps of float16 O1 with ``loss_scale="dynamic"``. (c) 2
+    steps of (b) with ``FLAGS_lowp_matmul`` int8: B9's 69 launches a
+    step, some with f16 activations, B4 bypassed. Each leg with the
+    launch counts set to 0 just before it and read just after: 12 of
+    each of B1-B3 and 1 of each of B4-B6 a step, every one of them in
+    the leg's instantiation (bf16 in (a), f16 in (b) and (c)); finite
+    losses; (b)'s scale, good and bad step buffers follow the
+    reference's rule at every step. Returns (launches by leg, the
+    report)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.engine import (
+        BAD_STEPS_KEY, DEFAULT_SCALE_CONFIG, GOOD_STEPS_KEY, LOSS_SCALE_KEY,
+    )
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.nlp.transformers import ErnieConfig
+    from paddle_tpu_torch.ops import lowp as lowp_ops
+
+    set_flags({"FLAGS_use_fused_lm_loss": True, "FLAGS_lowp_matmul": "off"})
+    cfg = ErnieConfig(**ERNIE)
+    ids, labels = _ernie_batch(cfg.vocab_size, ERNIE_BATCH, ERNIE_SEQ)
+    L = cfg.num_layers
+    per_step = {"B1": L, "B2": L, "B3": L, "B4": 1, "B5": 1, "B6": 1}
+    out, launches = {"card": card}, {}
+    for leg, dtype, kw, amp_kw in (
+            ("comm_dtype_bf16", "bfloat16", {"comm_dtype": "bfloat16"},
+             {"enable": False}),
+            ("fp16_o1_dynamic", "float16", {"loss_scale": "dynamic"},
+             {"enable": True, "dtype": "float16"})):
+        eng = _ernie_engine(cfg, "cuda", 0, 0, 1e-4, **kw)
+        bufs = eng.state.buffers
+        losses, scales, times, skipped = [], [], [], 0
+        _zero_b1_b6()
+        with _DtypeRecorder() as rec:
+            for _ in range(n):
+                before = tuple(float(bufs[k]) if k in bufs else None for k in
+                               (LOSS_SCALE_KEY, GOOD_STEPS_KEY,
+                                BAD_STEPS_KEY))
+                t0 = time.perf_counter()
+                with amp.auto_cast(**amp_kw):
+                    loss = eng.train_batch(ids, labels)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append(float(loss))
+                if LOSS_SCALE_KEY in bufs:
+                    after = tuple(float(bufs[k]) for k in (
+                        LOSS_SCALE_KEY, GOOD_STEPS_KEY, BAD_STEPS_KEY))
+                    ok, bad = _scale_rule_ok(before, after,
+                                             DEFAULT_SCALE_CONFIG)
+                    _check(ok, f"{leg}: scale {before} -> {after} is not "
+                           f"the reference's rule")
+                    skipped += int(bad)
+                    scales.append(after)
+        got = _b1_b6()
+        _check(got == {k: c * n for k, c in per_step.items()},
+               f"{leg}: launches {got} over {n} steps, want {per_step} a "
+               f"step")
+        by_dtype = rec.by_dtype()
+        _check(by_dtype == {f"{k}/{dtype}": c * n
+                            for k, c in per_step.items()},
+               f"{leg}: instantiations {by_dtype}")
+        _check(all(np.isfinite(losses)), f"{leg}: losses {losses}")
+        for p in eng.state.params.values():
+            _check(p.dtype == torch.float32, f"{leg}: a {p.dtype} parameter")
+        row = {"steps": n, "losses": losses,
+               "step_ms_p50": float(np.median(times)) * 1e3,
+               "launches_by_dtype": by_dtype}
+        if scales:
+            row.update(scale_buffers=scales, skipped_steps=skipped)
+        if leg == "comm_dtype_bf16":
+            def step():
+                return eng.train_batch(ids, labels)
+
+            # 3 more steps, profiled, read in the leg's counts
+            row["device_busy_ms"] = phase_train_profile(
+                step, "ernie-1.0 train step (b32 s512, comm_dtype bf16 O2, "
+                "fused loss)")["busy_ms"]
+            got = _b1_b6()
+            _check(got == {k: c * (n + 3) for k, c in per_step.items()},
+                   f"{leg}: launches {got} with the profiled steps")
+        launches[leg] = got
+        out[leg] = row
+        del eng
+        torch.cuda.empty_cache()
+    # (c) float16 O1 with FLAGS_lowp_matmul int8: B9's quantise passes
+    # take the f16 activations the reference hands them
+    set_flags({"FLAGS_lowp_matmul": "int8"})
+    try:
+        eng = _ernie_engine(cfg, "cuda", 0, 0, 1e-4, loss_scale="dynamic")
+        b9 = _b9_per_step(eng.layer)
+        _zero_b1_b6()
+        lowp_ops.scaled_matmul.launches = 0
+        losses = []
+        with _DtypeRecorder() as rec:
+            for _ in range(2):
+                with amp.auto_cast(enable=True, dtype="float16"):
+                    losses.append(float(eng.train_batch(ids, labels)))
+        torch.cuda.synchronize()
+    finally:
+        set_flags({"FLAGS_lowp_matmul": "off"})
+    got = {**_b1_b6(), "B9": lowp_ops.scaled_matmul.launches}
+    want = {**{k: c * 2 for k, c in per_step.items()}, "B4": 0, "B9": b9 * 2}
+    _check(got == want, f"f16 lowp: launches {got}, want {want}")
+    by_dtype = rec.by_dtype()
+    f16_b9 = sum(c for k, c in by_dtype.items()
+                 if k.startswith("B9/") and "float16" in k)
+    _check(f16_b9 > 0 and sum(c for k, c in by_dtype.items()
+                              if k.startswith("B9/")) == b9 * 2,
+           f"f16 lowp: B9 instantiations {by_dtype}")
+    _check(all(np.isfinite(losses)), f"f16 lowp: losses {losses}")
+    launches["fp16_o1_lowp_int8"] = got
+    out["fp16_o1_lowp_int8"] = {"steps": 2, "losses": losses,
+                                "launches_by_dtype": by_dtype}
+    del eng
+    torch.cuda.empty_cache()
+    print(json.dumps({"ernie_amp_44": out}), flush=True)
+    return launches, out
+
+
+def phase_gpt_amp(card, max_eager=24):
+    """Phase 45: GPT-2 small (b8 x s1024, dropout 0.1). (a) `Model` with
+    ``amp_configs={"level": "O2"}`` (bf16) through `fit` over 3 batches,
+    then one `train_batch`: 12 launches a step of each of B1-B3
+    (causal), all bf16, counted after `fit` and again after
+    `train_batch`; a finite loss. (b) the eager float16 O2 loop:
+    ``amp.decorate(model, opt, level="O2", dtype="float16")``,
+    ``GradScaler(init_loss_scaling=2**24)``,
+    ``scaler.scale(loss).backward(); scaler.unscale_(opt);
+    scaler.step(opt)`` (`step` updates the scale, as the reference's
+    does) under ``auto_cast(level="O2", dtype="float16")`` until two
+    steps have gone through (at most `max_eager`): the first steps
+    overflow in f16 and are skipped, the scale halving each time.
+    Gates: at least one skip and one update, every parameter unchanged
+    bit for bit on each skipped step, B1-B3 12 a step in f16. Returns
+    B1-B3's launches by leg and the report."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import Model, amp, optimizer
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.nlp.transformers import GPTPretrainingCriterion
+
+    cfg, model, init = _gpt_model()
+    L = cfg.num_layers
+    out = {"card": card}
+    # (a) hapi O2 through the engine
+    n_train = 3 * GPT_BATCH
+    ids, labels = _gpt_batch(cfg.vocab_size, n_train, GPT_SEQ, 21)
+    hapi = Model(model).prepare(
+        optimizer.AdamW(1e-4, parameters=model.parameters(),
+                        weight_decay=0.01),
+        GPTPretrainingCriterion(cfg), amp_configs={"level": "O2"})
+    _zero_flash()
+    with _DtypeRecorder() as rec:
+        hapi.fit(TensorDataset([ids, labels]), batch_size=GPT_BATCH,
+                 epochs=1, verbose=0)
+        fit_launches = _flash_counts()
+        loss = hapi.train_batch([ids[:GPT_BATCH]], [labels[:GPT_BATCH]])[0]
+    hapi_launches = _flash_counts()
+    steps = n_train // GPT_BATCH
+    _check(fit_launches == {k: L * steps for k in ("B1", "B2", "B3")},
+           f"hapi O2 fit: launches {fit_launches}")
+    want = {k: L * (steps + 1) for k in ("B1", "B2", "B3")}
+    _check(hapi_launches == want,
+           f"hapi O2 fit and train_batch: launches {hapi_launches}")
+    _check(rec.by_dtype() == {f"{k}/bfloat16": c for k, c in want.items()},
+           f"hapi O2: instantiations {rec.by_dtype()}")
+    _check(np.isfinite(loss), f"hapi O2 loss {loss}")
+    out["hapi_o2"] = {"fit_steps": steps, "loss": loss,
+                      "fit_launches": fit_launches,
+                      "launches": hapi_launches}
+    del hapi
+    # (b) the eager float16 O2 loop with the eager GradScaler
+    model.set_state_dict(init)
+    model.train()
+    opt = optimizer.AdamW(1e-4, parameters=model.parameters(),
+                          weight_decay=0.01)
+    amp.decorate(model, opt, level="O2", dtype="float16")
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 24)
+    crit = GPTPretrainingCriterion(cfg)
+    x = torch.as_tensor(ids[:GPT_BATCH], device="cuda")
+    y = torch.as_tensor(labels[:GPT_BATCH], device="cuda")
+    params = list(model.parameters())
+    _check(all(p.dtype == torch.float16 for p in params),
+           "decorate left a parameter out of f16")
+    skipped = updated = 0
+    losses, scales = [], []
+    _zero_flash()
+    with _DtypeRecorder() as rec, \
+            prandom.rng_scope(prandom.RngState(0, x.device)):
+        for i in range(max_eager):
+            before = [p.detach().clone() for p in params]
+            with amp.auto_cast(level="O2", dtype="float16"):
+                loss = crit(model(x), y)
+            scaler.scale(loss).backward()
+            scaler.unscale_(opt)
+            skip = scaler._found_inf
+            scaler.step(opt)
+            opt.clear_grad()
+            same = all(torch.equal(a, p.detach()) for a, p in
+                       zip(before, params))
+            if skip:
+                skipped += 1
+                _check(same, f"eager step {i}: a skipped step moved a "
+                       "parameter")
+            else:
+                updated += 1
+                _check(not same, f"eager step {i}: nothing moved")
+            losses.append(float(loss.detach()))
+            scales.append(float(scaler.get_loss_scaling()))
+            del before
+            if updated >= 2:
+                break
+    eager_launches = _flash_counts()
+    n_eager = len(losses)
+    _check(skipped >= 1 and updated >= 1,
+           f"eager f16 O2: {skipped} skipped, {updated} updated")
+    _check(eager_launches == {k: L * n_eager for k in ("B1", "B2", "B3")},
+           f"eager f16 O2: launches {eager_launches} in {n_eager} steps")
+    _check(rec.by_dtype() == {f"{k}/float16": L * n_eager
+                              for k in ("B1", "B2", "B3")},
+           f"eager f16 O2: instantiations {rec.by_dtype()}")
+    _check(all(np.isfinite(losses)), f"eager f16 O2 losses {losses}")
+    out["eager_fp16_o2"] = {"steps": n_eager, "skipped": skipped,
+                            "updated": updated, "final_scale": scales[-1],
+                            "scales": scales, "losses": losses,
+                            "launches": eager_launches}
+    print(json.dumps({"gpt_amp_45": out}), flush=True)
+    del model, opt, scaler, params
+    torch.cuda.empty_cache()
+    return {"hapi_o2": hapi_launches, "eager_fp16_o2": eager_launches}, out
+
+
+def phase_resnet_amp(card, n=3):
+    """Phase 46: ResNet-50 at b128 x 224 (s2d stem, Momentum). (a) `n`
+    steps of float16 O1 with ``loss_scale="dynamic"``, then 3 profiled:
+    B10 exactly the derived launches a step (114), every one the f16
+    instantiation, finite losses, the scale buffers following the
+    reference's rule.
+    (b) the model decorated to bf16 (``amp.decorate`` O2) and one eval
+    forward under O2: the derived eval launches in bf16, finite logits of
+    the right shape. Returns B10's launches and the report."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.engine import (
+        BAD_STEPS_KEY, DEFAULT_SCALE_CONFIG, GOOD_STEPS_KEY, LOSS_SCALE_KEY,
+    )
+    from paddle_tpu_torch.ops import fused_conv
+
+    model = _resnet_model("cuda", space_to_depth_stem=True)
+    eng = _resnet_engine(model, "cuda", loss_scale="dynamic")
+    imgs, labels = _resnet_batch(RESNET_BATCH, RESNET_HW)
+    per_step, per_fwd = _b10_per_step(model)
+    bufs = eng.state.buffers
+    keys = (LOSS_SCALE_KEY, GOOD_STEPS_KEY, BAD_STEPS_KEY)
+    losses, scales, times = [], [], []
+    fused_conv.LAUNCHES = 0
+    with _DtypeRecorder() as rec:
+        for _ in range(n):
+            before = tuple(float(bufs[k]) for k in keys)
+            t0 = time.perf_counter()
+            with amp.auto_cast(enable=True, dtype="float16"):
+                loss = eng.train_batch(imgs, labels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            after = tuple(float(bufs[k]) for k in keys)
+            _check(_scale_rule_ok(before, after, DEFAULT_SCALE_CONFIG)[0],
+                   f"resnet f16: scale {before} -> {after}")
+            losses.append(float(loss))
+            scales.append(after)
+    _check(rec.by_dtype() == {"B10/float16": per_step * n},
+           f"resnet f16: instantiations {rec.by_dtype()}")
+
+    def step():
+        with amp.auto_cast(enable=True, dtype="float16"):
+            return eng.train_batch(imgs, labels)
+
+    # 3 more steps, profiled, read in the leg's count
+    busy = phase_train_profile(
+        step, "resnet-50 train step (b128 224 s2d f16 O1, dynamic "
+        "scaling)")["busy_ms"]
+    train_launches = fused_conv.LAUNCHES
+    _check(train_launches == per_step * (n + 3),
+           f"resnet f16: B10 ran {train_launches}x in {n} + 3 steps, "
+           f"derived {per_step} a step")
+    _check(all(np.isfinite(losses)), f"resnet f16 losses {losses}")
+    del eng
+    model.eval()
+    amp.decorate(model, level="O2", dtype="bfloat16")
+    _check(all(t.dtype == torch.bfloat16 for t in model.state_dict().values()
+               if t.is_floating_point()), "decorate left a leaf in f32")
+    x = torch.from_numpy(imgs).cuda()
+    fused_conv.LAUNCHES = 0
+    with _DtypeRecorder() as rec, torch.no_grad(), \
+            amp.auto_cast(level="O2", dtype="bfloat16"):
+        logits = model(x)
+    torch.cuda.synchronize()
+    eval_launches = fused_conv.LAUNCHES
+    _check(eval_launches == per_fwd and
+           rec.by_dtype() == {"B10/bfloat16": per_fwd},
+           f"resnet O2 eval: {eval_launches} launches, {rec.by_dtype()}")
+    _check(logits.dtype == torch.bfloat16 and
+           tuple(logits.shape) == (RESNET_BATCH, 1000) and
+           bool(torch.isfinite(logits).all()), "O2 eval logits malformed")
+    out = {"card": card,
+           "fp16_o1_dynamic": {"steps": n, "losses": losses,
+                               "scale_buffers": scales,
+                               "step_ms_p50": float(np.median(times)) * 1e3,
+                               "device_busy_ms": busy,
+                               "b10_launches_per_step":
+                                   train_launches / (n + 3)},
+           "o2_bf16_eval": {"b10_launches": eval_launches}}
+    print(json.dumps({"resnet_amp_46": out}), flush=True)
+    del model, x, logits
+    torch.cuda.empty_cache()
+    return train_launches + eval_launches, out
+
+
 def main():
     try:
         import torch
@@ -5487,6 +6080,26 @@ def main():
             phase: leg.get(key, 0) for phase, leg in tb_launches.items()}
         rows[key]["launches"] += sum(leg.get(key, 0) for leg in
                                      tb_launches.values())
+    # mixed precision complete (phases 44-46): ERNIE-1.0 under
+    # comm_dtype bf16 and f16 O1 with dynamic scaling, GPT-2 small under
+    # hapi O2 and the eager f16 O2 loop with the GradScaler, ResNet-50 in
+    # f16 O1 and a decorated bf16 O2 eval
+    ernie_amp, _ = timed("ernie_amp_44", phase_ernie_amp, card)
+    gpt_amp, _ = timed("gpt_amp_45", phase_gpt_amp, card)
+    resnet_amp, _ = timed("resnet_amp_46", phase_resnet_amp, card)
+    for key in ("B1", "B2", "B3", "B4", "B5", "B6"):
+        legs = {f"ernie_44_{leg}": c[key] for leg, c in ernie_amp.items()
+                if c[key]}
+        if key in ("B1", "B2", "B3"):
+            legs.update({f"gpt_45_{leg}": c[key]
+                         for leg, c in gpt_amp.items()})
+        rows[key]["amp_launches"] = legs
+        rows[key]["launches"] += sum(legs.values())
+    rows["B9"]["amp_launches"] = {
+        "ernie_44_fp16_o1_lowp_int8": ernie_amp["fp16_o1_lowp_int8"]["B9"]}
+    rows["B9"]["launches"] += ernie_amp["fp16_o1_lowp_int8"]["B9"]
+    rows["B10"]["amp_launches"] = {"resnet_46": resnet_amp}
+    rows["B10"]["launches"] += resnet_amp
     for key, row in rows.items():
         _check(row["launches"] > 0, f"{key} never ran on the path")
     print(json.dumps({"total_s": time.monotonic() - t_start}), flush=True)

@@ -1,16 +1,17 @@
 // Flash attention forward and backward for Hopper (sm_90a), on
 // [b, h, s, d] tensors addressed through (batch, head, row) element
-// strides with a contiguous last dim, in f32 or bf16, head dim 32, 64
+// strides with a contiguous last dim, in f32, bf16 or f16, head dim 32, 64
 // or 128, any sq and sk (ragged against the 64-row tiles), causal mask
 // aligned bottom-right (query i sees keys <= i + sk - sq), in-kernel
 // attention dropout.
 //
 // Replaces the Pallas TPU kernels of paddle_tpu/ops/fused_ops.py:
-//   B1 `_fwd_kernel` (:184)      -> fwd_kernel_mma (bf16), fwd_kernel (f32):
+//   B1 `_fwd_kernel` (:184)      -> fwd_kernel_mma (16-bit), fwd_kernel (f32):
 //                                   o and lse = m + log(l)
-//   B2 `_bwd_dq_kernel` (:319)   -> dq_kernel_mma (bf16), dq_kernel (f32):
+//   B2 `_bwd_dq_kernel` (:319)   -> dq_kernel_mma (16-bit), dq_kernel (f32):
 //                                   dq = scale * sum_k ds * k
-//   B3 `_bwd_dkv_kernel` (:363)  -> dkv_kernel_mma (bf16), dkv_kernel (f32):
+//   B3 `_bwd_dkv_kernel` (:363)  -> dkv_kernel_mma (16-bit), dkv_kernel
+//                                   (f32):
 //                                   dv = pd^T do, dk = scale * ds^T q
 // with p recomputed from lse, ds = p * (dp * keep/(1-p) - delta), delta
 // = rowsum(do * o) computed by the wrapper.
@@ -32,7 +33,12 @@
 // within one tile sees exactly the plain version's probabilities); B2
 // and B3 recompute p from lse with the same instructions and round ds
 // (and B3 p * keep/(1-p)) to bf16 before their products, as the plain
-// version does. The dropout hash is split: the (seed, bh) and (seed,
+// version does. f16 (the train step under float16 amp) runs the same
+// kernels instantiated on __half (mma.sync .f16, the fragment layout of
+// .bf16; csrc/half16.cuh), with the same f32 accumulation and the same
+// rounding points, now to f16: where the loss scale makes ds exceed
+// 65504 it rounds to inf as the reference's astype does, and the
+// scaler skips the step. The dropout hash is split: the (seed, bh) and (seed,
 // bh, q) rounds are hoisted, each column's k word is mixed once a tile,
 // and each tile's keep bits are hashed while its copy is in flight.
 //
@@ -63,9 +69,12 @@
 // read from device memory, never synchronised to the host.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "half16.cuh"
 
 namespace {
 
@@ -570,12 +579,13 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------
-// bf16 on the tensor cores: B1 (fwd_kernel_mma), B2 (dq_kernel_mma) and
-// B3 (dkv_kernel_mma)
+// bf16 and f16 on the tensor cores: B1 (fwd_kernel_mma), B2
+// (dq_kernel_mma) and B3 (dkv_kernel_mma)
 // ---------------------------------------------------------------------
 // Four warps a block; each owns 16 rows of the block's 64-row tile (B1,
-// B2: queries, B3: keys) and multiplies with mma.sync m16n8k16 (bf16 in, f32
-// accumulators). Operand tiles sit in shared memory as bf16 [64][D + 8]:
+// B2: queries, B3: keys) and multiplies with mma.sync m16n8k16 (T = bf16
+// or f16 in, f32 accumulators). Operand tiles sit in shared memory as T
+// [64][D + 8]:
 // the 16-byte row pad puts the 8 row addresses of every ldmatrix phase
 // in 8 distinct 16-byte bank groups. The streamed tiles come through a
 // two-stage cp.async ring (tile i + 1 is copied while tile i computes);
@@ -585,6 +595,9 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Params p) {
 constexpr int kThreadsTc = 128;
 constexpr int kNt = kTile / 8;  // n8 tiles across a 64-wide score tile
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
+using half16::mma16816;
+using half16::pack2;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
@@ -625,30 +638,17 @@ __device__ __forceinline__ void ldsm4_t(uint32_t addr, uint32_t (&r)[4]) {
       : "r"(addr));
 }
 
-// c += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 -> f32
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // The A operand of a k16 step of a product whose left factor is the f32
 // accumulator tile x [16][64] of the previous product (columns 16 kk ..
 // 16 kk + 15): the m16n8 accumulator layout of n-tiles 2 kk and 2 kk + 1
 // is the m16k16 A layout, so each lane repacks its own values.
+template <typename T>
 __device__ __forceinline__ void acc_to_a(const float (&x)[kNt][4], int kk,
                                          uint32_t (&a)[4]) {
-  a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-  a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-  a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-  a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+  a[0] = pack2<T>(x[2 * kk][0], x[2 * kk][1]);
+  a[1] = pack2<T>(x[2 * kk][2], x[2 * kk][3]);
+  a[2] = pack2<T>(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+  a[3] = pack2<T>(x[2 * kk + 1][2], x[2 * kk + 1][3]);
 }
 
 // keep bit of the element whose (seed, bh, q) prefix is qh and whose k
@@ -661,9 +661,9 @@ __device__ __forceinline__ bool keep_bit(uint32_t qh, uint32_t kw,
 }
 
 // rows [r0, r0 + kTile) of x (row stride ss, 16-byte aligned rows; rows
-// >= n zero-filled) into the bf16 tile [kTile][D + 8] at shared dst
-template <int D>
-__device__ __forceinline__ void cp_tile(uint32_t dst, const bf16* x,
+// >= n zero-filled) into the 16-bit tile [kTile][D + 8] at shared dst
+template <int D, typename T>
+__device__ __forceinline__ void cp_tile(uint32_t dst, const T* x,
                                         long long ss, int r0, int n) {
   constexpr int kCh = D / 8;  // 16-byte chunks a row
 #pragma unroll
@@ -671,7 +671,7 @@ __device__ __forceinline__ void cp_tile(uint32_t dst, const bf16* x,
     const int i = it * kThreadsTc + threadIdx.x;
     const int r = i / kCh, c = i % kCh;
     const bool ok = r0 + r < n;
-    const bf16* src = x + (ok ? static_cast<long long>(r0 + r) * ss + c * 8
+    const T* src = x + (ok ? static_cast<long long>(r0 + r) * ss + c * 8
                               : 0);
     cp_async16(dst + (r * (D + 8) + c * 8) * 2, src, ok);
   }
@@ -699,7 +699,7 @@ __host__ __device__ constexpr uint32_t tile_bytes() {
 
 // s[16 x 64] += A[16 x D] B^T, A the warp's rows of tile `a_s`, B all 64
 // rows of tile `b_s` (both [kTile][D + 8])
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void mm_abt(uint32_t a_s, uint32_t b_s, int warp,
                                        int lane, float (&s)[kNt][4]) {
 #pragma unroll
@@ -710,27 +710,27 @@ __device__ __forceinline__ void mm_abt(uint32_t a_s, uint32_t b_s, int warp,
     for (int jj = 0; jj < kNt / 2; ++jj) {
       uint32_t bb[4];
       ldsm4(b_s + (jj * 16 * (D + 8) + ks * 16) * 2 + b_off<D>(lane), bb);
-      mma(s[2 * jj], a, bb[0], bb[1]);
-      mma(s[2 * jj + 1], a, bb[2], bb[3]);
+      mma16816<T>(s[2 * jj], a, bb[0], bb[1]);
+      mma16816<T>(s[2 * jj + 1], a, bb[2], bb[3]);
     }
   }
 }
 
-// acc[16 x D] += X[16 x 64] B, X a register tile (rounded to bf16 by
+// acc[16 x D] += X[16 x 64] B, X a register tile (rounded to T by
 // acc_to_a), B the 64 x D tile `b_s`
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void mm_xb(const float (&x)[kNt][4], uint32_t b_s,
                                       int lane, float (&acc)[D / 8][4]) {
 #pragma unroll
   for (int kk = 0; kk < kNt / 2; ++kk) {
     uint32_t a[4];
-    acc_to_a(x, kk, a);
+    acc_to_a<T>(x, kk, a);
 #pragma unroll
     for (int dd = 0; dd < D / 16; ++dd) {
       uint32_t bb[4];
       ldsm4_t(b_s + (kk * 16 * (D + 8) + dd * 16) * 2 + a_off<D>(lane), bb);
-      mma(acc[2 * dd], a, bb[0], bb[1]);
-      mma(acc[2 * dd + 1], a, bb[2], bb[3]);
+      mma16816<T>(acc[2 * dd], a, bb[0], bb[1]);
+      mma16816<T>(acc[2 * dd + 1], a, bb[2], bb[3]);
     }
   }
 }
@@ -748,13 +748,13 @@ constexpr size_t fwd_mma_smem() {
   return 5 * tile_bytes<D>();  // Q, K x 2 stages, V x 2 stages
 }
 
-// B1 in bf16. Lane (g = lane / 4, t = lane % 4) of warp w holds rows
+// B1 in T. Lane (g = lane / 4, t = lane % 4) of warp w holds rows
 // q0 + 16 w + g (+ 8) and, of every n8 tile j, columns 8 j + 2 t (+ 1).
 // Scores live in the log2 domain (x2 = s * scale * log2 e, so exp is one
 // ex2); the masked score is -1e30 in natural units.
 // Register budget: 128 at d <= 64 (four blocks an SM; on the H100
 // faster than three blocks at 148 registers), 255 at d = 128 (two).
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreadsTc, D <= 64 ? 4 : 2)
     fwd_kernel_mma(const Params p) {
   constexpr int NO = D / 8;
@@ -767,9 +767,9 @@ __global__ void __launch_bounds__(kThreadsTc, D <= 64 ? 4 : 2)
   const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * kTile, bh = blockIdx.y;
   const int b = bh / p.H, h = bh - b * p.H;
-  const bf16* q = head<bf16>(p.q, p.st[kQ], b, h);
-  const bf16* k = head<bf16>(p.k, p.st[kK], b, h);
-  const bf16* v = head<bf16>(p.v, p.st[kV], b, h);
+  const T* q = head<T>(p.q, p.st[kQ], b, h);
+  const T* k = head<T>(p.k, p.st[kK], b, h);
+  const T* v = head<T>(p.v, p.st[kV], b, h);
   const int off = p.sk - p.sq;
   const int n_k = k_tiles(p, q0);
   const int row0 = q0 + warp * 16 + g;
@@ -828,7 +828,7 @@ __global__ void __launch_bounds__(kThreadsTc, D <= 64 ? 4 : 2)
     for (int j = 0; j < kNt; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    mm_abt<D>(q_s, k_s + cur, warp, lane, s);
+    mm_abt<D, T>(q_s, k_s + cur, warp, lane, s);
 #pragma unroll
     for (int j = 0; j < kNt; ++j)
 #pragma unroll
@@ -868,7 +868,7 @@ __global__ void __launch_bounds__(kThreadsTc, D <= 64 ? 4 : 2)
         s[j][e] = ex2(s[j][e] - m[e >> 1]);
         lsum[e >> 1] += s[j][e];
       }
-    // p is rounded to bf16 divided by the running sum l (the undropped
+    // p is rounded to T divided by the running sum l (the undropped
     // p's, >= 1 since the row's maximum contributes 1), and the output
     // carried in the same units: in a row within one tile the values see
     // exactly the plain version's probabilities
@@ -893,20 +893,20 @@ __global__ void __launch_bounds__(kThreadsTc, D <= 64 ? 4 : 2)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         s[j][e] = (keep >> (j * 4 + e)) & 1u ? s[j][e] * f[e >> 1] : 0.f;
-    mm_xb<D>(s, v_s + cur, lane, acc);
+    mm_xb<D, T>(s, v_s + cur, lane, acc);
     __syncthreads();  // every warp is done with stage `cur` before refill
   }
 
-  bf16* o = const_cast<bf16*>(head<bf16>(p.o, p.st[kO], b, h));
+  T* o = const_cast<T*>(head<T>(p.o, p.st[kO], b, h));
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
     if (row >= p.sq) continue;
-    bf16* orow = o + row * p.st[kO][2] + 2 * t;
+    T* orow = o + row * p.st[kO][2] + 2 * t;
 #pragma unroll
     for (int c = 0; c < NO; ++c)
-      *reinterpret_cast<__nv_bfloat162*>(orow + c * 8) =
-          __floats2bfloat162_rn(acc[c][2 * i], acc[c][2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(orow + c * 8) =
+          pack2<T>(acc[c][2 * i], acc[c][2 * i + 1]);
     // a fully masked row keeps lse at exactly -1e30 (log l is below its
     // ulp), as the plain version's m + log(l)
     if (t == 0)
@@ -922,12 +922,12 @@ constexpr size_t dkv_mma_smem() {
   return 6 * tile_bytes<D>() + 2 * 3 * kTile * sizeof(float);
 }
 
-// B3 in bf16: the block owns 64 keys and walks the q tiles. Lane (g, t)
+// B3 in T: the block owns 64 keys and walks the q tiles. Lane (g, t)
 // of warp w holds key rows k0 + 16 w + g (+ 8) and, of every n8 tile j,
 // query columns 8 j + 2 t (+ 1) of the transposed score tile.
 // Register budget: 255, two blocks an SM (a three-block budget of 168
 // spills and was slower on the H100); d = 128 spills 32 bytes.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreadsTc, 2)
     dkv_kernel_mma(const Params p) {
   constexpr int NO = D / 8;
@@ -943,10 +943,10 @@ __global__ void __launch_bounds__(kThreadsTc, 2)
   const int g = lane >> 2, t = lane & 3;
   const int k0 = blockIdx.x * kTile, bh = blockIdx.y;
   const int b = bh / p.H, h = bh - b * p.H;
-  const bf16* q = head<bf16>(p.q, p.st[kQ], b, h);
-  const bf16* k = head<bf16>(p.k, p.st[kK], b, h);
-  const bf16* v = head<bf16>(p.v, p.st[kV], b, h);
-  const bf16* dout = head<bf16>(p.dout, p.st[kDo], b, h);
+  const T* q = head<T>(p.q, p.st[kQ], b, h);
+  const T* k = head<T>(p.k, p.st[kK], b, h);
+  const T* v = head<T>(p.v, p.st[kV], b, h);
+  const T* dout = head<T>(p.dout, p.st[kDo], b, h);
   const int off = p.sk - p.sq;
   const int krow0 = k0 + warp * 16 + g;
   const long long row_base = static_cast<long long>(bh) * p.sq;
@@ -1021,7 +1021,7 @@ __global__ void __launch_bounds__(kThreadsTc, 2)
     for (int j = 0; j < kNt; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    mm_abt<D>(k_s, qs, warp, lane, s);
+    mm_abt<D, T>(k_s, qs, warp, lane, s);
     const bool edge = p.causal && q0 + off < k0 + kTile - 1;
 #pragma unroll
     for (int j = 0; j < kNt; ++j)
@@ -1040,7 +1040,7 @@ __global__ void __launch_bounds__(kThreadsTc, 2)
         }
       }
 
-    // dV += P_d^T dO with P_d = P keep / (1 - p), rounded to bf16
+    // dV += P_d^T dO with P_d = P keep / (1 - p), rounded to T
     {
       float pd[kNt][4];
 #pragma unroll
@@ -1049,7 +1049,7 @@ __global__ void __launch_bounds__(kThreadsTc, 2)
         for (int e = 0; e < 4; ++e)
           pd[j][e] =
               (keep >> (j * 4 + e)) & 1u ? s[j][e] * p.inv_keep : 0.f;
-      mm_xb<D>(pd, dos, lane, dv);
+      mm_xb<D, T>(pd, dos, lane, dv);
     }
 
     // dP^T = V dO^T, then dS^T = P^T (dP^T keep / (1 - p) - delta)
@@ -1058,7 +1058,7 @@ __global__ void __launch_bounds__(kThreadsTc, 2)
     for (int j = 0; j < kNt; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) ds[j][e] = 0.f;
-    mm_abt<D>(v_s, dos, warp, lane, ds);
+    mm_abt<D, T>(v_s, dos, warp, lane, ds);
 #pragma unroll
     for (int j = 0; j < kNt; ++j)
 #pragma unroll
@@ -1067,25 +1067,25 @@ __global__ void __launch_bounds__(kThreadsTc, 2)
             (keep >> (j * 4 + e)) & 1u ? ds[j][e] * p.inv_keep : 0.f;
         ds[j][e] = s[j][e] * (dpv - delta_t[j * 8 + 2 * t + (e & 1)]);
       }
-    // dK += dS^T Q (dS rounded to bf16; scaled at the end)
-    mm_xb<D>(ds, qs, lane, dk);
+    // dK += dS^T Q (dS rounded to T; scaled at the end)
+    mm_xb<D, T>(ds, qs, lane, dk);
     __syncthreads();  // every warp is done with slot `slot` before refill
   }
 
-  bf16* dkp = const_cast<bf16*>(head<bf16>(p.o, p.st[kO], b, h));
-  bf16* dvp = const_cast<bf16*>(head<bf16>(p.o2, p.st[kO2], b, h));
+  T* dkp = const_cast<T*>(head<T>(p.o, p.st[kO], b, h));
+  T* dvp = const_cast<T*>(head<T>(p.o2, p.st[kO2], b, h));
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = krow0 + 8 * i;
     if (row >= p.sk) continue;
-    bf16* dkr = dkp + row * p.st[kO][2] + 2 * t;
-    bf16* dvr = dvp + row * p.st[kO2][2] + 2 * t;
+    T* dkr = dkp + row * p.st[kO][2] + 2 * t;
+    T* dvr = dvp + row * p.st[kO2][2] + 2 * t;
 #pragma unroll
     for (int c = 0; c < NO; ++c) {
-      *reinterpret_cast<__nv_bfloat162*>(dkr + c * 8) = __floats2bfloat162_rn(
+      *reinterpret_cast<uint32_t*>(dkr + c * 8) = pack2<T>(
           dk[c][2 * i] * p.scale, dk[c][2 * i + 1] * p.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvr + c * 8) =
-          __floats2bfloat162_rn(dv[c][2 * i], dv[c][2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dvr + c * 8) =
+          pack2<T>(dv[c][2 * i], dv[c][2 * i + 1]);
     }
   }
 }
@@ -1095,13 +1095,13 @@ constexpr size_t dq_mma_smem() {
   return 6 * tile_bytes<D>();  // Q, dO, K x 2 stages, V x 2 stages
 }
 
-// B2 in bf16: the block owns 64 queries and walks the k tiles. Lane (g,
+// B2 in T: the block owns 64 queries and walks the k tiles. Lane (g,
 // t) of warp w holds query rows q0 + 16 w + g (+ 8) and, of every n8
 // tile j, key columns 8 j + 2 t (+ 1), as in B1. p is recomputed from
 // lse exactly as B3 recomputes it; ds = p (dp keep / (1 - p) - delta)
-// is rounded to bf16 by acc_to_a on its way into dQ += dS K.
+// is rounded to T by acc_to_a on its way into dQ += dS K.
 // Register budget: 170 at d <= 64 (three blocks an SM), 255 at d = 128.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreadsTc, D <= 64 ? 3 : 2)
     dq_kernel_mma(const Params p) {
   constexpr int NO = D / 8;
@@ -1115,10 +1115,10 @@ __global__ void __launch_bounds__(kThreadsTc, D <= 64 ? 3 : 2)
   const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * kTile, bh = blockIdx.y;
   const int b = bh / p.H, h = bh - b * p.H;
-  const bf16* q = head<bf16>(p.q, p.st[kQ], b, h);
-  const bf16* k = head<bf16>(p.k, p.st[kK], b, h);
-  const bf16* v = head<bf16>(p.v, p.st[kV], b, h);
-  const bf16* dout = head<bf16>(p.dout, p.st[kDo], b, h);
+  const T* q = head<T>(p.q, p.st[kQ], b, h);
+  const T* k = head<T>(p.k, p.st[kK], b, h);
+  const T* v = head<T>(p.v, p.st[kV], b, h);
+  const T* dout = head<T>(p.dout, p.st[kDo], b, h);
   const int off = p.sk - p.sq;
   const int n_k = k_tiles(p, q0);
   const int row0 = q0 + warp * 16 + g;
@@ -1186,8 +1186,8 @@ __global__ void __launch_bounds__(kThreadsTc, D <= 64 ? 3 : 2)
     for (int j = 0; j < kNt; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    mm_abt<D>(q_s, ks, warp, lane, s);
-    mm_abt<D>(do_s, v_s + cur, warp, lane, dp);
+    mm_abt<D, T>(q_s, ks, warp, lane, s);
+    mm_abt<D, T>(do_s, v_s + cur, warp, lane, dp);
 
     // dS = P (dP keep / (1 - p) - delta), P = exp(scale S - lse) with a
     // masked score at -1e30 (1 in a fully masked row, whose lse is
@@ -1211,20 +1211,20 @@ __global__ void __launch_bounds__(kThreadsTc, D <= 64 ? 3 : 2)
             (keep >> (j * 4 + e)) & 1u ? dp[j][e] * p.inv_keep : 0.f;
         s[j][e] = ex2(x) * (dpv - delta[i]);
       }
-    // dQ += dS K (dS rounded to bf16; scaled at the end)
-    mm_xb<D>(s, ks, lane, acc);
+    // dQ += dS K (dS rounded to T; scaled at the end)
+    mm_xb<D, T>(s, ks, lane, acc);
     __syncthreads();  // every warp is done with stage `cur` before refill
   }
 
-  bf16* dq = const_cast<bf16*>(head<bf16>(p.o, p.st[kO], b, h));
+  T* dq = const_cast<T*>(head<T>(p.o, p.st[kO], b, h));
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
     if (row >= p.sq) continue;
-    bf16* dqr = dq + row * p.st[kO][2] + 2 * t;
+    T* dqr = dq + row * p.st[kO][2] + 2 * t;
 #pragma unroll
     for (int c = 0; c < NO; ++c)
-      *reinterpret_cast<__nv_bfloat162*>(dqr + c * 8) = __floats2bfloat162_rn(
+      *reinterpret_cast<uint32_t*>(dqr + c * 8) = pack2<T>(
           acc[c][2 * i] * p.scale, acc[c][2 * i + 1] * p.scale);
   }
 }
@@ -1255,22 +1255,27 @@ struct Kernel {
   int threads;
 };
 
-template <int D>
-Kernel pick(int pass, int dtype) {
-  if (dtype == 1) {  // bf16: B1-B3 on the tensor cores
-    if (pass == 0) return {fwd_kernel_mma<D>, fwd_mma_smem<D>(), kThreadsTc};
-    if (pass == 1) return {dq_kernel_mma<D>, dq_mma_smem<D>(), kThreadsTc};
-    return {dkv_kernel_mma<D>, dkv_mma_smem<D>(), kThreadsTc};
-  } else {
-    if (pass == 0) return {fwd_kernel<D>, fwd_smem<D>(), kThreads};
-    if (pass == 1) return {dq_kernel<D>, dq_smem<D>(), kThreads};
-    return {dkv_kernel<D>, dkv_smem<D>(), kThreads};
-  }
+template <int D, typename T>
+Kernel pick_tc(int pass) {
+  if (pass == 0) return {fwd_kernel_mma<D, T>, fwd_mma_smem<D>(), kThreadsTc};
+  if (pass == 1) return {dq_kernel_mma<D, T>, dq_mma_smem<D>(), kThreadsTc};
+  return {dkv_kernel_mma<D, T>, dkv_mma_smem<D>(), kThreadsTc};
 }
 
-// pass 0-2, dtype 0 (f32) or 1 (bf16), d 32 / 64 / 128; false otherwise
+template <int D>
+Kernel pick(int pass, int dtype) {
+  // 16-bit operands: B1-B3 on the tensor cores
+  if (dtype == 1) return pick_tc<D, bf16>(pass);
+  if (dtype == 2) return pick_tc<D, f16>(pass);
+  if (pass == 0) return {fwd_kernel<D>, fwd_smem<D>(), kThreads};
+  if (pass == 1) return {dq_kernel<D>, dq_smem<D>(), kThreads};
+  return {dkv_kernel<D>, dkv_smem<D>(), kThreads};
+}
+
+// pass 0-2, dtype 0 (f32), 1 (bf16) or 2 (f16), d 32 / 64 / 128; false
+// otherwise
 bool pick_for(int pass, int dtype, int d, Kernel* kern) {
-  if (pass < 0 || pass > 2 || dtype < 0 || dtype > 1) return false;
+  if (pass < 0 || pass > 2 || dtype < 0 || dtype > 2) return false;
   switch (d) {
     case 32: *kern = pick<32>(pass, dtype); return true;
     case 64: *kern = pick<64>(pass, dtype); return true;
@@ -1281,7 +1286,8 @@ bool pick_for(int pass, int dtype, int d, Kernel* kern) {
 
 }  // namespace
 
-// pass: 0 forward (B1), 1 dq (B2), 2 dk/dv (B3); dtype: 0 f32, 1 bf16.
+// pass: 0 forward (B1), 1 dq (B2), 2 dk/dv (B3); dtype: 0 f32, 1 bf16,
+// 2 f16.
 // `strides`: 18 host values, (batch, head, row) element strides of q,
 // k, v, do, out, out2. Returns cudaGetLastError() of the launch.
 extern "C" int flash_attn(int pass, int dtype, int d, const void* q,
@@ -1317,9 +1323,9 @@ extern "C" int flash_attn(int pass, int dtype, int d, const void* q,
   p.seed = seed;
   Kernel kern;
   if (!pick_for(pass, dtype, d, &kern)) return cudaErrorInvalidValue;
-  if (dtype == 1) {
+  if (dtype != 0) {
     // the tensor-core kernels copy 16-byte row chunks of q, k, v, do and
-    // store bf16 pairs of the outputs
+    // store 16-bit pairs of the outputs
     const void* ins[4] = {q, k, v, pass != 0 ? dout : nullptr};
     for (int i = 0; i < 4; ++i) {
       if (ins[i] == nullptr) continue;

@@ -24,7 +24,9 @@
 // tensor cores bound them; the narrow 1x1 ones (C or O 64) sit near the
 // byte line. Either way the product is the work.
 //
-// Design (bf16): an implicit GEMM on warpgroup products (wgmma). M = N *
+// Design (bf16 and f16: one template on the operand type T, instantiated
+// for both, with the same f32 accumulation and the one rounding of y;
+// csrc/half16.cuh): an implicit GEMM on warpgroup products (wgmma). M = N *
 // Ho * Wo output pixels, the GEMM's N is O, and K = T * Ce is one flat
 // axis walked in chunks of 64 (one 128-byte row of a swizzle atom). The
 // wrapper pads Ce to a multiple of 8 (zero channels in xp, zero rows in
@@ -49,7 +51,7 @@
 // epilogue runs under the other's loads and products.
 //
 // Epilogue: the f32 accumulators go through the none / moments / affine
-// math in registers; y is rounded to bf16 into shared memory and
+// math in registers; y is rounded to T into shared memory and
 // written out in 16-byte row vectors, so each warp stores whole lines.
 // With a residual the tile stays f32 in shared memory and the row phase
 // adds the residual, read in the same 16-byte row vectors, before the
@@ -69,13 +71,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "half16.cuh"
 #include "sm90.cuh"
 
 namespace {
 
 using namespace sm90;
+using half16::bits_f32;
+using half16::pack2;
 
-constexpr int kThreads = 256;     // both paths: two warpgroups (bf16)
+constexpr int kThreads = 256;     // both paths: two warpgroups (16-bit)
 constexpr int kBM = 128;          // output pixels of a block tile (and
                                   // _TILE_M in ops/fused_conv.py)
 constexpr int kBK = 64;           // K of a chunk
@@ -99,7 +104,7 @@ struct Args {
   int tiles;          // M tiles
   int hp, wp, ce, ho, wo, kkh, kkw, o, ldw, m;
   int epi, relu;
-  int nlive;          // chunks walked (bf16): live[0 .. nlive)
+  int nlive;          // chunks walked (16-bit): live[0 .. nlive)
   unsigned short live[kMaxLive];
 };
 
@@ -115,7 +120,7 @@ __device__ __forceinline__ long long pixel_base(const Args& p, int m) {
 
 
 // ---------------------------------------------------------------------------
-// warpgroup path (bf16 operands)
+// warpgroup path (bf16 or f16 operands)
 // ---------------------------------------------------------------------------
 
 // 16 bytes global -> shared without a register stop; zeros (and no
@@ -146,137 +151,153 @@ __device__ __forceinline__ void fence_async_smem() {
 // d[64 x N] += A B, A K-major and B MN-major (transposed) in shared
 // memory; the f32 accumulator of lane (g, t) of warp w: d[4 j + 2 h + e]
 // is row 16 w + g + 8 h, column 8 j + 2 t + e
+#define FC_WGMMA_N64(TY) \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"        \
+      "%0, %1, %2, %3, %4, %5, %6, %7,"                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15,"                             \
+      "%16, %17, %18, %19, %20, %21, %22, %23,"                           \
+      "%24, %25, %26, %27, %28, %29, %30, %31},"                          \
+      " %32, %33, p, 1, 1, 0, 1;\n}\n"                                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),       \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),       \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),  \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),  \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),  \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+        "+f"(d[30]), "+f"(d[31])                                          \
+      : "l"(da), "l"(db), "r"(1))
+template <typename T>
 __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31},"
-      " %32, %33, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+  if constexpr (half16::kF16<T>)
+    FC_WGMMA_N64("f16");
+  else
+    FC_WGMMA_N64("bf16");
 }
+#undef FC_WGMMA_N64
 
+#define FC_WGMMA_N128(TY) \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"       \
+      "%0, %1, %2, %3, %4, %5, %6, %7,"                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15,"                             \
+      "%16, %17, %18, %19, %20, %21, %22, %23,"                           \
+      "%24, %25, %26, %27, %28, %29, %30, %31,"                           \
+      "%32, %33, %34, %35, %36, %37, %38, %39,"                           \
+      "%40, %41, %42, %43, %44, %45, %46, %47,"                           \
+      "%48, %49, %50, %51, %52, %53, %54, %55,"                           \
+      "%56, %57, %58, %59, %60, %61, %62, %63},"                          \
+      " %64, %65, p, 1, 1, 0, 1;\n}\n"                                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),       \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),       \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),  \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),  \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),  \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),  \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),  \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),  \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),  \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),  \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),  \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                \
+      : "l"(da), "l"(db), "r"(1))
+template <typename T>
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+  if constexpr (half16::kF16<T>)
+    FC_WGMMA_N128("f16");
+  else
+    FC_WGMMA_N128("bf16");
 }
+#undef FC_WGMMA_N128
 
+#define FC_WGMMA_N256(TY) \
+  asm volatile(                                                                \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {"            \
+      "%0, %1, %2, %3, %4, %5, %6, %7,"                                        \
+      "%8, %9, %10, %11, %12, %13, %14, %15,"                                  \
+      "%16, %17, %18, %19, %20, %21, %22, %23,"                                \
+      "%24, %25, %26, %27, %28, %29, %30, %31,"                                \
+      "%32, %33, %34, %35, %36, %37, %38, %39,"                                \
+      "%40, %41, %42, %43, %44, %45, %46, %47,"                                \
+      "%48, %49, %50, %51, %52, %53, %54, %55,"                                \
+      "%56, %57, %58, %59, %60, %61, %62, %63,"                                \
+      "%64, %65, %66, %67, %68, %69, %70, %71,"                                \
+      "%72, %73, %74, %75, %76, %77, %78, %79,"                                \
+      "%80, %81, %82, %83, %84, %85, %86, %87,"                                \
+      "%88, %89, %90, %91, %92, %93, %94, %95,"                                \
+      "%96, %97, %98, %99, %100, %101, %102, %103,"                            \
+      "%104, %105, %106, %107, %108, %109, %110, %111,"                        \
+      "%112, %113, %114, %115, %116, %117, %118, %119,"                        \
+      "%120, %121, %122, %123, %124, %125, %126, %127},"                       \
+      " %128, %129, p, 1, 1, 0, 1;\n}\n"                                       \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),            \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),            \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),       \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),       \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),       \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),       \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),       \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),       \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),       \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),       \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),       \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),       \
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),       \
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),       \
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),       \
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),       \
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),       \
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),       \
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),       \
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),  \
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),  \
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),  \
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),  \
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),  \
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])                               \
+      : "l"(da), "l"(db), "r"(1))
+template <typename T>
 __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71,"
-      "%72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87,"
-      "%88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103,"
-      "%104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119,"
-      "%120, %121, %122, %123, %124, %125, %126, %127},"
-      " %128, %129, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
+  if constexpr (half16::kF16<T>)
+    FC_WGMMA_N256("f16");
+  else
+    FC_WGMMA_N256("bf16");
 }
+#undef FC_WGMMA_N256
 
-template <int BN>
+template <int BN, typename T>
 __device__ __forceinline__ void wgmma_bn(float (&d)[BN / 2], uint64_t da,
                                          uint64_t db) {
-  if constexpr (BN == 64) wgmma_n64(d, da, db);
-  else if constexpr (BN == 128) wgmma_n128(d, da, db);
-  else wgmma_n256(d, da, db);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+  if constexpr (BN == 64) wgmma_n64<T>(d, da, db);
+  else if constexpr (BN == 128) wgmma_n128<T>(d, da, db);
+  else wgmma_n256<T>(d, da, db);
 }
 
 template <int BN, int S>
 constexpr size_t wg_smem() {
   // alignment slack and the ring of [A 128 x 64 | B 64 x BN] stages; the
   // epilogue reuses the ring (the moments' partial rows [2][64][BN + 8]
-  // f32, then the y tile [128][BN + 8], bf16 or f32)
+  // f32, then the y tile [128][BN + 8], T or f32)
   static_assert(kBM * (BN + 8) * 4 <= S * (kAChunk + BN * 128),
                 "the epilogue fits in the ring");
   return 1024 + (size_t)S * (kAChunk + BN * 128);
 }
 
-template <int BN, int S>
+template <int BN, int S, typename T>
 __global__ void __launch_bounds__(kThreads, BN == 256 ? 1 : 2)
     wg_conv(const __grid_constant__ Args p) {
   constexpr uint32_t kStage = kAChunk + BN * 128;
   constexpr int VPR = BN / 8;            // 16-byte vectors of a wk row
   constexpr int RPP = kThreads / VPR;    // wk rows a pass of the block
-  constexpr int LDY = BN + 8;            // y tile row stride (bf16)
+  constexpr int LDY = BN + 8;            // y tile row stride (T)
   constexpr int LDP = BN + 8;            // f32 tile row stride (the
                                          // moments' partials, y with a
                                          // residual)
@@ -296,8 +317,8 @@ __global__ void __launch_bounds__(kThreads, BN == 256 ? 1 : 2)
   const int mt = blockIdx.x / n_ot, ot = blockIdx.x - mt * n_ot;
   const int m0 = mt * kBM, o0 = ot * BN;
   const int K = p.kkh * p.kkw * p.ce;
-  const __nv_bfloat16* X = static_cast<const __nv_bfloat16*>(p.x);
-  const __nv_bfloat16* W = static_cast<const __nv_bfloat16*>(p.w);
+  const T* X = static_cast<const T*>(p.x);
+  const T* W = static_cast<const T*>(p.w);
 
   // this thread's A copies: unit u of rows (tid >> 3) + 32 j
   const int u = tid & 7, r0 = tid >> 3;
@@ -351,7 +372,7 @@ __global__ void __launch_bounds__(kThreads, BN == 256 ? 1 : 2)
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma_bn<BN>(acc, wg_desc(st + wg * 64 * 128 + kk * 32, 16, 1024),
+      wgmma_bn<BN, T>(acc, wg_desc(st + wg * 64 * 128 + kk * 32, 16, 1024),
                    wg_desc(st + kAChunk + kk * 16 * 128, 8192, 1024));
     wg_commit();
     wg_wait<1>();             // this warpgroup's products of chunk i - 1
@@ -393,11 +414,11 @@ __global__ void __launch_bounds__(kThreads, BN == 256 ? 1 : 2)
     __syncthreads();          // the y tile below reuses the partials' space
   }
 
-  // y through the epilogue into the tile: rounded to bf16, or, with a
+  // y through the epilogue into the tile: rounded to T, or, with a
   // residual, acc * g + b kept in f32, so that the row phase below adds
   // the residual (read in whole 16-byte rows) before the one rounding
   const bool res_rows = p.epi == kAffine && p.res != nullptr;
-  __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(ring_p);
+  T* ys = reinterpret_cast<T*>(ring_p);
   float* yf = reinterpret_cast<float*>(ring_p);
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
@@ -427,13 +448,13 @@ __global__ void __launch_bounds__(kThreads, BN == 256 ? 1 : 2)
         *reinterpret_cast<float2*>(yf + r * LDP + col) = make_float2(v[0], v[1]);
       else
         *reinterpret_cast<uint32_t*>(ys + r * LDY + col) =
-            pack_bf16(v[0], v[1]);
+            pack2<T>(v[0], v[1]);
     }
   }
   __syncthreads();
   // whole rows out: a warp stores 32 consecutive 16-byte vectors
-  __nv_bfloat16* y = static_cast<__nv_bfloat16*>(p.y);
-  const __nv_bfloat16* res = static_cast<const __nv_bfloat16*>(p.res);
+  T* y = static_cast<T*>(p.y);
+  const T* res = static_cast<const T*>(p.res);
   const bool vec = p.o % 8 == 0;
   for (int i = tid; i < kBM * VPR; i += kThreads) {
     const int r = i / VPR, col = (i - r * VPR) * 8;
@@ -441,12 +462,12 @@ __global__ void __launch_bounds__(kThreads, BN == 256 ? 1 : 2)
     if (m >= p.m || c >= p.o) continue;
     const size_t at = (size_t)m * p.o + c;
     const int n8 = vec ? 8 : min(8, p.o - c);
-    uint32_t ow[4];   // the 8 outputs, bf16 pairs
+    uint32_t ow[4];   // the 8 outputs, T pairs
     if (res_rows) {
       const float4* src = reinterpret_cast<const float4*>(yf + r * LDP + col);
       const float4 lo = src[0], hi = src[1];
       const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-      uint32_t rr[4] = {0u, 0u, 0u, 0u};   // the residual, bf16 pairs
+      uint32_t rr[4] = {0u, 0u, 0u, 0u};   // the residual, T pairs
       if (vec) {
         const uint4 q = *reinterpret_cast<const uint4*>(res + at);
         rr[0] = q.x, rr[1] = q.y, rr[2] = q.z, rr[3] = q.w;
@@ -454,19 +475,19 @@ __global__ void __launch_bounds__(kThreads, BN == 256 ? 1 : 2)
 #pragma unroll
         for (int e = 0; e < 8; ++e)
           if (e < n8)
-            rr[e / 2] |= (uint32_t)__bfloat16_as_ushort(res[at + e])
-                         << (16 * (e & 1));
+            rr[e / 2] |= (uint32_t)reinterpret_cast<const uint16_t*>(
+                             res)[at + e] << (16 * (e & 1));
       }
 #pragma unroll
       for (int e = 0; e < 8; e += 2) {
-        // bf16 -> f32 is exact: the pair's halves as the high bits
-        float a0 = v[e] + __uint_as_float(rr[e / 2] << 16);
-        float a1 = v[e + 1] + __uint_as_float(rr[e / 2] & 0xffff0000u);
+        // T -> f32 is exact
+        float a0 = v[e] + bits_f32<T>(rr[e / 2] & 0xffffu);
+        float a1 = v[e + 1] + bits_f32<T>(rr[e / 2] >> 16);
         if (p.relu) {
           a0 = fmaxf(a0, 0.f);
           a1 = fmaxf(a1, 0.f);
         }
-        ow[e / 2] = pack_bf16(a0, a1);
+        ow[e / 2] = pack2<T>(a0, a1);
       }
     } else {
       const uint4 q = *reinterpret_cast<const uint4*>(ys + r * LDY + col);
@@ -478,8 +499,8 @@ __global__ void __launch_bounds__(kThreads, BN == 256 ? 1 : 2)
 #pragma unroll
       for (int e = 0; e < 8; ++e)
         if (e < n8)
-          y[at + e] = __ushort_as_bfloat16(
-              (unsigned short)(ow[e / 2] >> (16 * (e & 1))));
+          reinterpret_cast<uint16_t*>(y)[at + e] =
+              (uint16_t)(ow[e / 2] >> (16 * (e & 1)));
     }
   }
 }
@@ -602,7 +623,7 @@ __global__ void __launch_bounds__(kThreads) f32_conv(const Args p) {
   }
 }
 
-// BN and stages of a bf16 launch: 256 outputs a tile where O is wide and
+// BN and stages of a 16-bit launch: 256 outputs a tile where O is wide and
 // K long (16 chunks or more: one block an SM, a 4-stage ring), 128 for
 // shorter K (two blocks an SM, a 3-stage ring), 64 where O is 64
 struct Cfg {
@@ -612,33 +633,35 @@ struct Cfg {
 };
 
 template <int BN, int S>
-Cfg cfg() {
-  return {wg_conv<BN, S>, wg_smem<BN, S>(), BN};
+Cfg cfg(int dtype) {
+  if (dtype == 2) return {wg_conv<BN, S, __half>, wg_smem<BN, S>(), BN};
+  return {wg_conv<BN, S, __nv_bfloat16>, wg_smem<BN, S>(), BN};
 }
 
-Cfg tile(int bn) {
+// dtype 1 (bf16) or 2 (f16)
+Cfg tile(int bn, int dtype) {
   switch (bn) {
-    case 64: return cfg<64, 4>();
-    case 128: return cfg<128, 3>();
-    default: return cfg<256, 4>();
+    case 64: return cfg<64, 4>(dtype);
+    case 128: return cfg<128, 3>(dtype);
+    default: return cfg<256, 4>(dtype);
   }
 }
 
 // nk: the chunks walked
-Cfg pick(int o, int nk) {
-  return tile(o <= 64 ? 64 : (o <= 128 || nk < 16 ? 128 : 256));
+Cfg pick(int o, int nk, int dtype) {
+  return tile(o <= 64 ? 64 : (o <= 128 || nk < 16 ? 128 : 256), dtype);
 }
 
 }  // namespace
 
-// dtype: 0 f32, 1 bf16 (xp, wk, residual and y share it). epi: 0 none,
-// 1 moments (msum, msq [O, tiles] f32; tiles = ceil(M / kBM) in bf16,
-// ceil(M / kFM) in f32), 2 affine (g, b f32 [O]; residual [M, O] or
-// null; relu 0 / 1). xp [N, Hp, Wp, Ce], wk [kkh * kkw, Ce, ldw] (ldw >=
-// O; bf16: Ce and ldw multiples of 8, the columns past O zero), y
-// [N, Hp - kkh + 1, Wp - kkw + 1, O], all contiguous; bf16 pointers
-// 16-byte aligned. live: the nlive (1 .. 512) K chunks of 64 that bf16
-// walks, in order (f32 ignores it). Returns cudaGetLastError() of the
+// dtype: 0 f32, 1 bf16, 2 f16 (xp, wk, residual and y share it). epi: 0
+// none, 1 moments (msum, msq [O, tiles] f32; tiles = ceil(M / kBM) in
+// 16 bits, ceil(M / kFM) in f32), 2 affine (g, b f32 [O]; residual
+// [M, O] or null; relu 0 / 1). xp [N, Hp, Wp, Ce], wk [kkh * kkw, Ce,
+// ldw] (ldw >= O; 16 bits: Ce and ldw multiples of 8, the columns past
+// O zero), y [N, Hp - kkh + 1, Wp - kkw + 1, O], all contiguous; 16-bit
+// pointers 16-byte aligned. live: the nlive (1 .. 512) K chunks of 64
+// that the 16-bit path walks, in order (f32 ignores it). Returns cudaGetLastError() of the
 // launch.
 extern "C" int fused_conv(int dtype, int epi, int relu, const void* xp,
                           const void* wk, const float* g, const float* b,
@@ -647,7 +670,8 @@ extern "C" int fused_conv(int dtype, int epi, int relu, const void* xp,
                           int o, int ldw, const unsigned short* live,
                           int nlive, int num_sms, void* stream) {
   (void)num_sms;
-  if (epi < 0 || epi > 2 || n <= 0 || ce <= 0 || o <= 0 || ldw < o ||
+  if (dtype < 0 || dtype > 2 || epi < 0 || epi > 2 || n <= 0 || ce <= 0 ||
+      o <= 0 || ldw < o ||
       kkh <= 0 || kkw <= 0 || hp < kkh || wp < kkw)
     return cudaErrorInvalidValue;
   Args p;
@@ -690,7 +714,7 @@ extern "C" int fused_conv(int dtype, int epi, int relu, const void* xp,
     if (live[i] >= nk) return cudaErrorInvalidValue;
     p.live[i] = live[i];
   }
-  const Cfg c = pick(o, nlive);
+  const Cfg c = pick(o, nlive, dtype);
   cudaError_t err = cudaFuncSetAttribute(
       c.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -701,11 +725,13 @@ extern "C" int fused_conv(int dtype, int epi, int relu, const void* xp,
   return static_cast<int>(cudaGetLastError());
 }
 
-// what fused_conv launches in bf16 for tiles of tile_n (64, 128, 256)
-// outputs: registers and local (spilled) bytes a thread, threads and
-// shared bytes a block, and the blocks an SM holds at once
-extern "C" int fused_conv_occupancy(int tile_n, int* out) {
-  const Cfg c = tile(tile_n);
+// what fused_conv launches in bf16 (dtype 1) or f16 (2) for tiles of
+// tile_n (64, 128, 256) outputs: registers and local (spilled) bytes a
+// thread, threads and shared bytes a block, and the blocks an SM holds
+// at once
+extern "C" int fused_conv_occupancy(int tile_n, int dtype, int* out) {
+  if (dtype != 1 && dtype != 2) return cudaErrorInvalidValue;
+  const Cfg c = tile(tile_n, dtype);
   cudaError_t err = cudaFuncSetAttribute(
       c.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.bytes);
   cudaFuncAttributes attr;

@@ -77,6 +77,13 @@
 // accumulator would fill the register file, so B5 and B6 keep the
 // 32-row mma.sync kernel there.
 //
+// Every tensor-core kernel is a template on its 16-bit operand type T,
+// instantiated for bf16 (amp's default) and f16 (float16 amp): wgmma and
+// mma.sync take .f16 operands in the layouts of .bf16, the TMA maps read
+// CU_TENSOR_MAP_DATA_TYPE_FLOAT16, and d is rounded to T at the same
+// point in both (csrc/half16.cuh). A float16 tensor launches the f16
+// instantiation; it is never converted to reach the bf16 one.
+//
 // f32 operands (tests, steps without amp) take a CUDA-core path of the
 // same shape in full f32 (no TF32). H is a multiple of 64 up to 1024
 // (one instantiation each of 64, 128, 256, 512, 768, 1024); N and V are
@@ -87,11 +94,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "half16.cuh"
 #include "sm90.cuh"
 
 namespace {
 
 using namespace sm90;
+using half16::mma16816;
+using half16::pack2;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -217,15 +227,6 @@ __device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
 // tensor-core path (bf16 operands)
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ void ldsm_x2_trans(uint32_t* r, const void* p) {
   const uint32_t addr =
       static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -242,11 +243,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // 16 bytes global -> shared without a register stop; zeros (and no
@@ -301,16 +297,14 @@ constexpr size_t tc_smem_bytes() {
 // Copy H-chunk `c` of the walked tile's rows b0.. (zeros past nb) into
 // its slot, as one commit group. Always commits, copying nothing past
 // the last tile, so every thread counts the same groups.
-template <int H>
-__device__ __forceinline__ void fetch_chunk(__nv_bfloat16* Bs,
-                                            const __nv_bfloat16* b, int b0,
+template <int H, typename T>
+__device__ __forceinline__ void fetch_chunk(T* Bs, const T* b, int b0,
                                             int nb, int c) {
-  __nv_bfloat16* slot = Bs + c * kBQ * kLDC;
+  T* slot = Bs + c * kBQ * kLDC;
   for (int i = threadIdx.x; i < kBQ * (kKC / 8); i += kThreads) {
     const int r = i / (kKC / 8), v = i % (kKC / 8);
     const bool ok = b0 + r < nb;
-    const __nv_bfloat16* src =
-        b + (ok ? (size_t)(b0 + r) * H + c * kKC + v * 8 : 0);
+    const T* src = b + (ok ? (size_t)(b0 + r) * H + c * kKC + v * 8 : 0);
     cp_async16(slot + r * kLDC + v * 8, src, ok);
   }
   cp_async_commit();
@@ -324,7 +318,7 @@ __device__ __forceinline__ void fetch_chunk(__nv_bfloat16* Bs,
 // WM x WN tiles of 16 x (kBQ / WN); in the second product warp w owns
 // columns [64 c + 8 w, 64 c + 8 w + 8) of every chunk c of the [BP, H]
 // accumulator.
-template <int MODE, int BP, int H>
+template <int MODE, int BP, int H, typename T>
 __global__ void __launch_bounds__(kThreads, 1) tc_kernel(const Args p) {
   constexpr int LDA = H + 8;          // owned-tile row stride (bf16)
   constexpr int NC = H / kKC;         // chunks of the walked tile
@@ -336,8 +330,8 @@ __global__ void __launch_bounds__(kThreads, 1) tc_kernel(const Args p) {
   static_assert(MODE == kDx || MODE == kDw, "backward modes");
 
   extern __shared__ uint4 smem4[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* Bs = As + BP * LDA;
+  T* As = reinterpret_cast<T*>(smem4);
+  T* Bs = As + BP * LDA;
   void* tail = Bs + NC * kBQ * kLDC;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -345,8 +339,8 @@ __global__ void __launch_bounds__(kThreads, 1) tc_kernel(const Args p) {
   const int m0 = (warp % WM) * 16, q0 = (warp / WM) * (kBQ / WN);
   const int a0 = blockIdx.x * BP;
   const int na = rows_a<MODE>(p), nb = rows_b<MODE>(p);
-  const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(p.a);
-  const __nv_bfloat16* B = static_cast<const __nv_bfloat16*>(p.b);
+  const T* A = static_cast<const T*>(p.a);
+  const T* B = static_cast<const T*>(p.b);
 
   // the owned tile (one group), then every chunk of the first walked tile
   for (int i = threadIdx.x; i < BP * (H / 8); i += kThreads) {
@@ -357,7 +351,7 @@ __global__ void __launch_bounds__(kThreads, 1) tc_kernel(const Args p) {
   }
   cp_async_commit();
 #pragma unroll
-  for (int c = 0; c < NC; ++c) fetch_chunk<H>(Bs, B, 0, nb, c);
+  for (int c = 0; c < NC; ++c) fetch_chunk<H, T>(Bs, B, 0, nb, c);
 
   // B5: per-token operands of the thread's two owned rows
   float lse_r[2] = {0.f, 0.f}, g_r[2] = {0.f, 0.f};
@@ -411,7 +405,7 @@ __global__ void __launch_bounds__(kThreads, 1) tc_kernel(const Args p) {
       // in flight past chunk c: this tile's later chunks
       cp_async_wait_n(NC - 1 - c);
       __syncthreads();  // chunk c visible
-      const __nv_bfloat16* slot = Bs + c * kBQ * kLDC;
+      const T* slot = Bs + c * kBQ * kLDC;
 #pragma unroll
       for (int kk = 0; kk < kKC; kk += 16) {
         uint32_t a[4];
@@ -423,14 +417,14 @@ __global__ void __launch_bounds__(kThreads, 1) tc_kernel(const Args p) {
           ldsm_x4(b, slot + (q0 + j * 8 + (lane & 7) + ((lane >> 4) << 3)) *
                                 kLDC +
                          kk + ((lane >> 3) & 1) * 8);
-          mma_bf16(s[j], a, b);
-          mma_bf16(s[j + 1], a, b + 2);
+          mma16816<T>(s[j], a, b[0], b[1]);
+          mma16816<T>(s[j + 1], a, b[2], b[3]);
         }
       }
     }
 
-    // d of the tile, rounded to bf16, into shared memory
-    __nv_bfloat16* Ds = static_cast<__nv_bfloat16*>(tail);
+    // d of the tile, rounded to T, into shared memory
+    T* Ds = static_cast<T*>(tail);
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
 #pragma unroll
@@ -452,7 +446,7 @@ __global__ void __launch_bounds__(kThreads, 1) tc_kernel(const Args p) {
           }
         }
         *reinterpret_cast<uint32_t*>(Ds + r * LDD + q0 + j * 8 + 2 * t4) =
-            pack_bf16(d[0], d[1]);
+            pack2<T>(d[0], d[1]);
       }
     }
     __syncthreads();
@@ -467,21 +461,22 @@ __global__ void __launch_bounds__(kThreads, 1) tc_kernel(const Args p) {
                                 (lane >> 4) * 8);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      const __nv_bfloat16* slot = Bs + c * kBQ * kLDC;
+      const T* slot = Bs + c * kBQ * kLDC;
 #pragma unroll
       for (int ks = 0; ks < kBQ / 16; ++ks) {
         uint32_t b[2];
         ldsm_x2_trans(b, slot + (ks * 16 + (lane & 15)) * kLDC + warp * 8);
 #pragma unroll
-        for (int mi = 0; mi < MI; ++mi) mma_bf16(acc[mi][c], ad[mi][ks], b);
+        for (int mi = 0; mi < MI; ++mi)
+          mma16816<T>(acc[mi][c], ad[mi][ks], b[0], b[1]);
       }
       __syncthreads();  // every warp is done with chunk c
-      fetch_chunk<H>(Bs, B, b1, nb, c);
+      fetch_chunk<H, T>(Bs, B, b1, nb, c);
     }
   }
 
   cp_async_wait<0>();   // the empty groups past the last tile
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+  T* out = static_cast<T*>(p.out);
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
@@ -492,7 +487,7 @@ __global__ void __launch_bounds__(kThreads, 1) tc_kernel(const Args p) {
       for (int c = 0; c < NC; ++c)
         *reinterpret_cast<uint32_t*>(out + (size_t)row * H + c * kKC +
                                      warp * 8 + 2 * t4) =
-            pack_bf16(acc[mi][c][2 * h], acc[mi][c][2 * h + 1]);
+            pack2<T>(acc[mi][c][2 * h], acc[mi][c][2 * h + 1]);
     }
 }
 
@@ -575,45 +570,57 @@ __device__ __forceinline__ void fence_async_smem() {
 // d[64 x N] (+)= A B, bf16 from shared memory through descriptors; the
 // f32 accumulator of lane (g, t) of warp w: d[4 j + 2 h + e] is row
 // 16 w + g + 8 h, column 8 j + 2 t + e
-template <int TRANS_B>
+#define FL_WGMMA_N32(TY) \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {"        \
+      "%0, %1, %2, %3, %4, %5, %6, %7,"                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15},"                            \
+      " %16, %17, p, 1, 1, 0, %19;\n}\n"                                  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),       \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),       \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),  \
+        "+f"(d[15])                                                       \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B))
+template <typename T, int TRANS_B>
 __device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da,
                                           uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15},"
-      " %16, %17, p, 1, 1, 0, %19;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+  if constexpr (half16::kF16<T>)
+    FL_WGMMA_N32("f16");
+  else
+    FL_WGMMA_N32("bf16");
 }
-template <int TRANS_B>
+#undef FL_WGMMA_N32
+#define FL_WGMMA_N64(TY) \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"        \
+      "%0, %1, %2, %3, %4, %5, %6, %7,"                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15,"                             \
+      "%16, %17, %18, %19, %20, %21, %22, %23,"                           \
+      "%24, %25, %26, %27, %28, %29, %30, %31},"                          \
+      " %32, %33, p, 1, 1, 0, %35;\n}\n"                                  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),       \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),       \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),  \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),  \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),  \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+        "+f"(d[30]), "+f"(d[31])                                          \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B))
+template <typename T, int TRANS_B>
 __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
                                           uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31},"
-      " %32, %33, p, 1, 1, 0, %35;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+  if constexpr (half16::kF16<T>)
+    FL_WGMMA_N64("f16");
+  else
+    FL_WGMMA_N64("bf16");
 }
+#undef FL_WGMMA_N64
 
 // PW columns a part (one wgmma n: 64, or 32 at H = 64, where the two
 // warpgroups split the only chunk), NP parts a warpgroup
-template <int MODE, int H>
+template <int MODE, int H, typename T>
 __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(const Args p) {
   constexpr int NC = H / 64;
   constexpr int PW = H >= 128 ? 64 : 32;
@@ -645,8 +652,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(const Args p) {
     t_hi = min(t_hi, t_lo + p.piece_tokens);
   }
   const int a0 = vt * kVP;
-  const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(p.a);
-  const __nv_bfloat16* B = static_cast<const __nv_bfloat16*>(p.b);
+  const T* A = static_cast<const T*>(p.a);
+  const T* B = static_cast<const T*>(p.b);
   auto part_col = [&](int pp) {
     return PW == 64 ? (2 * pp + wg) * 64 : wg * 32;
   };
@@ -721,7 +728,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(const Args p) {
       for (int c = 2 * pp; c < (2 * pp + 2 < NC ? 2 * pp + 2 : NC); ++c)
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_n32<0>(s, wg_desc(a_s + c * kChunk + kk * 32, 16, 1024),
+          wgmma_n32<T, 0>(s, wg_desc(a_s + c * kChunk + kk * 32, 16, 1024),
                        wg_desc(b_s + c * kChunk + wg * 32 * 128 + kk * 32,
                                16, 1024),
                        (c | kk) != 0);
@@ -730,7 +737,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(const Args p) {
     wg_wait<0>();
     reg_fence(s);
 
-    // d of the tile, rounded to bf16, into D [owned row][walked row]
+    // d of the tile, rounded to T, into D [owned row][walked row]
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -750,7 +757,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(const Args p) {
         }
         const uint32_t dst = d_s + swz(r, tl >> 3) + (tl & 7) * 2;
         asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst),
-                     "r"(pack_bf16(d[0], d[1])));
+                     "r"(pack2<T>(d[0], d[1])));
       }
     fence_async_smem();
     __syncthreads();          // D complete; every S product is done
@@ -768,9 +775,9 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(const Args p) {
         // is never stepped, so it is given the stride of 8 K rows too
         const uint64_t db = wg_desc(bb + kk * 16 * 128, 1024, 1024);
         if constexpr (PW == 64)
-          wgmma_n64<1>(acc[pp], da, db, 1);
+          wgmma_n64<T, 1>(acc[pp], da, db, 1);
         else
-          wgmma_n32<1>(acc[pp], da, db, 1);
+          wgmma_n32<T, 1>(acc[pp], da, db, 1);
       }
       wg_commit();
     }
@@ -785,7 +792,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(const Args p) {
 #pragma unroll
   for (int pp = 0; pp < NP; ++pp) reg_fence(acc[pp]);
 
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+  T* out = static_cast<T*>(p.out);
   if (piece < 0) {
 #pragma unroll
     for (int pp = 0; pp < NP; ++pp)
@@ -797,7 +804,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(const Args p) {
         for (int j = 0; j < R / 4; ++j)
           *reinterpret_cast<uint32_t*>(out + (size_t)row * H +
                                        part_col(pp) + j * 8 + 2 * t4) =
-              pack_bf16(acc[pp][4 * j + 2 * h], acc[pp][4 * j + 2 * h + 1]);
+              pack2<T>(acc[pp][4 * j + 2 * h],
+                       acc[pp][4 * j + 2 * h + 1]);
       }
     return;
   }
@@ -835,7 +843,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(const Args p) {
       sum.y += x.y;
     }
     *reinterpret_cast<uint32_t*>(out + (size_t)a0 * H + 2 * i) =
-        pack_bf16(sum.x, sum.y);
+        pack2<T>(sum.x, sum.y);
   }
 }
 
@@ -867,8 +875,9 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(const Args p) {
 // and results repeat bit for bit.
 // Vocab rows past V arrive as zeros (TMA fills out-of-bounds rows) and
 // their columns are masked to -1e30.
-template <int H>
+template <int H, typename T_>
 struct Fwd {
+  using T = T_;                                  // operand type
   static constexpr int kWG = H <= 768 ? 2 : 1;   // consumer warpgroups
   static constexpr int kRows = 64 * kWG;         // owned token rows
   static constexpr int kNC = H / 64;             // 64-column chunks of x
@@ -894,35 +903,42 @@ struct Fwd {
 
 constexpr float kLog2e = 1.4426950408889634f;
 
+#define FL_WGMMA_N128(TY) \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"       \
+      "%0, %1, %2, %3, %4, %5, %6, %7,"                                   \
+      "%8, %9, %10, %11, %12, %13, %14, %15,"                             \
+      "%16, %17, %18, %19, %20, %21, %22, %23,"                           \
+      "%24, %25, %26, %27, %28, %29, %30, %31,"                           \
+      "%32, %33, %34, %35, %36, %37, %38, %39,"                           \
+      "%40, %41, %42, %43, %44, %45, %46, %47,"                           \
+      "%48, %49, %50, %51, %52, %53, %54, %55,"                           \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                            \
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                                  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),       \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),       \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),  \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),  \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),  \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),  \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),  \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),  \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),  \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),  \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),  \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                \
+      : "l"(da), "l"(db), "r"(scale_d))
+template <typename T>
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
                                            uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (half16::kF16<T>)
+    FL_WGMMA_N128("f16");
+  else
+    FL_WGMMA_N128("bf16");
 }
+#undef FL_WGMMA_N128
 
 // the online statistics of the thread's two rows (h: row g or g + 8 of
 // its warp's 16); l and the picked logit are the thread's own columns'
@@ -1026,7 +1042,7 @@ __device__ __forceinline__ void lse_tile(float (&cur)[64], float (&prev)[64],
     // the item's columns: x chunk (c kIW) / 64, bytes (c kIW) % 64 * 2 in
 #pragma unroll
     for (int kk = 0; kk < C::kK16; ++kk)
-      wgmma_n128(cur,
+      wgmma_n128<typename C::T>(cur,
                  da + (((c * C::kIW / 64) * C::kXChunk +
                         (c * C::kIW % 64) * 2 + kk * 32) >> 4),
                  db + ((kk * 32) >> 4), (c | kk) != 0);
@@ -1045,11 +1061,11 @@ __device__ __forceinline__ void lse_tile(float (&cur)[64], float (&prev)[64],
   }
 }
 
-template <int H>
-__global__ void __launch_bounds__(Fwd<H>::kThreads, 1)
+template <int H, typename T>
+__global__ void __launch_bounds__(Fwd<H, T>::kThreads, 1)
     lse_kernel(const __grid_constant__ CUtensorMap tx,
                const __grid_constant__ CUtensorMap tw, const Args p) {
-  using C = Fwd<H>;
+  using C = Fwd<H, T>;
   extern __shared__ uint4 smem4[];
   const FwdSmem<C> sm(smem_u32(smem4));
   const int tid = threadIdx.x, wg = tid >> 7;
@@ -1257,7 +1273,7 @@ struct Kernel {
   size_t bytes;
   int threads, rows;
   bool split = false;   // B6 on warpgroup products: see dw_split
-  int item_cols = 0;    // B4 in bf16: launched with tensor maps of x and
+  int item_cols = 0;    // B4 in 16 bits: launched with tensor maps of x and
                         // w, w read in items of this many columns
 };
 
@@ -1290,46 +1306,56 @@ const void* sym(F* fn) {
   return reinterpret_cast<const void*>(fn);
 }
 
-template <int H>
-Kernel pick_h(int mode, int bf16) {
-  if (!bf16) {
-    const size_t smem = f32_smem_bytes<H>();
-    switch (mode) {
-      case kFwd: return {sym(f32_kernel<kFwd, H>), smem, kThreads, kFP};
-      case kDx: return {sym(f32_kernel<kDx, H>), smem, kThreads, kFP};
-      default: return {sym(f32_kernel<kDw, H>), smem, kThreads, kFP};
-    }
-  }
-  if (mode == kFwd) {
-    return {sym(lse_kernel<H>), Fwd<H>::kSmem, Fwd<H>::kThreads,
-            Fwd<H>::kRows, false, Fwd<H>::kIW};
-  }
+// the 16-bit kernels of (mode, H) in operand type T
+template <int H, typename T>
+Kernel pick_tc(int mode) {
+  using C = Fwd<H, T>;
+  if (mode == kFwd)
+    return {sym(lse_kernel<H, T>), C::kSmem, C::kThreads, C::kRows, false,
+            C::kIW};
   // a 64-row f32 accumulator of 1024 columns would fill the register
   // file: H 1024 keeps the 32-row mma.sync kernel for B5 and B6
   if constexpr (H <= 768) {
     if (mode == kDx)
-      return {sym(wg_kernel<kDx, H>), wg_smem<H>(), kWgThreads, kVP};
-    return {sym(wg_kernel<kDw, H>), wg_smem<H>(), kWgThreads, kVP, true};
+      return {sym(wg_kernel<kDx, H, T>), wg_smem<H>(), kWgThreads, kVP};
+    return {sym(wg_kernel<kDw, H, T>), wg_smem<H>(), kWgThreads, kVP, true};
   } else {
     if (mode == kDx)
-      return {sym(tc_kernel<kDx, 32, H>), tc_smem_bytes<32, H>(), kThreads,
-              32};
-    return {sym(tc_kernel<kDw, 32, H>), tc_smem_bytes<32, H>(), kThreads, 32};
+      return {sym(tc_kernel<kDx, 32, H, T>), tc_smem_bytes<32, H>(),
+              kThreads, 32};
+    return {sym(tc_kernel<kDw, 32, H, T>), tc_smem_bytes<32, H>(), kThreads,
+            32};
   }
 }
 
-// a [rows, H] bf16 matrix (rows contiguous) read in boxes of [box_rows,
-// box_cols (64 or 32) columns], swizzled by the box's row bytes (128 or
-// 64); rows past `rows` read as zeros
-bool bf16_map(CUtensorMap* map, const void* base, int H, int rows,
-              int box_rows, int box_cols) {
+// dtype 0 (f32), 1 (bf16) or 2 (f16)
+template <int H>
+Kernel pick_h(int mode, int dtype) {
+  if (dtype == 1) return pick_tc<H, __nv_bfloat16>(mode);
+  if (dtype == 2) return pick_tc<H, __half>(mode);
+  const size_t smem = f32_smem_bytes<H>();
+  switch (mode) {
+    case kFwd: return {sym(f32_kernel<kFwd, H>), smem, kThreads, kFP};
+    case kDx: return {sym(f32_kernel<kDx, H>), smem, kThreads, kFP};
+    default: return {sym(f32_kernel<kDw, H>), smem, kThreads, kFP};
+  }
+}
+
+// a [rows, H] bf16 (dtype 1) or f16 (dtype 2) matrix (rows contiguous)
+// read in boxes of [box_rows, box_cols (64 or 32) columns], swizzled by
+// the box's row bytes (128 or 64); rows past `rows` read as zeros
+bool half_map(CUtensorMap* map, int dtype, const void* base, int H,
+              int rows, int box_rows, int box_cols) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)H, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)H * 2};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t step[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  return enc(map,
+             dtype == 2 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             2,
              const_cast<void*>(base), dims, strides, box, step,
              CU_TENSOR_MAP_INTERLEAVE_NONE,
              box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
@@ -1338,9 +1364,10 @@ bool bf16_map(CUtensorMap* map, const void* base, int H, int rows,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// mode 0-2, dtype 0 (f32) or 1 (bf16), H one of the six; false otherwise
+// mode 0-2, dtype 0 (f32), 1 (bf16) or 2 (f16), H one of the six; false
+// otherwise
 bool pick(int mode, int dtype, int H, Kernel* k) {
-  if (mode < 0 || mode > 2) return false;
+  if (mode < 0 || mode > 2 || dtype < 0 || dtype > 2) return false;
   switch (H) {
     case 64: *k = pick_h<64>(mode, dtype); return true;
     case 128: *k = pick_h<128>(mode, dtype); return true;
@@ -1366,7 +1393,7 @@ extern "C" long long fused_lce_workspace(int mode, int dtype, int H, int n,
 }
 
 // mode: 0 forward (B4: nll, lse), 1 dx (B5), 2 dw (B6); dtype: 0 f32,
-// 1 bf16 (x and w share it). x [n, H], w [vocab, H], out [n or vocab,
+// 1 bf16, 2 f16 (x and w share it). x [n, H], w [vocab, H], out [n or vocab,
 // H], all rows contiguous and 16-byte aligned; labels int32 [n]; lse,
 // g f32 [n]; ws: fused_lce_workspace bytes (256-byte aligned) or null
 // when that is 0. Returns cudaGetLastError() of the launch.
@@ -1418,8 +1445,8 @@ extern "C" int fused_lce(int mode, int dtype, int H, const void* x,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (k.item_cols) {
     CUtensorMap tx, tw;
-    if (!bf16_map(&tx, x, H, n, k.rows, 64) ||
-        !bf16_map(&tw, w, H, vocab, 128, k.item_cols))
+    if (!half_map(&tx, dtype, x, H, n, k.rows, 64) ||
+        !half_map(&tw, dtype, w, H, vocab, 128, k.item_cols))
       return cudaErrorInvalidValue;
     void* args[] = {&tx, &tw, &p};
     err = cudaLaunchKernel(k.fn, dim3(grid), dim3(k.threads), args, k.bytes,

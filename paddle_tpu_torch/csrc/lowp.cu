@@ -34,6 +34,7 @@
 // masked, never padded.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -303,8 +304,8 @@ extern "C" int w8a8_matmul_occupancy(int M, int K, int* out) {
 //         qmax^2 = 16129;
 //   fp8:  q = e4m3(clip(x * (448 / s), -448, 448)) (round to nearest
 //         even), f32 accumulation, qmax^2 = 200704.
-// a [M, K] f32 or bf16 with a row stride, b a logical [K, N] f32 or bf16
-// operand read through its element strides (a Linear weight [in, out],
+// a [M, K] f32, bf16 or f16 with a row stride, b a logical [K, N] f32,
+// bf16 or f16 operand read through its element strides (a Linear weight [in, out],
 // sn = 1, or the LM-head loss's transposed vocab chunk, sk = 1), sa and
 // sb per-tensor f32 scales read from device memory (never on the host),
 // out [M, N] f32 contiguous. 127 / s, 448 / s and the epilogue factor
@@ -364,6 +365,10 @@ __device__ __forceinline__ float to_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+template <>
+__device__ __forceinline__ float to_f32<__half>(__half v) {
+  return __half2float(v);
 }
 
 // the stored code of x, inv = qmax / s: the int8 code, or the e4m3
@@ -687,21 +692,32 @@ cudaError_t quant_b(const void* b, long long sk, long long sn,
   return cudaGetLastError();
 }
 
+// a_dtype / b_dtype: 0 f32, 1 bf16, 2 f16 (each operand is quantised
+// from its own dtype)
 template <bool kFp8>
-cudaError_t run(const void* a, int a_bf16, long long lda, const void* b,
-                int b_bf16, long long sk, long long sn, const float* sa,
+cudaError_t run(const void* a, int a_dtype, long long lda, const void* b,
+                int b_dtype, long long sk, long long sn, const float* sa,
                 const float* sb, void* qa, void* qb, float* out, int M,
                 int N, int K, int Mp, int Np, int Kp, int num_sms,
                 cudaStream_t st) {
-  cudaError_t err = a_bf16
-      ? quant_a<__nv_bfloat16, kFp8>(a, lda, sa, qa, M, K, Mp, Kp, num_sms,
-                                     st)
-      : quant_a<float, kFp8>(a, lda, sa, qa, M, K, Mp, Kp, num_sms, st);
+  if (a_dtype < 0 || a_dtype > 2 || b_dtype < 0 || b_dtype > 2)
+    return cudaErrorInvalidValue;
+  cudaError_t err =
+      a_dtype == 1
+          ? quant_a<__nv_bfloat16, kFp8>(a, lda, sa, qa, M, K, Mp, Kp,
+                                         num_sms, st)
+      : a_dtype == 2
+          ? quant_a<__half, kFp8>(a, lda, sa, qa, M, K, Mp, Kp, num_sms, st)
+          : quant_a<float, kFp8>(a, lda, sa, qa, M, K, Mp, Kp, num_sms, st);
   if (err != cudaSuccess) return err;
-  err = b_bf16
-      ? quant_b<__nv_bfloat16, kFp8>(b, sk, sn, sb, qb, K, N, Np, Kp,
-                                     num_sms, st)
-      : quant_b<float, kFp8>(b, sk, sn, sb, qb, K, N, Np, Kp, num_sms, st);
+  err = b_dtype == 1
+            ? quant_b<__nv_bfloat16, kFp8>(b, sk, sn, sb, qb, K, N, Np, Kp,
+                                           num_sms, st)
+        : b_dtype == 2
+            ? quant_b<__half, kFp8>(b, sk, sn, sb, qb, K, N, Np, Kp, num_sms,
+                                    st)
+            : quant_b<float, kFp8>(b, sk, sn, sb, qb, K, N, Np, Kp, num_sms,
+                                   st);
   if (err != cudaSuccess) return err;
   CUtensorMap ta, tb;
   if (!code_map(&ta, qa, Mp, Kp, kFp8) || !code_map(&tb, qb, Np, Kp, kFp8))
@@ -720,8 +736,8 @@ cudaError_t run(const void* a, int a_bf16, long long lda, const void* b,
 // B9: the scratch qa [Mp, Kp] and qb [Np, Kp] (int8 codes, or for fp8
 // bf16 ones: 2 Kp bytes a row; 16-byte aligned) and out [M, N] f32 are
 // the caller's; Mp, Np and Kp are multiples of 128, all > 0
-extern "C" int scaled_matmul_q(const void* a, int a_bf16, long long lda,
-                               const void* b, int b_bf16, long long sk,
+extern "C" int scaled_matmul_q(const void* a, int a_dtype, long long lda,
+                               const void* b, int b_dtype, long long sk,
                                long long sn, const float* sa,
                                const float* sb, void* qa, void* qb,
                                float* out, int M, int N, int K, int Mp,
@@ -729,9 +745,9 @@ extern "C" int scaled_matmul_q(const void* a, int a_bf16, long long lda,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      fp8 ? qmm::run<true>(a, a_bf16, lda, b, b_bf16, sk, sn, sa, sb, qa,
+      fp8 ? qmm::run<true>(a, a_dtype, lda, b, b_dtype, sk, sn, sa, sb, qa,
                            qb, out, M, N, K, Mp, Np, Kp, num_sms, st)
-          : qmm::run<false>(a, a_bf16, lda, b, b_bf16, sk, sn, sa, sb, qa,
+          : qmm::run<false>(a, a_dtype, lda, b, b_dtype, sk, sn, sa, sb, qa,
                             qb, out, M, N, K, Mp, Np, Kp, num_sms, st);
   return static_cast<int>(err);
 }

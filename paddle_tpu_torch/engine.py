@@ -29,6 +29,13 @@ The dynamic scale, its good / bad step counters and the guard's
 consecutive-bad-step counter are device scalars in ``state.buffers``
 under the reference's reserved names.
 
+``comm_dtype`` ("bfloat16" / "float16", the reference's fp16_allreduce
+knob on one card) runs each step's forward and loss under
+``auto_cast(level="O2", dtype=comm_dtype)`` while the parameters and
+the optimizer state stay float32 (their gradients come back in f32
+through the casts); loss scaling and recompute compose with it as
+without it (a recomputed block replays its first run's casts).
+
 ``FLAGS_lowp_matmul`` is latched at construction, as in the reference:
 when it is on, ``state.buffers[LOWP_SCALE_KEY]`` holds a
 `quantization.scaling.ScaleState` and each forward runs inside
@@ -68,6 +75,7 @@ forward in eval mode without autograd.
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -104,11 +112,6 @@ DEFAULT_SCALE_CONFIG = dict(
     incr_every_n_steps=1000, decr_every_n_nan_or_inf=2)
 
 
-def _all_finite(tensors):
-    """One device bool: every element of every tensor is finite."""
-    return torch.stack([torch.isfinite(t).all() for t in tensors]).all()
-
-
 def _storage_bytes(tensors):
     """Bytes of the distinct CUDA storages behind `tensors`."""
     seen = {}
@@ -124,8 +127,8 @@ def _precision_key(policy):
     off)."""
     if policy is None:
         return None
-    dtype, white, black = policy
-    return dtype, frozenset(white), frozenset(black)
+    dtype, white, black, level = policy
+    return dtype, frozenset(white), frozenset(black), level
 
 
 def _leaves(tree):
@@ -176,8 +179,9 @@ class Engine:
 
     def __init__(self, layer, optimizer, loss_fn, grad_clip=None,
                  device=None, seed=None, loss_scale=None,
-                 anomaly_guard=False):
+                 anomaly_guard=False, comm_dtype=None):
         self.device = resolve_device(device)
+        self.comm_dtype = comm_dtype
         self.layer = layer.to(self.device)
         self.optimizer = optimizer
         self.loss_fn = loss_fn
@@ -319,7 +323,13 @@ class Engine:
             p.grad = None
         lowp_prev = bufs.get(LOWP_SCALE_KEY)
         lowp_next = None
-        with _random.rng_scope(self.rng), _lowp.engine_scope(), \
+        # comm_dtype: the step's forward and loss under O2 autocast of
+        # that dtype over the f32 parameters (their gradients come back
+        # in f32 through the casts), as the reference's step
+        amp_ctx = _amp.auto_cast(enable=True, level="O2",
+                                 dtype=self.comm_dtype) \
+            if self.comm_dtype is not None else contextlib.nullcontext()
+        with _random.rng_scope(self.rng), amp_ctx, _lowp.engine_scope(), \
                 _lowp.scale_region(lowp_prev) as lowp_rec:
             loss = self.loss_fn(self.layer(*inputs), *labels).float()
             if lowp_rec is not None:
@@ -340,12 +350,13 @@ class Engine:
         # clipping (a value clipper would map inf to finite values)
         if scale is not None:
             grads = {k: g / scale for k, g in grads.items()}
-            finite = keep = _all_finite(grads.values())
+            finite = keep = _amp.all_finite(list(grads.values()))
         if self.anomaly_guard:
             # the guard also counts the loss (a NaN loss with zero grads);
             # guard_ok implies finite, so it alone decides the update
-            guard_ok = keep = (finite if scale is not None else _all_finite(
-                grads.values())) & torch.isfinite(loss)
+            guard_ok = keep = (finite if scale is not None else
+                               _amp.all_finite(list(grads.values()))) & \
+                torch.isfinite(loss)
         if self._record_grad_norm:
             # the global l2 norm of the RAW grads (unscaled, before decay
             # and clipping): the number a clipper would have seen

@@ -2,12 +2,15 @@
 of paddle_tpu/hapi/model.py).
 
 `prepare` takes the optimizer, the loss, the metrics and ``amp_configs``
-(level O1 in bf16 or f16; its loss-scaling knobs go to the engine's
-scaler, and in bf16 no scaling is applied unless a scaler knob is
-given, as in the reference; O2 raises until it is ported). With
-``jit_compile`` (the default) each training batch goes through
-`engine.Engine` on the network's device under the amp scope; without it
-the eager path runs ``loss.backward(); opt.step(); opt.clear_grad()``.
+(level O1 or O2 in bf16 or f16; its loss-scaling knobs go to the
+engine's scaler, and in bf16 no scaling is applied unless a scaler knob
+is given, as in the reference). With ``jit_compile`` (the default) each
+training batch goes through `engine.Engine` on the network's device
+under the amp scope (O2: every op not black-listed in the low dtype
+over the network's own parameters); without it the eager path runs
+``loss.backward(); opt.step(); opt.clear_grad()`` outside any amp scope,
+as the reference's eager path does (decorate the network with
+`amp.decorate` and step a `amp.GradScaler` for eager O2).
 Evaluation and prediction run the network in eval mode without
 autograd. `fit` / `evaluate` / `predict` build a `io.DataLoader` on the
 network's device when given a dataset; `fit` polls for preemption at
@@ -76,9 +79,6 @@ class Model:
             self._amp_dtype = cfg.pop("dtype", "bfloat16")
             if self._amp_level in ("O0", None):
                 self._amp_level = None
-            if self._amp_level == "O2":
-                raise NotImplementedError(
-                    "amp level O2 is not ported yet (O1 only)")
             if cfg.pop("use_dynamic_loss_scaling", True):
                 knobs = {k: v for k, v in cfg.items() if k in _SCALER_KNOBS}
                 self._loss_scale = knobs if knobs else "dynamic"

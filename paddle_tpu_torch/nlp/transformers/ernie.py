@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from ... import nn, resolve_device
+from ... import amp, nn, resolve_device
 from ...distributed.fleet.utils.recompute import recompute
 from ...framework.flags import flag
 from ...nn import functional as F
@@ -100,10 +100,11 @@ class ErnieEmbeddings(nn.Layer):
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[-1],
                                         device=input_ids.device)
-        x = self.word_embeddings(input_ids) + \
-            self.position_embeddings(position_ids)
+        x = amp.binary("elementwise_add", self.word_embeddings(input_ids),
+                       self.position_embeddings(position_ids))
         if token_type_ids is not None:
-            x = x + self.token_type_embeddings(token_type_ids)
+            x = amp.binary("elementwise_add", x,
+                           self.token_type_embeddings(token_type_ids))
         x = self.layer_norm(x)
         return F.dropout(x, self.dropout, training=self.training)
 
@@ -124,14 +125,18 @@ class ErnieSelfAttention(nn.Layer):
     def forward(self, x, attn_mask=None):
         b, s, h = x.shape
         # one packed [b, s, 3, nh, d] -> [3, b, nh, s, d] permute; the
-        # attention reads q, k, v through their strides
-        qkv = self.qkv_proj(x).reshape(
-            b, s, 3, self.num_heads, self.head_dim).permute(2, 0, 3, 1, 4)
+        # attention reads q, k, v through their strides. Each Tensor
+        # method casts under the reference's op name (O2)
+        (qkv,) = amp.cast("reshape", self.qkv_proj(x))
+        (qkv,) = amp.cast("transpose", qkv.reshape(
+            b, s, 3, self.num_heads, self.head_dim))
+        (qkv,) = amp.cast("unstack", qkv.permute(2, 0, 3, 1, 4))
         q, k, v = qkv.unbind(0)
         out = F.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask,
             dropout_p=self.attn_dropout if self.training else 0.0,
             qkv_layout="bhsd")
+        (out,) = amp.cast("reshape", out)
         return self.out_proj(out.reshape(b, s, h))
 
 
@@ -155,10 +160,10 @@ class ErnieEncoderLayer(nn.Layer):
     def forward(self, x, attn_mask=None):
         h = self.self_attn(x, attn_mask)
         h = F.dropout(h, self.dropout, training=self.training)
-        x = self.norm1(x + h)
+        x = self.norm1(amp.binary("elementwise_add", x, h))
         h = self.fc2(F.gelu(self.fc1(x), approximate=True))
         h = F.dropout(h, self.dropout, training=self.training)
-        return self.norm2(x + h)
+        return self.norm2(amp.binary("elementwise_add", x, h))
 
 
 class ErniePooler(nn.Layer):
@@ -168,6 +173,7 @@ class ErniePooler(nn.Layer):
                                generator=generator)
 
     def forward(self, hidden):
+        (hidden,) = amp.cast("getitem", hidden)
         return F.tanh(self.dense(hidden[:, 0]))
 
 

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from ... import nn, resolve_device
+from ... import amp, nn, resolve_device
 from ...distributed.fleet.utils.recompute import recompute
 from ...nn import functional as F
 
@@ -108,18 +108,23 @@ class GPTAttention(nn.Layer):
 
     def forward(self, x, cache=None):
         b, s, h = x.shape
-        qkv = self.qkv_proj(x).reshape(
-            b, s, 3, self.num_heads, self.head_dim).permute(2, 0, 3, 1, 4)
+        # each Tensor method casts under the reference's op name (O2)
+        (qkv,) = amp.cast("reshape", self.qkv_proj(x))
+        (qkv,) = amp.cast("transpose", qkv.reshape(
+            b, s, 3, self.num_heads, self.head_dim))
+        (qkv,) = amp.cast("unstack", qkv.permute(2, 0, 3, 1, 4))
         q, k, v = qkv.unbind(0)
         if cache is not None:
             out, new_cache = self._attend_cached(q, k, v, cache)
             # [b, nh, s, hd] -> [b, s, nh*hd]
-            out = out.transpose(1, 2).reshape(b, s, h)
-            return self.out_proj(out), new_cache
+            (out,) = amp.cast("transpose", out)
+            (out,) = amp.cast("reshape", out.transpose(1, 2))
+            return self.out_proj(out.reshape(b, s, h)), new_cache
         out = F.scaled_dot_product_attention(
             q, k, v, is_causal=True,
             dropout_p=self.attn_dropout if self.training else 0.0,
             qkv_layout="bhsd")
+        (out,) = amp.cast("reshape", out)
         return self.out_proj(out.reshape(b, s, h))
 
     def _attend_cached(self, q, k, v, cache):
@@ -213,9 +218,11 @@ class GPTDecoderLayer(nn.Layer):
             h, new_cache = self.attn(self.norm1(x), cache)
         else:
             h = self.attn(self.norm1(x))
-        x = x + F.dropout(h, self.dropout, training=self.training)
+        x = amp.binary("elementwise_add", x,
+                       F.dropout(h, self.dropout, training=self.training))
         h = self.mlp(self.norm2(x))
-        x = x + F.dropout(h, self.dropout, training=self.training)
+        x = amp.binary("elementwise_add", x,
+                       F.dropout(h, self.dropout, training=self.training))
         if cache is not None:
             return x, new_cache
         return x
@@ -237,8 +244,8 @@ class GPTEmbeddings(nn.Layer):
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[-1],
                                         device=input_ids.device)
-        x = self.word_embeddings(input_ids) + \
-            self.position_embeddings(position_ids)
+        x = amp.binary("elementwise_add", self.word_embeddings(input_ids),
+                       self.position_embeddings(position_ids))
         return F.dropout(x, self.dropout, training=self.training)
 
 

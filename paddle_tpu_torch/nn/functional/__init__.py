@@ -6,14 +6,18 @@ op name that the reference dispatches (``matmul_v2`` for `linear`,
 ``logsigmoid`` for `log_sigmoid`, ``lookup_table_v2`` for `embedding`,
 ...), so under ``amp.auto_cast`` O1 the ops of the black list compute in
 float32, those of the white list in the low dtype, and the others keep
-their inputs' dtype, as in the reference. Functions that the reference
-composes from other ops (`pairwise_distance`, `glu`, `label_smooth`,
-`gumbel_softmax`, `sigmoid_focal_loss`) compose the same ops here.
+their inputs' dtype, and under O2 every op not black-listed computes in
+the low dtype, as in the reference. Functions that the reference
+composes from other ops and Tensor operators or methods
+(`pairwise_distance`, `glu`, `label_smooth`, `gumbel_softmax`,
+`sigmoid_focal_loss`, a conv's bias ``out + bias.reshape(...)``) compose
+the same ops here, each cast under its own name (`_t`, `amp.binary`).
 
 Random ops draw from the generator that `framework.random.rng_scope`
 installs (an engine's), else from torch's default one; they cannot
 repeat the reference's JAX streams bit for bit. `fused_conv2d_bn_act`
-applies its own cast rule. The batch-norm ops return y and write the new
+also applies its own cast rule inside (x, w and the residual in the low
+dtype under O1). The batch-norm ops return y and write the new
 running stats into the given buffers in place under ``no_grad`` (the
 reference's ``set_value``), in training unless `use_global_stats`.
 ``embedding(sparse=True)`` (SelectedRows gradients) is not ported.
@@ -21,6 +25,7 @@ reference's ``set_value``), in training unless `use_global_stats`.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -92,6 +97,19 @@ def _sum(x, **kw):
 def _mean(x):
     (x,) = amp.cast("reduce_mean", x)
     return x.mean()
+
+
+def _t(op_name, x):
+    """`x` as the reference's Tensor method `op_name` (``reshape``,
+    ``transpose``, ``unsqueeze``, ...) receives it: cast by `amp.cast`
+    (under O2 to the low dtype; under O1 these names are unlisted)."""
+    (x,) = amp.cast(op_name, x)
+    return x
+
+
+_add, _sub, _mul, _div = (
+    functools.partial(amp.binary, f"elementwise_{name}")
+    for name in ("add", "sub", "mul", "div"))
 
 
 def _reduce_t(loss, reduction):
@@ -263,8 +281,8 @@ def thresholded_relu(x, threshold=1.0, name=None):
 
 
 def glu(x, axis=-1, name=None):
-    a, b = x.chunk(2, dim=axis)
-    return a * sigmoid(b)
+    a, b = _t("split", x).chunk(2, dim=axis)
+    return _mul(a, sigmoid(b))
 
 
 # -- linear / conv ---------------------------------------------------------
@@ -288,7 +306,7 @@ def linear(x, weight, bias=None, name=None):
     y = lowp.maybe_linear(x, weight)
     if y is None:
         y = matmul(x, weight)
-    return y if bias is None else y + bias
+    return y if bias is None else _add(y, bias)
 
 
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
@@ -301,7 +319,7 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
                         data_format=data_format)
     if bias is not None:
         shape = [1, -1, 1, 1] if data_format == "NCHW" else [1, 1, 1, -1]
-        out = out + bias.reshape(shape)
+        out = _add(out, _t("reshape", bias).reshape(shape))
     return out
 
 
@@ -310,7 +328,8 @@ def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
     x, weight = amp.cast("conv1d", x, weight)
     out = nn_ops.conv1d(x, weight, stride=stride, padding=padding,
                         dilation=dilation, groups=groups)
-    return out if bias is None else out + bias.reshape([1, -1, 1])
+    return out if bias is None else _add(
+        out, _t("reshape", bias).reshape([1, -1, 1]))
 
 
 def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
@@ -318,7 +337,8 @@ def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
     x, weight = amp.cast("conv3d", x, weight)
     out = nn_ops.conv3d(x, weight, stride=stride, padding=padding,
                         dilation=dilation, groups=groups)
-    return out if bias is None else out + bias.reshape([1, -1, 1, 1, 1])
+    return out if bias is None else _add(
+        out, _t("reshape", bias).reshape([1, -1, 1, 1, 1]))
 
 
 def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
@@ -331,7 +351,7 @@ def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
         data_format=data_format)
     if bias is not None:
         shape = [1, -1, 1, 1] if data_format == "NCHW" else [1, 1, 1, -1]
-        out = out + bias.reshape(shape)
+        out = _add(out, _t("reshape", bias).reshape(shape))
     return out
 
 
@@ -344,7 +364,7 @@ def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
         return v if isinstance(v, int) else v[0]
 
     if data_format == "NLC":
-        x = x.transpose(1, 2)
+        x = _t("transpose", x).transpose(1, 2)
     if isinstance(padding, str):
         pad = padding
     elif (isinstance(padding, (list, tuple)) and len(padding) == 2
@@ -352,14 +372,17 @@ def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
         pad = [(0, 0), (padding[0], padding[1])]
     else:
         pad = (0, _one(padding))
+    x, weight = (_t("unsqueeze", t).unsqueeze(2) for t in (x, weight))
     x, weight = amp.cast("conv2d_transpose", x, weight)
     out = nn_ops.conv_transpose(
-        x.unsqueeze(2), weight.unsqueeze(2), 2, stride=(1, _one(stride)),
+        x, weight, 2, stride=(1, _one(stride)),
         padding=pad, output_padding=(0, _one(output_padding)),
-        dilation=(1, _one(dilation)), groups=groups).squeeze(2)
+        dilation=(1, _one(dilation)), groups=groups)
+    out = _t("squeeze", out).squeeze(2)
     if bias is not None:
-        out = out + bias.reshape([1, -1, 1])
-    return out.transpose(1, 2) if data_format == "NLC" else out
+        out = _add(out, _t("reshape", bias).reshape([1, -1, 1]))
+    return _t("transpose", out).transpose(1, 2) if data_format == "NLC" \
+        else out
 
 
 def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
@@ -373,7 +396,7 @@ def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
     if bias is not None:
         shape = [1, -1, 1, 1, 1] if data_format == "NCDHW" \
             else [1, 1, 1, 1, -1]
-        out = out + bias.reshape(shape)
+        out = _add(out, _t("reshape", bias).reshape(shape))
     return out
 
 
@@ -449,23 +472,24 @@ def max_pool1d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
             raise NotImplementedError(
                 "max_pool1d(return_mask=True) needs numeric padding and "
                 "no ceil_mode (reference pool_with_index constraint)")
-        (x,) = amp.cast("max_pool2d_with_index", x)
+        (x,) = amp.cast("max_pool2d_with_index",
+                        _t("unsqueeze", x).unsqueeze(2))
         # on the (1, L) map the flat index is the position along L
-        out, idx = nn_ops.max_pool_with_index(x.unsqueeze(2), ks, st, pad)
-        return out.squeeze(2), idx.squeeze(2)
-    (x,) = amp.cast("pool2d", x)
-    return nn_ops.pool2d(x.unsqueeze(2), ksize=ks, stride=st, padding=pad,
-                         ceil_mode=ceil_mode,
-                         pooling_type="max").squeeze(2)
+        out, idx = nn_ops.max_pool_with_index(x, ks, st, pad)
+        return _t("squeeze", out).squeeze(2), idx.squeeze(2)
+    (x,) = amp.cast("pool2d", _t("unsqueeze", x).unsqueeze(2))
+    return _t("squeeze", nn_ops.pool2d(
+        x, ksize=ks, stride=st, padding=pad, ceil_mode=ceil_mode,
+        pooling_type="max")).squeeze(2)
 
 
 def avg_pool1d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                exclusive=True, name=None):
     ks, st, pad = _pool_1d_args(kernel_size, stride, padding)
-    (x,) = amp.cast("pool2d", x)
-    return nn_ops.pool2d(x.unsqueeze(2), ksize=ks, stride=st, padding=pad,
-                         ceil_mode=ceil_mode, pooling_type="avg",
-                         exclusive=exclusive).squeeze(2)
+    (x,) = amp.cast("pool2d", _t("unsqueeze", x).unsqueeze(2))
+    return _t("squeeze", nn_ops.pool2d(
+        x, ksize=ks, stride=st, padding=pad, ceil_mode=ceil_mode,
+        pooling_type="avg", exclusive=exclusive)).squeeze(2)
 
 
 def max_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
@@ -498,20 +522,22 @@ def avg_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
 
 
 def adaptive_avg_pool1d(x, output_size, name=None):
-    (x,) = amp.cast("pool2d", x)
-    return nn_ops.pool2d(x.unsqueeze(2), ksize=(1, output_size),
-                         adaptive=True, pooling_type="avg").squeeze(2)
+    (x,) = amp.cast("pool2d", _t("unsqueeze", x).unsqueeze(2))
+    return _t("squeeze", nn_ops.pool2d(
+        x, ksize=(1, output_size), adaptive=True,
+        pooling_type="avg")).squeeze(2)
 
 
 def adaptive_max_pool1d(x, output_size, return_mask=False, name=None):
     if return_mask:
-        (x,) = amp.cast("max_pool2d_with_index", x)
-        out, idx = nn_ops.adaptive_max_pool_with_index(
-            x.unsqueeze(2), (1, output_size))
-        return out.squeeze(2), idx.squeeze(2)
-    (x,) = amp.cast("pool2d", x)
-    return nn_ops.pool2d(x.unsqueeze(2), ksize=(1, output_size),
-                         adaptive=True, pooling_type="max").squeeze(2)
+        (x,) = amp.cast("max_pool2d_with_index",
+                        _t("unsqueeze", x).unsqueeze(2))
+        out, idx = nn_ops.adaptive_max_pool_with_index(x, (1, output_size))
+        return _t("squeeze", out).squeeze(2), idx.squeeze(2)
+    (x,) = amp.cast("pool2d", _t("unsqueeze", x).unsqueeze(2))
+    return _t("squeeze", nn_ops.pool2d(
+        x, ksize=(1, output_size), adaptive=True,
+        pooling_type="max")).squeeze(2)
 
 
 def adaptive_avg_pool3d(x, output_size, data_format="NCDHW", name=None):
@@ -580,8 +606,13 @@ def fused_bn_act(x, running_mean, running_var, weight, bias,
     activation instead of saving y or a mask."""
     if use_global_stats is None:
         use_global_stats = not training
+    # under O2 the op takes every floating input in the low dtype; the
+    # running stats are written back in their own dtype
+    xs, w, b, mean, var, res = amp.cast("fused_bn_act", x, weight, bias,
+                                        running_mean, running_var,
+                                        residual)
     y, (new_mean, new_var) = nn_ops.fused_bn_act(
-        x, weight, bias, running_mean, running_var, residual,
+        xs, w, b, mean, var, res,
         momentum=momentum, epsilon=epsilon, act=act, is_test=not training,
         data_format=data_format, use_global_stats=use_global_stats)
     if training and not use_global_stats:
@@ -600,8 +631,11 @@ def fused_conv2d_bn_act(x, weight, running_mean, running_var, bn_weight,
     moments from the conv's accumulator."""
     if use_global_stats is None:
         use_global_stats = not training
+    xs, w, g, b, mean, var, res = amp.cast(
+        "fused_conv2d_bn_act", x, weight, bn_weight, bn_bias, running_mean,
+        running_var, residual)
     y, (new_mean, new_var) = fused_conv.fused_conv2d_bn_act(
-        x, weight, bn_weight, bn_bias, running_mean, running_var, residual,
+        xs, w, g, b, mean, var, res,
         stride=stride, padding=padding, dilation=dilation, groups=groups,
         momentum=momentum, epsilon=epsilon, act=act, is_test=not training,
         data_format=data_format, use_global_stats=use_global_stats)
@@ -666,8 +700,9 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     the reference, the mask covers every element."""
     if not training or p == 0.0:
         if mode == "downscale_in_infer" and not training:
-            return x * (1.0 - p)
+            return _mul(x, 1.0 - p)
         return x
+    (x,) = amp.cast("dropout", x)
     keep = _keep_mask(x, p)
     scale = torch.tensor(1.0 / (1.0 - p) if mode == "upscale_in_train"
                          else 1.0, dtype=x.dtype, device=x.device)
@@ -814,7 +849,7 @@ def binary_cross_entropy(input, label, weight=None, reduction="mean",
     loss = -(label * torch.log(torch.clamp_min(input, eps))
              + (1 - label) * torch.log(torch.clamp_min(1 - input, eps)))
     if weight is not None:
-        loss = loss * weight
+        loss = _mul(loss, weight)
     return _reduce_t(loss, reduction)
 
 
@@ -833,9 +868,9 @@ def binary_cross_entropy_with_logits(logit, label, weight=None,
                                      name=None):
     loss = _sigmoid_ce(logit, label)
     if pos_weight is not None:
-        loss = loss * ((pos_weight - 1.0) * label + 1.0)
+        loss = _mul(loss, _add(_mul(_sub(pos_weight, 1.0), label), 1.0))
     if weight is not None:
-        loss = loss * weight
+        loss = _mul(loss, weight)
     return _reduce_t(loss, reduction)
 
 
@@ -859,13 +894,14 @@ def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
     """CTC over log_probs [T, B, C] (normalised again, as the reference's
     ``warpctc`` does). "mean" divides each sample's loss by its label
     length, then averages (paddle's mean, not torch's)."""
-    (lp,) = amp.cast("warpctc", log_probs)
+    lp = log_probs
     if lp.dim() == 3:
-        lp = lp.transpose(0, 1)
+        lp = _t("transpose", lp).transpose(0, 1)
+    (lp,) = amp.cast("warpctc", lp)
     loss = extra_ops.warpctc(lp, labels, input_lengths, label_lengths,
                              blank=blank, norm_by_times=norm_by_times)
     if reduction == "mean":
-        return _mean(loss / label_lengths.to(loss.dtype))
+        return _mean(_div(loss, _t("cast", label_lengths).to(loss.dtype)))
     if reduction == "sum":
         return _sum(loss)
     return loss
@@ -929,11 +965,12 @@ def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25, gamma=2.0,
                        reduction="sum", name=None):
     p = sigmoid(logit)
     ce = _sigmoid_ce(logit, label)
-    p_t = p * label + (1 - p) * (1 - label)
-    alpha_t = alpha * label + (1 - alpha) * (1 - label)
-    loss = alpha_t * ((1 - p_t) ** gamma) * ce
+    p_t = _add(_mul(p, label), _mul(_sub(1, p), _sub(1, label)))
+    alpha_t = _add(_mul(alpha, label), _mul(1 - alpha, _sub(1, label)))
+    loss = _mul(_mul(alpha_t, amp.binary("elementwise_pow", _sub(1, p_t),
+                                         gamma)), ce)
     if normalizer is not None:
-        loss = loss / normalizer
+        loss = _div(loss, normalizer)
     return _reduce_t(loss, reduction)
 
 
@@ -959,12 +996,15 @@ def cosine_similarity(x1, x2, axis=1, eps=1e-8):
 def pairwise_distance(x, y, p=2.0, epsilon=1e-6, keepdim=False, name=None):
     """p-norm of ``x - y + epsilon`` over the last axis (epsilon added to
     the signed difference)."""
-    d = (x - y + epsilon).abs()
+    d = _t("abs", _add(_sub(x, y), epsilon)).abs()
     if p == float("inf"):
-        return d.amax(dim=-1, keepdim=keepdim)
+        return _t("reduce_max", d).amax(dim=-1, keepdim=keepdim)
     if p == 0:
-        return _sum((d != 0).to(d.dtype), dim=-1, keepdim=keepdim)
-    return _sum(d ** p, dim=-1, keepdim=keepdim) ** (1.0 / p)
+        return _sum(_t("cast", (d != 0)).to(d.dtype), dim=-1,
+                    keepdim=keepdim)
+    return amp.binary("elementwise_pow", _sum(
+        amp.binary("elementwise_pow", d, p), dim=-1, keepdim=keepdim),
+        1.0 / p)
 
 
 # -- shape, resize, sampling -----------------------------------------------
@@ -1047,7 +1087,7 @@ def diag_embed(input, offset=0, dim1=-2, dim2=-1):
 def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
     """``(1 - epsilon) * label + epsilon / K`` over the last axis (K its
     size); `prior_dist` is accepted and, as in the reference, unused."""
-    return (1.0 - epsilon) * label + epsilon / label.shape[-1]
+    return _add(_mul(1.0 - epsilon, label), epsilon / label.shape[-1])
 
 
 # -- attention -------------------------------------------------------------
@@ -1070,7 +1110,8 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     if qkv_layout == "bhsd":
         q, k, v = query, key, value
     else:
-        q, k, v = (t.transpose(1, 2) for t in (query, key, value))
+        q, k, v = (_t("transpose", t).transpose(1, 2)
+                   for t in (query, key, value))
     use_dropout = dropout_p > 0.0 and training
     p = dropout_p if use_dropout else 0.0
     if attn_mask is None:
@@ -1078,7 +1119,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         seed = _random.next_seed(q.device) if use_dropout else None
         out = fused_ops.flash_attention(q, k, v, seed, is_causal=is_causal,
                                         dropout_p=p)
-        return out.transpose(1, 2)
+        return _t("transpose", out).transpose(1, 2)
     q, k, v, attn_mask = amp.cast("scaled_dot_product_attention", q, k, v,
                                   attn_mask)
     s = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
@@ -1100,4 +1141,4 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             keep, probs / torch.tensor(1.0 - p, dtype=probs.dtype,
                                        device=probs.device),
             torch.zeros((), dtype=probs.dtype, device=probs.device))
-    return torch.matmul(probs, v).transpose(1, 2)
+    return _t("transpose", torch.matmul(probs, v)).transpose(1, 2)

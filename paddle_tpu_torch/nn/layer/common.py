@@ -135,6 +135,7 @@ class Flatten(Layer):
         self.stop_axis = stop_axis
 
     def forward(self, x):
+        (x,) = amp.cast("flatten", x)
         return x.flatten(self.start_axis, self.stop_axis)
 
 
@@ -257,4 +258,5 @@ class Bilinear(Layer):
     def forward(self, x1, x2):
         x1, w, x2 = amp.cast("einsum", x1, self.weight, x2)
         out = torch.einsum("bi,oij,bj->bo", x1, w, x2)
-        return out if self.bias is None else out + self.bias
+        return out if self.bias is None else amp.binary(
+            "elementwise_add", out, self.bias)

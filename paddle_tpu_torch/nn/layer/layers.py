@@ -125,6 +125,34 @@ class Layer(torch.nn.Module):
         p.need_clip = attr.need_clip
         return p
 
+    def to(self, *args, **kwargs):
+        """torch's ``Module.to`` that also takes paddle's form
+        ``to(device=None, dtype=None, blocking=None)`` with dtype names
+        (``"bfloat16"``): a dtype casts every floating parameter and
+        buffer, in place under the same objects (their paddle attributes
+        survive), as the reference's ``Layer.to(dtype=)``."""
+        blocking = kwargs.pop("blocking", None)
+        if blocking is not None:
+            kwargs.setdefault("non_blocking", not blocking)
+        if kwargs.get("device") is None:
+            kwargs.pop("device", None)
+        dtype = kwargs.get("dtype")
+        if isinstance(dtype, str):
+            kwargs["dtype"] = _DTYPES[dtype]
+        args = tuple(_DTYPES[a] if isinstance(a, str) and a in _DTYPES
+                     else a for a in args)
+        out = super().to(*args, **kwargs)
+        if dtype is not None:
+            self._dtype = dtype if isinstance(dtype, str) else \
+                str(dtype).replace("torch.", "")
+        return out
+
+    def astype(self, dtype):
+        return self.to(dtype=dtype)
+
+    def float(self):
+        return self.to(dtype="float32")
+
     def add_parameter(self, name, parameter):
         """Register `parameter` (a `Parameter` or None) under `name`."""
         if parameter is not None and not isinstance(parameter, Parameter):

@@ -18,6 +18,7 @@ import math
 
 import torch
 
+from ... import amp
 from ...ops import rnn_ops
 from .. import functional as F
 from .. import initializer as I
@@ -25,6 +26,26 @@ from .layers import Layer
 
 __all__ = ["RNNCellBase", "SimpleRNNCell", "LSTMCell", "GRUCell", "RNN",
            "BiRNN", "SimpleRNN", "LSTM", "GRU"]
+
+
+# the cells' Tensor operators and methods, each cast under the op name
+# the reference dispatches (amp O2; the identity under O1 and amp off)
+def _add(x, y):
+    return amp.binary("elementwise_add", x, y)
+
+
+def _mul(x, y):
+    return amp.binary("elementwise_mul", x, y)
+
+
+def _split(x, n):
+    (x,) = amp.cast("split", x)
+    return x.chunk(n, dim=-1)
+
+
+def _t(w):
+    (w,) = amp.cast("transpose", w)
+    return w.t()
 
 
 class RNNCellBase(Layer):
@@ -70,12 +91,12 @@ class _Cell(RNNCellBase):
             generator=generator)
 
     def _gates_of(self, inputs, pre_h):
-        x = F.linear(inputs, self.weight_ih.t())
+        x = F.linear(inputs, _t(self.weight_ih))
         if self.bias_ih is not None:
-            x = x + self.bias_ih
-        h = F.linear(pre_h, self.weight_hh.t())
+            x = _add(x, self.bias_ih)
+        h = F.linear(pre_h, _t(self.weight_hh))
         if self.bias_hh is not None:
-            h = h + self.bias_hh
+            h = _add(h, self.bias_hh)
         return x, h
 
 
@@ -100,7 +121,7 @@ class SimpleRNNCell(_Cell):
         if states is None:
             states = self.get_initial_states(inputs)
         x, h = self._gates_of(inputs, states)
-        gates = x + h
+        gates = _add(x, h)
         out = F.tanh(gates) if self.activation == "tanh" else F.relu(gates)
         return out, out
 
@@ -125,10 +146,10 @@ class LSTMCell(_Cell):
             states = self.get_initial_states(inputs)
         pre_h, pre_c = states
         x, h = self._gates_of(inputs, pre_h)
-        i, f, g, o = (x + h).chunk(4, dim=-1)
+        i, f, g, o = _split(_add(x, h), 4)
         i, f, o = F.sigmoid(i), F.sigmoid(f), F.sigmoid(o)
-        c = f * pre_c + i * F.tanh(g)
-        h = o * F.tanh(c)
+        c = _add(_mul(f, pre_c), _mul(i, F.tanh(g)))
+        h = _mul(o, F.tanh(c))
         return h, (h, c)
 
 
@@ -152,12 +173,13 @@ class GRUCell(_Cell):
             states = self.get_initial_states(inputs)
         pre_h = states
         x, h = self._gates_of(inputs, pre_h)
-        xr, xz, xc = x.chunk(3, dim=-1)
-        hr, hz, hc = h.chunk(3, dim=-1)
-        r = F.sigmoid(xr + hr)
-        z = F.sigmoid(xz + hz)
-        cand = F.tanh(xc + r * hc)
-        h = z * pre_h + (1.0 - z) * cand
+        xr, xz, xc = _split(x, 3)
+        hr, hz, hc = _split(h, 3)
+        r = F.sigmoid(_add(xr, hr))
+        z = F.sigmoid(_add(xz, hz))
+        cand = F.tanh(_add(xc, _mul(r, hc)))
+        h = _add(_mul(z, pre_h),
+                 _mul(amp.binary("elementwise_sub", 1.0, z), cand))
         return h, h
 
 
@@ -182,9 +204,11 @@ class RNN(Layer):
         outputs = [None] * steps
         order = range(steps - 1, -1, -1) if self.is_reverse else range(steps)
         for t in order:
-            xt = inputs[t] if self.time_major else inputs[:, t]
+            (x,) = amp.cast("getitem", inputs)
+            xt = x[t] if self.time_major else x[:, t]
             outputs[t], states = self.cell(xt, states, **kwargs)
-        return torch.stack(outputs, dim=time_axis), states
+        return torch.stack(amp.cast("stack", *outputs), dim=time_axis), \
+            states
 
 
 class BiRNN(Layer):
@@ -205,7 +229,8 @@ class BiRNN(Layer):
             fw_states, bw_states = initial_states
         out_fw, st_fw = self.rnn_fw(inputs, fw_states, **kwargs)
         out_bw, st_bw = self.rnn_bw(inputs, bw_states, **kwargs)
-        return torch.cat([out_fw, out_bw], dim=-1), (st_fw, st_bw)
+        return torch.cat(amp.cast("concat", out_fw, out_bw), dim=-1), \
+            (st_fw, st_bw)
 
 
 class _RNNBase(Layer):
@@ -263,6 +288,10 @@ class _RNNBase(Layer):
             init_c = zeros
         weights = [getattr(self, n) for names in self._weight_names
                    for n in names]
+        # the fused op takes every floating input in the low dtype
+        # under O2, as the reference's `rnn`
+        inputs, init_h, init_c, *weights = amp.cast(
+            "rnn", inputs, init_h, init_c, *weights)
         outputs, final_h, final_c = rnn_ops.rnn(
             inputs, init_h, init_c, *weights, mode=self.mode,
             num_layers=self.num_layers,

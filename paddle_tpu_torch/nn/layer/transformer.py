@@ -21,6 +21,7 @@ import copy
 
 import torch
 
+from ... import amp
 from .. import functional as F
 from .common import Dropout, Linear
 from .container import LayerList
@@ -69,6 +70,7 @@ class MultiHeadAttention(Layer):
                                generator=g)
 
     def _heads(self, x):
+        (x,) = amp.cast("reshape", x)
         return x.reshape(x.shape[0], x.shape[1], self.num_heads,
                          self.head_dim)
 
@@ -80,8 +82,8 @@ class MultiHeadAttention(Layer):
             k = self._heads(self.k_proj(key))
             v = self._heads(self.v_proj(value))
         if isinstance(cache, self.Cache):
-            k = torch.cat([cache.k, k], dim=1)
-            v = torch.cat([cache.v, v], dim=1)
+            k = torch.cat(amp.cast("concat", cache.k, k), dim=1)
+            v = torch.cat(amp.cast("concat", cache.v, v), dim=1)
             cache = self.Cache(k, v)
         return q, k, v, cache
 
@@ -93,6 +95,7 @@ class MultiHeadAttention(Layer):
         out = F.scaled_dot_product_attention(
             q, k, v, attn_mask=_convert_attn_mask(attn_mask),
             dropout_p=self.dropout if self.training else 0.0)
+        (out,) = amp.cast("reshape", out)
         out = self.out_proj(out.reshape(out.shape[0], out.shape[1],
                                         self.embed_dim))
         outs = [out]
@@ -148,14 +151,14 @@ class TransformerEncoderLayer(Layer):
             src = self.self_attn(src, src, src, src_mask)
         else:
             src, cache = self.self_attn(src, src, src, src_mask, cache)
-        src = residual + self.dropout1(src)
+        src = amp.binary("elementwise_add", residual, self.dropout1(src))
         if not self.normalize_before:
             src = self.norm1(src)
         residual = src
         if self.normalize_before:
             src = self.norm2(src)
         src = self.linear2(self.dropout(self.activation(self.linear1(src))))
-        src = residual + self.dropout2(src)
+        src = amp.binary("elementwise_add", residual, self.dropout2(src))
         if not self.normalize_before:
             src = self.norm2(src)
         return src if cache is None else (src, cache)
@@ -230,7 +233,7 @@ class TransformerDecoderLayer(Layer):
         else:
             tgt, new_self_cache = self.self_attn(tgt, tgt, tgt, tgt_mask,
                                                  cache[0])
-        tgt = residual + self.dropout1(tgt)
+        tgt = amp.binary("elementwise_add", residual, self.dropout1(tgt))
         if not self.normalize_before:
             tgt = self.norm1(tgt)
 
@@ -243,7 +246,7 @@ class TransformerDecoderLayer(Layer):
         else:
             tgt, static_cache = self.cross_attn(tgt, memory, memory,
                                                 memory_mask, cache[1])
-        tgt = residual + self.dropout2(tgt)
+        tgt = amp.binary("elementwise_add", residual, self.dropout2(tgt))
         if not self.normalize_before:
             tgt = self.norm2(tgt)
 
@@ -251,7 +254,7 @@ class TransformerDecoderLayer(Layer):
         if self.normalize_before:
             tgt = self.norm3(tgt)
         tgt = self.linear2(self.dropout(self.activation(self.linear1(tgt))))
-        tgt = residual + self.dropout3(tgt)
+        tgt = amp.binary("elementwise_add", residual, self.dropout3(tgt))
         if not self.normalize_before:
             tgt = self.norm3(tgt)
         return tgt if cache is None else (tgt, (new_self_cache, static_cache))

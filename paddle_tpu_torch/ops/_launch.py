@@ -41,6 +41,16 @@ def route(x):
     raise ValueError(f"no kernel for device {x.device}")
 
 
+# the dtype codes the C entry points take (csrc/half16.cuh)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def dtype_code(t):
+    """0 for float32, 1 for bfloat16, 2 for float16 (the instantiation a
+    kernel launches; each dtype its own, none converted to another)."""
+    return _DTYPE_CODES[t.dtype]
+
+
 def aligned(t):
     """`t` contiguous with a 16-byte aligned base (the kernels read rows
     in 16-byte vectors)."""

@@ -139,9 +139,14 @@ def pool3d(x, *, ksize, stride=None, padding=0, pooling_type="max",
         out = x.amax(dim=(2, 3, 4), keepdim=True) if pooling_type == "max" \
             else x.mean(dim=(2, 3, 4), keepdim=True)
     else:
-        out = pool_nd(x, 3, ksize=ksize, stride=stride, padding=padding,
-                      ceil_mode=ceil_mode, pooling_type=pooling_type,
-                      exclusive=exclusive)
+        # torch's CPU avg_pool3d has no 16-bit kernel: pool those in f32
+        # there and round once (the card pools them in their own dtype)
+        up = pooling_type == "avg" and x.device.type == "cpu" and \
+            x.dtype in (torch.bfloat16, torch.float16)
+        out = pool_nd(x.float() if up else x, 3, ksize=ksize, stride=stride,
+                      padding=padding, ceil_mode=ceil_mode,
+                      pooling_type=pooling_type, exclusive=exclusive)
+        out = out.to(x.dtype)
     return out.movedim(1, -1) if channel_last else out
 
 

@@ -10,8 +10,8 @@ in the reference:
 - `_lower` turns a conv into that kernel's input: the pad (negative
   amounts crop, as ``lax.pad`` does), stride 2 as space-to-depth
   parity planes with the weight regrouped (the folding of
-  ``fold_conv7_stem``), NCHW to NHWC, and in bf16 the channels padded
-  to a multiple of 8 for the tensor-core kernel; `_live_chunks` lists,
+  ``fold_conv7_stem``), NCHW to NHWC, and in bf16 and float16 the
+  channels padded to a multiple of 8 for the tensor-core kernel; `_live_chunks` lists,
   from the plan alone, the 64-row chunks of the lowered weight that
   kernel walks (the stride-2 lowering leaves some all zero);
 - `_ConvCore` (conv, optionally with the BN moments) and `_ConvAffine`
@@ -24,9 +24,11 @@ in the reference:
 
 What the moments are taken of: the kernel sums the UNROUNDED float32
 accumulator, and so does `_conv_plain`, which convolves in float32 from
-the (possibly bf16) operands, takes the moments there and casts z once.
-The reference's lax fallback (``_fwd``) sums z after it is rounded to
-x's dtype: in float32 the two agree, in bf16 they do not.
+the (possibly bf16 or float16) operands, takes the moments there and
+casts z once. The reference's lax fallback (``_fwd``) sums z after it
+is rounded to x's dtype: in float32 the two agree, in 16 bits they do
+not. A bf16 and a float16 CUDA tensor each launch the kernel's own
+instantiation in that dtype (one template, ``wgmma`` bf16 or f16).
 
 `_plan` keeps the reference's eligibility without its TPU limits (the
 VMEM budget, the 128-wide O tiles, the tap cap): the kernel masks its own
@@ -99,7 +101,8 @@ def _lower(x, w, plan):
 
     stride 2: parity planes xp_a[i] = xpad[2i+a] become channels and the
     weight regroups as w'[o,(a,b,c),q,r] = w[o,c,2q+a,2r+b] (zero where
-    2q+a >= k). bf16 (the tensor-core kernel's operands): Ce is padded
+    2q+a >= k). bf16 and f16 (the tensor-core kernel's operands): Ce is
+    padded
     to a multiple of 8 with zero channels in xp and zero rows in wk, so
     each 8-channel unit of K lies in one tap."""
     n, c, h, wd = x.shape
@@ -123,7 +126,7 @@ def _lower(x, w, plan):
     hp, wp = plan.ho + plan.kkh - 1, plan.wo + plan.kkw - 1
     assert xp.shape[2] >= hp and xp.shape[3] >= wp, (xp.shape, hp, wp)
     xp = xp[:, :, :hp, :wp]
-    extra = -wk.shape[1] % 8 if x.dtype == torch.bfloat16 else 0
+    extra = -wk.shape[1] % 8 if x.dtype != torch.float32 else 0
     if extra:
         xp = tF.pad(xp, (0, 0, 0, 0, 0, extra))
         wk = tF.pad(wk, (0, 0, 0, 0, 0, extra))
@@ -133,7 +136,7 @@ def _lower(x, w, plan):
     return xp, wk.contiguous()
 
 
-# K rows of one chunk of the bf16 kernel's walk (kBK in
+# K rows of one chunk of the 16-bit kernel's walk (kBK in
 # csrc/fused_conv.cu) and the most chunks its list holds (kMaxLive: K
 # up to 32768, ResNet-50's longest is 4608)
 _CHUNK_K = 64
@@ -165,7 +168,7 @@ _LIVE = {}
 def _live_chunks(plan, ce):
     """The 64-row chunks of the lowered wk that hold a live row (see
     `_live_rows`), in order, as the ctypes array of chunk indices the
-    bf16 kernel walks. Raises past `_MAX_LIVE` chunks. Cached by the
+    16-bit kernel walks. Raises past `_MAX_LIVE` chunks. Cached by the
     geometry: it depends on no data."""
     key = (plan.s, plan.c, plan.kh, plan.kw, ce)
     if key not in _LIVE:
@@ -174,7 +177,7 @@ def _live_chunks(plan, ce):
                 if any(rows[i * _CHUNK_K:(i + 1) * _CHUNK_K])]
         if len(live) > _MAX_LIVE:
             raise ValueError(f"fused conv: {len(live)} live K chunks of "
-                             f"{_CHUNK_K}, the bf16 kernel takes at most "
+                             f"{_CHUNK_K}, the 16-bit kernel takes at most "
                              f"{_MAX_LIVE}")
         _LIVE[key] = (ctypes.c_ushort * len(live))(*live)
     return _LIVE[key]
@@ -184,10 +187,10 @@ def _live_chunks(plan, ce):
 # the kernel and its plain version
 # ---------------------------------------------------------------------------
 
-# output pixels of one M tile, as kBM (bf16) and kFM (f32) in
+# output pixels of one M tile, as kBM (bf16, f16) and kFM (f32) in
 # csrc/fused_conv.cu: the moments epilogue writes one partial a tile and
 # channel
-_TILE_M = {torch.bfloat16: 128, torch.float32: 64}
+_TILE_M = {torch.bfloat16: 128, torch.float16: 128, torch.float32: 64}
 
 
 def _conv_plain(xp, wk, plan, g=None, b=None, res=None, act="identity",
@@ -214,12 +217,12 @@ def _conv_plain(xp, wk, plan, g=None, b=None, res=None, act="identity",
 
 def _conv_kernel(xp, wk, plan, g=None, b=None, res=None, act="identity",
                  moments=False):
-    """B10 on the card; the same contract as `_conv_plain` (bf16: Ce a
-    multiple of 8, as `_lower` pads it)."""
+    """B10 on the card; the same contract as `_conv_plain` (bf16 and f16:
+    Ce a multiple of 8, as `_lower` pads it)."""
     global LAUNCHES
-    if xp.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"fused conv: operands must be float32 or bfloat16 "
-                        f"on CUDA, got {xp.dtype}")
+    if xp.dtype not in _launch._DTYPE_CODES:
+        raise TypeError(f"fused conv: operands must be float32, bfloat16 "
+                        f"or float16 on CUDA, got {xp.dtype}")
     if wk.dtype != xp.dtype or (res is not None and res.dtype != xp.dtype):
         raise TypeError("fused conv: xp, wk and the residual must share "
                         "one dtype")
@@ -240,12 +243,13 @@ def _conv_kernel(xp, wk, plan, g=None, b=None, res=None, act="identity",
                                                 if t is not None))
     xp, wk = _launch.aligned(xp), _launch.aligned(wk)
     res = _launch.aligned(res) if res is not None else None
-    bf16 = int(xp.dtype == torch.bfloat16)
+    dtype = _launch.dtype_code(xp)
     live, ldw = None, o
-    if bf16:
+    if dtype:
         if ce % 8:
-            raise ValueError(f"fused conv: bf16 Ce {ce} is not a multiple "
-                             f"of 8 (lower the conv with `_lower`)")
+            raise ValueError(f"fused conv: {xp.dtype} Ce {ce} is not a "
+                             f"multiple of 8 (lower the conv with "
+                             f"`_lower`)")
         live = _live_chunks(plan, ce)
         # 16-byte weight rows: zero columns up to a multiple of 8
         ldw = o + (-o % 8)
@@ -273,7 +277,7 @@ def _conv_kernel(xp, wk, plan, g=None, b=None, res=None, act="identity",
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
-    _launch.launch(lib, fn, "fused_conv", dev, bf16, epi,
+    _launch.launch(lib, fn, "fused_conv", dev, dtype, epi,
                    int(act == "relu"), xp.data_ptr(), wk.data_ptr(),
                    ptr(g), ptr(b), ptr(res), y.data_ptr(), ptr(msum),
                    ptr(msq), n, hp, wp, ce, plan.kkh, plan.kkw, o, ldw,
@@ -284,11 +288,12 @@ def _conv_kernel(xp, wk, plan, g=None, b=None, res=None, act="identity",
     return [y]
 
 
-def _occupancy(tile_n):
-    """What the bf16 kernel launches for its tile of `tile_n` (64, 128 or
-    256) outputs on the current card (`_launch.occupancy`; a report, the
-    op never calls it)."""
-    return _launch.occupancy("fused_conv", "fused_conv_occupancy", tile_n)
+def _occupancy(tile_n, dtype=torch.bfloat16):
+    """What the 16-bit kernel launches in `dtype` for its tile of
+    `tile_n` (64, 128 or 256) outputs on the current card
+    (`_launch.occupancy`; a report, the op never calls it)."""
+    return _launch.occupancy("fused_conv", "fused_conv_occupancy", tile_n,
+                             _launch._DTYPE_CODES[dtype])
 
 
 def _fwd(x, w, s, pads, *, g=None, b=None, res=None, act="identity",
@@ -483,7 +488,7 @@ def _amp_cast(op_name, *tensors):
     st = amp.policy()
     if st is None:
         return tensors
-    low, _white, black = st
+    low, _white, black, _level = st
     if op_name in black:
         return tensors
     return tuple(t.to(low) if t is not None and t.is_floating_point()

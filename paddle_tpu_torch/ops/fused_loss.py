@@ -12,10 +12,11 @@ Pallas TPU kernels of the reference:
     B5 `_bwd_dx_kernel`   backward dx              _bwd_pallas (dx)
     B6 `_bwd_dw_kernel`   backward dw              _bwd_pallas (dw)
 
-A bf16 CUDA tensor launches all three on warpgroup products
-(``wgmma``): B4 on ``lse_kernel`` (128 owned token rows, 64 at hidden
-size 1024, fed by TMA), B5 and B6 on ``wg_kernel`` (at hidden size 1024
-B5 and B6 keep the ``mma.sync`` kernel, whose 32-row tile fits the
+A bf16 or float16 CUDA tensor launches all three on warpgroup products
+(``wgmma``) in its own dtype (each kernel a template instantiated for
+both): B4 on ``lse_kernel`` (128 owned token rows, 64 at hidden size
+1024, fed by TMA), B5 and B6 on ``wg_kernel`` (at hidden size 1024 B5
+and B6 keep the ``mma.sync`` kernel, whose 32-row tile fits the
 register file); f32 runs all three on the CUDA cores in full f32.
 
 CPU tensors run the plain PyTorch versions `_fwd_plain` / `_bwd_plain`,
@@ -25,7 +26,7 @@ vocab chunks of ``chunk_v`` rows of the table that never forms
 the plain versions' chunk only). ``launches`` counts the launches of
 each kernel.
 
-Semantics shared by both: scores in f32 from bf16 or f32 operands
+Semantics shared by both: scores in f32 from bf16, f16 or f32 operands
 (f32 accumulation), columns past the vocab masked, a row whose label
 is ``ignore_index`` or -1 picks nothing (its finite nll is dropped
 outside the op by a ``where``), ``lse = m + log(l)``; the backward's
@@ -140,10 +141,10 @@ def _bwd_plain(x, w, labels, lse, g, cv):
 
 
 def _check(x, w, labels):
-    if x.dtype not in (torch.float32, torch.bfloat16):
+    if x.dtype not in _launch._DTYPE_CODES:
         raise TypeError(
-            f"fused_linear_cross_entropy: x must be float32 or bfloat16 on "
-            f"CUDA, got {x.dtype}")
+            f"fused_linear_cross_entropy: x must be float32, bfloat16 or "
+            f"float16 on CUDA, got {x.dtype}")
     if w.dtype != x.dtype:
         raise TypeError("fused_linear_cross_entropy: x and weight must "
                         "share one dtype")
@@ -176,7 +177,7 @@ def _workspace(mode, x, w):
     _, fn = _launch.bind("fused_loss", "fused_lce_workspace",
                          [_launch._I] * 6, ctypes.c_longlong)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    nbytes = fn(mode, int(x.dtype == torch.bfloat16), x.shape[1],
+    nbytes = fn(mode, _launch.dtype_code(x), x.shape[1],
                 x.shape[0], w.shape[0], sms)
     if nbytes < 0:
         raise ValueError("fused_lce_workspace: arguments not taken")
@@ -189,7 +190,7 @@ def _occupancy(mode, dtype, h):
     at hidden size `h` on the current card (`_launch.occupancy`; a
     report, the op never calls it)."""
     return _launch.occupancy("fused_loss", "fused_lce_occupancy", mode,
-                             int(dtype == torch.bfloat16), h)
+                             _launch._DTYPE_CODES[dtype], h)
 
 
 def _run(mode, x, w, labels32, lse=None, g=None, nll=None, lse_out=None,
@@ -198,7 +199,7 @@ def _run(mode, x, w, labels32, lse=None, g=None, nll=None, lse_out=None,
     lib, fn = _bind()
     _launch.launch(
         lib, fn, ("fused_lce_fwd", "fused_lce_dx", "fused_lce_dw")[mode],
-        x.device, mode, int(x.dtype == torch.bfloat16), x.shape[1],
+        x.device, mode, _launch.dtype_code(x), x.shape[1],
         x.data_ptr(), w.data_ptr(), labels32.data_ptr(),
         lse.data_ptr() if lse is not None else None,
         g.data_ptr() if g is not None else None,

@@ -12,11 +12,13 @@ TPU kernels of the reference:
     B2 `_bwd_dq_kernel`   backward dq               _flash_bwd_kernel
     B3 `_bwd_dkv_kernel`  backward dk, dv           _flash_bwd_kernel
 
-A bf16 CUDA tensor launches the tensor-core kernels of all three
-(``fwd_kernel_mma``, ``dq_kernel_mma``, ``dkv_kernel_mma``: ``mma.sync``
-bf16 with f32 accumulators), or raises where its rows are not 16-byte
+A bf16 or float16 CUDA tensor launches the tensor-core kernels of all
+three in its own dtype (``fwd_kernel_mma``, ``dq_kernel_mma``,
+``dkv_kernel_mma``: ``mma.sync`` bf16 or f16 with f32 accumulators, one
+template instantiated twice), or raises where its rows are not 16-byte
 aligned (the wrapper aligns them first); an f32 one runs every pass on
-the CUDA cores in full f32.
+the CUDA cores in full f32. No dtype is converted to reach another's
+kernel.
 
 CPU tensors run the plain PyTorch versions `_flash_fwd_plain` /
 `_flash_bwd_plain`, ported from the reference's ``_flash_fwd_jnp`` /
@@ -129,7 +131,7 @@ def _occupancy(pass_, dtype, d):
     in `dtype` at head dim `d` on the current card (`_launch.occupancy`;
     a report, no pass of the attention calls it)."""
     return _launch.occupancy("flash_attn", "flash_occupancy", pass_,
-                             int(dtype == torch.bfloat16), d)
+                             _launch._DTYPE_CODES[dtype], d)
 
 
 # -- plain versions (the reference's jnp path) -------------------------------
@@ -194,13 +196,13 @@ def _flash_bwd_plain(q, k, v, o, lse, do, seed, scale, causal, dropout_p):
 
 
 def _rows_contiguous(t):
-    """`t` with a contiguous last dim; in bf16 also with 16-byte aligned
-    rows (base and (batch, head, row) strides), which the tensor-core
+    """`t` with a contiguous last dim; in bf16 and f16 also with 16-byte
+    aligned rows (base and (batch, head, row) strides), which the tensor-core
     kernels copy in 16-byte chunks. The packed projection's q / k / v
     views and a transposed ``[b, s, h, d]`` gradient already are."""
     if t.stride(-1) != 1:
         t = t.contiguous()
-    if t.dtype == torch.bfloat16 and (
+    if t.dtype != torch.float32 and (
             t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])):
         t = _launch.aligned(t)
     return t
@@ -215,10 +217,10 @@ def _strides(*ts):
 
 
 def _check(q, k, v):
-    if q.dtype not in (torch.float32, torch.bfloat16):
+    if q.dtype not in _launch._DTYPE_CODES:
         raise TypeError(
-            f"flash_attention: q, k, v must be float32 or bfloat16, got "
-            f"{q.dtype}")
+            f"flash_attention: q, k, v must be float32, bfloat16 or "
+            f"float16, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention: q, k, v must share one dtype")
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 or \
@@ -255,7 +257,7 @@ def _launch_pass(pass_, q, k, v, do, out, out2, lse, lse_in, delta, seed,
     _launch.launch(
         lib, fn, ("flash_attn_fwd", "flash_attn_bwd_dq",
                   "flash_attn_bwd_dkv")[pass_], q.device,
-        pass_, int(q.dtype == torch.bfloat16), d, q.data_ptr(),
+        pass_, _launch.dtype_code(q), d, q.data_ptr(),
         k.data_ptr(), v.data_ptr(), do.data_ptr() if do is not None else None,
         out.data_ptr(), out2.data_ptr() if out2 is not None else None,
         lse.data_ptr() if lse is not None else None,

@@ -204,13 +204,16 @@ def _smm_plain(a, b, sa, sb, qdtype):
 
 def _smm_kernel(a, b, sa, sb, qdtype):
     """B9 on a [M, K] (unit column stride) and b [K, N] (any strides),
-    f32 or bf16 each; returns [M, N] f32. The quantized operands go to
-    scratch buffers padded to the kernel's tiles."""
+    f32, bf16 or f16 each (the quantise passes read each in its own
+    dtype: under float16 amp the reference hands them f16 activations
+    and, after `amp.decorate`, f16 weights); returns [M, N] f32. The
+    quantized operands go to scratch buffers padded to the kernel's
+    tiles."""
     for name, t in (("a", a), ("b", b)):
-        if t.dtype not in (torch.float32, torch.bfloat16) or t.dim() != 2:
+        if t.dtype not in _launch._DTYPE_CODES or t.dim() != 2:
             raise TypeError(
-                f"scaled_matmul: {name} must be a 2-D float32 or bfloat16 "
-                f"tensor on CUDA, got {t.dtype} {tuple(t.shape)}")
+                f"scaled_matmul: {name} must be a 2-D float32, bfloat16 or "
+                f"float16 tensor on CUDA, got {t.dtype} {tuple(t.shape)}")
     _launch.same_device("scaled_matmul", a, b, sa, sb)
     if a.stride(1) != 1:
         a = a.contiguous()
@@ -232,8 +235,8 @@ def _smm_kernel(a, b, sa, sb, qdtype):
         "lowp", "scaled_matmul_q",
         [P, I, L, P, I, L, L, P, P, P, P, P, I, I, I, I, I, I, I, I, P])
     _launch.launch(lib, fn, "scaled_matmul", a.device,
-                   a.data_ptr(), int(a.dtype == torch.bfloat16), a.stride(0),
-                   b.data_ptr(), int(b.dtype == torch.bfloat16), b.stride(0),
+                   a.data_ptr(), _launch.dtype_code(a), a.stride(0),
+                   b.data_ptr(), _launch.dtype_code(b), b.stride(0),
                    b.stride(1), sa.data_ptr(), sb.data_ptr(), qa.data_ptr(),
                    qb.data_ptr(), out.data_ptr(), m, n, k, mp, np_, kp,
                    int(qdtype == "fp8"))

@@ -109,6 +109,17 @@ def _set(keep, dst, value):
         torch.where(keep, value, dst, out=dst)
 
 
+def _lo(x, dtype):
+    """A rule's Python constant `x` as the reference's arithmetic uses it
+    beside a tensor of `dtype`: its Python numbers are weakly typed and
+    take that dtype, so a bf16 / f16 rule multiplies by `x` rounded to
+    it (torch would keep the constant in f32). Returned as a Python
+    float; float32 rounds it at the op as it is."""
+    if dtype == torch.float32:
+        return x
+    return float(torch.tensor(x, dtype=dtype))
+
+
 def _ones():
     return torch.ones((), dtype=torch.float32)
 
@@ -361,6 +372,7 @@ class Momentum(Optimizer):
     def _rule(self, param, grad, state, lr, keep, *, momentum, nesterov):
         g = grad.to(param.dtype)
         v = state["velocity"]
+        momentum = _lo(momentum, param.dtype)
         _write(keep, torch.add, v, v * momentum, g)
         step = g + momentum * v if nesterov else v
         _write(keep, torch.sub, param, param, lr * step)
@@ -466,12 +478,14 @@ class Adamax(Optimizer):
                 "epsilon": self._epsilon}
 
     def _rule(self, param, grad, state, lr, keep, *, beta1, beta2, epsilon):
-        g = grad.to(param.dtype)
+        dt = param.dtype
+        g = grad.to(dt)
         m, u, b1p = state["moment"], state["inf_norm"], state["beta1_pow"]
-        _write(keep, torch.add, m, beta1 * m, (1 - beta1) * g)
-        _write(keep, torch.maximum, u, beta2 * u, torch.abs(g))
+        _write(keep, torch.add, m, _lo(beta1, dt) * m,
+               _lo(1 - beta1, dt) * g)
+        _write(keep, torch.maximum, u, _lo(beta2, dt) * u, torch.abs(g))
         _write(keep, torch.mul, b1p, b1p, beta1)
-        step = (lr / (1 - b1p)).to(param.dtype) * m / (u + epsilon)
+        step = (lr / (1 - b1p)).to(dt) * m / (u + _lo(epsilon, dt))
         _write(keep, torch.sub, param, param, step)
 
 
@@ -494,7 +508,7 @@ class Adagrad(Optimizer):
         mom = state["moment"]
         _write(keep, torch.add, mom, mom, g * g)
         _write(keep, torch.sub, param, param,
-               lr * g / (torch.sqrt(mom) + epsilon))
+               lr * g / (torch.sqrt(mom) + _lo(epsilon, param.dtype)))
 
 
 class Adadelta(Optimizer):
@@ -512,13 +526,14 @@ class Adadelta(Optimizer):
         return {"epsilon": self._epsilon, "rho": self._rho}
 
     def _rule(self, param, grad, state, lr, keep, *, epsilon, rho):
-        g = grad.to(param.dtype)
+        dt = param.dtype
+        g = grad.to(dt)
+        rho1, rho, epsilon = (_lo(c, dt) for c in (1 - rho, rho, epsilon))
         asg, asu = state["avg_squared_grad"], state["avg_squared_update"]
-        _write(keep, torch.add, asg, rho * asg, (1 - rho) * g * g)
+        _write(keep, torch.add, asg, rho * asg, rho1 * g * g)
         # the step reads the OLD squared-update average
         update = g * torch.sqrt(asu + epsilon) / torch.sqrt(asg + epsilon)
-        _write(keep, torch.add, asu, rho * asu,
-               (1 - rho) * update * update)
+        _write(keep, torch.add, asu, rho * asu, rho1 * update * update)
         _write(keep, torch.sub, param, param, lr * update)
 
 
@@ -541,12 +556,15 @@ class RMSProp(Optimizer):
 
     def _rule(self, param, grad, state, lr, keep, *, rho, epsilon, momentum,
               centered):
-        g = grad.to(param.dtype)
+        dt = param.dtype
+        g = grad.to(dt)
+        rho1, rho, epsilon, momentum = (_lo(c, dt) for c in (
+            1 - rho, rho, epsilon, momentum))
         ms, mg, mom = state["mean_square"], state["mean_grad"], \
             state["momentum"]
-        _write(keep, torch.add, ms, rho * ms, (1 - rho) * g * g)
+        _write(keep, torch.add, ms, rho * ms, rho1 * g * g)
         if centered:
-            _write(keep, torch.add, mg, rho * mg, (1 - rho) * g)
+            _write(keep, torch.add, mg, rho * mg, rho1 * g)
             denom = torch.sqrt(ms - mg * mg + epsilon)
         else:
             denom = torch.sqrt(ms + epsilon)
@@ -572,7 +590,10 @@ class LarsMomentum(Optimizer):
         self._exclude = tuple(exclude_from_weight_decay or ())
 
     def _init_state(self, param):
-        return {"velocity": torch.zeros_like(param)}
+        # f32 whatever the parameter's dtype: the rule computes in f32
+        # (the reference's starts as zeros_like(param) and is f32 from
+        # its first update on)
+        return {"velocity": torch.zeros_like(param, dtype=torch.float32)}
 
     def _hyper(self):
         return {"momentum": self._momentum, "coeff": self._lars_coeff,
@@ -622,9 +643,10 @@ class Lamb(Optimizer):
         self._exclude_fn = exclude_from_weight_decay_fn
 
     def _init_state(self, param):
+        # f32 moments, as Adam's
         one = _ones().to(param.device)
-        return {"moment1": torch.zeros_like(param),
-                "moment2": torch.zeros_like(param),
+        return {"moment1": torch.zeros_like(param, dtype=torch.float32),
+                "moment2": torch.zeros_like(param, dtype=torch.float32),
                 "beta1_pow": one.clone(), "beta2_pow": one.clone()}
 
     def _hyper(self):

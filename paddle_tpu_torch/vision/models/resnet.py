@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ... import nn, resolve_device
+from ... import amp, nn, resolve_device
 from ...nn import functional as F
 from ...nn.layer.conv import Conv2D
 from ...nn.layer.norm import _BatchNormBase
@@ -65,9 +65,11 @@ class SpaceToDepthStem(nn.Layer):
         h_in, w_in = x.shape[2], x.shape[3]
         x = F.pad(x, [3, 3 + (h_in % 2), 3, 3 + (w_in % 2)])
         n, c, h, w = x.shape
-        return x.reshape(n, c, h // 2, 2, w // 2, 2) \
-                .permute(0, 1, 3, 5, 2, 4) \
-                .reshape(n, c * 4, h // 2, w // 2)
+        # each Tensor method casts under the reference's op name (O2)
+        (x,) = amp.cast("reshape", x)
+        (x,) = amp.cast("transpose", x.reshape(n, c, h // 2, 2, w // 2, 2))
+        (x,) = amp.cast("reshape", x.permute(0, 1, 3, 5, 2, 4))
+        return x.reshape(n, c * 4, h // 2, w // 2)
 
     def forward(self, x):
         return self.conv(self.pre(x))
@@ -88,7 +90,7 @@ def _bn_act(bn, x, residual=None, act="relu"):
     if not isinstance(bn, _BatchNormBase) or not bn._is_plain():
         y = bn(x)
         if residual is not None:
-            y = y + residual
+            y = amp.binary("elementwise_add", y, residual)
         return F.relu(y) if act == "relu" else y
     return F.fused_bn_act(
         x, bn._mean, bn._variance, bn.weight, bn.bias,
@@ -256,8 +258,8 @@ class ResNet(nn.Layer):
         if self.with_pool:
             x = self.avgpool(x)
         if self.num_classes > 0:
-            x = x.flatten(1)
-            x = self.fc(x)
+            (x,) = amp.cast("flatten", x)
+            x = self.fc(x.flatten(1))
         return x
 
 

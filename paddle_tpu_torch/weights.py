@@ -41,17 +41,30 @@ def from_paddle_tpu_values(values, model, device=None):
     else:
         dev = getattr(model, "device", None) or next(
             iter(model.state_dict().values())).device
-    tvals = {k: torch.as_tensor(np.array(v)).to(dev)
-             for k, v in values.items()}
+    tvals = {k: _tensor_of(v).to(dev) for k, v in values.items()}
     fvals = dequantize_state(tvals) if is_quantized_state(tvals) else tvals
     model.load_state_dict(fvals, strict=True)
     return tvals
 
 
+def _tensor_of(v):
+    """A tensor of the array `v`. A bfloat16 array (the ml_dtypes type
+    the reference's decorated leaves carry, told by its dtype name, so
+    the port never imports ml_dtypes) is read bit for bit through an
+    int16 view."""
+    a = np.array(v)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.as_tensor(a)
+
+
 def to_numpy_values(model):
-    """The model's state as ``OrderedDict[name, np.ndarray]``."""
-    return OrderedDict((k, v.detach().cpu().numpy())
-                       for k, v in model.state_dict().items())
+    """The model's state as ``OrderedDict[name, np.ndarray]``, each leaf
+    in its own dtype, except bfloat16 (numpy has none): its leaves come
+    back as float32, which holds every bfloat16 value exactly."""
+    return OrderedDict(
+        (k, (v.float() if v.dtype == torch.bfloat16 else v).detach().cpu()
+         .numpy()) for k, v in model.state_dict().items())
 
 
 @torch.no_grad()
@@ -72,7 +85,7 @@ def from_paddle_tpu_opt_state(opt_state, engine):
             raise KeyError(f"{name}: state keys {sorted(st)} != "
                            f"{sorted(mine[name])}")
         for key, val in st.items():
-            t = torch.as_tensor(np.array(val))
+            t = _tensor_of(val)
             if tuple(t.shape) != tuple(mine[name][key].shape):
                 raise ValueError(f"{name}.{key}: shape {tuple(t.shape)} "
                                  f"!= {tuple(mine[name][key].shape)}")
@@ -101,7 +114,7 @@ def from_paddle_tpu_scale_state(scale_state, engine):
                        f"{sorted(ScaleState._fields)}")
     new = {}
     for name in ScaleState._fields:
-        t = torch.as_tensor(np.array(leaves[name]))
+        t = _tensor_of(leaves[name])
         ref = getattr(mine, name)
         if tuple(t.shape) != tuple(ref.shape):
             raise ValueError(f"ScaleState.{name}: shape {tuple(t.shape)} "

@@ -352,13 +352,11 @@ def test_amp_configs_choose_the_reference_loss_scaling():
     for cfg in ("O1", {"level": "O1", "dtype": "float16"},
                 {"level": "O1", "init_loss_scaling": 1024.0},
                 {"level": "O1", "use_dynamic_loss_scaling": False},
-                {"level": "O0"}):
+                {"level": "O0"}, "O2", {"level": "O2", "dtype": "float16"}):
         jmod = paddle.Model(None).prepare(amp_configs=cfg)
         tmod = pt.Model(net).prepare(amp_configs=cfg)
         assert (tmod._amp_level, tmod._amp_dtype, tmod._loss_scale) == \
             (jmod._amp_level, jmod._amp_dtype, jmod._loss_scale), cfg
-    with pytest.raises(NotImplementedError):
-        pt.Model(net).prepare(amp_configs="O2")
     with pytest.raises(NotImplementedError):
         pt.Model(net).flops()
     assert pt.Model(net).summary()["total_params"] == sum(

@@ -6,7 +6,8 @@ bit, B9 `scaled_matmul`
 int8 bitwise and fp8 within 4 K 2^-24 of the sum of the absolute
 products (f32 sums in another order; its e4m3 codes bitwise through an
 identity operand), with f32 and bf16 operands, a Linear weight and a
-transposed vocab chunk as b, at ragged shapes, B1-B3 flash
+transposed vocab chunk as b, at ragged shapes (int8 also with f16
+operands), B1-B3 flash
 attention within 1e-5 (o) / 2e-4 (grads) in f32 (sums in another
 order) and 2e-2 in bf16 (B1-B3 on the tensor cores; B1 rounds p
 divided by the running row sum to bf16 before its value product where
@@ -14,7 +15,8 @@ the plain version rounds the normalised p, and the kernels' exp is the
 hardware's approximation), at every head dim, ragged rows, sq != sk,
 packed q / k / v views and a transposed output gradient, with the
 dropout mask equal bit for bit and the bf16 backward repeating bit for
-bit; B4-B6 (the
+bit, and the f16 instantiation within 2.5e-3 (the bf16 gate scaled by
+the formats' epsilons); B4-B6 (the
 fused LM-head loss) within 1e-5 in f32 at ragged shapes (vocab tails,
 heavy masking, every row ignored), B4 in bf16 within 1e-4 (nll, lse)
 at every hidden size, ragged token counts and vocab tails and the
@@ -22,15 +24,15 @@ ERNIE head, repeating bit for bit, B5 / B6 within one bf16 ulp in bf16
 (the plain version's f32 scores are summed in another order, which can
 move d across a bf16 rounding boundary), and in bf16 at ragged shapes
 against B6's 64-row tiles (every hidden size) with exact scores, where
-both sides round the same d, within one bf16 ulp; repeating bit for
-bit; B10
+both sides round the same d, within one bf16 ulp (the f16
+instantiation within one f16 ulp); repeating bit for bit; B10
 (the fused conv) with every epilogue (none, moments, affine with and
 without a residual, ReLU and identity) at ragged pixel counts, channel
 counts (12 as the space-to-depth stem, odd ones) and output widths,
 through the stride-2 lowering and the dx parity planes, at each of the
 bf16 kernel's three tile widths: f32 within rtol 1e-5 and 1e-5 of the
-largest element (sums in another order), bf16 y within one bf16 ulp
-and the moments within 1e-4 relative, repeating bit for bit; each
+largest element (sums in another order), bf16 (and f16) y within one
+ulp of its dtype and the moments within 1e-4 relative, repeating bit for bit; each
 launch counted; B5 repeating bit for bit at the ERNIE head; B7 and
 B8 giving each row the bits of its own one-row call at 8-40 rows (the
 speculative verify head), and B1 each (batch, head) the same bits at
@@ -220,7 +222,9 @@ def _smm_case(m, k, n, a_dtype, b_dtype, chunk_view):
 @pytest.mark.parametrize("chunk_view", [False, True])
 @pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
                                     (torch.bfloat16, torch.float32),
-                                    (torch.bfloat16, torch.bfloat16)])
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.float16, torch.float32),
+                                    (torch.float16, torch.float16)])
 @pytest.mark.parametrize("m,k,n", SMM_SHAPES)
 def test_scaled_matmul_kernel_int8_bitwise(m, k, n, dtypes, chunk_view):
     _card()
@@ -288,8 +292,8 @@ def test_scaled_matmul_routes_cuda_tensors_to_the_kernel():
     out.sum().backward()
     assert lowp.scaled_matmul.launches == launches + 1
     assert a.grad.shape == a.shape and b.grad.shape == b.shape
-    with pytest.raises(TypeError, match="bfloat16"):
-        lowp._smm_kernel(a.detach().half(), b.detach(), lowp.amax_of(a),
+    with pytest.raises(TypeError, match="float16"):
+        lowp._smm_kernel(a.detach().double(), b.detach(), lowp.amax_of(a),
                          lowp.amax_of(b), "int8")
 
 
@@ -367,6 +371,22 @@ def test_flash_kernels_match_plain_bf16(shape, packed, causal, dropout_p):
     for g, w in zip(got, want):
         torch.testing.assert_close(g.reshape(w.shape).float(), w.float(),
                                    rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape,packed", FLASH_BF16_CASES)
+def test_flash_kernels_match_plain_f16(shape, packed, causal, dropout_p):
+    """The f16 instantiation of B1-B3: within the bf16 gate scaled by
+    the formats' epsilons (2e-2 x 2^-10 / 2^-7)."""
+    _card()
+    got, want = _flash_case(*shape, torch.float16, causal, dropout_p,
+                            packed=packed)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float16
+        torch.testing.assert_close(g.reshape(w.shape).float(), w.float(),
+                                   rtol=2.5e-3, atol=2.5e-3)
 
 
 @pytest.mark.cuda
@@ -512,7 +532,7 @@ LCE_BF16_RAGGED = [(37, 64, 301, 0.3), (300, 64, 301, 0.3),
                    (65, 768, 4001, 0.5), (70, 1024, 513, 0.5)]
 
 
-def _lce_exact_case(n, h, v, masked):
+def _lce_exact_case(n, h, v, masked, dtype=torch.bfloat16):
     """bf16 x in quarters and w in sixteenths of -2..2: every score is
     exact in f32 in any order of its sums, so given one lse the kernels
     and the plain version round the same d to bf16 and dx / dw differ
@@ -527,8 +547,29 @@ def _lce_exact_case(n, h, v, masked):
     lbl[rng.rand(n) < masked] = -100
     g = torch.from_numpy(rng.rand(n).astype(np.float32))
     g[torch.from_numpy(lbl) == -100] = 0.0
-    return (x.to(torch.bfloat16).cuda(), w.to(torch.bfloat16).cuda(),
+    return (x.to(dtype).cuda(), w.to(dtype).cuda(),
             torch.from_numpy(lbl).cuda(), g.cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,v,masked", LCE_BF16_RAGGED)
+def test_fused_loss_f16_ragged_within_one_ulp(n, h, v, masked):
+    """The f16 instantiation of B4-B6 on exact scores: nll / lse within
+    1e-4, dx / dw within one f16 ulp (at least the subnormal spacing)."""
+    _card()
+    x, w, lbl, g = _lce_exact_case(n, h, v, masked, torch.float16)
+    nll, lse = fused_loss._fwd_kernel(x, w, lbl)
+    nll_p, lse_p = fused_loss._fwd_plain(x, w, lbl, 128)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-4, atol=1e-4)
+    dx, dw = fused_loss._bwd_kernel(x, w, lbl, lse, g)
+    dx_p, dw_p = fused_loss._bwd_plain(x, w, lbl, lse, g, 128)
+    for gt, wt in ((dx, dx_p), (dw, dw_p)):
+        assert gt.dtype == torch.float16
+        gt, wt = gt.float(), wt.float()
+        ulp = (torch.maximum(wt.abs(), wt.abs().max() * 2 ** -8) *
+               2 ** -10).clamp_min(2.0 ** -24)
+        assert bool(((gt - wt).abs() <= ulp).all()), \
+            float(((gt - wt).abs() / ulp).max())
 
 
 @pytest.mark.cuda
@@ -623,9 +664,15 @@ def _conv_case(n, c, h, w, o, k, s, pad, dtype, seed=0):
 
 
 def _assert_conv_close(got, want, bf16):
+    """One ulp of the 16-bit dtype (`bf16` True: bfloat16, or the
+    dtype itself), rtol 1e-5 in f32."""
+    low = got.dtype if got.dtype in (torch.bfloat16, torch.float16) \
+        else (torch.bfloat16 if bf16 else None)
     got, want = got.float(), want.float()
-    if bf16:
-        ulp = torch.maximum(want.abs(), want.abs().max() * 2 ** -8) * 2 ** -7
+    if low is not None:
+        eps = 2 ** -10 if low == torch.float16 else 2 ** -7
+        ulp = (torch.maximum(want.abs(), want.abs().max() * 2 ** -8) *
+               eps).clamp_min(2.0 ** -24)
         assert bool(((got - want).abs() <= ulp).all()), \
             float(((got - want).abs() / ulp).max())
     else:
@@ -634,13 +681,14 @@ def _assert_conv_close(got, want, bf16):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("n,c,h,w,o,k,s,pad", CONV_SHAPES)
 def test_conv_kernel_epilogues_match_plain(n, c, h, w, o, k, s, pad,
                                            dtype):
     _card()
     plan, xp, wk, g, b, res = _conv_case(n, c, h, w, o, k, s, pad, dtype)
-    bf16 = dtype == torch.bfloat16
+    bf16 = dtype != torch.float32
     legs = [dict(), dict(moments=True), dict(g=g, b=b, act="relu"),
             dict(g=g, b=b, res=res, act="identity"),
             dict(g=g, b=b, res=res, act="relu")]
