@@ -42,7 +42,9 @@ Phases (any failure raises and the script exits non-zero):
    ERNIE shape [32, 12, 512, 64] in f32 and bf16 with dropout 0.1; the
    Transformer-base shapes of 41-42: [24, 8, 128, 128, 64] in bf16 with
    dropout 0.1 and one query row against 1, 37 and 128 keys in f32 and
-   bf16; the dropout mask bit for bit; in bf16 B1-B3 run on the tensor
+   bf16; the hybrid GPT's causal f32 calls of 48-49: [16, 16, 512, 64]
+   at dropout 0.1 and 0, and the local shapes of 49's factorizations
+   (8 heads, 8 rows, 4-row micro-batches); the dropout mask bit for bit; in bf16 B1-B3 run on the tensor
    cores), B2
    repeating bit for bit at the ERNIE shape, the registers and blocks
    per SM of every pass, then timed at the
@@ -320,6 +322,43 @@ read just after it:
     GRU and SimpleRNN (2 layers, bidirectional, hidden 256, b 16 x 64
     steps) within 1e-4; BeamSearchDecoder against brute force. Prints
     how many names were swept.
+
+47-49 run last, distributed training on ``torch.distributed``:
+47. The collectives over NCCL at world size 1 (`init_parallel_env(
+    backend="nccl")` through a ``file://`` store): every call of
+    `distributed.collective` once on CUDA tensors (all_reduce under each
+    op, all_gather, all_gather_object, broadcast, reduce, reduce_scatter,
+    scatter, alltoall, send / recv to itself in one batch_isend_irecv,
+    barrier, wait), each leaving its input (a world of one) and nothing
+    staged through the host; NCCL's version and each call's ms.
+48. The hybrid GPT at world size 1 through `fleet.init` and
+    `make_gpt_hybrid_engine`, as bench.py:445-447 configures it on a
+    chip (b16 x s512, hidden 1024, 8 layers, 16 heads, vocab 50304,
+    use_parallel and sequence_parallel on, SGD 0.01, weights from seed
+    7, f32, dropout 0 and attention dropout at its default 0.1). First a
+    reference pass of 2 steps at attention dropout 0, which 49 must
+    repeat (its losses, and a set of parameters before and after).
+    Then 2 + 8 steps, exactly 8 launches a step of each of B1-B3, step p50,
+    tokens/s, MFU, the profile's busy time and idle share,
+    `attribute_step`, peak memory; then the same engine from the same
+    weights under FLAGS_lowp_matmul int8 and fp8 (bench.py:620-670 at
+    this width): exactly 33 launches a step of B9 (the four linears of
+    each block and the tied head), finite losses; then B9 against its
+    plain version at every distinct call of the int8 step (f32
+    activations at K 1024, the tied head's ``w.t()``, dynamic scales),
+    int8 bit for bit and fp8 within the bound of 15.
+49. Several ranks on this card over gloo, each a process on cuda:0 that
+    loads the kernels 1 built: 2 ranks (dp2, mp2 with sequence
+    parallelism, pp2 over 4 micro-batches, sharding2 under ZeRO 1, 2, 3
+    and 3 with offload) and 4 ranks (dp2.mp2, pp2.mp2 with sequence
+    parallelism, mp2.sharding2.z2) at 48's width from 48's initial
+    weights at attention dropout 0, 2 steps each: losses within the
+    sweep's rtol of 48's reference pass (2e-4; 1e-3 with pp), each
+    parameter of a set gathered back (`weights.gather_values`) changed
+    as in that pass (within 1e-3 of the change's largest element, or 4
+    float32 spacings of the parameter's largest magnitude), every rank's B1-B3
+    launches exactly as derived (8 a step; 16 under pp2), and the bytes
+    a step each rank staged through the host.
 
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line
 and ``{"ok": true, "device": {...}}``. Without a CUDA card, or outside a
@@ -900,9 +939,10 @@ F16_OVER_BF16 = 2.0 ** -3
 
 def phase_flash(card):
     """B1-B3 against their plain versions (f32 ragged shapes, then the
-    ERNIE shape in bf16 and f32 with dropout, the mask bit for bit; the
-    float16 instantiation at ragged shapes and at the ERNIE and GPT-2
-    shapes, within the bf16 gate scaled by the epsilons), then timed at
+    ERNIE shape in bf16 and f32 with dropout, the hybrid GPT's causal f32
+    shapes of phases 48-49, the mask bit for bit; the float16
+    instantiation at ragged shapes and at the ERNIE and GPT-2 shapes,
+    within the bf16 gate scaled by the epsilons), then timed at
     the ERNIE shape as the train step runs them, in bf16 and in f16
     (`_flash_times`), beside the plain versions and SDPA in the same
     dtype."""
@@ -926,6 +966,19 @@ def phase_flash(card):
               ((2, 2, 21, 9, 128), True, 0.1, torch.bfloat16)]
     cases += [((b, h, s, s, d), False, 0.1, torch.float32),
               ((b, h, s, s, d), False, 0.1, torch.bfloat16)]
+    # the hybrid GPT's calls (phases 48-49, f32, causal): world size 1 at
+    # the source's attention dropout and at 0, then the local shapes of
+    # 49's factorizations: mp2's 8 heads, dp2's 8 rows, pp2's 4-row
+    # micro-batches, pp2.mp2's (sequence parallelism gathers the whole
+    # sequence before attention)
+    hb, hh, hs = HYBRID_BATCH, HYBRID["num_heads"], HYBRID_SEQ
+    hybrid_cases = [((hb, hh, hs, hs, d), True, 0.1, torch.float32),
+                    ((hb, hh, hs, hs, d), True, 0.0, torch.float32),
+                    ((hb, hh // 2, hs, hs, d), True, 0.0, torch.float32),
+                    ((hb // 2, hh, hs, hs, d), True, 0.0, torch.float32),
+                    ((4, hh, hs, hs, d), True, 0.0, torch.float32),
+                    ((4, hh // 2, hs, hs, d), True, 0.0, torch.float32)]
+    cases += hybrid_cases
     # the Transformer-base path (phases 41-42): its train step's shape in
     # bf16 with dropout, and cached decoding's one query row against a
     # growing key length
@@ -943,6 +996,7 @@ def phase_flash(card):
               ((b, h, s, s, d), False, 0.1, f16),
               ((GPT_BATCH, 12, GPT_SEQ, GPT_SEQ, 64), True, 0.1, f16)]
     err16 = {"B1": 0.0, "B2": 0.0, "B3": 0.0}
+    err_h = {"B1": 0.0, "B2": 0.0, "B3": 0.0}
     for case in cases:
         (cb, ch, sq, sk, cd), causal, p = case[:3]
         dtype = case[3] if len(case) > 3 else torch.float32
@@ -962,8 +1016,11 @@ def phase_flash(card):
             tol = tol_o if i == 0 else tol_g
             torch.testing.assert_close(g, w, rtol=tol, atol=tol)
         e = [(g - w).abs().max().item() for g, w in zip(got, want)]
-        if cb == b and sq == s:   # the main path's shape: the error reported
-            into = err16 if dtype == f16 else errs
+        # the errors reported: ERNIE's shape (the main path's) and the
+        # hybrid GPT's
+        into = err_h if case in hybrid_cases else \
+            (err16 if dtype == f16 else errs) if cb == b and sq == s else None
+        if into is not None:
             into.update(B1=max(into["B1"], e[0]), B2=max(into["B2"], e[1]),
                         B3=max(into["B3"], e[2], e[3]))
         print(json.dumps({"flash_check": [cb, ch, sq, sk, cd],
@@ -1014,6 +1071,7 @@ def phase_flash(card):
                    max_abs_err=errs[key], bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    fp16_max_abs_err=err16[key],
+                   hybrid_f32_max_abs_err=err_h[key],
                    **{f"fp16_{k}": v for k, v in times[f16][key].items()})
         print(json.dumps({"kernel": key, **row}), flush=True)
     return rows_out
@@ -1992,6 +2050,57 @@ def _b9_split_ms(a, b, sa, sb, q, flush, n=10):
             "profiled_launches": count}
 
 
+def _b9_check(key, gen):
+    """B9 against its plain version at one recorded call `key` (m, k, n,
+    a dtype, a row stride, b dtype, b layout) on random operands: int8
+    bit for bit, with the abs-max scale and with one that clips; fp8
+    within `_fp8_tol`. Returns (a, b, sa, sb, fp8's largest error, its
+    largest share of the bound)."""
+    import torch
+
+    from paddle_tpu_torch.ops import lowp
+
+    a, b = _b9_operands(*key, gen)
+    sa, sb = lowp.amax_of(a), lowp.amax_of(b)
+    for s in (sa, sa * 0.7):
+        got = lowp._smm_kernel(a, b, s, sb, "int8")
+        _check(torch.equal(got, lowp._smm_plain(a, b, s, sb, "int8")),
+               f"B9 int8 differs from its plain version at {key}")
+        del got
+    got = lowp._smm_kernel(a, b, sa, sb, "fp8").double()
+    diff = (got - lowp._smm_plain(a, b, sa, sb, "fp8").double()).abs()
+    del got
+    of_bound = float((diff / (_fp8_tol(a, b, sa, sb) + 1e-30)).max())
+    _check(of_bound <= 1.0, f"B9 fp8 beyond 4 K 2^-24 of sum |q q| at "
+           f"{key}: {of_bound} of the bound")
+    return a, b, sa, sb, float(diff.max()), of_bound
+
+
+def phase_hybrid_b9(calls):
+    """B9 against its plain version (`_b9_check`) at every distinct call
+    of the hybrid GPT's int8 step (`calls`, recorded from phase 48's
+    first int8 step): f32 activations at K 1024 into the blocks'
+    weights (N 3072, 1024, 4096, and 4096 -> 1024) and into the tied
+    head through ``w.t()`` (N 50304), with dynamic scales. Returns fp8's
+    largest error."""
+    import torch
+
+    gen = torch.Generator().manual_seed(22)
+    err = 0.0
+    for key in sorted(calls):
+        m, k, n, a_dt, lda, b_dt, layout = key
+        a, b, _, _, fp8_err, of_bound = _b9_check(key, gen)
+        err = max(err, fp8_err)
+        print(json.dumps({"b9_check": dict(
+            path="hybrid_48", m=m, k=k, n=n, a=a_dt, a_row_stride=lda,
+            b=b_dt, b_layout=layout, calls_per_step=calls[key],
+            fp8_max_abs_err=fp8_err, fp8_err_of_bound=of_bound)}),
+            flush=True)
+        del a, b
+        torch.cuda.empty_cache()
+    return err
+
+
 def phase_lowp_kernels(card, calls):
     """B9 against its plain version, in int8 and fp8, at every distinct
     call of the full-width low-precision step (`calls`, recorded from
@@ -2018,23 +2127,11 @@ def phase_lowp_kernels(card, calls):
     for key in sorted(calls) + ragged:
         m, k, n, a_dt, lda, b_dt, layout = key
         per_step = calls.get(key, 0)
-        a, b = _b9_operands(*key, gen)
-        sa, sb = lowp.amax_of(a), lowp.amax_of(b)
-        for s in (sa, sa * 0.7):
-            got = lowp._smm_kernel(a, b, s, sb, "int8")
-            _check(torch.equal(got, lowp._smm_plain(a, b, s, sb, "int8")),
-                   f"B9 int8 differs from its plain version at {key}")
-        got = lowp._smm_kernel(a, b, sa, sb, "fp8").double()
-        want = lowp._smm_plain(a, b, sa, sb, "fp8").double()
-        tol = _fp8_tol(a, b, sa, sb)
-        diff = (got - want).abs()
-        _check(bool((diff <= tol + 1e-30).all()),
-               f"B9 fp8 beyond 4 K 2^-24 of sum |q q| at {key}: "
-               f"{float((diff / (tol + 1e-30)).max())} of the bound")
-        err["fp8"] = max(err["fp8"], float(diff.max()))
+        a, b, sa, sb, fp8_err, of_bound = _b9_check(key, gen)
+        err["fp8"] = max(err["fp8"], fp8_err)
         row = dict(m=m, k=k, n=n, a=a_dt, a_row_stride=lda, b=b_dt,
                    b_layout=layout, calls_per_step=per_step,
-                   fp8_err_of_bound=float((diff / (tol + 1e-30)).max()))
+                   fp8_err_of_bound=of_bound)
         if not per_step:
             print(json.dumps({"b9_check": row}), flush=True)
             continue
@@ -2067,7 +2164,7 @@ def phase_lowp_kernels(card, calls):
         row.update(bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
         print(json.dumps({"b9_shape": row}), flush=True)
-        del a, b, got
+        del a, b
     for q in ("int8", "fp8"):
         print(json.dumps({"scaled_matmul_occupancy": q,
                           **lowp._occupancy(q)}), flush=True)
@@ -5867,6 +5964,539 @@ def phase_resnet_amp(card, n=3):
     return train_launches + eval_launches, out
 
 
+# -- distributed training (phases 47-49) -------------------------------------
+
+# the hybrid GPT of bench.py:445-447 on a chip (dropout 0; attention
+# dropout at GPTConfig's default 0.1, which the source leaves on)
+HYBRID = dict(vocab_size=50304, hidden_size=1024, num_layers=8, num_heads=16,
+              max_seq_len=512, dropout=0.0, use_parallel=True,
+              sequence_parallel=True)
+# 48's reference pass and 49's factorizations: attention dropout 0 (the
+# port draws each rank's masks from its own stream, so a factorization
+# cannot repeat the single rank's)
+HYBRID_REF = dict(HYBRID, attn_dropout=0.0)
+HYBRID_BATCH, HYBRID_SEQ, HYBRID_LR, HYBRID_SEED = 16, 512, 0.01, 7
+# B9 launches a step of the hybrid engine at world size 1 and one
+# micro-batch: the four linears of each block (q/k/v, out_proj, fc1, fc2)
+# and the tied head; the straight-through backward launches none
+HYBRID_B9_PER_STEP = 4 * HYBRID["num_layers"] + 1
+
+
+def _hybrid_probe():
+    """The parameters gathered back after 49's steps and compared with
+    48's: the first block's packed q / k / v, LayerNorms of the first
+    and the last pipeline stage (their gradients summed over mp under
+    sequence parallelism), the last block's fc2, the final norm, the
+    tied word table (summed over pp) and the position table."""
+    last = HYBRID["num_layers"] - 1
+    return ("gpt.layers.0.attn.qkv_proj.weight",
+            "gpt.layers.0.attn.qkv_proj.bias", "gpt.layers.1.norm1.weight",
+            "gpt.layers.1.norm1.bias", f"gpt.layers.{last}.norm2.bias",
+            f"gpt.layers.{last}.mlp.fc2.weight",
+            f"gpt.layers.{last}.mlp.fc2.bias", "gpt.final_norm.weight",
+            "gpt.final_norm.bias",
+            "gpt.embeddings.word_embeddings.weight",
+            "gpt.embeddings.position_embeddings.weight")
+# a probe parameter's change over 49's steps against 48's: within
+# HYBRID_DELTA_TOL of the largest element of 48's change, or within
+# HYBRID_DELTA_ULPS float32 spacings at the parameter's largest
+# magnitude (each SGD step rounds the parameter once, and a LayerNorm
+# weight near 1 moves by a few hundred spacings in 2 steps). The CPU
+# sweep's sound factorizations read <= 1.25e-5 of the change, and one
+# that skips a gradient sum 0.78-1.41 (tests/test_torch_distributed.py)
+HYBRID_DELTA_TOL, HYBRID_DELTA_ULPS = 1e-3, 4.0
+# (name, dp, mp, pp, sharding, zero stage, offload, rtol): 49's
+# factorizations, the sweep's tolerances (1e-3 with pp)
+MULTIRANK = {
+    2: (("dp2", 2, 1, 1, 1, 0, False, 2e-4),
+        ("mp2.seqpar", 1, 2, 1, 1, 0, False, 2e-4),
+        ("pp2", 1, 1, 2, 1, 0, False, 1e-3),
+        ("sharding2.z1", 1, 1, 1, 2, 1, False, 2e-4),
+        ("sharding2.z2", 1, 1, 1, 2, 2, False, 2e-4),
+        ("sharding2.z3", 1, 1, 1, 2, 3, False, 2e-4),
+        ("sharding2.z3.off", 1, 1, 1, 2, 3, True, 2e-4)),
+    4: (("dp2.mp2.seqpar", 2, 2, 1, 1, 0, False, 2e-4),
+        ("pp2.mp2.seqpar", 1, 2, 2, 1, 0, False, 1e-3),
+        ("mp2.sharding2.z2", 1, 2, 1, 2, 2, False, 2e-4)),
+}
+
+
+def _fleet_init(dp=1, mp=1, pp=1, sharding=1, device="cuda:0"):
+    from paddle_tpu_torch.distributed import fleet
+
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": dp, "mp_degree": mp,
+                               "pp_degree": pp, "sharding_degree": sharding}
+    strategy.sharding = sharding > 1
+    fleet.init(is_collective=True, strategy=strategy, device=device)
+    return fleet.get_hybrid_communicate_group()
+
+
+def _hybrid_batch():
+    return _gpt_batch(HYBRID["vocab_size"], HYBRID_BATCH, HYBRID_SEQ)
+
+
+def phase_collectives(card, store, device="cuda:0", backend="nccl"):
+    """Phase 47: every collective of `distributed.collective` once over
+    NCCL at world size 1 (`init_parallel_env(backend="nccl")` with a
+    ``file://`` store: one rank, so each result is its input) on CUDA
+    tensors: all_reduce under each op, all_gather, all_gather_object,
+    broadcast, reduce, reduce_scatter, scatter, alltoall, send / recv (to
+    itself, one batch_isend_irecv), barrier, wait; the default group's
+    backend must be nccl and nothing staged through the host. Prints
+    NCCL's version and each call's host ms (synchronised)."""
+    import torch
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import parallel
+
+    parallel.init_parallel_env(backend=backend, device=device,
+                               init_method=f"file://{store}", rank=0,
+                               world_size=1)
+    C._reset_default_group()
+    g = D.get_group()
+    _check(g.backend == backend, f"default group backend {g.backend}")
+    C.reset_staged_bytes()
+    x = torch.arange(4096, dtype=torch.float32, device=device).reshape(64,
+                                                                     64)
+    sync = torch.cuda.synchronize if x.is_cuda else (lambda: None)
+    calls = {}
+
+    def run(name, fn, want=None):
+        sync()
+        t0 = time.perf_counter()
+        got = fn()
+        sync()
+        calls[name] = (time.perf_counter() - t0) * 1e3
+        if want is not None:
+            _check(torch.equal(got, want), f"{name} over NCCL changed the "
+                   "tensor of a world of one")
+
+    for op in ("SUM", "MAX", "MIN", "PROD", "AVG"):
+        run(f"all_reduce_{op}", lambda op=op: D.all_reduce(
+            x.clone(), getattr(D.ReduceOp, op)), x)
+    run("all_gather", lambda: torch.stack(D.all_gather([], x)), x[None])
+    run("all_gather_object", lambda: torch.tensor(
+        D.all_gather_object([], 7)), torch.tensor([7]))
+    run("broadcast", lambda: D.broadcast(x.clone(), src=0), x)
+    run("reduce", lambda: D.reduce(x.clone(), dst=0), x)
+    run("reduce_scatter", lambda: D.reduce_scatter(
+        torch.empty_like(x), [x]), x)
+    run("scatter", lambda: D.scatter(torch.empty_like(x), [x], src=0), x)
+    run("alltoall", lambda: torch.stack(D.alltoall([x], [])), x[None])
+    out = torch.empty_like(x)
+    if backend == "nccl":   # gloo has no pair to itself (a CPU rehearsal)
+        run("send_recv", lambda: (C.exchange(sends=[(x, 0)],
+                                             recvs=[(out, 0)]), out)[1], x)
+    run("barrier", lambda: D.barrier())
+    run("wait", lambda: D.wait(x), x)
+    _check(C.staged_bytes() == {"d2h": 0, "h2d": 0},
+           f"NCCL staged through the host: {C.staged_bytes()}")
+    rep = {"phase": 47, "card": card, "backend": g.backend,
+           "nccl_version": _nccl_version() if x.is_cuda else None,
+           "calls_ms": calls}
+    print(json.dumps(rep), flush=True)
+    return rep
+
+
+def _nccl_version():
+    import torch
+
+    v = torch.cuda.nccl.version()
+    return ".".join(map(str, v)) if isinstance(v, tuple) else str(v)
+
+
+def _hybrid_engine(model, device, lr=HYBRID_LR):
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed.hybrid import make_gpt_hybrid_engine
+    from paddle_tpu_torch.nlp.transformers import GPTPretrainingCriterion
+
+    hcg = _fleet_init(device=device)
+    crit = GPTPretrainingCriterion(model.config)
+    opt = optimizer.SGD(lr, parameters=model.parameters())
+    return make_gpt_hybrid_engine(model, crit, opt, hcg, device=device)
+
+
+def phase_hybrid_gpt(card, init_dir, n=8, device="cuda:0"):
+    """Phase 48: the hybrid GPT at world size 1 through `fleet.init` and
+    `make_gpt_hybrid_engine`, as bench.py:445-447 configures it on a
+    chip (b16 x s512, hidden 1024, 8 layers, 16 heads, vocab 50304,
+    dropout 0 and attention dropout at its default 0.1,
+    use_parallel and sequence_parallel on, SGD 0.01, weights from seed
+    7, f32). First a reference pass of 2 steps from the same weights at
+    attention dropout 0 (`HYBRID_REF`): its losses and the
+    `_hybrid_probe()` parameters before and after them are 49's
+    reference. Then the source's configuration: 2 + `n` timed steps:
+    exactly 8 launches a step of each of B1-B3, finite losses, step p50,
+    tokens/s, MFU (6 P + 12 L H S a token against the bf16 dense peak
+    and the f32 one), peak memory, a profile (busy and idle share),
+    `attribute_step`. Then the same engine from the same weights under
+    FLAGS_lowp_matmul int8 and fp8 (bench.py:620-670 at this width): 1
+    + 3 steps each, exactly `HYBRID_B9_PER_STEP` B9 launches a step,
+    B1-B3 8, finite losses; the int8 leg's first step records its B9
+    calls (`_SmmRecorder`) for `phase_hybrid_b9`. The initial weights
+    are written to `init_dir` (one .npy a parameter) for 49. With a CPU
+    `device` (a rehearsal at shrunk `HYBRID` widths) nothing launches
+    and the launch gates, the profile and the memory reading are
+    skipped. Returns (report, 49's reference, launches, B9 calls)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import observe, weights
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.nlp.transformers import (
+        GPTConfig, GPTForPretraining,
+    )
+    from paddle_tpu_torch.ops import lowp
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    _fleet_init(device=device)
+    cfg = GPTConfig(**HYBRID)
+    model = GPTForPretraining(
+        cfg, device=device, generator=torch.Generator().manual_seed(
+            HYBRID_SEED))
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    for k, v in init.items():
+        np.save(Path(init_dir) / f"{k}.npy", v.cpu().numpy())
+    ids, labels = _hybrid_batch()
+    L = cfg.num_layers
+    per_step = L if on_card else 0
+
+    # the reference pass, at attention dropout 0
+    for layer in model.gpt.layers:
+        layer.attn.attn_dropout = HYBRID_REF["attn_dropout"]
+    eng = _hybrid_engine(model, device)
+    _zero_flash()
+    ref_losses = [float(eng.train_batch(ids, labels)) for _ in range(2)]
+    ref = {"losses": ref_losses,
+           "probe0": {k: init[k].cpu().numpy() for k in _hybrid_probe()},
+           "probe": weights.gather_values(model, eng.hcg, _hybrid_probe())}
+    _check(_flash_counts() == {k: 2 * per_step for k in ("B1", "B2", "B3")},
+           f"hybrid gpt reference pass: launches {_flash_counts()}")
+    _check(all(np.isfinite(ref_losses)), f"non-finite loss: {ref_losses}")
+    del eng
+    model.set_state_dict(init)
+    for layer in model.gpt.layers:
+        layer.attn.attn_dropout = cfg.attn_dropout
+
+    eng = _hybrid_engine(model, device)
+    _zero_flash()
+    losses = [float(eng.train_batch(ids, labels)) for _ in range(2)]
+    sync()
+    before = _flash_counts()
+    times = []
+    with observe.no_retrace():
+        for _ in range(n):
+            t0 = time.perf_counter()
+            loss = eng.train_batch(ids, labels)
+            sync()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+    launches = {k: c - before[k] for k, c in _flash_counts().items()}
+    _check(launches == {"B1": per_step * n, "B2": per_step * n,
+                        "B3": per_step * n},
+           f"hybrid gpt: launches over {n} steps {launches}")
+    _check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    n_params = sum(p.numel() for p in model.parameters())
+    flops_tok = 6.0 * n_params + 12.0 * L * cfg.hidden_size * HYBRID_SEQ
+    step_s = float(np.median(times))
+    tok_s = HYBRID_BATCH * HYBRID_SEQ / step_s
+    prof, rep, mem = {"busy_ms": None}, {"buckets": {}}, {"peak": None}
+    if on_card:
+        prof = phase_train_profile(
+            lambda: eng.train_batch(ids, labels),
+            "hybrid gpt world 1 (b16 s512 h1024 L8, f32, SGD, attention "
+            "dropout 0.1)")
+        logdir = tempfile.mkdtemp(prefix="chip_smoke_hybrid_attrib_")
+        try:
+            with observe.no_retrace():
+                rep = eng.attribute_step(logdir=logdir, steps=1,
+                                         top=1 << 30)
+        finally:
+            shutil.rmtree(logdir, ignore_errors=True)
+        mem = eng.memory_analysis()
+    peaks = _peaks(card)
+    out = {
+        "phase": 48, "train": "hybrid gpt b16 s512 h1024 L8 f32 SGD 0.01, "
+        f"attention dropout {cfg.attn_dropout}",
+        "card": card, "steps": n, "params": n_params,
+        "step_ms_p50": step_s * 1e3,
+        "step_ms_p90": float(np.percentile(times, 90)) * 1e3,
+        "tokens_per_s": tok_s, "mfu": flops_tok * tok_s / peaks[3],
+        "mfu_f32_peak": flops_tok * tok_s / peaks[1],
+        "device_busy_ms": prof["busy_ms"], "peak_mem_bytes": mem["peak"],
+        "losses": losses, "reference_losses": ref_losses,
+        "launches_per_step": {k: c / n for k, c in launches.items()},
+        "attribute_ms_per_step": {b: us / 1e3
+                                  for b, us in rep["buckets"].items()},
+    }
+    print(json.dumps(out), flush=True)
+    # every launch of the flag-off leg: 2 reference steps, 2 + n steps,
+    # 3 profiled, 1 attributed
+    counts = {k: c + 2 * per_step for k, c in _flash_counts().items()}
+    _check(counts == {k: per_step * (n + 8) for k in counts},
+           f"hybrid gpt: flag-off leg launches {counts}")
+    counts["B9"] = 0
+    del eng
+    lowp_legs, b9_calls = {}, {}
+    for mode in ("int8", "fp8"):
+        model.set_state_dict(init)
+        set_flags({"FLAGS_lowp_matmul": mode})
+        try:
+            eng = _hybrid_engine(model, device)
+            _zero_flash()
+            lowp.scaled_matmul.launches = 0
+            with _SmmRecorder() as rec:
+                leg = [float(eng.train_batch(ids, labels))]
+            if mode == "int8":
+                b9_calls = rec.calls
+            t0 = time.perf_counter()
+            for _ in range(3):
+                leg.append(float(eng.train_batch(ids, labels)))
+            wall = time.perf_counter() - t0
+            b9 = lowp.scaled_matmul.launches
+            fl = _flash_counts()
+        finally:
+            set_flags({"FLAGS_lowp_matmul": "off"})
+        del eng
+        b9_step = HYBRID_B9_PER_STEP if on_card else 0
+        _check(b9 == 4 * b9_step,
+               f"hybrid gpt {mode}: {b9} B9 launches over 4 steps, want "
+               f"{4 * b9_step}")
+        _check(sum(rec.calls.values()) == HYBRID_B9_PER_STEP,
+               f"hybrid gpt {mode}: recorded {rec.calls}")
+        _check(fl == {k: 4 * per_step for k in ("B1", "B2", "B3")},
+               f"hybrid gpt {mode}: flash launches {fl}")
+        _check(all(np.isfinite(leg)), f"hybrid gpt {mode}: losses {leg}")
+        lowp_legs[mode] = {"losses": leg, "step_ms": wall / 3 * 1e3,
+                           "b9_per_step": b9 / 4}
+        counts["B9"] += b9
+        for k in ("B1", "B2", "B3"):
+            counts[k] += fl[k]
+    print(json.dumps({"phase": 48, "lowp_legs": lowp_legs,
+                      "flag_off_losses": losses[:4]}), flush=True)
+    model.set_state_dict(init)
+    out["lowp_legs"] = lowp_legs
+    del model, init
+    if on_card:
+        torch.cuda.empty_cache()
+    return out, ref, counts, b9_calls
+
+
+def _rank_main(rank, world, store, init_dir, configs, out_path, device):
+    """One rank of phase 49 (a process of its own): gloo on cuda:0, each
+    of `configs` from 48's initial weights for 2 steps."""
+    import pickle
+    import traceback
+
+    try:
+        result = (True, _rank_configs(rank, world, store, init_dir,
+                                      configs, device))
+    except Exception:
+        result = (False, traceback.format_exc())
+    with open(out_path, "wb") as f:
+        pickle.dump(result, f)
+
+
+def _rank_configs(rank, world, store, init_dir, configs, device):
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import optimizer, weights
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import parallel
+    from paddle_tpu_torch.distributed.hybrid import make_gpt_hybrid_engine
+    from paddle_tpu_torch.distributed.topology import (
+        set_hybrid_communicate_group,
+    )
+    from paddle_tpu_torch.engine import Engine
+    from paddle_tpu_torch.nlp.transformers import (
+        GPTConfig, GPTForPretraining, GPTPretrainingCriterion,
+    )
+
+    parallel.init_parallel_env(backend="gloo", device=device,
+                               init_method=f"file://{store}", rank=rank,
+                               world_size=world)
+    on_card = torch.device(device).type == "cuda"
+    if not on_card:
+        torch.set_num_threads(1)
+    full = {p.stem: np.load(p, mmap_mode="r")
+            for p in Path(init_dir).glob("*.npy")}
+    ids, labels = _hybrid_batch()
+    out = {}
+    for name, dp, mp, pp, sh, zero, off, _rtol in configs:
+        t0 = time.perf_counter()
+        hcg = _fleet_init(dp, mp, pp, sh, device=device)
+        cfg = GPTConfig(**HYBRID_REF)
+        model = GPTForPretraining(cfg, device=device)
+        weights.shard_values(full, model, hcg)
+        crit = GPTPretrainingCriterion(cfg)
+        opt = optimizer.SGD(HYBRID_LR, parameters=model.parameters())
+        if pp > 1:
+            eng = make_gpt_hybrid_engine(
+                model, crit, opt, hcg, accumulate_steps=2 * pp,
+                zero_stage=zero, offload=off, device=device)
+            step = lambda: eng.train_batch(ids, labels)     # noqa: E731
+        else:
+            eng = Engine(model, opt, lambda o, y: crit(o, y),
+                         device=device, seed=0, mesh=hcg.get_mesh(),
+                         batch_spec=("dp",), zero_stage=zero,
+                         sharding_axis="sharding" if sh > 1 else None,
+                         offload=off)
+            step = lambda: eng.train_batch((ids,), (labels,))  # noqa: E731
+        setup_s = time.perf_counter() - t0
+        _zero_flash()
+        C.reset_staged_bytes()
+        times, losses = [], []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            losses.append(float(step()))
+            times.append(time.perf_counter() - t1)
+        staged = C.staged_bytes()
+        launches = _flash_counts()
+        eng.sync_to_layer()
+        probe = weights.gather_values(model, hcg, _hybrid_probe())
+        per_step = HYBRID["num_layers"] // pp * (2 * pp if pp > 1 else 1) \
+            if on_card else 0
+        _check(launches == {k: 2 * per_step for k in ("B1", "B2", "B3")},
+               f"{name} rank {rank}: flash launches {launches}, want "
+               f"{2 * per_step} each")
+        out[name] = {"losses": losses, "step_ms": [t * 1e3 for t in times],
+                     "setup_s": setup_s, "launches": launches,
+                     "staged_bytes_per_step": {k: v / 2 for k, v in
+                                               staged.items()},
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated()
+                     if on_card else None,
+                     "probe": probe if rank == 0 else None}
+        set_hybrid_communicate_group(None)
+        del eng, model, opt, step
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+def _start_ranks(world, init_dir, configs, tmp, device):
+    """Start `_rank_main` on `world` processes; returns them."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    store = Path(tmp) / f"store{world}"
+    procs = []
+    for rank in range(world):
+        p = ctx.Process(target=_rank_main, args=(
+            rank, world, str(store), init_dir, configs,
+            str(Path(tmp) / f"rank{world}_{rank}.pkl"), device))
+        p.start()
+        procs.append(p)
+    return procs
+
+
+def _join_ranks(world, procs, tmp, timeout):
+    """Wait for the processes of `_start_ranks` (killing any left after
+    `timeout` s); their results by rank."""
+    import pickle
+
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    results = []
+    for rank in range(world):
+        path = Path(tmp) / f"rank{world}_{rank}.pkl"
+        _check(path.exists(), f"phase 49: rank {rank} of {world} left no "
+               f"result (exit {procs[rank].exitcode})")
+        with open(path, "rb") as f:
+            ok, value = pickle.load(f)
+        _check(ok, f"phase 49: rank {rank} of {world} failed:\n{value}")
+        results.append(value)
+    return results
+
+
+def phase_multirank(card, init_dir, ref, tmp, device="cuda:0"):
+    """Phase 49: several ranks on the one card over gloo (NCCL refuses
+    two ranks on one GPU), each rank its own process on cuda:0; one spawn
+    of 2 ranks (dp2, mp2 with sequence parallelism, pp2 with 4
+    micro-batches, sharding2 under ZeRO 1, 2, 3 and 3 with offload) and,
+    at the same time, one of 4 (dp2.mp2, pp2.mp2 with sequence
+    parallelism, mp2.sharding2.z2), at 48's width in f32 from 48's
+    initial weights at attention dropout 0, 2 steps each. Against 48's
+    reference pass (`ref`): each factorization's losses within the
+    sweep's rtol (2e-4; 1e-3 with pp), and each `_hybrid_probe()`
+    parameter's change over the steps, gathered back afterwards, within
+    `HYBRID_DELTA_TOL` of the largest element of the reference's
+    change, or within `HYBRID_DELTA_ULPS` float32 spacings at the
+    parameter's largest magnitude; every rank's B1-B3 launches exactly
+    the derived
+    count (8 a step, 16 with pp2's 4 micro-batches on 4 layers). Prints
+    the bytes a step each rank staged through the host (the price of
+    gloo on one card, not a figure of NCCL)."""
+    import numpy as np
+
+    report = {}
+    totals = {"B1": 0, "B2": 0, "B3": 0}
+    # both spawns at once: their ranks wait mostly on gloo's host copies
+    t0 = time.monotonic()
+    procs = {world: _start_ranks(world, init_dir, configs, tmp, device)
+             for world, configs in MULTIRANK.items()}
+    results = {world: _join_ranks(world, ps, tmp, 600)
+               for world, ps in procs.items()}
+    print(json.dumps({"phase": 49, "wall_s": time.monotonic() - t0}),
+          flush=True)
+    for world, configs in MULTIRANK.items():
+        res = results[world]
+        for name, dp, mp, pp, sh, zero, off, rtol in configs:
+            legs = [r[name] for r in res]
+            got = legs[0]["losses"]
+            for leg in legs[1:]:
+                _check(leg["losses"] == got,
+                       f"{name}: ranks disagree {[l['losses'] for l in legs]}")
+            want_losses = ref["losses"]
+            err = max(abs(a - b) / abs(b) for a, b in zip(got, want_losses))
+            _check(err <= rtol, f"{name}: losses {got} vs {want_losses} "
+                   f"(rel {err:.3g} > {rtol})")
+            perr, ulps = {}, {}
+            for k, want in ref["probe"].items():
+                p0 = ref["probe0"][k]
+                dw = want - p0
+                off = float(np.max(np.abs(legs[0]["probe"][k] - p0 - dw)))
+                perr[k] = off / max(float(np.max(np.abs(dw))), 1e-30)
+                ulps[k] = off / float(np.spacing(max(
+                    np.max(np.abs(p0)), np.max(np.abs(want)))))
+            bad = {k: (perr[k], ulps[k]) for k in perr
+                   if perr[k] > HYBRID_DELTA_TOL and
+                   ulps[k] > HYBRID_DELTA_ULPS}
+            _check(not bad, f"{name}: parameters changed off 48's change "
+                   f"by (share of its largest element, float32 spacings) "
+                   f"{bad} (> {HYBRID_DELTA_TOL}, {HYBRID_DELTA_ULPS})")
+            worst = max(perr, key=perr.get)
+            for leg in legs:
+                for k in totals:
+                    totals[k] += leg["launches"][k]
+            report[name] = {
+                "world": world, "losses": got, "max_rel_loss_err": err,
+                "probe_delta_err": perr[worst], "probe_delta_worst": worst,
+                "probe_delta_ulps": ulps[worst],
+                "probe_delta_max_ulps": max(ulps.values()),
+                "step_ms": [leg["step_ms"] for leg in legs],
+                "setup_s": max(leg["setup_s"] for leg in legs),
+                "launches_per_rank": legs[0]["launches"],
+                "staged_bytes_per_step_per_rank":
+                    [leg["staged_bytes_per_step"] for leg in legs],
+                "peak_mem_bytes_per_rank":
+                    [leg["peak_mem_bytes"] for leg in legs]}
+            print(json.dumps({"phase": 49, "config": name, "card": card,
+                              **report[name]}), flush=True)
+    return report, totals
+
+
 def main():
     try:
         import torch
@@ -6100,6 +6730,34 @@ def main():
     rows["B9"]["launches"] += ernie_amp["fp16_o1_lowp_int8"]["B9"]
     rows["B10"]["amp_launches"] = {"resnet_46": resnet_amp}
     rows["B10"]["launches"] += resnet_amp
+    # distributed training (phases 47-49): the collectives over NCCL at
+    # world size 1, the hybrid GPT at world size 1 (flag off, int8, fp8),
+    # then 2 and 4 gloo ranks on this card against 48's trajectory
+    dist_tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        timed("collectives_47", phase_collectives, card,
+              str(Path(dist_tmp) / "store1"))
+        init_dir = Path(dist_tmp) / "init"
+        init_dir.mkdir()
+        hybrid, ref, hybrid_counts, hybrid_b9 = timed(
+            "hybrid_gpt_48", phase_hybrid_gpt, card, str(init_dir))
+        rows["B9"]["hybrid_48_fp8_max_abs_err"] = timed(
+            "hybrid_b9_48", phase_hybrid_b9, hybrid_b9)
+        _, multirank = timed("multirank_49", phase_multirank, card,
+                             str(init_dir), ref, dist_tmp)
+    finally:
+        # the NCCL world first: its watchdog reads the store in dist_tmp
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(dist_tmp, ignore_errors=True)
+    for key in ("B1", "B2", "B3", "B9"):
+        rows[key]["hybrid_48_launches"] = hybrid_counts[key]
+        rows[key]["launches"] += hybrid_counts[key]
+    for key in ("B1", "B2", "B3"):
+        rows[key]["multirank_49_launches"] = multirank[key]
+        rows[key]["launches"] += multirank[key]
     for key, row in rows.items():
         _check(row["launches"] > 0, f"{key} never ran on the path")
     print(json.dumps({"total_s": time.monotonic() - t_start}), flush=True)

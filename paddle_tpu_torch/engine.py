@@ -58,7 +58,20 @@ wall time, the guard's counter, the pre-clip global gradient norm under
 ``FLAGS_record_grad_norm`` (``GRAD_NORM_KEY``, a device scalar in
 ``state.buffers``, latched at construction) and, on a card, the bytes
 in use under ``FLAGS_flight_record_memory``; the device values stay
-tensors until a dump. Meshes, ZeRO and buffer donation are not ported.
+tensors until a dump. Buffer donation is not ported.
+
+``mesh`` (``hcg.get_mesh()`` of the hybrid group `fleet.init` built)
+trains a model built under that group, as the reference's meshed step
+does: `train_batch` takes the GLOBAL batch and, with ``batch_spec``
+naming "dp" (``"dp"`` or ``("dp",)``), each rank its dp
+slice of it; after the backward the gradients are synchronised and
+the update runs under ZeRO ``zero_stage`` over ``sharding_axis``
+("sharding"), with ``offload`` keeping the optimizer state in pinned
+host memory (`distributed.sharding`); the loss returned is the mean
+over the global batch, a masked loss's too (`sharding.global_batch`).
+Under a mesh, loss scaling, the anomaly guard,
+gradient clipping and ``comm_dtype`` (the fp16_allreduce strategy) wait
+in ROADMAP queue A item 4 and raise.
 
 ``engine.state`` exposes the trainable parameters (the layer's own,
 updated in place) and the optimizer state under the reference's names,
@@ -161,6 +174,43 @@ def make_eval_step(layer):
     return eval_fn
 
 
+def _mesh_group(mesh, comm_dtype, loss_scale, anomaly_guard, grad_clip):
+    """The hybrid group behind `mesh`; raises on what a meshed engine
+    does not run yet."""
+    from .distributed.topology import get_hybrid_communicate_group
+
+    hcg = get_hybrid_communicate_group()
+    if hcg is None:
+        raise ValueError("Engine(mesh=...) needs the hybrid group of "
+                         "fleet.init")
+    if hcg.get_pipe_parallel_world_size() > 1:
+        raise ValueError("pp > 1 trains through distributed.hybrid."
+                         "make_gpt_hybrid_engine, not Engine")
+    waiting = {"comm_dtype (the fp16_allreduce strategy)": comm_dtype,
+               "loss_scale": loss_scale, "anomaly_guard": anomaly_guard,
+               "gradient clipping": grad_clip}
+    for what, value in waiting.items():
+        if value not in (None, False):
+            raise NotImplementedError(
+                f"Engine(mesh=...) with {what} waits in ROADMAP queue A "
+                "item 4")
+    from .distributed.sharding import check_waiting_flags
+
+    check_waiting_flags()
+    return hcg
+
+
+def _dp_sliced(batch_spec):
+    """Whether `batch_spec` ("dp" or a spec whose first entry is "dp")
+    shards the batch over dp; None replicates it."""
+    spec = batch_spec[0] if isinstance(batch_spec, (tuple, list)) and \
+        batch_spec else batch_spec
+    if spec in (None, "dp"):
+        return spec == "dp"
+    raise NotImplementedError(
+        f"batch_spec {batch_spec!r}: only the batch over 'dp' is ported")
+
+
 class TrainState:
     def __init__(self, params, opt_state, buffers, step=0):
         self.params = params
@@ -179,7 +229,26 @@ class Engine:
 
     def __init__(self, layer, optimizer, loss_fn, grad_clip=None,
                  device=None, seed=None, loss_scale=None,
-                 anomaly_guard=False, comm_dtype=None):
+                 anomaly_guard=False, comm_dtype=None, mesh=None,
+                 batch_spec=None, zero_stage=0, sharding_axis=None,
+                 offload=False):
+        self.mesh = mesh
+        self.hcg = None
+        if mesh is not None:
+            self.hcg = _mesh_group(mesh, comm_dtype=comm_dtype,
+                                   loss_scale=loss_scale,
+                                   anomaly_guard=anomaly_guard,
+                                   grad_clip=grad_clip
+                                   if grad_clip is not None
+                                   else optimizer._grad_clip)
+            if device is None:
+                from .distributed.parallel import device as _rank_device
+
+                device = _rank_device()
+        self.batch_spec = batch_spec
+        self.zero_stage = zero_stage
+        self.sharding_axis = sharding_axis
+        self.offload = offload
         self.device = resolve_device(device)
         self.comm_dtype = comm_dtype
         self.layer = layer.to(self.device)
@@ -195,10 +264,19 @@ class Engine:
         params = {k: p for k, p in named.items() if p.requires_grad}
         buffers = {k: p for k, p in named.items() if not p.requires_grad}
         buffers.update(layer.named_buffers())
-        self.state = TrainState(
-            params,
-            {k: optimizer._init_state(p) for k, p in params.items()},
-            buffers)
+        self._zero = None
+        if self.hcg is not None:
+            from .distributed.sharding import ZeroSharding
+
+            stage = zero_stage if sharding_axis == "sharding" else 0
+            self._zero = ZeroSharding(params, optimizer, self.hcg, stage,
+                                      offload)
+            self._dp_slice = _dp_sliced(batch_spec)
+            opt_state = self._zero.states
+        else:
+            opt_state = {k: optimizer._init_state(p)
+                         for k, p in params.items()}
+        self.state = TrainState(params, opt_state, buffers)
         self._metas = {k: optimizer._leaf_meta(p) for k, p in params.items()}
         if seed is None:
             seed = int(torch.randint(0, 2 ** 62, ()))
@@ -253,6 +331,15 @@ class Engine:
             t = t.long()
         return t.to(self.device)
 
+    def _rank_part(self, x):
+        """This rank's dp slice of a global batch leaf (the leaf itself
+        without a mesh or with a replicated batch)."""
+        if self.hcg is None or not self._dp_slice:
+            return x
+        from .distributed.sharding import dp_slice
+
+        return dp_slice(x, self.hcg)
+
     def train_batch(self, inputs, labels=()):
         """One step; returns the loss as a float32 0-dim device tensor
         (no host synchronisation, unless a guarded engine reads its
@@ -272,8 +359,10 @@ class Engine:
             batch = _faults.fault_point("train.batch",
                                         {"inputs": inputs, "labels": labels})
             sig = _observe.signature_of(batch)
-            inputs = [self._tensor(x) for x in batch["inputs"]]
-            labels = [self._tensor(x) for x in batch["labels"]]
+            inputs = [self._tensor(self._rank_part(x))
+                      for x in batch["inputs"]]
+            labels = [self._tensor(self._rank_part(x))
+                      for x in batch["labels"]]
         compiling = sig not in self._batch_sigs
         mem_key = (sig, _precision_key(amp_policy))
         measure = self.device.type == "cuda" and mem_key not in self._mem
@@ -316,6 +405,12 @@ class Engine:
         bufs = self.state.buffers
         model_bufs = {k: b for k, b in bufs.items() if k not in _RESERVED}
         keep = None
+        mesh_ctx = contextlib.nullcontext()
+        if self._zero is not None:
+            from .distributed.sharding import global_batch
+
+            self._zero.gather_params()
+            mesh_ctx = global_batch(self.hcg)
         if self.anomaly_guard:
             # the forward may update buffers in place (running stats)
             old_bufs = {k: b.clone() for k, b in model_bufs.items()}
@@ -330,7 +425,7 @@ class Engine:
                                  dtype=self.comm_dtype) \
             if self.comm_dtype is not None else contextlib.nullcontext()
         with _random.rng_scope(self.rng), amp_ctx, _lowp.engine_scope(), \
-                _lowp.scale_region(lowp_prev) as lowp_rec:
+                mesh_ctx, _lowp.scale_region(lowp_prev) as lowp_rec:
             loss = self.loss_fn(self.layer(*inputs), *labels).float()
             if lowp_rec is not None:
                 lowp_next = lowp_rec.updated()
@@ -346,6 +441,15 @@ class Engine:
                  for k, p in params.items()}
         for p in params.values():
             p.grad = None
+        if self._zero is not None:
+            from .distributed.sharding import global_mean
+
+            self._zero.update(grads, self.optimizer._lr_scalar(self.device),
+                              self._metas)
+            self.state.opt_state = self._zero.states    # offload moves it
+            if lowp_next is not None:
+                bufs[LOWP_SCALE_KEY] = lowp_next
+            return global_mean(loss.detach(), self.hcg)
         # finiteness of the RAW unscaled gradients, before decay and
         # clipping (a value clipper would map inf to finite values)
         if scale is not None:
@@ -394,7 +498,10 @@ class Engine:
     def sync_to_layer(self):
         """Make the layer current with the engine's state. The engine
         trains the layer's own parameters in place, so there is nothing
-        to copy."""
+        to copy, except under ZeRO-3, whose parameters rest as slices
+        between steps: they are all-gathered into the layer."""
+        if self._zero is not None:
+            self._zero.gather_params()
 
     def _resident_bytes(self):
         st = self.state

@@ -244,6 +244,11 @@ _DEFS = {
         "observe: include the device's bytes in use in each "
         "flight-recorder step record (torch.cuda.memory_allocated, a "
         "host counter read)"),
+    "FLAGS_mp_overlap": (
+        False, bool,
+        "distributed: the ring collective-matmul of ops/overlap.py; not "
+        "ported (ROADMAP queue A item 4): the meshed engines raise while "
+        "it is on"),
 }
 
 _values: dict = {}

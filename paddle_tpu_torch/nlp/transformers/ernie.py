@@ -1,8 +1,9 @@
 """ERNIE / BERT encoder family (counterpart of
 paddle_tpu/nlp/transformers/ernie.py).
 
-Single-device only: ``use_parallel=True`` raises until the distributed
-slice lands. ``recompute=True`` reruns each encoder block in the
+Single-device only: ``use_parallel=True`` raises (ERNIE's
+tensor-parallel layout and ``make_ernie_hybrid_engine`` wait in ROADMAP
+queue A item 4; GPT has it). ``recompute=True`` reruns each encoder block in the
 backward (`distributed.fleet.utils.recompute`, which replays the same
 dropout masks). Parameter names and layouts equal
 ``paddle_tpu.engine.state_values`` one to one, so weights cross between
@@ -182,8 +183,9 @@ class ErnieModel(nn.Layer):
         super().__init__()
         if config.use_parallel:
             raise NotImplementedError(
-                "use_parallel=True (tensor-parallel layers) is not ported "
-                "yet; build the config with use_parallel=False")
+                "ERNIE's use_parallel=True (with make_ernie_hybrid_engine) "
+                "waits in ROADMAP queue A item 4; build the config with "
+                "use_parallel=False")
         self.config = config
         self.embeddings = ErnieEmbeddings(config, generator)
         self.encoder = nn.LayerList(
@@ -281,7 +283,8 @@ class ErniePretrainingCriterion(nn.Layer):
         super().__init__()
         if config is not None and config.use_parallel:
             raise NotImplementedError(
-                "ParallelCrossEntropy (use_parallel=True) is not ported yet")
+                "ERNIE's use_parallel=True (ParallelCrossEntropy in its "
+                "criterion) waits in ROADMAP queue A item 4")
         self.ignore_index = ignore_index
 
     def forward(self, prediction_scores, seq_relationship_score,

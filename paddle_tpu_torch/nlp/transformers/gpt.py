@@ -1,13 +1,28 @@
 """GPT model family (counterpart of paddle_tpu/nlp/transformers/gpt.py).
 
-Single-device only in this slice: ``use_parallel=True`` (the tensor-
-parallel Column/RowParallelLinear layout) raises until the distributed
-slice lands. ``recompute=True`` runs each decoder block through
-`distributed.fleet.utils.recompute` in training (its policy from
-``FLAGS_remat_policy``); `GPTPretrainingCriterion` is the token-mean
-cross entropy with ``ignore_index`` and an optional loss mask. Parameter names and layouts equal
+``use_parallel=True`` (the reference's default) builds the Megatron
+layout of `distributed.fleet.meta_parallel`: q / k / v and fc1 as
+`ColumnParallelLinear`, out_proj and fc2 as `RowParallelLinear`, the
+word table as `VocabParallelEmbedding` and the criterion on
+`ParallelCrossEntropy`, each reading the hybrid group's model-parallel
+degree when built (degree 1 without one: the dense layers, under the
+same names and shapes as ``use_parallel=False``). Under mp > 1 a rank
+holds ``num_heads / mp`` heads (its q / k / v columns are those heads
+of each of q, k and v, ``packed_heads``), the tied head's logits are
+the rank's slice of the vocabulary, and ``sequence_parallel=True``
+keeps ``s / mp`` positions a rank between the products: the embeddings'
+output is split over the sequence, each column-parallel layer gathers
+it, each row-parallel one reduce-scatters it, and the final norm's
+output is gathered again for the head. `GPTModel` then returns the
+rank's part of the sequence. ``recompute=True`` runs each decoder block
+through `distributed.fleet.utils.recompute` in training (its policy
+from ``FLAGS_remat_policy``); `GPTPretrainingCriterion` is the
+token-mean cross entropy with ``ignore_index`` and an optional loss
+mask. Parameter names and (at degree 1) layouts equal
 ``paddle_tpu.engine.state_values`` one to one, so weights cross between
-the packages as numpy arrays (see ``paddle_tpu_torch.weights``).
+the packages as numpy arrays (see ``paddle_tpu_torch.weights``, whose
+`shard_values` / `gather_values` map them onto a rank's shards and
+back).
 
 KV caches are updated IN PLACE (the reference returns new arrays): the
 static-shape cache of `generate` via a slice assignment, the serving
@@ -20,7 +35,9 @@ from __future__ import annotations
 import torch
 
 from ... import amp, nn, resolve_device
+from ...distributed.fleet.meta_parallel import mp_layers as mpl
 from ...distributed.fleet.utils.recompute import recompute
+from ...distributed.sharding import batch_weight
 from ...nn import functional as F
 
 __all__ = ["GPTConfig", "gpt_config", "GPTModel", "GPTForPretraining",
@@ -93,23 +110,42 @@ def _paged_rows(pos, tables, s_new, bs, num_blocks):
     return t_idx, blk, off, last[flat] - 1
 
 
+def _seq_parallel(config):
+    """Sequence parallelism is on: asked for, under mp > 1."""
+    return bool(config.use_parallel and config.sequence_parallel and
+                mpl.mp_group_of()[2] > 1)
+
+
 class GPTAttention(nn.Layer):
     def __init__(self, config: GPTConfig, generator=None):
         super().__init__()
         h, nh = config.hidden_size, config.num_heads
-        self.num_heads = nh
         self.head_dim = h // nh
         self.attn_dropout = config.attn_dropout
         init = nn.initializer.Normal(std=config.initializer_range)
-        self.qkv_proj = nn.Linear(h, 3 * h, weight_attr=init,
-                                  generator=generator)
-        self.out_proj = nn.Linear(h, h, weight_attr=init,
-                                  generator=generator)
+        if config.use_parallel:
+            sp = config.sequence_parallel
+            self.qkv_proj = mpl.ColumnParallelLinear(
+                h, 3 * h, weight_attr=init, gather_output=False,
+                sequence_parallel=sp, packed_heads=(3, nh),
+                generator=generator)
+            self.out_proj = mpl.RowParallelLinear(
+                h, h, weight_attr=init, input_is_parallel=True,
+                sequence_parallel=sp, generator=generator)
+            nh //= self.qkv_proj.degree
+        else:
+            self.qkv_proj = nn.Linear(h, 3 * h, weight_attr=init,
+                                      generator=generator)
+            self.out_proj = nn.Linear(h, h, weight_attr=init,
+                                      generator=generator)
+        self.num_heads = nh     # this rank's heads
 
     def forward(self, x, cache=None):
-        b, s, h = x.shape
         # each Tensor method casts under the reference's op name (O2)
         (qkv,) = amp.cast("reshape", self.qkv_proj(x))
+        # the sequence is whole here (gathered under sequence parallelism)
+        b, s = qkv.shape[:2]
+        h = self.num_heads * self.head_dim
         (qkv,) = amp.cast("transpose", qkv.reshape(
             b, s, 3, self.num_heads, self.head_dim))
         (qkv,) = amp.cast("unstack", qkv.permute(2, 0, 3, 1, 4))
@@ -193,8 +229,19 @@ class GPTMLP(nn.Layer):
         super().__init__()
         h, f = config.hidden_size, config.ffn_hidden_size
         init = nn.initializer.Normal(std=config.initializer_range)
-        self.fc1 = nn.Linear(h, f, weight_attr=init, generator=generator)
-        self.fc2 = nn.Linear(f, h, weight_attr=init, generator=generator)
+        if config.use_parallel:
+            sp = config.sequence_parallel
+            self.fc1 = mpl.ColumnParallelLinear(
+                h, f, weight_attr=init, gather_output=False,
+                sequence_parallel=sp, generator=generator)
+            self.fc2 = mpl.RowParallelLinear(
+                f, h, weight_attr=init, input_is_parallel=True,
+                sequence_parallel=sp, generator=generator)
+        else:
+            self.fc1 = nn.Linear(h, f, weight_attr=init,
+                                 generator=generator)
+            self.fc2 = nn.Linear(f, h, weight_attr=init,
+                                 generator=generator)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x), approximate=True))
@@ -212,6 +259,11 @@ class GPTDecoderLayer(nn.Layer):
                                   epsilon=config.layer_norm_eps)
         self.mlp = GPTMLP(config, generator)
         self.dropout = config.dropout
+        if _seq_parallel(config):
+            # each rank normalises only its part of the sequence
+            for norm in (self.norm1, self.norm2):
+                for p in norm.parameters():
+                    p.sequence_parallel = True
 
     def forward(self, x, cache=None):
         if cache is not None:
@@ -232,9 +284,14 @@ class GPTEmbeddings(nn.Layer):
     def __init__(self, config: GPTConfig, generator=None):
         super().__init__()
         init = nn.initializer.Normal(std=config.initializer_range)
-        self.word_embeddings = nn.Embedding(
-            config.vocab_size, config.hidden_size, weight_attr=init,
-            generator=generator)
+        if config.use_parallel:
+            self.word_embeddings = mpl.VocabParallelEmbedding(
+                config.vocab_size, config.hidden_size, weight_attr=init,
+                generator=generator)
+        else:
+            self.word_embeddings = nn.Embedding(
+                config.vocab_size, config.hidden_size, weight_attr=init,
+                generator=generator)
         self.position_embeddings = nn.Embedding(
             config.max_seq_len, config.hidden_size, weight_attr=init,
             generator=generator)
@@ -252,10 +309,6 @@ class GPTEmbeddings(nn.Layer):
 class GPTModel(nn.Layer):
     def __init__(self, config: GPTConfig, generator=None):
         super().__init__()
-        if config.use_parallel:
-            raise NotImplementedError(
-                "use_parallel=True (tensor-parallel layers) is not ported "
-                "yet; build the config with use_parallel=False")
         self.config = config
         self.embeddings = GPTEmbeddings(config, generator)
         self.layers = nn.LayerList(
@@ -263,9 +316,27 @@ class GPTModel(nn.Layer):
              for _ in range(config.num_layers)])
         self.final_norm = nn.LayerNorm(config.hidden_size,
                                        epsilon=config.layer_norm_eps)
+        self.mp_group = mpl.mp_group_of()[0] if config.use_parallel \
+            else None
+        self.sequence_parallel = _seq_parallel(config)
+        if self.sequence_parallel:
+            for p in self.final_norm.parameters():
+                p.sequence_parallel = True
+
+    def embed(self, input_ids, position_ids=None):
+        """The embeddings' output, this rank's part of the sequence under
+        sequence parallelism."""
+        x = self.embeddings(input_ids, position_ids)
+        if self.sequence_parallel:
+            x = mpl.scatter_seq(x, self.mp_group)
+        return x
 
     def forward(self, input_ids, position_ids=None, caches=None):
-        x = self.embeddings(input_ids, position_ids)
+        if caches is not None and self.sequence_parallel:
+            raise NotImplementedError(
+                "cached decoding under sequence parallelism (mesh-sharded "
+                "serving waits in ROADMAP queue A item 4)")
+        x = self.embed(input_ids, position_ids)
         if caches is not None:
             new_caches = []
             for layer, c in zip(self.layers, caches):
@@ -288,7 +359,7 @@ class GPTModel(nn.Layer):
         cfg = self.config
         hd = cfg.hidden_size // cfg.num_heads
         dev = self.final_norm.weight.device
-        shape = (batch_size, cfg.num_heads, max_len, hd)
+        shape = (batch_size, self.layers[0].attn.num_heads, max_len, hd)
         return [(torch.zeros(shape, dtype=dtype, device=dev),
                  torch.zeros(shape, dtype=dtype, device=dev), 0)
                 for _ in range(cfg.num_layers)]
@@ -320,7 +391,15 @@ class GPTForPretraining(nn.Layer):
         return self.logits(self.gpt(input_ids, position_ids))
 
     def logits(self, h):
+        """The tied head's logits of the final norm's output `h` (under
+        mp > 1 this rank's slice of the vocabulary, from the whole
+        sequence)."""
         if self.config.tie_word_embeddings:
+            group = self.gpt.mp_group
+            if self.gpt.sequence_parallel:
+                h = mpl.gather_seq(h, group)
+            elif group is not None:
+                h = mpl.copy_to_mp(h, group)
             # the reference's ``matmul_v2``, so O1 auto_cast casts it
             w = self.gpt.embeddings.word_embeddings.weight
             return F.matmul(h, w, transpose_y=True)
@@ -391,22 +470,28 @@ class GPTForPretraining(nn.Layer):
 class GPTPretrainingCriterion(nn.Layer):
     """The mean of the token cross entropies over every token (a token
     labelled `ignore_index` counts as 0), or, given ``loss_mask``, their
-    sum weighted by the mask over the mask's sum (at least 1)."""
+    sum weighted by the mask over the mask's sum (at least 1), that of
+    the global batch under a meshed engine
+    (`distributed.sharding.batch_weight`)."""
 
     def __init__(self, config: GPTConfig = None, ignore_index=-100):
         super().__init__()
-        if config is not None and config.use_parallel:
-            raise NotImplementedError(
-                "use_parallel=True (ParallelCrossEntropy) is not ported "
-                "yet; build the config with use_parallel=False")
+        use_parallel = config.use_parallel if config is not None else False
+        self.loss_fn = mpl.ParallelCrossEntropy(ignore_index=ignore_index) \
+            if use_parallel else None
         self.ignore_index = ignore_index
 
     def forward(self, logits, labels, loss_mask=None):
-        loss = F.cross_entropy(logits, labels, reduction="none",
-                               ignore_index=self.ignore_index)
+        if self.loss_fn is not None:
+            loss = self.loss_fn(logits, labels).squeeze(-1)
+        else:
+            loss = F.cross_entropy(logits, labels, reduction="none",
+                                   ignore_index=self.ignore_index)
         if loss_mask is not None:
+            # under a meshed engine the mask's sum is the global batch's
             m = loss_mask.reshape(loss.shape).float()
-            return (loss * m).sum() / m.sum().clamp_min(1.0)
+            total, parts = batch_weight(m.sum())
+            return (loss * m).sum() * parts / total.clamp_min(1.0)
         return loss.mean()
 
 

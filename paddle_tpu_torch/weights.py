@@ -10,7 +10,13 @@ a `Transformer`, the RNN family under ``weight_ih_l{k}[_reverse]`` ...,
 ``weight_g`` / ``weight_v`` and a spectral-normed one's ``weight_orig``
 / ``weight_u`` / ``weight_v``), and the engine state that a resumed
 trajectory needs: the optimizer's moments and the low-precision
-ScaleState."""
+ScaleState.
+
+`shard_values` / `gather_values` carry weights across to a model built
+under a hybrid group: the reference's full arrays onto this rank's
+model-parallel shards, by each parameter's ``split_axis`` /
+``packed_heads`` marks (`distributed.fleet.meta_parallel.mp_layers`),
+and a sharded model back into full arrays."""
 
 from __future__ import annotations
 
@@ -23,7 +29,8 @@ from . import resolve_device
 from .quantization import dequantize_state, is_quantized_state
 
 __all__ = ["from_paddle_tpu_values", "from_paddle_tpu_opt_state",
-           "from_paddle_tpu_scale_state", "to_numpy_values"]
+           "from_paddle_tpu_scale_state", "to_numpy_values",
+           "shard_values", "gather_values", "shard_array", "join_arrays"]
 
 
 def from_paddle_tpu_values(values, model, device=None):
@@ -121,3 +128,113 @@ def from_paddle_tpu_scale_state(scale_state, engine):
                              f"!= {tuple(ref.shape)}")
         new[name] = t.to(device=ref.device, dtype=ref.dtype)
     engine.state.buffers[LOWP_SCALE_KEY] = ScaleState(**new)
+
+
+# -- sharded models ----------------------------------------------------------
+
+
+def shard_array(full, axis, rank, degree, packs=1):
+    """Rank `rank`'s piece of `full` split `degree` ways along `axis`.
+    With `packs` > 1 the axis is laid out as [packs, ...] and the rank
+    takes its piece of each pack (GPT's q / k / v: its heads of each)."""
+    a = np.moveaxis(np.asarray(full), axis, 0)
+    a = a.reshape((packs, degree, a.shape[0] // (packs * degree))
+                  + a.shape[1:])[:, rank]
+    return np.moveaxis(a.reshape((-1,) + a.shape[2:]), 0, axis)
+
+
+def join_arrays(pieces, axis, packs=1):
+    """The inverse of `shard_array`: the ranks' pieces, in rank order,
+    back into the full array."""
+    a = [np.moveaxis(np.asarray(p), axis, 0) for p in pieces]
+    per = a[0].shape[0] // packs
+    stacked = np.stack([x.reshape((packs, per) + x.shape[1:]) for x in a],
+                       axis=1)
+    return np.moveaxis(stacked.reshape((-1,) + a[0].shape[1:]), 0, axis)
+
+
+def _mp_of(hcg):
+    if hcg is None:
+        from .distributed.topology import get_hybrid_communicate_group
+
+        hcg = get_hybrid_communicate_group()
+    if hcg is None:
+        return 0, 1
+    return hcg.get_model_parallel_rank(), hcg.get_model_parallel_world_size()
+
+
+def _split_of(t):
+    packs = getattr(t, "packed_heads", None)
+    return getattr(t, "split_axis", None), packs[0] if packs else 1
+
+
+@torch.no_grad()
+def shard_values(values, model, hcg=None):
+    """Write the reference's full ``{name: array}`` into `model`, built
+    under the hybrid group `hcg` (default: the current one): each
+    parameter takes this rank's model-parallel piece (by its
+    ``split_axis`` / ``packed_heads``), the others the whole array.
+    Returns this rank's ``{name: array}``. Raises on missing or
+    unexpected names and on shape mismatches."""
+    rank, degree = _mp_of(hcg)
+    sd = model.state_dict(keep_vars=True)
+    if set(values) != set(sd):
+        raise KeyError(f"names differ: missing {sorted(set(sd) - set(values))}"
+                       f", unexpected {sorted(set(values) - set(sd))}")
+    local = OrderedDict()
+    for name, t in sd.items():
+        axis, packs = _split_of(t)
+        full = np.asarray(values[name])
+        a = full if axis is None else shard_array(full, axis, rank, degree,
+                                                  packs)
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"{name}: shard {a.shape} != parameter "
+                             f"{tuple(t.shape)}")
+        t.copy_(_tensor_of(a))
+        local[name] = a
+    return local
+
+
+def gather_values(model, hcg=None, names=None):
+    """The full ``{name: array}`` of a model sharded under the hybrid
+    group `hcg`, on every rank (a collective: every rank calls it). Each
+    name is taken from the ranks at dp 0 and sharding 0 that hold it (a
+    pipeline stage holds only its blocks; an emptied parameter is not
+    held) and joined over mp. A ZeRO-3 engine's parameters must be
+    gathered into the model first (``sync_to_layer``)."""
+    from .distributed.collective import all_gather_object
+    from .distributed.parallel import get_rank
+
+    if hcg is None:
+        from .distributed.topology import get_hybrid_communicate_group
+
+        hcg = get_hybrid_communicate_group()
+    sd = model.state_dict(keep_vars=True)
+    names = list(sd) if names is None else list(names)
+    mine = {}
+    for name in names:
+        t = sd[name]
+        if t.numel():
+            mine[name] = (t.detach().float().cpu().numpy()
+                          if t.dtype == torch.bfloat16
+                          else t.detach().cpu().numpy())
+    if hcg is None:
+        return OrderedDict((k, mine[k]) for k in names)
+    coord = hcg.rank_coord(get_rank())
+    got = all_gather_object([], (coord, mine))
+    out = OrderedDict()
+    for name in names:
+        axis, packs = _split_of(sd[name])
+        pieces = {}
+        for (dp, _pp, shard, mp), held in got:
+            if dp == 0 and shard == 0 and name in held:
+                pieces.setdefault(mp, held[name])
+        if not pieces:
+            raise KeyError(f"no rank holds {name}")
+        if axis is None:
+            out[name] = pieces[min(pieces)]
+        else:
+            out[name] = join_arrays([pieces[r] for r in sorted(pieces)],
+                                    axis, packs)
+    return out
+

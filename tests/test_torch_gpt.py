@@ -104,8 +104,17 @@ def test_weights_roundtrip_and_parallel_config_raises(pair):
     assert list(back) == list(vals)
     for k in vals:
         np.testing.assert_array_equal(back[k], vals[k])
+    # GPT's use_parallel=True builds at degree 1 (the dense layers under
+    # the same names); ERNIE's still waits and raises
+    par = tgpt.GPTForPretraining(
+        tgpt.GPTConfig(**dict(TINY, use_parallel=True)), device="cpu")
+    weights.from_paddle_tpu_values(vals, par)
+    ids = torch.arange(12).reshape(2, 6) % TINY["vocab_size"]
+    torch.testing.assert_close(par(ids), tm(ids), rtol=0, atol=0)
+    from paddle_tpu_torch.nlp.transformers import ernie as ternie
+    from torch_parity import ERNIE_TINY
     with pytest.raises(NotImplementedError, match="use_parallel"):
-        tgpt.GPTForPretraining(
-            tgpt.GPTConfig(**dict(TINY, use_parallel=True)), device="cpu")
+        ternie.ErnieModel(ternie.ErnieConfig(
+            **dict(ERNIE_TINY, use_parallel=True)))
     with pytest.raises(RuntimeError):
         weights.from_paddle_tpu_values({"nope": np.zeros(1)}, tm)

@@ -84,8 +84,23 @@ def test_criterion_matches_reference(case):
 
 
 def test_parallel_criterion_raises():
+    """The criterion of GPTConfig's default ``use_parallel=True`` builds
+    (ParallelCrossEntropy, degree 1 without a hybrid group) and gives the
+    plain criterion's loss, ignored labels included; ERNIE's parallel
+    criterion still waits and raises."""
+    par = tgpt.GPTPretrainingCriterion(tgpt.GPTConfig(**TINY_TRAIN))
+    plain = tgpt.GPTPretrainingCriterion(
+        tgpt.GPTConfig(**dict(TINY_TRAIN, use_parallel=False)))
+    gen = torch.Generator().manual_seed(0)
+    logits = torch.randn(2, 5, 128, generator=gen)
+    labels = torch.randint(0, 128, (2, 5), generator=gen)
+    labels[0, 1] = -100
+    torch.testing.assert_close(par(logits, labels), plain(logits, labels),
+                               rtol=0, atol=0)
+    from paddle_tpu_torch.nlp.transformers import ernie as ternie
     with pytest.raises(NotImplementedError):
-        tgpt.GPTPretrainingCriterion(tgpt.GPTConfig(**TINY_TRAIN))
+        ternie.ErniePretrainingCriterion(ternie.ErnieConfig(
+            vocab_size=97, use_parallel=True))
 
 
 def _runs(policy=None, recompute=False, steps=3):
