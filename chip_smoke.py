@@ -888,9 +888,10 @@ def _packed_qkv(b, h, s, d, dtype, gen):
     return qkv.permute(2, 0, 3, 1, 4).unbind(0)
 
 
-def _flash_vs_plain(q, k, v, do, causal, p, seed):
+def _flash_vs_plain(q, k, v, do, causal, p, seed, bh_offset=None):
     """B1-B3 through `flash_attention` (forward and backward) against
-    the plain versions on the same inputs; returns (kernel outputs,
+    the plain versions on the same inputs (the dropout hash's global
+    batch-head offset `bh_offset` on both); returns (kernel outputs,
     plain outputs) as (o, dq, dk, dv)."""
     import torch
 
@@ -898,14 +899,16 @@ def _flash_vs_plain(q, k, v, do, causal, p, seed):
 
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     o = fused_ops.flash_attention(*leaves, seed, is_causal=causal,
-                                  dropout_p=p)
+                                  dropout_p=p, bh_offset=bh_offset)
     o.backward(do)
     scale = 1.0 / q.shape[-1] ** 0.5
     to3 = fused_ops._to3
     args = [to3(t.detach()) for t in (q, k, v)]
-    o_p, lse_p = fused_ops._flash_fwd_plain(*args, seed, scale, causal, p)
+    heads = q.shape[1]
+    o_p, lse_p = fused_ops._flash_fwd_plain(*args, seed, scale, causal, p,
+                                            heads, bh_offset)
     grads_p = fused_ops._flash_bwd_plain(*args, o_p, lse_p, to3(do), seed,
-                                         scale, causal, p)
+                                         scale, causal, p, heads, bh_offset)
     torch.cuda.synchronize()
     got = [o, *(t.grad for t in leaves)]
     return ([g.reshape(w.shape).float() for g, w in
@@ -995,11 +998,21 @@ def phase_flash(card):
               ((2, 2, 21, 9, 128), True, 0.1, f16),
               ((b, h, s, s, d), False, 0.1, f16),
               ((GPT_BATCH, 12, GPT_SEQ, GPT_SEQ, 64), True, 0.1, f16)]
+    # the meshed engines' calls: the dropout hash at a global batch-head
+    # offset (rows 4-7 and heads 6-11 of 12: phase 51's dp2 x mp2
+    # slice, f32), and ragged slices in bf16 and f16
+    offset_cases = [((4, h // 2, s, s, d), False, 0.1, torch.float32,
+                     (4, h // 2, h)),
+                    ((2, 6, 70, 70, 64), False, 0.1, torch.bfloat16,
+                     (3, 6, 12)),
+                    ((2, 6, 70, 70, 64), True, 0.1, f16, (1, 0, 12))]
+    cases += offset_cases
     err16 = {"B1": 0.0, "B2": 0.0, "B3": 0.0}
     err_h = {"B1": 0.0, "B2": 0.0, "B3": 0.0}
     for case in cases:
         (cb, ch, sq, sk, cd), causal, p = case[:3]
         dtype = case[3] if len(case) > 3 else torch.float32
+        offset = case[4] if len(case) > 4 else None
         if sq == sk and sq in (s, GPT_SEQ):
             q, k, v = _packed_qkv(cb, ch, sq, cd, dtype, gen)
         else:
@@ -1007,7 +1020,7 @@ def phase_flash(card):
                 dtype).cuda() for n in (sq, sk, sk))
         do = torch.randn((cb, sq, ch, cd), generator=gen).to(
             dtype).cuda().transpose(1, 2)
-        got, want = _flash_vs_plain(q, k, v, do, causal, p, seed)
+        got, want = _flash_vs_plain(q, k, v, do, causal, p, seed, offset)
         tol_o, tol_g = (1e-5, 2e-4) if dtype == torch.float32 else \
             (2e-2, 2e-2)
         if dtype == f16:
@@ -1025,12 +1038,22 @@ def phase_flash(card):
                         B3=max(into["B3"], e[2], e[3]))
         print(json.dumps({"flash_check": [cb, ch, sq, sk, cd],
                           "dtype": str(dtype), "causal": causal,
-                          "dropout": p, "max_abs_err": e}), flush=True)
+                          "dropout": p, "bh_offset": offset,
+                          "max_abs_err": e}), flush=True)
         del q, k, v, do, got, want
     keep_k = fused_ops._keep_mask_kernel(seed, b * h, s, s, 0.1)
     keep_p = fused_ops._keep_mask(seed, b * h, s, s, 0.1)
     _check(torch.equal(keep_k, keep_p),
            "dropout mask of the kernels differs from the plain version's")
+    # at a global batch-head offset: rows 4-7, heads 6-11 of 12
+    part = (4, h // 2, h)
+    keep_k = fused_ops._keep_mask_kernel(seed, 4 * (h // 2), s, s, 0.1,
+                                         h // 2, part)
+    keep_p = fused_ops._keep_mask(seed, 4 * (h // 2), s, s, 0.1, h // 2,
+                                  part)
+    _check(torch.equal(keep_k, keep_p),
+           "dropout mask at a batch-head offset differs from the plain "
+           "version's")
     keep_rate = keep_p.float().mean().item()
     del keep_k, keep_p
     print(json.dumps({"flash_mask_bitwise": True, "keep_rate": keep_rate}),
@@ -5627,7 +5650,7 @@ class _DtypeRecorder:
 def _scale_rule_ok(before, after, cfg):
     """Whether one step's (scale, good, bad) transition is the
     reference's dynamic loss-scaling rule for a finite or a non-finite
-    step (`engine._update_scale`, the reference's in-graph rule)."""
+    step (`engine.update_loss_scale`, the reference's in-graph rule)."""
     s, g, b = before
     finite = (s * cfg["incr_ratio"], 0, 0) if g + 1 >= \
         cfg["incr_every_n_steps"] else (s, g + 1, 0)
@@ -6378,23 +6401,25 @@ def _rank_configs(rank, world, store, init_dir, configs, device):
     return out
 
 
-def _start_ranks(world, init_dir, configs, tmp, device):
-    """Start `_rank_main` on `world` processes; returns them."""
+def _start_ranks(world, init_dir, configs, tmp, device, target=None,
+                 tag=""):
+    """Start `target` (`_rank_main` by default) on `world` processes, a
+    store and result files under `tmp` named by `tag`; returns them."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
-    store = Path(tmp) / f"store{world}"
+    store = Path(tmp) / f"store{tag}{world}"
     procs = []
     for rank in range(world):
-        p = ctx.Process(target=_rank_main, args=(
+        p = ctx.Process(target=target or _rank_main, args=(
             rank, world, str(store), init_dir, configs,
-            str(Path(tmp) / f"rank{world}_{rank}.pkl"), device))
+            str(Path(tmp) / f"rank{tag}{world}_{rank}.pkl"), device))
         p.start()
         procs.append(p)
     return procs
 
 
-def _join_ranks(world, procs, tmp, timeout):
+def _join_ranks(world, procs, tmp, timeout, tag="", phase=49):
     """Wait for the processes of `_start_ranks` (killing any left after
     `timeout` s); their results by rank."""
     import pickle
@@ -6410,12 +6435,12 @@ def _join_ranks(world, procs, tmp, timeout):
                 p.join(10)
     results = []
     for rank in range(world):
-        path = Path(tmp) / f"rank{world}_{rank}.pkl"
-        _check(path.exists(), f"phase 49: rank {rank} of {world} left no "
-               f"result (exit {procs[rank].exitcode})")
+        path = Path(tmp) / f"rank{tag}{world}_{rank}.pkl"
+        _check(path.exists(), f"phase {phase}: rank {rank} of {world} left "
+               f"no result (exit {procs[rank].exitcode})")
         with open(path, "rb") as f:
             ok, value = pickle.load(f)
-        _check(ok, f"phase 49: rank {rank} of {world} failed:\n{value}")
+        _check(ok, f"phase {phase}: rank {rank} of {world} failed:\n{value}")
         results.append(value)
     return results
 
@@ -6495,6 +6520,773 @@ def phase_multirank(card, init_dir, ref, tmp, device="cuda:0"):
             print(json.dumps({"phase": 49, "config": name, "card": card,
                               **report[name]}), flush=True)
     return report, totals
+
+
+# -- ERNIE-1.0 pretraining across ranks (phases 50-51) -----------------------
+
+# phase 50: ERNIE-1.0 at bench.py's settings with use_parallel, through
+# make_ernie_hybrid_engine at world size 1 over NCCL (AdamW lr 1e-4 wd
+# 0.01, ClipGradByGlobalNorm(1.0), dynamic loss scaling, the guard)
+ERNIE50 = dict(ERNIE, use_parallel=True)
+ERNIE50_BATCHES = (32, 16)      # the largest that fits
+ERNIE50_LR, ERNIE50_CLIP = 1e-4, 1.0
+# the dropout-0 check against the single-card Engine: 2 steps in bf16
+# O1, the same kernels in the same order; the clip's global norm sums
+# its squares in another order, so step 2 may move by a few bf16
+# roundings of the activations
+ERNIE50_CHECK_RTOL = 1e-3
+# phase 51: ERNIE's widths at 2 layers, b8 x s512, f32, dropout and
+# attention dropout 0.1, each leg against the same engine at world size
+# 1; (vocab, hidden, layers, heads, ffn, seq, batch)
+ERNIE51 = dict(vocab_size=18000, hidden_size=768, num_layers=2,
+               num_heads=12, ffn_hidden_size=3072, max_seq_len=512,
+               batch=8, seq=512)
+ERNIE51_LR, ERNIE51_STEPS = 0.01, 2
+# the features legs: SGD with a global-norm clip that binds (Adam would
+# cancel a uniform clip factor), dynamic scaling that halves at one bad
+# step, the guard, an inf planted on the last rank at step 2
+ERNIE51_CLIP = 0.05
+ERNIE51_SCALE = dict(init_loss_scaling=2.0 ** 15, decr_every_n_nan_or_inf=1,
+                     incr_every_n_steps=1000)
+ERNIE51_PLANT = ("ernie.encoder.0.fc1.weight", 2)
+# (name, dp, mp, pp, sharding, zero stage, sequence parallel, kind):
+# kind "sgd" (losses within 2e-4, 1e-3 with pp, and the probe
+# parameters' changes), "features", "comm" (comm_dtype bfloat16, rtol
+# 2e-2), "lowp" (int8, rtol 2e-3, B9 launches, codes bit-equal), and
+# "hetero" (the sweep's GPT through PipelineEngine)
+ERNIE51_LEGS = {
+    2: (("dp2", 2, 1, 1, 1, 0, False, "sgd"),
+        ("mp2.seqpar", 1, 2, 1, 1, 0, True, "sgd"),
+        ("pp2", 1, 1, 2, 1, 0, False, "sgd"),
+        ("sharding2.z2", 1, 1, 1, 2, 2, False, "sgd"),
+        ("features.dp2", 2, 1, 1, 1, 0, False, "features"),
+        ("features.mp2", 1, 2, 1, 1, 0, False, "features"),
+        ("comm.dp2", 2, 1, 1, 1, 0, False, "comm"),
+        ("lowp.mp2", 1, 2, 1, 1, 0, False, "lowp"),
+        ("pp2.hetero", 1, 1, 2, 1, 0, False, "hetero")),
+    4: (("dp2.sharding2.z2", 2, 1, 1, 2, 2, False, "sgd"),
+        ("dp2.mp2.seqpar", 2, 2, 1, 1, 0, True, "sgd")),
+}
+ERNIE51_RTOL = {"sgd": 2e-4, "sgd.pp": 1e-3, "features": 2e-4,
+                "comm": 2e-2, "lowp": 2e-3, "hetero": 1e-3}
+# the probe parameters of the "sgd" legs (their changes against world
+# size 1's, as phase 49's): the packed q / k / v, a LayerNorm whose
+# gradient is summed over mp under sequence parallelism, fc2, the word
+# table (tied to the MLM head) and the MLM transform's LayerNorm
+ERNIE51_PROBE = ("ernie.encoder.0.self_attn.qkv_proj.weight",
+                 "ernie.encoder.0.norm1.weight",
+                 "ernie.encoder.1.fc2.weight",
+                 "ernie.embeddings.word_embeddings.weight",
+                 "cls.layer_norm.weight")
+# the sweep's GPT (__graft_entry__.SWEEP_CONFIGS' model) for pp2.hetero,
+# at hidden 128: its head dim 8 has no flash kernel (32 / 64 / 128), so
+# 4 heads of 32
+HETERO_GPT = dict(vocab_size=128, hidden_size=128, num_layers=4,
+                  num_heads=4, max_seq_len=32, dropout=0.0,
+                  attn_dropout=0.0, use_parallel=False)
+
+
+def _ernie51_cfg(sizes, kind, dropout=0.1, sp=False):
+    from paddle_tpu_torch.nlp.transformers import ErnieConfig
+
+    keys = ("vocab_size", "hidden_size", "num_layers", "num_heads",
+            "ffn_hidden_size", "max_seq_len")
+    return ErnieConfig(**{k: sizes[k] for k in keys}, dropout=dropout,
+                       attn_dropout=dropout, use_parallel=True,
+                       sequence_parallel=sp)
+
+
+def _ernie_hybrid(cfg, hcg, device, init, kind, pp=1, zero=0, **features):
+    """A hybrid ERNIE engine of `init`'s weights (this rank's shards)."""
+    from paddle_tpu_torch import clip, optimizer, weights
+    from paddle_tpu_torch.distributed.hybrid import make_ernie_hybrid_engine
+    from paddle_tpu_torch.nlp.transformers import (
+        ErnieForPretraining, ErniePretrainingCriterion,
+    )
+
+    model = ErnieForPretraining(cfg, device=device)
+    weights.shard_values(init, model, hcg)
+    crit = ErniePretrainingCriterion(cfg)
+    if kind == "adamw":
+        opt = optimizer.AdamW(
+            learning_rate=ERNIE50_LR, parameters=model.parameters(),
+            weight_decay=0.01,
+            grad_clip=clip.ClipGradByGlobalNorm(ERNIE50_CLIP))
+    else:
+        opt = optimizer.SGD(
+            learning_rate=ERNIE51_LR, parameters=model.parameters(),
+            grad_clip=clip.ClipGradByGlobalNorm(ERNIE51_CLIP)
+            if kind == "features" else None)
+    eng = make_ernie_hybrid_engine(
+        model, crit, opt, hcg, accumulate_steps=2 * pp if pp > 1 else 1,
+        zero_stage=zero, device=device, seed=0, **features)
+    return model, eng
+
+
+def _plant(model, rank, at_rank):
+    """An inf in `ERNIE51_PLANT`'s gradient on rank `at_rank` (every rank
+    when None) at its step."""
+    import torch
+
+    name, at = ERNIE51_PLANT
+    p = dict(model.named_parameters())[name]
+    seen = [0]
+
+    def hook(g):
+        seen[0] += 1
+        if at_rank in (None, rank) and seen[0] == at:
+            return torch.full_like(g, float("inf"))
+        return g
+
+    p.register_hook(hook)
+
+
+def _hetero_layer(num_stages, device, values=None):
+    """The sweep's GPT as the reference's heterogeneous PipelineLayer
+    (``__graft_entry__._run_hetero_config``): the shared embeddings, the
+    blocks, the final norm, the tied logits."""
+    import torch
+
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        PipelineLayer, SharedLayerDesc,
+    )
+    from paddle_tpu_torch.nlp.transformers import gpt as tgpt
+    from paddle_tpu_torch.nn import functional as F
+
+    cfg = tgpt.GPTConfig(**HETERO_GPT)
+    crit = tgpt.GPTPretrainingCriterion(cfg)
+    gen = torch.Generator().manual_seed(HYBRID_SEED)
+    descs = [SharedLayerDesc("embed", tgpt.GPTEmbeddings, None, "weight",
+                             cfg, gen)]
+    descs += [tgpt.GPTDecoderLayer(cfg, gen) for _ in range(cfg.num_layers)]
+    descs.append(nn.LayerNorm(cfg.hidden_size, epsilon=cfg.layer_norm_eps))
+    descs.append(SharedLayerDesc(
+        "embed", tgpt.GPTEmbeddings,
+        lambda base, x: F.matmul(x, base.word_embeddings.weight,
+                                 transpose_y=True), "weight", cfg, gen))
+    pl = PipelineLayer(descs, num_stages=num_stages,
+                       loss_fn=lambda lg, lb: crit(lg, lb)).to(device)
+    if values is not None:
+        pl.set_state_dict(values)
+    return pl
+
+
+def _hetero_run(hcg, device, pp, values, steps):
+    import warnings
+
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed.pp_engine import PipelineEngine
+
+    pl = _hetero_layer(pp, device, values)
+    opt = optimizer.SGD(0.05, parameters=pl.parameters())
+    eng = PipelineEngine(pl, opt, hcg, accumulate_steps=2 * pp,
+                         device=device)
+    ids, labels = _gpt_batch(HETERO_GPT["vocab_size"], 16, 16)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        losses = [float(eng.train_batch(ids, labels)) for _ in range(steps)]
+    return {"losses": losses, "schedule": eng.schedule,
+            "warnings": [str(w.message) for w in seen]}
+
+
+def _ernie51_leg(name, grid, kind, sizes, init, device, rank, world,
+                 hetero_init=None):
+    """One leg of phase 51 (world size 1: `grid` all ones) on this
+    rank: its losses and what its kind checks."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import engine as teng
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.distributed import sharding
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.ops import lowp
+
+    dp, mp, pp, sh, zero, sp = grid
+    hcg = _fleet_init(dp, mp, pp, sh, device=device)
+    ids, labels = _ernie_batch(sizes["vocab_size"], sizes["batch"],
+                               sizes["seq"], seed=1)
+    out = {}
+    if kind == "hetero":
+        out.update(_hetero_run(hcg, device, pp, hetero_init, ERNIE51_STEPS))
+        return out
+    cfg = _ernie51_cfg(sizes, kind, sp=sp)
+    features, flags = {}, {}
+    if kind == "features":
+        features = dict(loss_scale=ERNIE51_SCALE, anomaly_guard=True)
+        flags = {"FLAGS_record_grad_norm": True}
+    elif kind == "comm":
+        features = dict(comm_dtype="bfloat16")
+    elif kind == "lowp":
+        flags = {"FLAGS_lowp_matmul": "int8"}
+    set_flags(flags)
+    reduced, real_ar = [], sharding.all_reduce
+
+    def spy(t, *a, **k):
+        reduced.append(str(t.dtype))
+        return real_ar(t, *a, **k)
+
+    try:
+        model, eng = _ernie_hybrid(cfg, hcg, device, init, kind, pp, zero,
+                                   **features)
+        if kind == "features":
+            _plant(model, rank, world - 1 if world > 1 else None)
+        _zero_flash()
+        lowp.scaled_matmul.launches = 0
+        sharding.all_reduce = spy
+        rows = []
+        for _ in range(ERNIE51_STEPS + (kind == "features")):
+            loss = float(eng.train_batch(ids, labels))
+            row = [loss]
+            if kind == "features":
+                row += [float(eng.buffers[k]) for k in (
+                    teng.LOSS_SCALE_KEY, teng.GOOD_STEPS_KEY,
+                    teng.BAD_STEPS_KEY, teng.ANOMALY_BAD_STEPS_KEY,
+                    teng.GRAD_NORM_KEY)]
+            rows.append(row)
+        sharding.all_reduce = real_ar
+        out["rows"] = rows
+        out["launches"] = dict(_flash_counts(),
+                               B9=lowp.scaled_matmul.launches)
+        out["comm_dtypes"] = sorted(set(reduced))
+        if kind == "sgd":
+            eng.sync_to_layer()
+            out["probe"] = weights.gather_values(model, hcg, ERNIE51_PROBE)
+        if kind == "lowp" and world > 1:
+            out["codes"] = _lowp_codes(cfg, hcg, device, init)
+    finally:
+        sharding.all_reduce = real_ar
+        set_flags({k: False if k == "FLAGS_record_grad_norm" else "off"
+                   for k in flags})
+    del eng, model
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _lowp_codes(cfg, hcg, device, init):
+    """Block 0's fc1 (column-parallel) and fc2 (row-parallel) at mp
+    under int8 on this rank's shards of `init`, against the single
+    rank's product of the whole weights on this rank: the scales B9
+    took equal the whole tensors', bit for bit, and so do the int8
+    codes of this rank's shards; the column-parallel output is the
+    slice of the whole product, bit for bit. Returns the largest
+    difference of the row-parallel output and the checks' verdicts
+    (B9 launches made here for the comparison are taken back out of the
+    count)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as mpp
+    from paddle_tpu_torch.ops import lowp
+
+    before = lowp.scaled_matmul.launches
+    h, f = cfg.hidden_size, cfg.ffn_hidden_size
+    w1 = np.asarray(init["ernie.encoder.0.fc1.weight"])
+    w2 = np.asarray(init["ernie.encoder.0.fc2.weight"])
+    col = mpp.ColumnParallelLinear(h, f, gather_output=False,
+                                   has_bias=False).to(device)
+    row = mpp.RowParallelLinear(f, h, input_is_parallel=True,
+                                has_bias=False).to(device)
+    weights.shard_values({"weight": w1}, col, hcg)
+    weights.shard_values({"weight": w2}, row, hcg)
+    x = torch.randn((4, 64, h), generator=torch.Generator().manual_seed(3)
+                    ).to(device)
+    calls, real = [], lowp.scaled_matmul
+
+    def rec(a, b, a_scale=None, b_scale=None, **kw):
+        calls.append((a, b, a_scale, b_scale))
+        return real(a, b, a_scale, b_scale, **kw)
+
+    rec.launches = 0        # the wrapper counts on the name it calls
+    lowp.scaled_matmul = rec
+    try:
+        with torch.no_grad():
+            hc = col(x)
+            y = row(hc)
+    finally:
+        lowp.scaled_matmul = real
+    mp, r = hcg.get_model_parallel_world_size(), \
+        hcg.get_model_parallel_rank()
+    tw1 = torch.as_tensor(w1, device=device)
+    tw2 = torch.as_tensor(w2, device=device)
+    full_h = lowp.scaled_matmul(x, tw1, qdtype="int8")
+    full_y = lowp.scaled_matmul(full_h, tw2, qdtype="int8")
+    n, k = f // mp, f // mp
+    q = lowp.quant_int8
+    (ca, cb, csa, csb), (ra, rb, rsa, rsb) = calls
+    checks = {
+        "col_scales": bool(torch.equal(csa, lowp.amax_of(x)) and
+                           torch.equal(csb, lowp.amax_of(tw1))),
+        "row_scales": bool(torch.equal(rsa, lowp.amax_of(full_h)) and
+                           torch.equal(rsb, lowp.amax_of(tw2))),
+        "col_codes": bool(torch.equal(q(cb, csb),
+                                      q(tw1, csb)[:, r * n:(r + 1) * n])),
+        "row_codes": bool(torch.equal(q(ra, rsa),
+                                      q(full_h, rsa)[..., r * k:(r + 1) * k])
+                          and torch.equal(q(rb, rsb),
+                                          q(tw2, rsb)[r * k:(r + 1) * k])),
+        "col_out": bool(torch.equal(hc, full_h[..., r * n:(r + 1) * n])),
+    }
+    err = float((y - full_y).abs().max() / full_y.abs().max())
+    lowp.scaled_matmul.launches = before
+    return {"checks": checks, "row_rel_err": err}
+
+
+def _ernie51_rank(rank, world, store, init_dir, legs, out_path, device):
+    """One rank of phase 51 (a process of its own): gloo on `device`,
+    each of `legs` = (legs, sizes, faults) for every fault of `faults`
+    (None: as it is; "clip_sum": the global norm without its sums over
+    the grid; "local_dropout": dropout masks at rank-local offsets, the
+    planted faults of the rehearsal)."""
+    import pickle
+    import traceback
+
+    try:
+        result = (True, _ernie51_legs(rank, world, store, init_dir, legs,
+                                      device))
+    except Exception:
+        result = (False, traceback.format_exc())
+    with open(out_path, "wb") as f:
+        pickle.dump(result, f)
+
+
+def _fault(name):
+    """Plant a fault of the rehearsal; returns its undo."""
+    from paddle_tpu_torch.distributed import sharding
+    from paddle_tpu_torch.framework import random as trandom
+
+    if name == "clip_sum":
+        real = sharding.MeshNorm.total_sq
+
+        def local(self, sq):
+            import torch
+
+            parts = [sq[k].float() for k in sq]
+            return torch.stack(parts).sum()
+
+        sharding.MeshNorm.total_sq = local
+        return lambda: setattr(sharding.MeshNorm, "total_sq", real)
+    if name == "local_dropout":
+        real = trandom.DropoutLayout.__init__
+
+        def local(self, step_seed, **kw):
+            real(self, step_seed, **dict(kw, row0=0, mp_rank=0))
+
+        trandom.DropoutLayout.__init__ = local
+        return lambda: setattr(trandom.DropoutLayout, "__init__", real)
+    return lambda: None
+
+
+def _ernie51_legs(rank, world, store, init_dir, legs, device):
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed import parallel
+    from paddle_tpu_torch.distributed.topology import (
+        set_hybrid_communicate_group,
+    )
+
+    legs, sizes, faults = legs
+    parallel.init_parallel_env(backend="gloo", device=device,
+                               init_method=f"file://{store}", rank=rank,
+                               world_size=world)
+    if torch.device(device).type != "cuda":
+        torch.set_num_threads(1)
+    init = {p.stem: np.load(p) for p in (Path(init_dir) / "ernie").glob(
+        "*.npy")}
+    hetero = {p.stem: torch.as_tensor(np.load(p)) for p in
+              (Path(init_dir) / "hetero").glob("*.npy")}
+    out = {}
+    for fault in faults:
+        undo = _fault(fault)
+        try:
+            for name, dp, mp, pp, sh, zero, sp, kind in legs:
+                t0 = time.perf_counter()
+                res = _ernie51_leg(name, (dp, mp, pp, sh, zero, sp), kind,
+                                   sizes, init, device, rank, world, hetero)
+                res["wall_s"] = time.perf_counter() - t0
+                out[(fault, name)] = res
+                set_hybrid_communicate_group(None)
+        finally:
+            undo()
+    return out
+
+
+def phase_ernie_hybrid(card, device="cuda:0", n=8, sizes=None):
+    """Phase 50: ERNIE-1.0 at full width through
+    `make_ernie_hybrid_engine` at world size 1 (`fleet.init` over the
+    open NCCL world): vocab 18000, hidden 768, 12 layers, 12 heads, seq
+    512, dropout and attention dropout 0.1, ``use_parallel=True`` (the
+    fused LM-head loss off, as the reference's predicate has it), bf16
+    O1, AdamW lr 1e-4 wd 0.01 with ClipGradByGlobalNorm(1.0), dynamic
+    loss scaling and the anomaly guard, batch 32 (16 if 32 does not
+    fit), random weights from seed 0. First the check: at dropout 0 and
+    without scaling, 2 steps of this engine against the single-card
+    `Engine` on the same weights (losses within `ERNIE50_CHECK_RTOL`).
+    Then 2 warm-up steps and `n` timed ones (B1-B3 counted from 0 just
+    before them: 12 each a step), step p50, tokens/s, peak memory, the
+    guard's counter 0 and the scale finite, a profile (the device's
+    idle share) and one call of the plain hidden-dropout hash at the
+    block output's shape, timed with CUDA events. `sizes` shrinks the
+    model for a CPU rehearsal (no launches, profile or timing there).
+    Returns (report, B1-B3 launches)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import amp, clip, optimizer
+    from paddle_tpu_torch.engine import (
+        ANOMALY_BAD_STEPS_KEY, LOSS_SCALE_KEY, Engine,
+    )
+    from paddle_tpu_torch.framework import random as trandom
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.nlp.transformers import (
+        ErnieConfig, ErnieForPretraining, ErniePretrainingCriterion,
+    )
+    from paddle_tpu_torch.ops import fused_ops
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    base = dict(ERNIE50, **(sizes or {}))
+    batches = (sizes or {}).get("batches", ERNIE50_BATCHES)
+    seq = base["max_seq_len"]
+    base.pop("batches", None)
+    hcg = _fleet_init(device=device)
+    set_flags({"FLAGS_use_fused_lm_loss": False})
+    L = base["num_layers"]
+
+    def bf16():
+        return amp.auto_cast(enable=True, dtype="bfloat16")
+
+    # the check at dropout 0, no scaling: hybrid engine vs Engine
+    cfg0 = ErnieConfig(**dict(base, dropout=0.0, attn_dropout=0.0))
+    model = ErnieForPretraining(cfg0, device=device,
+                                generator=torch.Generator().manual_seed(0))
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    ids, labels = _ernie_batch(base["vocab_size"], batches[-1], seq, seed=2)
+    from paddle_tpu_torch.distributed.hybrid import make_ernie_hybrid_engine
+
+    def adamw(m):
+        return optimizer.AdamW(
+            learning_rate=ERNIE50_LR, parameters=m.parameters(),
+            weight_decay=0.01,
+            grad_clip=clip.ClipGradByGlobalNorm(ERNIE50_CLIP))
+
+    crit = ErniePretrainingCriterion(cfg0)
+    eng = make_ernie_hybrid_engine(model, crit, adamw(model), hcg,
+                                   device=device, seed=0)
+    with bf16():
+        hybrid = [float(eng.train_batch(ids, labels)) for _ in range(2)]
+    del eng
+    model.set_state_dict(init)
+    eng = Engine(model, adamw(model), lambda out, y: crit(out[0], out[1], y),
+                 device=device, seed=0)
+    with bf16():
+        single = [float(eng.train_batch(ids, labels)) for _ in range(2)]
+    del eng, model, init
+    if on_card:
+        torch.cuda.empty_cache()
+    check_err = max(abs(a - b) / abs(b) for a, b in zip(hybrid, single))
+    _check(check_err <= ERNIE50_CHECK_RTOL,
+           f"phase 50: the hybrid engine {hybrid} against the single-card "
+           f"Engine {single} (rel {check_err:.3g} > {ERNIE50_CHECK_RTOL})")
+
+    cfg = ErnieConfig(**base)
+    out = None
+    for batch in batches:
+        model = ErnieForPretraining(
+            cfg, device=device, generator=torch.Generator().manual_seed(0))
+        eng = make_ernie_hybrid_engine(
+            model, ErniePretrainingCriterion(cfg), adamw(model), hcg,
+            device=device, seed=0, loss_scale="dynamic", anomaly_guard=True)
+        ids, labels = _ernie_batch(base["vocab_size"], batch, seq)
+        try:
+            with bf16():
+                losses = [float(eng.train_batch(ids, labels))
+                          for _ in range(2)]
+            break
+        except torch.cuda.OutOfMemoryError:
+            del eng, model
+            torch.cuda.empty_cache()
+            if batch == batches[-1]:
+                raise
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    _zero_flash()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        with bf16():
+            loss = eng.train_batch(ids, labels)
+        sync()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = _flash_counts()
+    per_step = L if on_card else 0
+    _check(launches == {k: per_step * n for k in ("B1", "B2", "B3")},
+           f"phase 50: launches over {n} steps {launches}, want {per_step} "
+           "each a step")
+    _check(all(np.isfinite(losses)), f"phase 50: losses {losses}")
+    bad = int(eng.buffers[ANOMALY_BAD_STEPS_KEY])
+    scale = float(eng.buffers[LOSS_SCALE_KEY])
+    _check(bad == 0 and np.isfinite(scale),
+           f"phase 50: guard counter {bad}, scale {scale}")
+    step_s = float(np.median(times))
+    rep = {"phase": 50, "card": card,
+           "train": f"ernie-1.0 use_parallel hybrid world 1 b{batch} "
+           f"s{seq} bf16 O1, dropout 0.1, AdamW + global-norm clip 1.0, "
+           "dynamic scaling, anomaly guard",
+           "batch": batch, "steps": n, "step_ms_p50": step_s * 1e3,
+           "step_ms_p90": float(np.percentile(times, 90)) * 1e3,
+           "tokens_per_s": batch * seq / step_s,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()
+           if on_card else None,
+           "losses": losses, "loss_scale": scale, "guard_bad_steps": bad,
+           "launches_per_step": {k: c / n for k, c in launches.items()},
+           "check_hybrid_losses": hybrid, "check_engine_losses": single,
+           "check_max_rel_err": check_err}
+    total = dict(launches)
+    if on_card:
+        def step():
+            with bf16():
+                return eng.train_batch(ids, labels)
+
+        _zero_flash()
+        prof = phase_train_profile(step, "ernie-1.0 hybrid world 1 (b"
+                                   f"{batch} s{seq} bf16, use_parallel)")
+        for k, c in _flash_counts().items():
+            total[k] += c
+        rep["device_busy_ms"] = prof["busy_ms"]
+        rep["device_idle_share"] = max(0.0, 1.0 - prof["busy_ms"] /
+                                       (step_s * 1e3))
+        # the plain hidden-dropout hash at a block output's shape
+        x = torch.empty((batch, seq, base["hidden_size"]), device=device)
+        lay = trandom.DropoutLayout(torch.tensor(7, device=device),
+                                    seq_len=seq)
+        thresh = fused_ops._thresh(0.1)
+        for _ in range(3):
+            lay.hidden_keep(x, thresh)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for _ in range(10):
+            lay.hidden_keep(x, thresh)
+        e1.record()
+        sync()
+        rep["hidden_dropout_hash_ms"] = e0.elapsed_time(e1) / 10
+        rep["hidden_dropout_sites_per_step"] = 1 + 2 * L
+    print(json.dumps(rep), flush=True)
+    del eng, model
+    if on_card:
+        torch.cuda.empty_cache()
+    set_flags({"FLAGS_use_fused_lm_loss": True})
+    return rep, total
+
+
+def phase_ernie_multirank(card, tmp, device="cuda:0", sizes=None,
+                          faults=(None,)):
+    """Phase 51: ERNIE's factorizations on 2 and 4 gloo ranks on the one
+    card (one process a rank on `device`, both spawns at once), at
+    ERNIE's widths with 2 layers (`ERNIE51`, b8 x s512, f32), dropout
+    and attention dropout 0.1, each leg of `ERNIE51_LEGS` against the
+    same engine at world size 1 from the same weights, run here first:
+    dp2, mp2 with sequence parallelism, pp2 (4 micro-batches),
+    sharding2 under ZeRO 2, dp2 x sharding2 under ZeRO 2 and dp2 x mp2
+    with sequence parallelism (SGD: losses within 2e-4, 1e-3 with pp,
+    and the `ERNIE51_PROBE` parameters' changes as phase 49's); at dp2
+    and mp2 the global-norm clip, dynamic scaling with an inf planted in
+    the last rank's gradient only at step 2 and the guard (every rank
+    skips that step: the scale, its counters, the guard's counter and
+    the recorded global norm equal world size 1's, where the same inf
+    lands on the one rank); comm_dtype bfloat16 at dp2 (losses within
+    2e-2, the dp reduction in bfloat16); FLAGS_lowp_matmul int8 at mp2
+    (losses within 2e-3, exactly 4 L + 3 B9 launches a step on each
+    rank, and block 0's column- and row-parallel products with scales
+    and codes bit-equal to one rank's); and the sweep's pp2.hetero
+    through `PipelineEngine` (its GPT at hidden 128, `HETERO_GPT`; the
+    "hetero" schedule, no warning, losses within 1e-3 of the
+    accumulation schedule at world size 1). Every
+    rank's B1-B3 launches are the derived count. With `faults` the ranks
+    also run every leg under each planted fault (`_fault`) and the
+    checks of each fault's legs run in turn: a CPU rehearsal shows that
+    they catch it. Returns (report, B1-B3 / B9 launches, {fault:
+    failure or None})."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed.topology import (
+        set_hybrid_communicate_group,
+    )
+
+    sizes = dict(ERNIE51, **(sizes or {}))
+    on_card = torch.device(device).type == "cuda"
+    init_dir = Path(tmp) / "init51"
+    (init_dir / "ernie").mkdir(parents=True)
+    (init_dir / "hetero").mkdir()
+    model_cfg = _ernie51_cfg(sizes, "sgd")
+    from paddle_tpu_torch.nlp.transformers import ErnieForPretraining
+
+    init = ErnieForPretraining(model_cfg, device="cpu",
+                               generator=torch.Generator().manual_seed(11))
+    init = {k: v.detach().numpy() for k, v in init.state_dict().items()}
+    for k, v in init.items():
+        np.save(init_dir / "ernie" / f"{k}.npy", v)
+    hetero = _hetero_layer(1, "cpu").state_dict()
+    for k, v in hetero.items():
+        np.save(init_dir / "hetero" / f"{k}.npy", v.detach().numpy())
+    hetero = {k: v.detach() for k, v in hetero.items()}
+    # world size 1: each kind once, here
+    kinds = {}
+    for legs in ERNIE51_LEGS.values():
+        for leg in legs:
+            kinds.setdefault((leg[-1], leg[6]), leg)
+    refs = {}
+    for (kind, sp), leg in kinds.items():
+        res = _ernie51_leg("w1", (1, 1, 1, 1, 0, sp), kind, sizes, init,
+                           device, 0, 1, hetero)
+        res["probe_init"] = {k: init[k] for k in ERNIE51_PROBE}
+        refs[(kind, sp)] = res
+        set_hybrid_communicate_group(None)
+    t0 = time.monotonic()
+    procs = {world: _start_ranks(world, str(init_dir), (legs, sizes,
+                                                       tuple(faults)),
+                                 tmp, device, target=_ernie51_rank,
+                                 tag="e")
+             for world, legs in ERNIE51_LEGS.items()}
+    results = {world: _join_ranks(world, ps, tmp, 900, tag="e", phase=51)
+               for world, ps in procs.items()}
+    wall = time.monotonic() - t0
+    verdicts, report, totals = {}, {}, {"B1": 0, "B2": 0, "B3": 0, "B9": 0}
+    for fault in faults:
+        try:
+            rep = _check_ernie51(results, refs, fault, sizes, on_card)
+            verdicts[fault] = None
+        except RuntimeError as e:
+            if fault is None:
+                raise
+            verdicts[fault] = str(e)
+            continue
+        if fault is None:
+            report = rep
+            for world, res in results.items():
+                for r in res:
+                    for (f, name), leg in r.items():
+                        if f is None and "launches" in leg:
+                            for k in totals:
+                                totals[k] += leg["launches"][k]
+    print(json.dumps({"phase": 51, "card": card, "wall_s": wall,
+                      "legs": report}), flush=True)
+    return report, totals, verdicts
+
+
+def _probe_errs(got, want, init):
+    """Phase 49's rule on each probe parameter's change: (the ones off
+    by more than `HYBRID_DELTA_TOL` of the change's largest element and
+    more than `HYBRID_DELTA_ULPS` spacings, the worst (name, share,
+    spacings))."""
+    import numpy as np
+
+    bad, worst = {}, (None, 0.0, 0.0)
+    for k, w in want.items():
+        p0 = np.asarray(init[k])
+        off = float(np.max(np.abs(np.asarray(got[k]) - p0 - (w - p0))))
+        share = off / max(float(np.max(np.abs(w - p0))), 1e-30)
+        ulps = off / float(np.spacing(max(np.max(np.abs(p0)),
+                                          np.max(np.abs(w)))))
+        if share > HYBRID_DELTA_TOL and ulps > HYBRID_DELTA_ULPS:
+            bad[k] = (share, ulps)
+        if share >= worst[1]:
+            worst = (k, share, ulps)
+    return bad, worst
+
+
+def _check_ernie51(results, refs, fault, sizes, on_card):
+    """Phase 51's checks of the legs run under `fault`; raises on the
+    first that fails. Returns the report of each leg."""
+    import numpy as np
+
+    report = {}
+    L = sizes["num_layers"]
+    for world, legs in ERNIE51_LEGS.items():
+        res = results[world]
+        for name, dp, mp, pp, sh, zero, sp, kind in legs:
+            runs = [r[(fault, name)] for r in res]
+            ref = refs[(kind, sp)]
+            key = "losses" if kind == "hetero" else "rows"
+            got = runs[0][key]
+            for run in runs[1:]:
+                _check(repr(run[key]) == repr(got),
+                       f"{name}: ranks disagree {[r[key] for r in runs]}")
+            want = ref[key]
+            if kind == "hetero":
+                _check(runs[0]["schedule"] == "hetero" and
+                       not runs[0]["warnings"],
+                       f"{name}: schedule {runs[0]['schedule']}, warnings "
+                       f"{runs[0]['warnings']}")
+                got_l, want_l = got, want
+            else:
+                got_l = [row[0] for row in got]
+                want_l = [row[0] for row in want]
+            rtol = ERNIE51_RTOL["sgd.pp" if kind == "sgd" and pp > 1
+                                else kind]
+            err = max(0.0 if (np.isnan(a) and np.isnan(b)) else
+                      abs(a - b) / abs(b) for a, b in zip(got_l, want_l))
+            _check(err <= rtol, f"{name}: losses {got_l} vs world size 1 "
+                   f"{want_l} (rel {err:.3g} > {rtol})")
+            rep = {"world": world, "losses": got_l, "max_rel_loss_err": err,
+                   "wall_s": max(r["wall_s"] for r in runs)}
+            if kind == "features":
+                g, w = np.asarray(got), np.asarray(want)
+                _check(np.array_equal(g[:, 1:5], w[:, 1:5]),
+                       f"{name}: scale / counters {g[:, 1:5].tolist()} vs "
+                       f"{w[:, 1:5].tolist()}")
+                _check(g[1, 1] == w[0, 1] / 2 and g[1, 4] == 1,
+                       f"{name}: step 2 was not skipped: {g.tolist()}")
+                ok = np.isfinite(w[:, 5])
+                nerr = float(np.max(np.abs(g[ok, 5] - w[ok, 5]) / w[ok, 5]))
+                _check(nerr <= 1e-4, f"{name}: global norms {g[:, 5]} vs "
+                       f"{w[:, 5]} (rel {nerr:.3g})")
+                rep["grad_norm_rel_err"] = nerr
+                rep["scale_trajectory"] = g[:, 1].tolist()
+            if kind == "comm":
+                _check("torch.bfloat16" in runs[0]["comm_dtypes"],
+                       f"{name}: dp reduction dtypes "
+                       f"{runs[0]['comm_dtypes']}")
+            if kind == "sgd":
+                bad, worst = _probe_errs(runs[0]["probe"], ref["probe"],
+                                         ref["probe_init"])
+                _check(not bad, f"{name}: parameters changed off world size "
+                       "1's change by (share of its largest element, "
+                       f"float32 spacings) {bad} (> {HYBRID_DELTA_TOL}, "
+                       f"{HYBRID_DELTA_ULPS})")
+                rep["probe_delta_worst"] = worst
+            if on_card and kind != "hetero":
+                micro = 2 * pp if pp > 1 else 1
+                steps = len(got)
+                per = {k: steps * (L // pp) * micro
+                       for k in ("B1", "B2", "B3")}
+                for run in runs:
+                    _check({k: run["launches"][k] for k in per} == per,
+                           f"{name}: flash launches {run['launches']}, "
+                           f"want {per}")
+                if kind == "lowp":
+                    b9 = steps * (4 * L + 3)
+                    _check(all(r["launches"]["B9"] == b9 for r in runs),
+                           f"{name}: B9 launches "
+                           f"{[r['launches']['B9'] for r in runs]}, want "
+                           f"{b9}")
+            if kind == "lowp":
+                for run in runs:
+                    _check(all(run["codes"]["checks"].values()),
+                           f"{name}: int8 scales / codes off the single "
+                           f"rank's: {run['codes']['checks']}")
+                rep["row_parallel_rel_err"] = max(
+                    r["codes"]["row_rel_err"] for r in runs)
+            rep["launches_per_rank"] = runs[0].get("launches")
+            report[name] = rep
+    return report
 
 
 def main():
@@ -6745,6 +7537,12 @@ def main():
             "hybrid_b9_48", phase_hybrid_b9, hybrid_b9)
         _, multirank = timed("multirank_49", phase_multirank, card,
                              str(init_dir), ref, dist_tmp)
+        # ERNIE-1.0 pretraining across ranks (phases 50-51): the hybrid
+        # ERNIE at full width at world size 1 with every step feature,
+        # then its factorizations on 2 and 4 gloo ranks at 2 layers
+        _, ernie50 = timed("ernie_hybrid_50", phase_ernie_hybrid, card)
+        _, ernie51, _ = timed("ernie_multirank_51", phase_ernie_multirank,
+                              card, dist_tmp)
     finally:
         # the NCCL world first: its watchdog reads the store in dist_tmp
         import torch.distributed as dist
@@ -6758,6 +7556,11 @@ def main():
     for key in ("B1", "B2", "B3"):
         rows[key]["multirank_49_launches"] = multirank[key]
         rows[key]["launches"] += multirank[key]
+        rows[key]["ernie_hybrid_50_launches"] = ernie50[key]
+        rows[key]["launches"] += ernie50[key]
+    for key in ("B1", "B2", "B3", "B9"):
+        rows[key]["ernie_multirank_51_launches"] = ernie51[key]
+        rows[key]["launches"] += ernie51[key]
     for key, row in rows.items():
         _check(row["launches"] > 0, f"{key} never ran on the path")
     print(json.dumps({"total_s": time.monotonic() - t_start}), flush=True)

@@ -66,7 +66,10 @@
 // uint32((1 - p) * (2^32 - 1)). The mask is a function of the element,
 // not of the tile, so the three kernels (and the plain PyTorch version,
 // ops/fused_ops.py::_keep_mask) regenerate the same bits; the seed is
-// read from device memory, never synchronised to the host.
+// read from device memory, never synchronised to the host. bh is the
+// global batch-head index (drop_bh): a rank holding some rows of the
+// batch or some of the heads (data or model parallelism) drops the same
+// elements as one device holding them all.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -100,6 +103,7 @@ struct Params {
   float scale, inv_keep;
   uint32_t thresh;
   const long long* seed;
+  int b0, h0, Hg;  // the dropout hash's global batch / head offsets, heads
 };
 
 // -- the dropout hash: murmur3_32 over (bh, q, k) -----------------------
@@ -126,6 +130,13 @@ __device__ __forceinline__ uint32_t mm3_final(uint32_t h) {
   h *= 0xc2b2ae35u;
   h ^= h >> 16;
   return h;
+}
+// the dropout hash's bh word: the element's GLOBAL batch-head index,
+// (b0 + b) * Hg + h0 + h for this launch's row b and head h, where b0 and
+// h0 place this rank's rows and heads in the whole batch of Hg heads (b0
+// = h0 = 0, Hg = H: the launch's own bh)
+__device__ __forceinline__ uint32_t drop_bh(const Params& p, int b, int h) {
+  return static_cast<uint32_t>((b + p.b0) * p.Hg + p.h0 + h);
 }
 // keep/(1-p) or 0 for the element whose (seed, bh, q) prefix is `qh`
 __device__ __forceinline__ float drop_scale(uint32_t qh, int k,
@@ -315,7 +326,9 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const Params p) {
   float m[4], l[4], acc[4][C];
   uint32_t qh[4];
   const uint32_t hb =
-      p.dropout ? mm3_round(static_cast<uint32_t>(*p.seed), bh) : 0u;
+      p.dropout
+          ? mm3_round(static_cast<uint32_t>(*p.seed), drop_bh(p, b, h))
+          : 0u;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNegInf;
@@ -418,7 +431,9 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
   float lse[4], delta[4], acc[4][C];
   uint32_t qh[4];
   const uint32_t hb =
-      p.dropout ? mm3_round(static_cast<uint32_t>(*p.seed), bh) : 0u;
+      p.dropout
+          ? mm3_round(static_cast<uint32_t>(*p.seed), drop_bh(p, b, h))
+          : 0u;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ra * 4 + i;
@@ -513,7 +528,9 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const Params p) {
 #pragma unroll
     for (int c = 0; c < C; ++c) acck[i][c] = accv[i][c] = 0.f;
   const uint32_t hb =
-      p.dropout ? mm3_round(static_cast<uint32_t>(*p.seed), bh) : 0u;
+      p.dropout
+          ? mm3_round(static_cast<uint32_t>(*p.seed), drop_bh(p, b, h))
+          : 0u;
 
   const int n_q = (p.sq + kTile - 1) / kTile;
   const int qt0 = (p.causal && off >= 0) ? max(0, k0 - off) / kTile : 0;
@@ -783,7 +800,8 @@ __global__ void __launch_bounds__(kThreadsTc, D <= 64 ? 4 : 2)
 
   uint32_t qh[2] = {0u, 0u};
   if (p.dropout) {
-    const uint32_t hb = mm3_round(static_cast<uint32_t>(*p.seed), bh);
+    const uint32_t hb =
+        mm3_round(static_cast<uint32_t>(*p.seed), drop_bh(p, b, h));
     qh[0] = mm3_round(hb, static_cast<uint32_t>(row0));
     qh[1] = mm3_round(hb, static_cast<uint32_t>(row0 + 8));
   }
@@ -952,7 +970,9 @@ __global__ void __launch_bounds__(kThreadsTc, 2)
   const long long row_base = static_cast<long long>(bh) * p.sq;
   const float scale2 = p.scale * kLog2e;
   const uint32_t hb =
-      p.dropout ? mm3_round(static_cast<uint32_t>(*p.seed), bh) : 0u;
+      p.dropout
+          ? mm3_round(static_cast<uint32_t>(*p.seed), drop_bh(p, b, h))
+          : 0u;
 
   // q tile qt into ring slot `slot`: Q, dO and the lse / delta rows
   // (zeros past sq) by cp.async, the queries' hash prefixes stored
@@ -1134,7 +1154,9 @@ __global__ void __launch_bounds__(kThreadsTc, D <= 64 ? 3 : 2)
   float lse[2], lse2[2], delta[2];
   uint32_t qh[2] = {0u, 0u};
   const uint32_t hb =
-      p.dropout ? mm3_round(static_cast<uint32_t>(*p.seed), bh) : 0u;
+      p.dropout
+          ? mm3_round(static_cast<uint32_t>(*p.seed), drop_bh(p, b, h))
+          : 0u;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
@@ -1231,7 +1253,8 @@ __global__ void __launch_bounds__(kThreadsTc, D <= 64 ? 3 : 2)
 
 // the keep mask itself, for checking the hash against the plain version
 __global__ void keep_mask_kernel(uint8_t* out, int BH, int sq, int sk,
-                                 uint32_t thresh, const long long* seed) {
+                                 uint32_t thresh, const long long* seed,
+                                 int H, int b0, int h0, int Hg) {
   const long long n = static_cast<long long>(BH) * sq * sk;
   const uint32_t s = static_cast<uint32_t>(*seed);
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
@@ -1241,8 +1264,11 @@ __global__ void keep_mask_kernel(uint8_t* out, int BH, int sq, int sk,
     const long long r = i / sk;
     const int qq = static_cast<int>(r % sq);
     const int bh = static_cast<int>(r / sq);
+    const int b = bh / H;
+    const uint32_t gbh =
+        static_cast<uint32_t>((b + b0) * Hg + h0 + (bh - b * H));
     const uint32_t hsh = mm3_final(mm3_round(
-        mm3_round(mm3_round(s, bh), static_cast<uint32_t>(qq)),
+        mm3_round(mm3_round(s, gbh), static_cast<uint32_t>(qq)),
         static_cast<uint32_t>(kk)));
     out[i] = hsh < thresh ? 1 : 0;
   }
@@ -1297,7 +1323,8 @@ extern "C" int flash_attn(int pass, int dtype, int d, const void* q,
                           const long long* strides, int B, int H, int sq,
                           int sk, float scale, int causal, int dropout,
                           float inv_keep, unsigned thresh,
-                          const long long* seed, int num_sms, void* stream) {
+                          const long long* seed, int b0, int h0, int hg,
+                          int num_sms, void* stream) {
   (void)num_sms;
   if (B * H > 65535) return cudaErrorInvalidValue;
   Params p;
@@ -1321,6 +1348,9 @@ extern "C" int flash_attn(int pass, int dtype, int d, const void* q,
   p.inv_keep = inv_keep;
   p.thresh = thresh;
   p.seed = seed;
+  p.b0 = b0;
+  p.h0 = h0;
+  p.Hg = hg;
   Kernel kern;
   if (!pick_for(pass, dtype, d, &kern)) return cudaErrorInvalidValue;
   if (dtype != 0) {
@@ -1375,10 +1405,11 @@ extern "C" int flash_occupancy(int pass, int dtype, int d, int* out) {
 
 extern "C" int flash_keep_mask(uint8_t* out, int BH, int sq, int sk,
                                unsigned thresh, const long long* seed,
+                               int H, int b0, int h0, int hg,
                                int num_sms, void* stream) {
   keep_mask_kernel<<<num_sms * 4, 256, 0,
-                     static_cast<cudaStream_t>(stream)>>>(out, BH, sq, sk,
-                                                          thresh, seed);
+                     static_cast<cudaStream_t>(stream)>>>(
+      out, BH, sq, sk, thresh, seed, H, b0, h0, hg);
   return static_cast<int>(cudaGetLastError());
 }
 

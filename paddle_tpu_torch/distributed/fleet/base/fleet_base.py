@@ -4,8 +4,8 @@ paddle_tpu/distributed/fleet/base/fleet_base.py).
 `Fleet.init` opens the process group (`init_parallel_env`) and builds
 the `HybridCommunicateGroup` from ``strategy.hybrid_configs`` (a
 ``dp_degree`` of -1 takes what the world leaves); `distributed_model`
-wraps by parallel mode and `distributed_optimizer` returns a
-`HybridParallelOptimizer`. The parameter-server mode
+wraps by parallel mode (a `PipelineLayer` in a `PipelineParallel`) and
+`distributed_optimizer` returns a `HybridParallelOptimizer`. The parameter-server mode
 (``distributed/ps``) is not ported: a `PSRoleMaker` raises.
 """
 
@@ -107,20 +107,21 @@ class Fleet:
 
     # -- model / optimizer wrapping -----------------------------------------
     def distributed_model(self, model):
-        """`DataParallel` in data-parallel mode with dp > 1; the model
+        """`PipelineParallel` of a `PipelineLayer` in pipeline mode;
+        `DataParallel` in data-parallel mode with dp > 1; the model
         itself otherwise (its TP layers read the hybrid group when they
         are built; the engines drive pipeline and ZeRO)."""
         from ....dataparallel import DataParallel
+        from ..meta_parallel.pipeline_parallel import PipelineParallel
+        from ..meta_parallel.pp_layers import PipelineLayer
 
         if self._hcg is None:
             self.init()
         mode = self._hcg.get_parallel_mode()
         if mode == ParallelMode.PIPELINE_PARALLEL and \
-                type(model).__name__ == "PipelineLayer":
-            raise NotImplementedError(
-                "PipelineLayer / PipelineParallel (pp_layers.py, "
-                "pp_engine.py) wait in ROADMAP queue A item 4: train "
-                "uniform pipelines through make_gpt_hybrid_engine")
+                isinstance(model, PipelineLayer):
+            return PipelineParallel(model, self._hcg,
+                                    self._user_defined_strategy)
         if mode == ParallelMode.DATA_PARALLEL and \
                 self._hcg.get_data_parallel_world_size() > 1:
             return DataParallel(model,

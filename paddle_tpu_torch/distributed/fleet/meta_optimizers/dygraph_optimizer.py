@@ -5,16 +5,41 @@ It wraps an eager optimizer: `step` first sums, over the model-parallel
 group, the gradients of the parameters that sequence parallelism
 replicates while each rank sees only its part of the sequence
 (``sequence_parallel`` set by the TP layers: LayerNorms, row-parallel
-biases), then runs the inner step. Data-parallel averaging belongs to
-`DataParallel`. A global-norm clipper over model-parallel shards would
-need the norm summed across them: it raises under mp > 1.
+biases), then runs the inner step with its clipper wrapped in
+`HybridParallelClipGrad`, which takes the norms one device would take
+(`distributed.sharding.MeshNorm`: a parameter split over mp counted
+over all its shards, a replicated one once). Data-parallel averaging
+belongs to `DataParallel`.
 """
 
 from __future__ import annotations
 
-from ...sharding import sync_sequence_parallel_grads
+from ...sharding import MeshNorm, sync_sequence_parallel_grads
 
-__all__ = ["HybridParallelOptimizer"]
+__all__ = ["HybridParallelOptimizer", "HybridParallelClipGrad"]
+
+
+class HybridParallelClipGrad:
+    """`clip` over ``(param, grad)`` pairs held in model-parallel shards:
+    its norms summed over the hybrid group `hcg` (ref
+    ``dygraph_optimizer.py:19``)."""
+
+    def __init__(self, clip, hcg):
+        self._clip = clip
+        self._hcg = hcg
+
+    def __call__(self, params_grads):
+        live = [i for i, (_, g) in enumerate(params_grads) if g is not None]
+        params = {i: params_grads[i][0] for i in live}
+        grads = {i: params_grads[i][1] for i in live}
+        if not live:
+            return params_grads
+        out = self._clip._clip_fn(grads, params,
+                                  norm=MeshNorm(params, self._hcg))
+        return [(p, out.get(i, g)) for i, (p, g) in enumerate(params_grads)]
+
+    def _clip_fn(self, grads, params=None, norm=None):
+        return self._clip._clip_fn(grads, params, norm=norm)
 
 
 class HybridParallelOptimizer:
@@ -22,11 +47,6 @@ class HybridParallelOptimizer:
         self._inner_opt = optimizer
         self._hcg = hcg
         self._strategy = strategy
-        if hcg is not None and hcg.get_model_parallel_world_size() > 1 \
-                and getattr(optimizer, "_grad_clip", None) is not None:
-            raise NotImplementedError(
-                "gradient clipping across model-parallel shards waits in "
-                "ROADMAP queue A item 4")
 
     def __getattr__(self, item):
         return getattr(self._inner_opt, item)
@@ -36,13 +56,22 @@ class HybridParallelOptimizer:
         return self._inner_opt
 
     def step(self):
-        params = [p for p in self._inner_opt._parameter_list or ()
+        inner = self._inner_opt
+        params = [p for p in inner._parameter_list or ()
                   if p is not None and p.grad is not None]
-        if self._hcg is not None:
-            sync_sequence_parallel_grads(
-                {i: p.grad for i, p in enumerate(params)},
-                dict(enumerate(params)), self._hcg)
-        self._inner_opt.step()
+        if self._hcg is None:
+            inner.step()
+            return
+        sync_sequence_parallel_grads(
+            {i: p.grad for i, p in enumerate(params)},
+            dict(enumerate(params)), self._hcg)
+        clip = inner._grad_clip
+        if clip is not None:
+            inner._grad_clip = HybridParallelClipGrad(clip, self._hcg)
+        try:
+            inner.step()
+        finally:
+            inner._grad_clip = clip
 
     def clear_grad(self, *a, **k):
         self._inner_opt.clear_grad(*a, **k)

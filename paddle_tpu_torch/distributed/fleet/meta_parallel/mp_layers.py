@@ -11,6 +11,9 @@ operators below, each a ``torch.autograd.Function``:
     reduce_from_mp     all-reduce forward, identity backward
     gather_seq         all-gather of the sequence (dim 1) forward,
                        reduce-scatter backward
+    gather_seq_replicated  all-gather of the sequence forward, this
+                       rank's piece backward (for a consumer that every
+                       rank runs alike on the whole sequence)
     reduce_scatter_seq reduce-scatter of the sequence forward,
                        all-gather backward
     scatter_seq        this rank's piece of the sequence forward,
@@ -36,8 +39,13 @@ rank holds, for every pack, the heads ``[r * heads / mp, (r + 1) * heads
 At degree 1 every layer is the dense layer: ``F.linear`` /
 ``F.embedding`` / softmax cross entropy, so ``FLAGS_lowp_matmul`` routes
 its products to kernel B9 as the reference's comment
-(``mp_layers.py:172-174``) requires. Under mp > 1 the low-precision
-route waits (ROADMAP queue A item 4) and raises.
+(``mp_layers.py:172-174``) requires. Under mp > 1 the column- and
+row-parallel products route to B9 on the rank's shards with per-tensor
+scales that the mp group agrees on (`ops.lowp.shard_groups`): the
+abs-max of an operand held in shards (a column-parallel weight, a
+row-parallel activation and weight) is reduced (max) over the group, as
+the reference's abs-max covers the whole tensor under GSPMD. The scales
+and the int8 codes then equal one device's.
 """
 
 from __future__ import annotations
@@ -57,8 +65,8 @@ from ...topology import get_hybrid_communicate_group
 __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear",
            "RowParallelLinear", "ParallelCrossEntropy",
            "parallel_linear_split", "copy_to_mp", "reduce_from_mp",
-           "gather_seq", "reduce_scatter_seq", "scatter_seq",
-           "mp_group_of"]
+           "gather_seq", "gather_seq_replicated", "reduce_scatter_seq",
+           "scatter_seq", "mp_group_of"]
 
 
 def mp_group_of(mp_group=None):
@@ -133,6 +141,17 @@ class _ScatterSeq(torch.autograd.Function):
         return all_gather_cat(g, 1, ctx.group), None
 
 
+class _GatherSeqReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_gather_cat(x, 1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _piece(g, 1, ctx.group), None
+
+
 class _GatherLast(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -173,6 +192,10 @@ def gather_seq(x, group):
     return _apply(_GatherSeq, x, group)
 
 
+def gather_seq_replicated(x, group):
+    return _apply(_GatherSeqReplicated, x, group)
+
+
 def reduce_scatter_seq(x, group):
     return _apply(_ReduceScatterSeq, x, group)
 
@@ -193,13 +216,6 @@ def _local(n, degree, what):
         raise ValueError(f"{what} {n} is not divisible by the model "
                          f"parallel degree {degree}")
     return n // degree
-
-
-def _check_lowp(degree):
-    if degree > 1 and _lowp.mode() != "off":
-        raise NotImplementedError(
-            "FLAGS_lowp_matmul under mp > 1 waits in ROADMAP queue A "
-            "item 4 (the distributed low-precision routes)")
 
 
 class VocabParallelEmbedding(Layer):
@@ -264,10 +280,12 @@ class ColumnParallelLinear(Layer):
     def forward(self, x):
         if self.degree <= 1:
             return F.linear(x, self.weight, self.bias)
-        _check_lowp(self.degree)
         x = gather_seq(x, self.group) if self.sequence_parallel \
             else copy_to_mp(x, self.group)
-        out = F.linear(x, self.weight, self.bias)
+        # the input is whole on every rank; the weight is this rank's
+        # columns
+        with _lowp.shard_groups(b=self.group):
+            out = F.linear(x, self.weight, self.bias)
         if self.gather_output:
             out = _apply(_GatherLast, out, self.group)
         return out
@@ -305,10 +323,10 @@ class RowParallelLinear(Layer):
     def forward(self, x):
         if self.degree <= 1:
             return F.linear(x, self.weight, self.bias)
-        _check_lowp(self.degree)
         if not self.input_is_parallel:
             x = _apply(_ScatterLast, x, self.group)
-        out = F.linear(x, self.weight)
+        with _lowp.shard_groups(a=self.group, b=self.group):
+            out = F.linear(x, self.weight)
         out = reduce_scatter_seq(out, self.group) if self.sequence_parallel \
             else reduce_from_mp(out, self.group)
         if self.bias is not None:

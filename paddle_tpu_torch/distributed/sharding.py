@@ -1,5 +1,6 @@
-"""The meshed step's rules, shared by the port's two meshed engines
-(`engine.Engine(mesh=)` and `hybrid.HybridParallelEngine`): the dp
+"""The meshed step's rules, shared by the port's meshed engines
+(`engine.Engine(mesh=)`, `hybrid.HybridParallelEngine` and
+`pp_engine.PipelineEngine`): the dp
 slice of the global batch, gradient synchronisation, ZeRO and the loss
 over the global batch (the reference expresses them as shardings in its
 compiled step: ``engine.py:212-267`` and
@@ -7,7 +8,7 @@ compiled step: ``engine.py:212-267`` and
 
 Each rank takes its dp slice of the global batch (`dp_slice`), holds
 its model-parallel shards and runs forward and backward eagerly; then,
-in this order (`ZeroSharding.update`):
+in this order (`meshed_update`):
 
 1. the gradients of parameters replicated over mp whose users see only
    this rank's part of the sequence under sequence parallelism
@@ -24,6 +25,31 @@ in this order (`ZeroSharding.update`):
    keeps only the parameter's slice between steps, all-gathering the
    full parameter into the model before the forward
    (`ZeroSharding.gather_params`) and freeing it after the update.
+
+`meshed_update` is the tail the engines run after the backward, in
+the reference's order (``engine.py:402-520``): steps 1-3, then the
+step features of the single-card `Engine`, each over the whole grid:
+
+- loss scaling: the gradients are unscaled, and whether they are
+  finite is reduced (max of "some element is not") over every axis of
+  the grid, so every rank skips or applies the step together and the
+  scale's counters stay equal;
+- the anomaly guard: the same reduced verdict and the global loss;
+- the global gradient norm (``FLAGS_record_grad_norm`` and
+  `ClipGradByGlobalNorm`): `MeshNorm` sums the squares of a parameter
+  split over mp over its shards, counts a replicated one once (on mp
+  rank 0) and a pipeline-shared one once (on the first stage), and sums
+  the stages' own blocks over pp; dp and ZeRO ranks hold the same
+  gradients here (before the reduce-scatter), so nothing is summed over
+  them. `ClipGradByNorm`'s per-parameter norm sums a split parameter's
+  shards;
+- coupled decay and clipping on the full gradients, then the ZeRO
+  reduce-scatter and the update, ``where(keep, new, old)`` under a
+  skipped step.
+
+``comm_dtype`` reduces the dp gradients in that dtype (the reference's
+fp16_allreduce strategy; its GSPMD step reduces the gradients that the
+O2 backward computes in it).
 
 The leaf rule is the reference's ``_opt_leaf_spec``: a leaf is sharded
 along the first dimension of its logical shape that model parallelism
@@ -49,11 +75,13 @@ import warnings
 
 import torch
 
-from .collective import all_gather_cat, all_reduce, reduce_scatter_dim
+from .collective import ReduceOp, all_gather_cat, all_reduce, \
+    reduce_scatter_dim
 
 __all__ = ["dp_slice", "global_mean", "global_batch", "batch_weight",
            "zero_dim", "sync_sequence_parallel_grads", "sync_grads",
-           "ZeroSharding", "check_waiting_flags"]
+           "ZeroSharding", "check_waiting_flags", "grid_groups",
+           "grid_all_finite", "MeshNorm", "meshed_update"]
 
 # the hybrid groups of the meshed steps whose loss is being computed
 _GLOBAL_BATCH = []
@@ -93,10 +121,13 @@ def global_mean(loss, hcg):
 
 
 @contextlib.contextmanager
-def global_batch(hcg):
+def global_batch(hcg, known=None):
     """While a meshed step computes its loss on this rank's dp slice:
-    `batch_weight` answers for the global batch."""
-    _GLOBAL_BATCH.append(hcg)
+    `batch_weight` answers for the global batch. `known`: ``(total,
+    parts)`` when the step knows them beforehand (a pipeline's
+    micro-batches, each a part of the global batch: the weight total of
+    the whole global batch and dp x micro-batches)."""
+    _GLOBAL_BATCH.append((hcg, known))
     try:
         yield
     finally:
@@ -106,11 +137,14 @@ def global_batch(hcg):
 def batch_weight(w):
     """``(total, parts)`` for a rank's loss weight `w` (a 0-dim tensor,
     e.g. a loss mask's sum): inside `global_batch`, the sum of `w` over
-    dp and the dp degree; elsewhere ``(w, 1)``. A loss ``num * parts /
-    total`` averaged over the dp ranks is then ``sum(num) / total``."""
+    dp and the dp degree (or what the step knew beforehand); elsewhere
+    ``(w, 1)``. A loss ``num * parts / total`` averaged over the parts
+    is then ``sum(num) / total``."""
     if not _GLOBAL_BATCH:
         return w, 1
-    hcg = _GLOBAL_BATCH[-1]
+    hcg, known = _GLOBAL_BATCH[-1]
+    if known is not None:
+        return known
     dp = hcg.get_data_parallel_world_size()
     if dp <= 1:
         return w, 1
@@ -131,17 +165,20 @@ def zero_dim(shape, split_axis, degree):
     return None
 
 
-def _all_reduce_coalesced(tensors, group, scale=None):
-    """Sum `tensors` over `group` in one collective (in place), then
-    multiply by `scale` when given."""
+def _all_reduce_coalesced(tensors, group, scale=None, dtype=None):
+    """Sum `tensors` over `group` in one collective (in place; in
+    `dtype` when given, else float32), then multiply by `scale` when
+    given (in float32)."""
     tensors = [t for t in tensors if t is not None]
     if not tensors or group.pg is None:
         if scale is not None:
             for t in tensors:
                 t.mul_(scale)
         return
-    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    flat = torch.cat([t.reshape(-1).to(dtype or torch.float32)
+                      for t in tensors])
     all_reduce(flat, group=group)
+    flat = flat.float()
     if scale is not None:
         flat.mul_(scale)
     off = 0
@@ -162,18 +199,124 @@ def sync_sequence_parallel_grads(grads, params, hcg):
 
 
 @torch.no_grad()
-def sync_grads(grads, params, hcg, pipeline_shared=()):
+def sync_grads(grads, params, hcg, pipeline_shared=(), comm_dtype=None):
     """Steps 1-3 of the module docstring, in place on the ``{name:
     grad}`` dict; `pipeline_shared` names the parameters to sum over
-    pp."""
+    pp; the dp reduction runs in `comm_dtype` when given."""
     sync_sequence_parallel_grads(grads, params, hcg)
     if hcg.get_pipe_parallel_world_size() > 1 and pipeline_shared:
         _all_reduce_coalesced([grads[k] for k in pipeline_shared],
                               hcg.get_pipe_parallel_group())
     dp = hcg.get_data_parallel_world_size()
     if dp > 1:
-        _all_reduce_coalesced(list(grads.values()),
-                              hcg.get_data_parallel_group(), 1.0 / dp)
+        _all_reduce_coalesced(
+            list(grads.values()), hcg.get_data_parallel_group(), 1.0 / dp,
+            dtype=None if comm_dtype is None else getattr(torch,
+                                                          comm_dtype))
+
+
+def grid_groups(hcg):
+    """The hybrid grid's axis groups of more than one rank (dp, pp,
+    sharding, mp): a reduction over each in turn covers the grid."""
+    groups = (hcg.get_data_parallel_group(), hcg.get_pipe_parallel_group(),
+              hcg.get_sharding_parallel_group(),
+              hcg.get_model_parallel_group())
+    return [g for g in groups if g is not None and g.pg is not None]
+
+
+@torch.no_grad()
+def grid_all_finite(grads, hcg):
+    """A device bool, the same on every rank of the grid: every element
+    of every rank's `grads` is finite."""
+    from ..amp import all_finite
+
+    bad = (~all_finite(list(grads.values()))).float().reshape(1)
+    for g in grid_groups(hcg):
+        all_reduce(bad, ReduceOp.MAX, group=g)
+    return bad[0] == 0
+
+
+class MeshNorm:
+    """Gradient norms over the grid as one device holding every
+    parameter would take them (see the module docstring). `params` is
+    this rank's ``{name: Parameter}``; `pipeline_shared` names the
+    parameters replicated over pp (their gradients summed over it)."""
+
+    def __init__(self, params, hcg, pipeline_shared=()):
+        self.hcg = hcg
+        self.mp_group = hcg.get_model_parallel_group()
+        self.pp_group = hcg.get_pipe_parallel_group()
+        first_mp = hcg.get_model_parallel_rank() == 0
+        first_pp = hcg.get_stage_id() == 0
+        shared = set(pipeline_shared)
+        self.device = next(iter(params.values())).device
+        self.split = {k for k, p in params.items()
+                      if getattr(p, "split_axis", None) is not None}
+        # a parameter counts in the total on the ranks that own it
+        self.owned = {k for k in params
+                      if (k in self.split or first_mp)
+                      and (k not in shared or first_pp)}
+
+    @torch.no_grad()
+    def param_sq(self, sq):
+        """``{name: this rank's sum of squares}`` -> each parameter's
+        sum of squares over its whole logical tensor (a split one's
+        summed over mp)."""
+        split = [k for k in sq if k in self.split]
+        if not split or self.mp_group is None or self.mp_group.pg is None:
+            return dict(sq)
+        flat = torch.stack([sq[k].float() for k in split])
+        all_reduce(flat, group=self.mp_group)
+        out = dict(sq)
+        out.update(zip(split, flat.unbind(0)))
+        return out
+
+    @torch.no_grad()
+    def total_sq(self, sq):
+        """The sum of squares of every gradient of the grid, each
+        parameter counted once: a float32 0-dim device tensor, the same
+        on every rank."""
+        parts = [sq[k].float() for k in sq if k in self.owned]
+        total = torch.stack(parts).sum().reshape(1) if parts else \
+            torch.zeros(1, dtype=torch.float32, device=self.device)
+        for g in (self.mp_group, self.pp_group):
+            if g is not None and g.pg is not None:
+                all_reduce(total, group=g)
+        return total[0]
+
+
+def _sq_sums(grads):
+    return {k: torch.sum(torch.square(g.float())) for k, g in grads.items()}
+
+
+def meshed_update(zero, grads, lr, metas, *, pipeline_shared=(),
+                  scale=None, loss=None, grad_clip=None, comm_dtype=None,
+                  record_norm=False):
+    """The meshed step's tail on this rank's ``{name: grad}`` (see the
+    module docstring): gradient synchronisation, loss unscaling by
+    `scale` (a device scalar, or None), the guard's verdict when `loss`
+    (the global loss) is given, decay, `grad_clip`, the ZeRO update.
+    Returns ``(finite, guard_ok, grad_norm)``: the reduced finiteness of
+    the unscaled gradients (None without a scale), the guard's verdict
+    (None without a loss) and the raw gradients' global norm (None
+    unless `record_norm`)."""
+    hcg, params, opt = zero.hcg, zero.params, zero.optimizer
+    sync_grads(grads, params, hcg, pipeline_shared, comm_dtype)
+    finite = guard_ok = gnorm = keep = None
+    if scale is not None:
+        grads = {k: g / scale for k, g in grads.items()}
+        finite = keep = grid_all_finite(grads, hcg)
+    if loss is not None:
+        ok = finite if finite is not None else grid_all_finite(grads, hcg)
+        guard_ok = keep = ok & torch.isfinite(loss)
+    norm = MeshNorm(params, hcg, pipeline_shared)
+    if record_norm:
+        gnorm = torch.sqrt(norm.total_sq(_sq_sums(grads)))
+    grads = opt.decay_gradients(params, grads, metas)
+    if grad_clip is not None:
+        grads = grad_clip._clip_fn(grads, params, norm=norm)
+    zero.step(zero.reduce_scatter(grads), lr, metas, keep)
+    return finite, guard_ok, gnorm
 
 
 def _pin(t):
@@ -257,12 +400,6 @@ class ZeroSharding:
             p.data = torch.empty(0, dtype=shard.dtype, device=shard.device)
 
     # -- the update ----------------------------------------------------------
-    def update(self, grads, lr, metas, pipeline_shared=()):
-        """The meshed step's tail on a ``{name: grad}`` dict of every
-        parameter: `sync_grads`, then the (ZeRO) update."""
-        sync_grads(grads, self.params, self.hcg, pipeline_shared)
-        self.step(self.reduce_scatter(grads), lr, metas)
-
     @torch.no_grad()
     def reduce_scatter(self, grads):
         """Stage 2+: each sharded leaf's gradient becomes this rank's
@@ -278,9 +415,10 @@ class ZeroSharding:
 
     @torch.no_grad()
     def step(self, grads, lr, metas, keep=None):
-        """Decay and update every parameter (sharded leaves on this
-        rank's slice), then rebuild the full sharded parameters (stages
-        1-2) or free them (stage 3)."""
+        """Update every parameter from its (decayed) gradient, sharded
+        leaves on this rank's slice, then rebuild the full sharded
+        parameters (stages 1-2) or free them (stage 3). `keep` as the
+        optimizer's ``apply_gradients``."""
         opt = self.optimizer
         own, own_grads = {}, {}
         for k in self.params:
@@ -295,7 +433,6 @@ class ZeroSharding:
             dev = next(iter(self.params.values())).device
             states = self._move(states, lambda t: t.to(dev,
                                                        non_blocking=True))
-        own_grads = opt.decay_gradients(own, own_grads, metas)
         opt.apply_gradients(own, own_grads, states, lr, metas, keep)
         if self.offload:
             self.states = self._move(states, _pin)

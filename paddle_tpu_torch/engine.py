@@ -69,9 +69,19 @@ the update runs under ZeRO ``zero_stage`` over ``sharding_axis``
 ("sharding"), with ``offload`` keeping the optimizer state in pinned
 host memory (`distributed.sharding`); the loss returned is the mean
 over the global batch, a masked loss's too (`sharding.global_batch`).
-Under a mesh, loss scaling, the anomaly guard,
-gradient clipping and ``comm_dtype`` (the fp16_allreduce strategy) wait
-in ROADMAP queue A item 4 and raise.
+Every step feature works under a mesh as on one card, over the whole
+grid (`sharding.meshed_update`): loss scaling (static, "dynamic" or a
+dict) with its finiteness reduced over every axis, so all ranks skip or
+apply a step together; the anomaly guard on that verdict and the global
+loss; gradient clipping and ``FLAGS_record_grad_norm`` on the norms one
+device would take; ``comm_dtype`` (the fp16_allreduce strategy: with
+``fleet``'s ``strategy.fp16_allreduce`` on and no ``comm_dtype`` the
+engine takes float16) with the dp gradients reduced in that dtype.
+Each step's dropout masks are hashes of the elements' global
+coordinates (`framework.random.DropoutLayout`), so a factorization
+drops the same elements as the same engine at world size 1. The
+guard's rollback under a mesh waits with the hybrid checkpoints
+(ROADMAP queue A item 4).
 
 ``engine.state`` exposes the trainable parameters (the layer's own,
 updated in place) and the optimizer state under the reference's names,
@@ -174,9 +184,8 @@ def make_eval_step(layer):
     return eval_fn
 
 
-def _mesh_group(mesh, comm_dtype, loss_scale, anomaly_guard, grad_clip):
-    """The hybrid group behind `mesh`; raises on what a meshed engine
-    does not run yet."""
+def _mesh_group(mesh):
+    """The hybrid group behind `mesh`."""
     from .distributed.topology import get_hybrid_communicate_group
 
     hcg = get_hybrid_communicate_group()
@@ -186,18 +195,92 @@ def _mesh_group(mesh, comm_dtype, loss_scale, anomaly_guard, grad_clip):
     if hcg.get_pipe_parallel_world_size() > 1:
         raise ValueError("pp > 1 trains through distributed.hybrid."
                          "make_gpt_hybrid_engine, not Engine")
-    waiting = {"comm_dtype (the fp16_allreduce strategy)": comm_dtype,
-               "loss_scale": loss_scale, "anomaly_guard": anomaly_guard,
-               "gradient clipping": grad_clip}
-    for what, value in waiting.items():
-        if value not in (None, False):
-            raise NotImplementedError(
-                f"Engine(mesh=...) with {what} waits in ROADMAP queue A "
-                "item 4")
     from .distributed.sharding import check_waiting_flags
 
     check_waiting_flags()
     return hcg
+
+
+def mesh_comm_dtype(comm_dtype):
+    """`comm_dtype`, or float16 when it is None and the fleet strategy
+    turns fp16_allreduce on (the reference names the knob after that
+    strategy)."""
+    if comm_dtype is not None:
+        return comm_dtype
+    from .distributed.fleet import fleet
+
+    strategy = fleet._user_defined_strategy
+    if strategy is not None and strategy.fp16_allreduce:
+        return "float16"
+    return None
+
+
+def heads_split(layer):
+    """Whether `layer`'s attention heads are split over mp (a
+    tensor-parallel packed projection)."""
+    return any(getattr(p, "packed_heads", None) is not None and
+               getattr(p, "split_axis", None) is not None
+               for p in layer.parameters())
+
+
+def dropout_layout(rng, hcg, rows, seq_len, split_heads):
+    """The step's `DropoutLayout` on this rank: the step seed drawn from
+    `rng`, its dp slice of `rows` rows, the sequence of `seq_len`
+    positions and the mp coordinates."""
+    return _random.DropoutLayout(
+        rng.next_seed(),
+        row0=hcg.get_data_parallel_rank() * rows, seq_len=seq_len,
+        mp_rank=hcg.get_model_parallel_rank(),
+        mp_degree=hcg.get_model_parallel_world_size(),
+        heads_split=split_heads)
+
+
+def step_buffers(bufs, loss_scale, anomaly_guard, device):
+    """Put the step features' device scalars into `bufs` under the
+    reference's reserved names: the dynamic scale and its good / bad
+    step counters, the guard's counter, the recorded gradient norm
+    (``FLAGS_record_grad_norm``, latched here, as in the reference).
+    Returns (the scale config, whether the scale is dynamic, the static
+    scale as a device scalar or None, whether the norm is recorded)."""
+    cfg = dict(DEFAULT_SCALE_CONFIG)
+    if isinstance(loss_scale, dict):
+        cfg.update(loss_scale)
+    dynamic = loss_scale == "dynamic" or isinstance(loss_scale, dict)
+    f32, i32 = torch.float32, torch.int32
+    static = None
+    if dynamic:
+        bufs[LOSS_SCALE_KEY] = torch.tensor(
+            float(cfg["init_loss_scaling"]), dtype=f32, device=device)
+        bufs[GOOD_STEPS_KEY] = torch.zeros((), dtype=i32, device=device)
+        bufs[BAD_STEPS_KEY] = torch.zeros((), dtype=i32, device=device)
+    elif loss_scale is not None:
+        static = torch.tensor(float(loss_scale), dtype=f32, device=device)
+    if anomaly_guard:
+        bufs[ANOMALY_BAD_STEPS_KEY] = torch.zeros((), dtype=i32,
+                                                  device=device)
+    record_norm = _flags.flag("FLAGS_record_grad_norm")
+    if record_norm:
+        bufs[GRAD_NORM_KEY] = torch.zeros((), dtype=f32, device=device)
+    return cfg, dynamic, static, record_norm
+
+
+def update_loss_scale(bufs, cfg, finite):
+    """The reference's in-graph GradScaler rule on the scale buffers:
+    grow the scale after incr_every_n_steps consecutive finite steps,
+    shrink it after decr_every_n_nan_or_inf consecutive non-finite
+    ones."""
+    scale = bufs[LOSS_SCALE_KEY]
+    good, bad = bufs[GOOD_STEPS_KEY], bufs[BAD_STEPS_KEY]
+    zero = torch.zeros_like(good)
+    good_next = torch.where(finite, good + 1, zero)
+    bad_next = torch.where(finite, zero, bad + 1)
+    grow = finite & (good_next >= cfg["incr_every_n_steps"])
+    shrink = ~finite & (bad_next >= cfg["decr_every_n_nan_or_inf"])
+    bufs[LOSS_SCALE_KEY] = torch.where(
+        grow, scale * cfg["incr_ratio"],
+        torch.where(shrink, scale * cfg["decr_ratio"], scale))
+    bufs[GOOD_STEPS_KEY] = torch.where(grow, zero, good_next)
+    bufs[BAD_STEPS_KEY] = torch.where(shrink, zero, bad_next)
 
 
 def _dp_sliced(batch_spec):
@@ -235,12 +318,8 @@ class Engine:
         self.mesh = mesh
         self.hcg = None
         if mesh is not None:
-            self.hcg = _mesh_group(mesh, comm_dtype=comm_dtype,
-                                   loss_scale=loss_scale,
-                                   anomaly_guard=anomaly_guard,
-                                   grad_clip=grad_clip
-                                   if grad_clip is not None
-                                   else optimizer._grad_clip)
+            self.hcg = _mesh_group(mesh)
+            comm_dtype = mesh_comm_dtype(comm_dtype)
             if device is None:
                 from .distributed.parallel import device as _rank_device
 
@@ -272,6 +351,7 @@ class Engine:
             self._zero = ZeroSharding(params, optimizer, self.hcg, stage,
                                       offload)
             self._dp_slice = _dp_sliced(batch_spec)
+            self._heads_split = heads_split(layer)
             opt_state = self._zero.states
         else:
             opt_state = {k: optimizer._init_state(p)
@@ -283,31 +363,10 @@ class Engine:
         self.rng = _random.RngState(seed, self.device)
         self.loss_scale = loss_scale
         self.anomaly_guard = anomaly_guard
-        self._scale_cfg = dict(DEFAULT_SCALE_CONFIG)
-        if isinstance(loss_scale, dict):
-            self._scale_cfg.update(loss_scale)
-        self._dynamic = loss_scale == "dynamic" or isinstance(loss_scale,
-                                                              dict)
         bufs = self.state.buffers
-        if self._dynamic:
-            bufs[LOSS_SCALE_KEY] = torch.tensor(
-                float(self._scale_cfg["init_loss_scaling"]),
-                dtype=torch.float32, device=self.device)
-            bufs[GOOD_STEPS_KEY] = torch.zeros((), dtype=torch.int32,
-                                               device=self.device)
-            bufs[BAD_STEPS_KEY] = torch.zeros((), dtype=torch.int32,
-                                              device=self.device)
-        elif loss_scale is not None:
-            self._static_scale = torch.tensor(
-                float(loss_scale), dtype=torch.float32, device=self.device)
-        if anomaly_guard:
-            bufs[ANOMALY_BAD_STEPS_KEY] = torch.zeros(
-                (), dtype=torch.int32, device=self.device)
-        # latched at construction, as in the reference
-        self._record_grad_norm = _flags.flag("FLAGS_record_grad_norm")
-        if self._record_grad_norm:
-            bufs[GRAD_NORM_KEY] = torch.zeros((), dtype=torch.float32,
-                                              device=self.device)
+        self._scale_cfg, self._dynamic, self._static_scale, \
+            self._record_grad_norm = step_buffers(
+                bufs, loss_scale, anomaly_guard, self.device)
         self._ckpt_manager = None
         self._batch_sigs = set()    # batch signatures stepped so far
         self._last_batch = None     # (inputs, labels, amp policy)
@@ -411,6 +470,10 @@ class Engine:
 
             self._zero.gather_params()
             mesh_ctx = global_batch(self.hcg)
+            x = inputs[0]
+            self.rng.layout = dropout_layout(
+                self.rng, self.hcg, x.shape[0] if self._dp_slice else 0,
+                x.shape[1] if x.dim() >= 2 else None, self._heads_split)
         if self.anomaly_guard:
             # the forward may update buffers in place (running stats)
             old_bufs = {k: b.clone() for k, b in model_bufs.items()}
@@ -424,16 +487,17 @@ class Engine:
         amp_ctx = _amp.auto_cast(enable=True, level="O2",
                                  dtype=self.comm_dtype) \
             if self.comm_dtype is not None else contextlib.nullcontext()
-        with _random.rng_scope(self.rng), amp_ctx, _lowp.engine_scope(), \
-                mesh_ctx, _lowp.scale_region(lowp_prev) as lowp_rec:
-            loss = self.loss_fn(self.layer(*inputs), *labels).float()
-            if lowp_rec is not None:
-                lowp_next = lowp_rec.updated()
-        scale = None
-        if self._dynamic:
-            scale = bufs[LOSS_SCALE_KEY]
-        elif self.loss_scale is not None:
-            scale = self._static_scale
+        try:
+            with _random.rng_scope(self.rng), amp_ctx, \
+                    _lowp.engine_scope(), mesh_ctx, \
+                    _lowp.scale_region(lowp_prev) as lowp_rec:
+                loss = self.loss_fn(self.layer(*inputs), *labels).float()
+                if lowp_rec is not None:
+                    lowp_next = lowp_rec.updated()
+        finally:
+            self.rng.layout = None
+        scale = bufs[LOSS_SCALE_KEY] if self._dynamic else \
+            self._static_scale
         (loss * scale if scale is not None else loss).backward()
         # a parameter the loss does not reach has a zero gradient, as in
         # the reference (its moments still decay)
@@ -441,39 +505,43 @@ class Engine:
                  for k, p in params.items()}
         for p in params.values():
             p.grad = None
-        if self._zero is not None:
-            from .distributed.sharding import global_mean
-
-            self._zero.update(grads, self.optimizer._lr_scalar(self.device),
-                              self._metas)
-            self.state.opt_state = self._zero.states    # offload moves it
-            if lowp_next is not None:
-                bufs[LOWP_SCALE_KEY] = lowp_next
-            return global_mean(loss.detach(), self.hcg)
-        # finiteness of the RAW unscaled gradients, before decay and
-        # clipping (a value clipper would map inf to finite values)
-        if scale is not None:
-            grads = {k: g / scale for k, g in grads.items()}
-            finite = keep = _amp.all_finite(list(grads.values()))
-        if self.anomaly_guard:
-            # the guard also counts the loss (a NaN loss with zero grads);
-            # guard_ok implies finite, so it alone decides the update
-            guard_ok = keep = (finite if scale is not None else
-                               _amp.all_finite(list(grads.values()))) & \
-                torch.isfinite(loss)
-        if self._record_grad_norm:
-            # the global l2 norm of the RAW grads (unscaled, before decay
-            # and clipping): the number a clipper would have seen
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                                   for g in grads.values()))
         opt = self.optimizer
-        grads = opt.decay_gradients(params, grads, self._metas)
-        if self._grad_clip is not None:
-            grads = self._grad_clip._clip_fn(grads, params)
-        # made by torch.full, which passes the value as a kernel
-        # argument: a new rate (an LR scheduler's) never waits for the card
-        opt.apply_gradients(params, grads, self.state.opt_state,
-                            opt._lr_scalar(self.device), self._metas, keep)
+        if self._zero is not None:
+            from .distributed.sharding import global_mean, meshed_update
+
+            loss = global_mean(loss.detach(), self.hcg)
+            finite, guard_ok, gnorm = meshed_update(
+                self._zero, grads, opt._lr_scalar(self.device), self._metas,
+                scale=scale, loss=loss if self.anomaly_guard else None,
+                grad_clip=self._grad_clip, comm_dtype=self.comm_dtype,
+                record_norm=self._record_grad_norm)
+            self.state.opt_state = self._zero.states    # offload moves it
+        else:
+            # finiteness of the RAW unscaled gradients, before decay and
+            # clipping (a value clipper would map inf to finite values)
+            if scale is not None:
+                grads = {k: g / scale for k, g in grads.items()}
+                finite = keep = _amp.all_finite(list(grads.values()))
+            if self.anomaly_guard:
+                # the guard also counts the loss (a NaN loss with zero
+                # grads); guard_ok implies finite, so it alone decides
+                guard_ok = keep = (finite if scale is not None else
+                                   _amp.all_finite(list(grads.values()))) \
+                    & torch.isfinite(loss)
+            if self._record_grad_norm:
+                # the global l2 norm of the RAW grads (unscaled, before
+                # decay and clipping): the number a clipper would see
+                gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                       for g in grads.values()))
+            grads = opt.decay_gradients(params, grads, self._metas)
+            if self._grad_clip is not None:
+                grads = self._grad_clip._clip_fn(grads, params)
+            # made by torch.full, which passes the value as a kernel
+            # argument: a new rate (an LR scheduler's) never waits for
+            # the card
+            opt.apply_gradients(params, grads, self.state.opt_state,
+                                opt._lr_scalar(self.device), self._metas,
+                                keep)
         if self.anomaly_guard:
             with torch.no_grad():
                 for k, b in model_bufs.items():
@@ -492,7 +560,7 @@ class Engine:
         if self._record_grad_norm:
             bufs[GRAD_NORM_KEY] = gnorm
         if self._dynamic:
-            self._update_scale(finite)
+            update_loss_scale(bufs, self._scale_cfg, finite)
         return loss.detach()
 
     def sync_to_layer(self):
@@ -618,7 +686,13 @@ class Engine:
         FLAGS_anomaly_max_bad_steps consecutive steps go non-finite, the
         engine restores the newest readable checkpoint from this
         `distributed.checkpoint.CheckpointManager`
-        (`train_epoch_range` attaches its own manager)."""
+        (`train_epoch_range` attaches its own manager). A meshed
+        engine's rollback waits with the hybrid checkpoints (ROADMAP
+        queue A item 4)."""
+        if self.hcg is not None:
+            raise NotImplementedError(
+                "the guard's rollback of a meshed engine (hybrid "
+                "checkpoints) waits in ROADMAP queue A item 4")
         self._ckpt_manager = manager
 
     def _check_anomaly(self):
@@ -663,20 +737,3 @@ class Engine:
             f"back to checkpoint ckpt-{step} (engine step "
             f"{self.state.step})")
 
-    def _update_scale(self, finite):
-        """The reference's in-graph GradScaler rule: grow the scale
-        after incr_every_n_steps consecutive finite steps, shrink it
-        after decr_every_n_nan_or_inf consecutive non-finite ones."""
-        cfg, bufs = self._scale_cfg, self.state.buffers
-        scale = bufs[LOSS_SCALE_KEY]
-        good, bad = bufs[GOOD_STEPS_KEY], bufs[BAD_STEPS_KEY]
-        zero = torch.zeros_like(good)
-        good_next = torch.where(finite, good + 1, zero)
-        bad_next = torch.where(finite, zero, bad + 1)
-        grow = finite & (good_next >= cfg["incr_every_n_steps"])
-        shrink = ~finite & (bad_next >= cfg["decr_every_n_nan_or_inf"])
-        bufs[LOSS_SCALE_KEY] = torch.where(
-            grow, scale * cfg["incr_ratio"],
-            torch.where(shrink, scale * cfg["decr_ratio"], scale))
-        bufs[GOOD_STEPS_KEY] = torch.where(grow, zero, good_next)
-        bufs[BAD_STEPS_KEY] = torch.where(shrink, zero, bad_next)

@@ -1,13 +1,30 @@
 """ERNIE / BERT encoder family (counterpart of
 paddle_tpu/nlp/transformers/ernie.py).
 
-Single-device only: ``use_parallel=True`` raises (ERNIE's
-tensor-parallel layout and ``make_ernie_hybrid_engine`` wait in ROADMAP
-queue A item 4; GPT has it). ``recompute=True`` reruns each encoder block in the
+``use_parallel=True`` builds the Megatron layout of
+`distributed.fleet.meta_parallel`, as the reference's (``ernie.py:68-69,
+104-107, 138-142``): the word table as `VocabParallelEmbedding`, the
+packed q / k / v and fc1 as `ColumnParallelLinear` (a rank holds whole
+heads of each of q, k and v, ``packed_heads``), out_proj and fc2 as
+`RowParallelLinear`, each reading the hybrid group's model-parallel
+degree when built (degree 1 without one: the dense layers under the
+same names and shapes). Under mp > 1 the tied head's logits are the
+rank's slice of the vocabulary, the fused LM-head loss is off (the
+reference's predicate, ``:225-249``) and `ErniePretrainingCriterion`
+runs on `ParallelCrossEntropy` (``:279-281``). ``sequence_parallel=True``
+keeps ``s / mp`` positions a rank between the products: the embeddings'
+output is split over the sequence, each column-parallel layer gathers
+it, each row-parallel one reduce-scatters it, and the LayerNorms of the
+blocks and of the MLM transform normalise the rank's part (their
+gradients are summed over mp); the pooler reads position 0 of the
+gathered sequence and the tied product gathers the sequence again, so
+`ErnieModel` returns the rank's part of the sequence and the whole
+pooled output. ``recompute=True`` reruns each encoder block in the
 backward (`distributed.fleet.utils.recompute`, which replays the same
-dropout masks). Parameter names and layouts equal
+dropout masks). Parameter names and (at degree 1) layouts equal
 ``paddle_tpu.engine.state_values`` one to one, so weights cross between
-the packages as numpy arrays (``paddle_tpu_torch.weights``).
+the packages as numpy arrays (``paddle_tpu_torch.weights``, whose
+`shard_values` / `gather_values` map them onto a rank's shards).
 
 The MLM head is tied to ``ernie.embeddings.word_embeddings.weight``.
 The head reads that table through its owner at call time and never
@@ -26,9 +43,12 @@ from __future__ import annotations
 import torch
 
 from ... import amp, nn, resolve_device
+from ...distributed.fleet.meta_parallel import mp_layers as mpl
 from ...distributed.fleet.utils.recompute import recompute
+from ...distributed.sharding import batch_weight
 from ...framework.flags import flag
 from ...nn import functional as F
+from ...ops import lowp
 from ...ops.fused_loss import DeferredLMHead
 
 __all__ = ["ErnieConfig", "ernie_config", "ErnieEmbeddings",
@@ -80,13 +100,32 @@ def ernie_config(name, **overrides):
     return ErnieConfig(**cfg)
 
 
+def _seq_parallel(config):
+    """Sequence parallelism is on: asked for, under mp > 1."""
+    return bool(config.use_parallel and config.sequence_parallel and
+                mpl.mp_group_of()[2] > 1)
+
+
+def _mark_seq_parallel(*layers):
+    """Mark the parameters of `layers`, which see only this rank's part
+    of the sequence, for the gradient sum over mp."""
+    for layer in layers:
+        for p in layer.parameters():
+            p.sequence_parallel = True
+
+
 class ErnieEmbeddings(nn.Layer):
     def __init__(self, config: ErnieConfig, generator=None):
         super().__init__()
         init = nn.initializer.Normal(std=config.initializer_range)
-        self.word_embeddings = nn.Embedding(
-            config.vocab_size, config.hidden_size, weight_attr=init,
-            generator=generator)
+        if config.use_parallel:
+            self.word_embeddings = mpl.VocabParallelEmbedding(
+                config.vocab_size, config.hidden_size, weight_attr=init,
+                generator=generator)
+        else:
+            self.word_embeddings = nn.Embedding(
+                config.vocab_size, config.hidden_size, weight_attr=init,
+                generator=generator)
         self.position_embeddings = nn.Embedding(
             config.max_seq_len, config.hidden_size, weight_attr=init,
             generator=generator)
@@ -118,17 +157,30 @@ class ErnieSelfAttention(nn.Layer):
         self.head_dim = h // nh
         self.attn_dropout = config.attn_dropout
         init = nn.initializer.Normal(std=config.initializer_range)
-        self.qkv_proj = nn.Linear(h, 3 * h, weight_attr=init,
-                                  generator=generator)
-        self.out_proj = nn.Linear(h, h, weight_attr=init,
-                                  generator=generator)
+        if config.use_parallel:
+            sp = config.sequence_parallel
+            self.qkv_proj = mpl.ColumnParallelLinear(
+                h, 3 * h, weight_attr=init, gather_output=False,
+                sequence_parallel=sp, packed_heads=(3, nh),
+                generator=generator)
+            self.out_proj = mpl.RowParallelLinear(
+                h, h, weight_attr=init, input_is_parallel=True,
+                sequence_parallel=sp, generator=generator)
+            self.num_heads = nh // self.qkv_proj.degree   # this rank's
+        else:
+            self.qkv_proj = nn.Linear(h, 3 * h, weight_attr=init,
+                                      generator=generator)
+            self.out_proj = nn.Linear(h, h, weight_attr=init,
+                                      generator=generator)
 
     def forward(self, x, attn_mask=None):
-        b, s, h = x.shape
         # one packed [b, s, 3, nh, d] -> [3, b, nh, s, d] permute; the
         # attention reads q, k, v through their strides. Each Tensor
-        # method casts under the reference's op name (O2)
+        # method casts under the reference's op name (O2). The sequence
+        # is whole here (gathered under sequence parallelism)
         (qkv,) = amp.cast("reshape", self.qkv_proj(x))
+        b, s = qkv.shape[:2]
+        h = self.num_heads * self.head_dim
         (qkv,) = amp.cast("transpose", qkv.reshape(
             b, s, 3, self.num_heads, self.head_dim))
         (qkv,) = amp.cast("unstack", qkv.permute(2, 0, 3, 1, 4))
@@ -150,13 +202,26 @@ class ErnieEncoderLayer(nn.Layer):
         self.self_attn = ErnieSelfAttention(config, generator)
         self.norm1 = nn.LayerNorm(config.hidden_size,
                                   epsilon=config.layer_norm_eps)
-        self.fc1 = nn.Linear(config.hidden_size, config.ffn_hidden_size,
-                             weight_attr=init, generator=generator)
-        self.fc2 = nn.Linear(config.ffn_hidden_size, config.hidden_size,
-                             weight_attr=init, generator=generator)
+        if config.use_parallel:
+            sp = config.sequence_parallel
+            self.fc1 = mpl.ColumnParallelLinear(
+                config.hidden_size, config.ffn_hidden_size, weight_attr=init,
+                gather_output=False, sequence_parallel=sp,
+                generator=generator)
+            self.fc2 = mpl.RowParallelLinear(
+                config.ffn_hidden_size, config.hidden_size, weight_attr=init,
+                input_is_parallel=True, sequence_parallel=sp,
+                generator=generator)
+        else:
+            self.fc1 = nn.Linear(config.hidden_size, config.ffn_hidden_size,
+                                 weight_attr=init, generator=generator)
+            self.fc2 = nn.Linear(config.ffn_hidden_size, config.hidden_size,
+                                 weight_attr=init, generator=generator)
         self.norm2 = nn.LayerNorm(config.hidden_size,
                                   epsilon=config.layer_norm_eps)
         self.dropout = config.dropout
+        if _seq_parallel(config):
+            _mark_seq_parallel(self.norm1, self.norm2)
 
     def forward(self, x, attn_mask=None):
         h = self.self_attn(x, attn_mask)
@@ -181,17 +246,32 @@ class ErniePooler(nn.Layer):
 class ErnieModel(nn.Layer):
     def __init__(self, config: ErnieConfig, generator=None):
         super().__init__()
-        if config.use_parallel:
-            raise NotImplementedError(
-                "ERNIE's use_parallel=True (with make_ernie_hybrid_engine) "
-                "waits in ROADMAP queue A item 4; build the config with "
-                "use_parallel=False")
         self.config = config
         self.embeddings = ErnieEmbeddings(config, generator)
         self.encoder = nn.LayerList(
             [ErnieEncoderLayer(config, generator)
              for _ in range(config.num_layers)])
         self.pooler = ErniePooler(config, generator)
+        self.mp_group = mpl.mp_group_of()[0] if config.use_parallel \
+            else None
+        self.sequence_parallel = _seq_parallel(config)
+
+    def embed(self, input_ids, token_type_ids=None, position_ids=None):
+        """The embeddings' output, this rank's part of the sequence under
+        sequence parallelism."""
+        x = self.embeddings(input_ids, token_type_ids, position_ids)
+        if self.sequence_parallel:
+            x = mpl.scatter_seq(x, self.mp_group)
+        return x
+
+    def pool(self, x):
+        """The pooler's output of the encoder's output `x` (this rank's
+        part of the sequence under sequence parallelism: the pooler,
+        which every rank runs alike, reads position 0 of the gathered
+        sequence)."""
+        if self.sequence_parallel:
+            x = mpl.gather_seq_replicated(x, self.mp_group)
+        return self.pooler(x)
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None,
                 attention_mask=None):
@@ -199,7 +279,7 @@ class ErnieModel(nn.Layer):
             # [b, s] padding mask -> additive [b, 1, 1, s]
             m = attention_mask.float()
             attention_mask = (1.0 - m)[:, None, None, :] * -1e4
-        x = self.embeddings(input_ids, token_type_ids, position_ids)
+        x = self.embed(input_ids, token_type_ids, position_ids)
         for layer in self.encoder:
             if self.config.recompute:
                 # rematerialise the block in backward: O(layers) fewer
@@ -207,14 +287,16 @@ class ErnieModel(nn.Layer):
                 x = recompute(layer, x, attention_mask)
             else:
                 x = layer(x, attention_mask)
-        return x, self.pooler(x)
+        return x, self.pool(x)
 
 
 class ErniePretrainingHeads(nn.Layer):
     """MLM transform + tied decoder, and the NSP classifier.
 
     `embedding_owner` is the module whose ``.weight`` is the tied
-    ``[vocab, hidden]`` table (read at call time, not registered here).
+    ``[vocab, hidden]`` table (read at call time, not registered here;
+    under mp > 1 this rank's rows of it, and the logits its slice of the
+    vocabulary).
     """
 
     def __init__(self, config: ErnieConfig, embedding_owner,
@@ -229,6 +311,11 @@ class ErniePretrainingHeads(nn.Layer):
         self.seq_relationship = nn.Linear(config.hidden_size, 2,
                                           generator=generator)
         self.config = config
+        self.mp_group = mpl.mp_group_of()[0] if config.use_parallel \
+            else None
+        self.sequence_parallel = _seq_parallel(config)
+        if self.sequence_parallel:
+            _mark_seq_parallel(self.transform, self.layer_norm)
 
     def _fuse_lm_loss(self):
         """The reference's plainness predicate: a tied table, no vocab
@@ -238,12 +325,23 @@ class ErniePretrainingHeads(nn.Layer):
                 and flag("FLAGS_use_fused_lm_loss"))
 
     def forward(self, sequence_output, pooled_output):
-        h = self.layer_norm(F.gelu(self.transform(sequence_output)))
+        # under sequence parallelism the transform's input is this rank's
+        # part of the sequence: a low-precision route takes its abs-max
+        # over the whole sequence
+        with lowp.shard_groups(a=self.mp_group if self.sequence_parallel
+                               else None):
+            h = self.transform(sequence_output)
+        h = self.layer_norm(F.gelu(h))
         if self._fuse_lm_loss():
             # the criterion takes (h, W) through the fused loss, so the
             # [b, s, V] logits are never written
             logits = DeferredLMHead(h, self._tied_owner.weight)
         else:
+            # the whole sequence times this rank's rows of the table
+            if self.sequence_parallel:
+                h = mpl.gather_seq(h, self.mp_group)
+            elif self.mp_group is not None:
+                h = mpl.copy_to_mp(h, self.mp_group)
             logits = F.matmul(h, self._tied_owner.weight, transpose_y=True)
         return logits, self.seq_relationship(pooled_output)
 
@@ -277,25 +375,51 @@ class ErnieForPretraining(nn.Layer):
 
 class ErniePretrainingCriterion(nn.Layer):
     """MLM + NSP loss: mean cross entropy over the non-ignored MLM rows,
-    plus the NSP cross entropy when its labels are given."""
+    plus the NSP cross entropy when its labels are given. Under
+    ``use_parallel`` the MLM rows' losses come from `ParallelCrossEntropy`
+    over the vocab-split logits, summed over the non-ignored rows and
+    divided by their count (at least 1), as the reference's. Under a
+    meshed engine the MLM mean is over the non-ignored rows of the
+    global batch (`distributed.sharding.batch_weight`)."""
 
     def __init__(self, config: ErnieConfig = None, ignore_index=-100):
         super().__init__()
-        if config is not None and config.use_parallel:
-            raise NotImplementedError(
-                "ERNIE's use_parallel=True (ParallelCrossEntropy in its "
-                "criterion) waits in ROADMAP queue A item 4")
         self.ignore_index = ignore_index
+        use_parallel = config.use_parallel if config is not None else False
+        self.parallel_ce = mpl.ParallelCrossEntropy(
+            ignore_index=ignore_index) if use_parallel else None
+
+    def loss_weight(self, masked_lm_labels):
+        """The MLM rows that count: the weight a meshed engine totals
+        over the global batch."""
+        return (masked_lm_labels != self.ignore_index).float().sum()
 
     def forward(self, prediction_scores, seq_relationship_score,
                 masked_lm_labels, next_sentence_labels=None):
+        valid = self.loss_weight(masked_lm_labels)
+        total, parts = batch_weight(valid)
         if isinstance(prediction_scores, DeferredLMHead):
             mlm = F.fused_linear_cross_entropy(
                 prediction_scores.hidden, prediction_scores.weight,
                 masked_lm_labels, ignore_index=self.ignore_index)
+        elif self.parallel_ce is not None:
+            loss = self.parallel_ce(prediction_scores,
+                                    masked_lm_labels).squeeze(-1)
+            mask = (masked_lm_labels != self.ignore_index).float()
+            return self._with_nsp(
+                (loss * mask).sum() * parts / total.clamp_min(1.0),
+                seq_relationship_score, next_sentence_labels)
         else:
             mlm = F.cross_entropy(prediction_scores, masked_lm_labels,
                                   ignore_index=self.ignore_index)
+        if parts > 1:
+            # the slice's mean times its share of the global batch's rows
+            mlm = mlm * (valid * parts / total.clamp_min(1.0))
+        return self._with_nsp(mlm, seq_relationship_score,
+                              next_sentence_labels)
+
+    @staticmethod
+    def _with_nsp(mlm, seq_relationship_score, next_sentence_labels):
         if next_sentence_labels is None:
             return mlm
         return mlm + F.cross_entropy(seq_relationship_score,

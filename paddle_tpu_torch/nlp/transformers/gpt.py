@@ -395,15 +395,21 @@ class GPTForPretraining(nn.Layer):
         mp > 1 this rank's slice of the vocabulary, from the whole
         sequence)."""
         if self.config.tie_word_embeddings:
-            group = self.gpt.mp_group
-            if self.gpt.sequence_parallel:
-                h = mpl.gather_seq(h, group)
-            elif group is not None:
-                h = mpl.copy_to_mp(h, group)
             # the reference's ``matmul_v2``, so O1 auto_cast casts it
             w = self.gpt.embeddings.word_embeddings.weight
-            return F.matmul(h, w, transpose_y=True)
+            return F.matmul(self.head_input(h), w, transpose_y=True)
         return self.lm_head(h)
+
+    def head_input(self, h):
+        """`h` as the tied product takes it: the whole sequence (gathered
+        under sequence parallelism), entering the model-parallel region
+        whose ranks each hold some rows of the table."""
+        group = self.gpt.mp_group
+        if self.gpt.sequence_parallel:
+            return mpl.gather_seq(h, group)
+        if group is not None:
+            return mpl.copy_to_mp(h, group)
+        return h
 
     @torch.no_grad()
     def generate(self, input_ids, *, max_new_tokens=20, do_sample=False,

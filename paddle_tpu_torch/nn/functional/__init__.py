@@ -697,13 +697,18 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     """Upscale-in-train dropout (kept values times ``1 / (1 - p)`` in x's
     dtype); "downscale_in_infer" keeps values as they are in training
     and multiplies by ``1 - p`` in eval. `axis` is accepted and, as in
-    the reference, the mask covers every element."""
+    the reference, the mask covers every element. Inside a meshed
+    engine's step the mask is the hash of the element's global
+    coordinates (`framework.random.DropoutLayout`), else a draw from
+    the installed generator."""
     if not training or p == 0.0:
         if mode == "downscale_in_infer" and not training:
             return _mul(x, 1.0 - p)
         return x
     (x,) = amp.cast("dropout", x)
-    keep = _keep_mask(x, p)
+    layout = _random.layout_for(x.device)
+    keep = _keep_mask(x, p) if layout is None else \
+        layout.hidden_keep(x, fused_ops._thresh(p))
     scale = torch.tensor(1.0 / (1.0 - p) if mode == "upscale_in_train"
                          else 1.0, dtype=x.dtype, device=x.device)
     return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype,
@@ -1106,7 +1111,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     With an additive (float) or boolean mask it is the reference's plain
     op: f32 scores, causal mask aligned bottom-right, softmax, dropout of
     the probabilities from the installed generator (kept values divided
-    by ``1 - p``)."""
+    by ``1 - p``). Inside a meshed engine's step both paths drop by the
+    flash kernels' hash of the global batch-head, query and key under
+    the site's seed (`framework.random.DropoutLayout.attention`)."""
     if qkv_layout == "bhsd":
         q, k, v = query, key, value
     else:
@@ -1114,11 +1121,16 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                    for t in (query, key, value))
     use_dropout = dropout_p > 0.0 and training
     p = dropout_p if use_dropout else 0.0
+    layout = _random.layout_for(q.device) if use_dropout else None
     if attn_mask is None:
         q, k, v = amp.cast("flash_attention", q, k, v)
-        seed = _random.next_seed(q.device) if use_dropout else None
+        offset = None
+        if layout is not None:
+            seed, offset = layout.attention(q.shape[1])
+        else:
+            seed = _random.next_seed(q.device) if use_dropout else None
         out = fused_ops.flash_attention(q, k, v, seed, is_causal=is_causal,
-                                        dropout_p=p)
+                                        dropout_p=p, bh_offset=offset)
         return _t("transpose", out).transpose(1, 2)
     q, k, v, attn_mask = amp.cast("scaled_dot_product_attention", q, k, v,
                                   attn_mask)
@@ -1136,7 +1148,13 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         # probabilities' dtype (its dropout op multiplies by 1 / (1 - p));
         # a tensor divisor keeps the division IEEE on CUDA
         # (`ops.quant_ops.true_div`)
-        keep = _keep_mask(probs, p)
+        if layout is None:
+            keep = _keep_mask(probs, p)
+        else:
+            b, h, sq, sk = probs.shape
+            seed, offset = layout.attention(h)
+            keep = fused_ops._keep_mask(seed, b * h, sq, sk, p, h,
+                                        offset).reshape(probs.shape)
         probs = torch.where(
             keep, probs / torch.tensor(1.0 - p, dtype=probs.dtype,
                                        device=probs.device),

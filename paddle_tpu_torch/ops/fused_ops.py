@@ -37,6 +37,12 @@ every pass regenerates the same bits whatever its tiling. (The
 reference seeds the TPU's PRNG per tile and its CPU path uses
 jax.random, neither of which can be reproduced here.) The seed is a
 device tensor read by the kernels, never synchronised to the host.
+``bh`` is the element's GLOBAL batch-head index: ``bh_offset=(b0, h0,
+heads)`` says that this call's rows are rows ``b0, b0 + 1, ...`` of the
+whole batch and its heads are heads ``h0, h0 + 1, ...`` of ``heads``, so
+a rank holding a data-parallel slice of the rows or a model-parallel
+slice of the heads drops the same elements as one device holding all of
+them (the reference's GSPMD masks do not depend on the layout either).
 """
 
 from __future__ import annotations
@@ -89,15 +95,35 @@ def _mm3_final(h):
     return h ^ (h >> 16)
 
 
-def _keep_hash(seed, bh, sq, sk):
-    """murmur3_32 of (bh, q, k) under `seed` (a 0-dim integer tensor),
-    as int64 ``[bh, sq, sk]`` in [0, 2**32)."""
-    dev = seed.device
+def hash3(seed, w1, w2, w3):
+    """murmur3_32 of the three words ``(w1[i], w2[j], w3[k])`` under
+    `seed` (a 0-dim integer tensor), for int64 vectors of words in [0,
+    2**32): int64 ``[len(w1), len(w2), len(w3)]`` in [0, 2**32)."""
     s = seed.to(torch.int64).reshape(()) & _M32
+    h = _mm3_round(s, w1)[:, None, None]
+    h = _mm3_round(h, w2[None, :, None])
+    return _mm3_final(_mm3_round(h, w3[None, None, :]))
+
+
+def _bh_words(bh, heads, bh_offset, dev):
+    """The global batch-head words of a call's `bh` = b x `heads`
+    rows: ``(b0 + b) * H + h0 + h`` for ``bh_offset`` (b0, h0, H), the
+    rows' own index without one."""
+    ar = torch.arange(bh, dtype=torch.int64, device=dev)
+    if bh_offset is None:
+        return ar
+    b0, h0, total = bh_offset
+    return (ar // heads + b0) * total + h0 + ar % heads
+
+
+def _keep_hash(seed, bh, sq, sk, heads=1, bh_offset=None):
+    """murmur3_32 of (global bh, q, k) under `seed` (a 0-dim integer
+    tensor), as int64 ``[bh, sq, sk]`` in [0, 2**32); `heads` is the
+    call's heads a row, `bh_offset` as `flash_attention` takes it."""
+    dev = seed.device
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=dev)  # noqa
-    h = _mm3_round(s, ar(bh))[:, None, None]
-    h = _mm3_round(h, ar(sq)[None, :, None])
-    return _mm3_final(_mm3_round(h, ar(sk)[None, None, :]))
+    return hash3(seed, _bh_words(bh, heads, bh_offset, dev), ar(sq),
+                 ar(sk))
 
 
 def _thresh(dropout_p):
@@ -106,23 +132,30 @@ def _thresh(dropout_p):
     return int((1.0 - dropout_p) * float(2 ** 32 - 1))
 
 
-def _keep_mask(seed, bh, sq, sk, dropout_p):
+def _keep_mask(seed, bh, sq, sk, dropout_p, heads=1, bh_offset=None):
     """bool keep mask ``[bh, sq, sk]`` of the dropout shared with the
     kernels."""
-    return _keep_hash(seed, bh, sq, sk) < _thresh(dropout_p)
+    return _keep_hash(seed, bh, sq, sk, heads, bh_offset) < \
+        _thresh(dropout_p)
 
 
-def _keep_mask_kernel(seed, bh, sq, sk, dropout_p):
+def _offsets(heads, bh_offset):
+    """(b0, h0, global heads) the kernels take."""
+    return (0, 0, heads) if bh_offset is None else tuple(bh_offset)
+
+
+def _keep_mask_kernel(seed, bh, sq, sk, dropout_p, heads=1, bh_offset=None):
     """The kernels' keep mask, written by their own hash on the card (a
     check of `_keep_mask`; no pass of the attention launches it)."""
     out = torch.empty((bh, sq, sk), dtype=torch.uint8, device=seed.device)
+    I = _launch._I
     lib, fn = _launch.bind("flash_attn", "flash_keep_mask",
-                           [_launch._P, _launch._I, _launch._I, _launch._I,
-                            ctypes.c_uint, _launch._P, _launch._I,
-                            _launch._P])
+                           [_launch._P, I, I, I, ctypes.c_uint, _launch._P,
+                            I, I, I, I, I, _launch._P])
     seed64 = seed.to(torch.int64).reshape(())
     _launch.launch(lib, fn, "flash_keep_mask", seed.device, out.data_ptr(),
-                   bh, sq, sk, _thresh(dropout_p), seed64.data_ptr())
+                   bh, sq, sk, _thresh(dropout_p), seed64.data_ptr(), heads,
+                   *_offsets(heads, bh_offset))
     return out.bool()
 
 
@@ -149,10 +182,11 @@ def _scores(q, k, scale, causal):
     return _causal_fill(s) if causal else s
 
 
-def _flash_fwd_plain(q, k, v, seed, scale, causal, dropout_p):
-    """``_flash_fwd_jnp`` on ``[bh, s, d]``: f32 scores and softmax,
-    probabilities rounded to the input dtype before the value product
-    (f32 accumulation); returns ``(o, lse)``."""
+def _flash_fwd_plain(q, k, v, seed, scale, causal, dropout_p, heads=1,
+                     bh_offset=None):
+    """``_flash_fwd_jnp`` on ``[bh, s, d]`` (`heads` a batch row):
+    f32 scores and softmax, probabilities rounded to the input dtype
+    before the value product (f32 accumulation); returns ``(o, lse)``."""
     s = _scores(q, k, scale, causal)
     m = s.amax(-1)
     p = torch.exp(s - m[..., None])
@@ -162,21 +196,22 @@ def _flash_fwd_plain(q, k, v, seed, scale, causal, dropout_p):
         inv = true_div(inv, 1.0 - dropout_p)
     probs = (p * inv[..., None]).to(q.dtype)
     if dropout_p > 0.0:
-        keep = _keep_mask(seed, *s.shape, dropout_p)
+        keep = _keep_mask(seed, *s.shape, dropout_p, heads, bh_offset)
         probs = torch.where(keep, probs, torch.zeros((), dtype=probs.dtype,
                                                      device=probs.device))
     o = torch.matmul(probs.float(), v.float())
     return o.to(q.dtype), m + torch.log(l)
 
 
-def _flash_bwd_plain(q, k, v, o, lse, do, seed, scale, causal, dropout_p):
+def _flash_bwd_plain(q, k, v, o, lse, do, seed, scale, causal, dropout_p,
+                     heads=1, bh_offset=None):
     """``_flash_bwd_jnp`` on ``[bh, s, d]``; returns ``(dq, dk, dv)``."""
     s = _scores(q, k, scale, causal)
     p = torch.exp(s - lse[..., None])
     delta = (do.float() * o.float()).sum(-1)
     zero = torch.zeros((), dtype=q.dtype, device=q.device)
     if dropout_p > 0.0:
-        keep = _keep_mask(seed, *s.shape, dropout_p)
+        keep = _keep_mask(seed, *s.shape, dropout_p, heads, bh_offset)
         inv_keep = 1.0 / (1.0 - dropout_p)
         pd = torch.where(keep, (p * inv_keep).to(q.dtype), zero)
     else:
@@ -245,11 +280,11 @@ def _bind():
         "flash_attn", "flash_attn",
         [I, I, I, P, P, P, P, P, P, P, P, P,
          ctypes.POINTER(ctypes.c_longlong), I, I, I, I, F, I, I, F,
-         ctypes.c_uint, P, I, P])
+         ctypes.c_uint, P, I, I, I, I, P])
 
 
 def _launch_pass(pass_, q, k, v, do, out, out2, lse, lse_in, delta, seed,
-                 scale, causal, dropout_p):
+                 scale, causal, dropout_p, bh_offset=None):
     b, h, sq, d = q.shape
     sk = k.shape[2]
     lib, fn = _bind()
@@ -267,11 +302,12 @@ def _launch_pass(pass_, q, k, v, do, out, out2, lse, lse_in, delta, seed,
         int(causal), int(drop),
         float(1.0 / (1.0 - dropout_p)) if drop else 1.0,
         _thresh(dropout_p) if drop else 0,
-        seed.data_ptr() if drop else None)
+        seed.data_ptr() if drop else None, *_offsets(h, bh_offset))
     _launch.count(flash_attention.launches, ("B1", "B2", "B3")[pass_])
 
 
-def _flash_fwd_kernel(q, k, v, seed, scale, causal, dropout_p):
+def _flash_fwd_kernel(q, k, v, seed, scale, causal, dropout_p,
+                      bh_offset=None):
     """B1 on ``[b, h, s, d]`` (any strides with a contiguous last dim).
     ``o`` is written in ``[b, s, h, d]`` memory and returned as its
     ``[b, h, s, d]`` view, so the caller's ``transpose(1, 2)`` back to
@@ -283,11 +319,12 @@ def _flash_fwd_kernel(q, k, v, seed, scale, causal, dropout_p):
                     device=q.device).transpose(1, 2)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     _launch_pass(0, q, k, v, None, o, None, lse, None, None, seed, scale,
-                 causal, dropout_p)
+                 causal, dropout_p, bh_offset)
     return o, lse
 
 
-def _flash_bwd_kernel(q, k, v, o, lse, do, seed, scale, causal, dropout_p):
+def _flash_bwd_kernel(q, k, v, o, lse, do, seed, scale, causal, dropout_p,
+                      bh_offset=None):
     """B2 then B3; delta = rowsum(do * o) in f32 is a torch op, as the
     reference computes it outside its kernels."""
     q, k, v, do = (_rows_contiguous(t) for t in (q, k, v, do))
@@ -298,9 +335,9 @@ def _flash_bwd_kernel(q, k, v, o, lse, do, seed, scale, causal, dropout_p):
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch_pass(1, q, k, v, do, dq, None, None, lse, delta, seed, scale,
-                 causal, dropout_p)
+                 causal, dropout_p, bh_offset)
     _launch_pass(2, q, k, v, do, dk, dv, None, lse, delta, seed, scale,
-                 causal, dropout_p)
+                 causal, dropout_p, bh_offset)
     return dq, dk, dv
 
 
@@ -308,47 +345,53 @@ def _to3(t):
     return t.reshape(t.shape[0] * t.shape[1], *t.shape[2:])
 
 
-def _fwd(q, k, v, seed, scale, causal, dropout_p):
+def _fwd(q, k, v, seed, scale, causal, dropout_p, bh_offset=None):
     if _launch.route(q) == "kernel":
-        return _flash_fwd_kernel(q, k, v, seed, scale, causal, dropout_p)
+        return _flash_fwd_kernel(q, k, v, seed, scale, causal, dropout_p,
+                                 bh_offset)
     b, h = q.shape[:2]
     o, lse = _flash_fwd_plain(_to3(q), _to3(k), _to3(v), seed, scale,
-                              causal, dropout_p)
+                              causal, dropout_p, h, bh_offset)
     return o.reshape(b, h, *o.shape[1:]), lse.reshape(b, h, -1)
 
 
-def _bwd(q, k, v, o, lse, do, seed, scale, causal, dropout_p):
+def _bwd(q, k, v, o, lse, do, seed, scale, causal, dropout_p,
+         bh_offset=None):
     if _launch.route(q) == "kernel":
         return _flash_bwd_kernel(q, k, v, o, lse, do, seed, scale, causal,
-                                 dropout_p)
+                                 dropout_p, bh_offset)
     grads = _flash_bwd_plain(_to3(q), _to3(k), _to3(v), _to3(o), _to3(lse),
-                             _to3(do), seed, scale, causal, dropout_p)
+                             _to3(do), seed, scale, causal, dropout_p,
+                             q.shape[1], bh_offset)
     return tuple(g.reshape(t.shape) for g, t in zip(grads, (q, k, v)))
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, seed, causal, scale, dropout_p):
-        o, lse = _fwd(q, k, v, seed, scale, causal, dropout_p)
+    def forward(ctx, q, k, v, seed, causal, scale, dropout_p, bh_offset):
+        o, lse = _fwd(q, k, v, seed, scale, causal, dropout_p, bh_offset)
         ctx.save_for_backward(q, k, v, o, lse, seed)
-        ctx.cfg = (scale, causal, dropout_p)
+        ctx.cfg = (scale, causal, dropout_p, bh_offset)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse, seed = ctx.saved_tensors
-        scale, causal, dropout_p = ctx.cfg
+        scale, causal, dropout_p, bh_offset = ctx.cfg
         dq, dk, dv = _bwd(q, k, v, o, lse, do, seed, scale, causal,
-                          dropout_p)
-        return dq, dk, dv, None, None, None, None
+                          dropout_p, bh_offset)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, seed=None, *, is_causal=False, scale=None,
-                    dropout_p=0.0):
+                    dropout_p=0.0, bh_offset=None):
     """Flash attention over ``[batch, heads, seq, head_dim]``.
 
     `seed`: an integer tensor (its low 32 bits drive the dropout mask;
     ignored when ``dropout_p == 0``) on q's device, or None for 0.
+    `bh_offset`: ``(b0, h0, heads)``, where this call's rows and heads
+    sit in the whole batch (the dropout hash's global batch-head index;
+    None: the call is the whole batch).
     CUDA tensors launch kernels B1 (forward) and B2, B3 (backward) or
     raise; CPU tensors run the plain versions."""
     s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
@@ -363,8 +406,10 @@ def flash_attention(q, k, v, seed=None, *, is_causal=False, scale=None,
     else:
         seed = torch.as_tensor(seed, device=q.device).to(
             torch.int64).reshape(())
+    if bh_offset is not None:
+        bh_offset = tuple(int(v) for v in bh_offset)
     return _FlashAttention.apply(q, k, v, seed, bool(is_causal), float(s),
-                                 float(dropout_p))
+                                 float(dropout_p), bh_offset)
 
 
 flash_attention.launches = {"B1": 0, "B2": 0, "B3": 0}

@@ -57,7 +57,8 @@ from .quant_ops import true_div
 
 __all__ = ["mode", "QMAX", "amax_of", "quant_int8", "scaled_matmul",
            "w8a8_matmul", "maybe_linear", "scale_region", "current",
-           "suppress_region", "operand_scales", "engine_scope"]
+           "suppress_region", "operand_scales", "engine_scope",
+           "shard_groups"]
 
 #: representable-abs-max -> code-point factor per quantized dtype
 QMAX = {"int8": 127.0, "fp8": 448.0}
@@ -448,12 +449,47 @@ def engine_scope(on=True):
         _tls.engine = prev
 
 
+@contextlib.contextmanager
+def shard_groups(a=None, b=None):
+    """Inside: the matmul operand a (b) of `operand_scales` is this
+    rank's shard of a tensor split over the process group `a` (`b`), so
+    its abs-max is reduced (max) over that group; None leaves an operand
+    whole. Every rank of the group then takes one device's scale, and
+    the delayed-scaling history records it."""
+    prev = getattr(_tls, "groups", None)
+    _tls.groups = (a, b)
+    try:
+        yield
+    finally:
+        _tls.groups = prev
+
+
+def _agreed(aa, ab):
+    """The abs-maxes (aa, ab) reduced over their `shard_groups` groups."""
+    groups = getattr(_tls, "groups", None)
+    if groups is None or groups == (None, None):
+        return aa, ab
+    from ..distributed.collective import ReduceOp, all_reduce
+
+    ga, gb = groups
+    if ga is not None and ga is gb:
+        both = torch.stack([aa, ab])
+        all_reduce(both, ReduceOp.MAX, group=ga)
+        return both[0], both[1]
+    if ga is not None:
+        aa = all_reduce(aa.clone(), ReduceOp.MAX, group=ga)
+    if gb is not None:
+        ab = all_reduce(ab.clone(), ReduceOp.MAX, group=gb)
+    return aa, ab
+
+
 def operand_scales(a, b):
     """(a_scale, b_scale) for one matmul: delayed-scaling slots when a
-    region is active, dynamic abs-max otherwise. Also records this
-    step's amaxes and clip counts into the region."""
+    region is active, dynamic abs-max otherwise (each reduced over the
+    group that holds the operand in shards, `shard_groups`). Also
+    records this step's amaxes and clip counts into the region."""
     ctx = current()
-    aa, ab = amax_of(a), amax_of(b)
+    aa, ab = _agreed(amax_of(a), amax_of(b))
     if ctx is None:
         return aa, ab
     ia, ib = ctx.slot(), ctx.slot()

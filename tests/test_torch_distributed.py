@@ -2,11 +2,12 @@
 mesh-factorization sweep (``__graft_entry__.SWEEP_CONFIGS``).
 
 Eight gloo ranks on the CPU (spawned once for the module, through
-tests/torch_dist_workers.py, which imports no jax) run every non-hetero
-config of the sweep on the sweep's tiny GPT, batch and initial weights,
-through the meshed `Engine` (pp 1) or `make_gpt_hybrid_engine` (pp > 1),
-and must reach the reference's single-device trajectory within the
-config's own rtol. Configs of fewer than eight ranks run as several
+tests/torch_dist_workers.py, which imports no jax) run every config of
+the sweep on the sweep's tiny GPT, batch and initial weights, through
+the meshed `Engine` (pp 1), `make_gpt_hybrid_engine` (pp > 1) or, for
+``pp2.hetero``, the `PipelineEngine` of a heterogeneous `PipelineLayer`
+on its "hetero" schedule, and must reach the reference's single-device
+trajectory within the config's own rtol. Configs of fewer than eight ranks run as several
 grids of the same shape. Each config is also held to the reference's
 own trajectory at attention dropout 0 (below) within 1e-5, and each
 parameter's change over the steps, gathered back from the ranks, to the
@@ -54,7 +55,7 @@ from paddle_tpu_torch.nlp.transformers import gpt as tgpt  # noqa: E402
 
 from torch_dist_workers import SWEEP_GPT, run_ranks  # noqa: E402
 
-CONFIGS = [c for c in graft.SWEEP_CONFIGS if not c[0].endswith("hetero")]
+CONFIGS = list(graft.SWEEP_CONFIGS)
 ZERO_STAGES = (1, 2, 3)
 # a parameter's change after the steps against the reference's, over
 # the change's largest element: the sound factorizations read at most

@@ -105,7 +105,8 @@ def test_weights_roundtrip_and_parallel_config_raises(pair):
     for k in vals:
         np.testing.assert_array_equal(back[k], vals[k])
     # GPT's use_parallel=True builds at degree 1 (the dense layers under
-    # the same names); ERNIE's still waits and raises
+    # the same names); so does ERNIE's (ported since), its encoder
+    # output equal to the dense model's
     par = tgpt.GPTForPretraining(
         tgpt.GPTConfig(**dict(TINY, use_parallel=True)), device="cpu")
     weights.from_paddle_tpu_values(vals, par)
@@ -113,8 +114,11 @@ def test_weights_roundtrip_and_parallel_config_raises(pair):
     torch.testing.assert_close(par(ids), tm(ids), rtol=0, atol=0)
     from paddle_tpu_torch.nlp.transformers import ernie as ternie
     from torch_parity import ERNIE_TINY
-    with pytest.raises(NotImplementedError, match="use_parallel"):
-        ternie.ErnieModel(ternie.ErnieConfig(
-            **dict(ERNIE_TINY, use_parallel=True)))
+    gen = torch.Generator().manual_seed(0)
+    epar, eplain = (ternie.ErnieModel(ternie.ErnieConfig(
+        **dict(ERNIE_TINY, use_parallel=p)), gen) for p in (True, False))
+    eplain.load_state_dict(epar.state_dict())
+    with torch.no_grad():
+        torch.testing.assert_close(epar(ids), eplain(ids), rtol=0, atol=0)
     with pytest.raises(RuntimeError):
         weights.from_paddle_tpu_values({"nope": np.zeros(1)}, tm)

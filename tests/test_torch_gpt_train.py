@@ -86,8 +86,8 @@ def test_criterion_matches_reference(case):
 def test_parallel_criterion_raises():
     """The criterion of GPTConfig's default ``use_parallel=True`` builds
     (ParallelCrossEntropy, degree 1 without a hybrid group) and gives the
-    plain criterion's loss, ignored labels included; ERNIE's parallel
-    criterion still waits and raises."""
+    plain criterion's loss, ignored labels included; so does ERNIE's
+    parallel criterion (ported since), over logits and NSP scores."""
     par = tgpt.GPTPretrainingCriterion(tgpt.GPTConfig(**TINY_TRAIN))
     plain = tgpt.GPTPretrainingCriterion(
         tgpt.GPTConfig(**dict(TINY_TRAIN, use_parallel=False)))
@@ -98,9 +98,12 @@ def test_parallel_criterion_raises():
     torch.testing.assert_close(par(logits, labels), plain(logits, labels),
                                rtol=0, atol=0)
     from paddle_tpu_torch.nlp.transformers import ernie as ternie
-    with pytest.raises(NotImplementedError):
-        ternie.ErniePretrainingCriterion(ternie.ErnieConfig(
-            vocab_size=97, use_parallel=True))
+    epar, eplain = (ternie.ErniePretrainingCriterion(ternie.ErnieConfig(
+        vocab_size=128, use_parallel=p)) for p in (True, False))
+    nsp = torch.randn(2, 2, generator=gen)
+    torch.testing.assert_close(epar(logits, nsp, labels),
+                               eplain(logits, nsp, labels), rtol=1e-6,
+                               atol=1e-6)
 
 
 def _runs(policy=None, recompute=False, steps=3):

@@ -420,6 +420,39 @@ def test_flash_dropout_mask_bitwise(p):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_dropout_at_a_batch_head_offset_matches_plain(dtype):
+    """The kernels hash the global batch-head index (rows 1-2 and heads
+    3-5 of 6 here): the mask and B1-B3 against the plain versions at
+    the same offset."""
+    _card()
+    seed = torch.tensor(31337, device="cuda")
+    off = (1, 3, 6)
+    got = fused_ops._keep_mask_kernel(seed, 2 * 3, 70, 130, 0.1, 3, off)
+    want = fused_ops._keep_mask(seed, 2 * 3, 70, 130, 0.1, 3, off)
+    assert torch.equal(got, want)
+    gen = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn((2, 3, 70, 64), generator=gen).to(dtype).cuda()
+               for _ in range(3))
+    do = torch.randn((2, 3, 70, 64), generator=gen).to(dtype).cuda()
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    o = fused_ops.flash_attention(*leaves, seed, dropout_p=0.1,
+                                  bh_offset=off)
+    o.backward(do)
+    to3 = fused_ops._to3
+    args = [to3(t) for t in (q, k, v)]
+    o_p, lse = fused_ops._flash_fwd_plain(*args, seed, 0.125, False, 0.1, 3,
+                                          off)
+    g_p = fused_ops._flash_bwd_plain(*args, o_p, lse, to3(do), seed, 0.125,
+                                     False, 0.1, 3, off)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip([o, *(t.grad for t in leaves)], [o_p, *g_p]):
+        torch.testing.assert_close(a.reshape(b.shape).float(), b.float(),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
 def test_flash_rejects_unsupported_head_dim():
     _card()
     q = torch.randn((1, 1, 8, 48), device="cuda")

@@ -134,6 +134,92 @@ def sweep_engine(master, hcg, dp, mp, pp, sharding, zero, offload, sp,
     return model, eng, lambda x, *y: eng.train_batch((x,), y)
 
 
+def hetero_layer(num_stages, master=None):
+    """The sweep's GPT as a heterogeneous `PipelineLayer`, as the
+    reference's ``__graft_entry__._run_hetero_config`` builds it: the
+    embeddings (a shared layer), the blocks, the final norm and the
+    tied logits (the shared layer's second use); its criterion; loaded
+    with the sweep's `master` weights (GPT names) when given."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.pp_layers import (
+        PipelineLayer, SharedLayerDesc,
+    )
+    from paddle_tpu_torch.nlp.transformers import gpt as tgpt
+    from paddle_tpu_torch.nn import functional as F
+
+    cfg = tgpt.GPTConfig(**SWEEP_GPT, use_parallel=False)
+    crit = tgpt.GPTPretrainingCriterion(cfg)
+
+    def tied_logits(base, x):
+        return F.matmul(x, base.word_embeddings.weight, transpose_y=True)
+
+    descs = [SharedLayerDesc("embed", tgpt.GPTEmbeddings, None, "weight",
+                             cfg)]
+    descs += [tgpt.GPTDecoderLayer(cfg) for _ in range(cfg.num_layers)]
+    descs.append(nn.LayerNorm(cfg.hidden_size, epsilon=cfg.layer_norm_eps))
+    descs.append(SharedLayerDesc("embed", tgpt.GPTEmbeddings, tied_logits,
+                                 "weight", cfg))
+    pl = PipelineLayer(descs, num_stages=num_stages,
+                       loss_fn=lambda lg, lb: crit(lg, lb))
+    if master is not None:
+        import torch
+
+        values = hetero_names(master, cfg.num_layers)
+        sd = pl.state_dict()
+        assert set(values) == set(sd), set(values) ^ set(sd)
+        with torch.no_grad():
+            for k, t in sd.items():
+                t.copy_(torch.as_tensor(values[k]))
+    return pl
+
+
+def hetero_names(values, num_layers, back=False):
+    """GPT names -> the hetero layer's ``run_function.<n>.*`` names (or
+    back)."""
+    pairs = [("gpt.embeddings.", "run_function.0.")]
+    pairs += [(f"gpt.layers.{i}.", f"run_function.{i + 1}.")
+              for i in range(num_layers)]
+    pairs.append(("gpt.final_norm.", f"run_function.{num_layers + 1}."))
+    out = {}
+    for k, v in values.items():
+        for a, b in pairs:
+            src, dst = (b, a) if back else (a, b)
+            if k.startswith(src):
+                out[dst + k[len(src):]] = v
+                break
+    return out
+
+
+def hetero(rank, nranks, master, x, y, pp, steps, fallback_opt=None):
+    """The sweep's pp2.hetero: the `PipelineEngine` of `hetero_layer`
+    under pp (SGD 0.05, 2 pp micro-batches) with every warning an
+    error; returns the losses, the schedule and the parameters gathered
+    back (GPT names). With `fallback_opt` (an optimizer class name the
+    hetero contract refuses) it returns the losses, the schedule and the
+    warnings instead."""
+    import warnings
+
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed.pp_engine import PipelineEngine
+
+    hcg = _fleet(pp=pp)
+    pl = hetero_layer(pp, master)
+    opt_cls = getattr(optimizer, fallback_opt or "SGD")
+    opt = opt_cls(learning_rate=SWEEP_LR, parameters=pl.parameters())
+    eng = PipelineEngine(pl, opt, hcg, accumulate_steps=2 * pp,
+                         device="cpu")
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always" if fallback_opt else "error")
+        losses = [float(eng.train_batch(x, y)) for _ in range(steps)]
+    out = {"losses": _agree("hetero", losses), "schedule": eng.schedule,
+           "warnings": [str(w.message) for w in seen]}
+    eng.sync_to_layer()
+    params = {k: v.detach().numpy().copy()
+              for k, v in pl.state_dict().items()}
+    out["params"] = hetero_names(params, SWEEP_GPT["num_layers"], back=True)
+    return out
+
+
 def sweep(rank, nranks, master, x, y, configs, zero_cases, masked):
     """Each sweep config's loss trajectory (rank 0's; every rank checks
     that its own equals it) and its parameters gathered back after the
@@ -152,6 +238,15 @@ def sweep(rank, nranks, master, x, y, configs, zero_cases, masked):
     runs += [(name, (dp, mp, 1, 1, 0, False, sp), (mask,))
              for name, dp, mp, sp, mask in masked]
     for name, (dp, mp, pp, sh, zero, off, sp), extra in runs:
+        if name.endswith("hetero"):
+            res = hetero(rank, nranks, master, x, y, pp, SWEEP_STEPS)
+            if res["schedule"] != "hetero":
+                raise AssertionError(f"{name} ran {res['schedule']}")
+            out[name] = res["losses"]
+            if rank == 0:
+                params[name] = res["params"]
+            set_hybrid_communicate_group(None)
+            continue
         hcg = _fleet(dp, mp, pp, sh)
         model, eng, step = sweep_engine(master, hcg, dp, mp, pp, sh, zero,
                                         off, sp)
@@ -369,4 +464,303 @@ def collectives(rank, nranks, w, b, x):
     opt.step()
     out["dp_after"] = {k: p.detach().numpy().copy()
                        for k, p in lin.named_parameters()}
+    return out
+
+
+# -- ERNIE across ranks (tests/test_torch_ernie_parallel.py,
+# test_torch_dropout_layout.py, test_torch_mesh_step_features.py) ----------
+
+# a narrow ERNIE with every module of ERNIE-1.0; mp2 splits its heads,
+# vocabulary, ffn and sequence in two
+ERNIE_DIST = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
+                  ffn_hidden_size=64, max_seq_len=16, type_vocab_size=4)
+ERNIE_LR = 0.1
+
+
+def _ernie(sp=False, dropout=0.0, attn_dropout=0.0, use_parallel=True):
+    from paddle_tpu_torch.nlp.transformers import ernie as ternie
+
+    cfg = ternie.ErnieConfig(**ERNIE_DIST, dropout=dropout,
+                             attn_dropout=attn_dropout,
+                             use_parallel=use_parallel,
+                             sequence_parallel=sp)
+    return (ternie.ErnieForPretraining(cfg, device="cpu"),
+            ternie.ErniePretrainingCriterion(cfg))
+
+
+def ernie_engine(master, hcg, grid, *, hybrid=True, dropout=0.0,
+                 opt_cls="SGD", lr=ERNIE_LR, grad_clip=None,
+                 use_parallel=True, **features):
+    """(model, step(ids, labels, *inputs)) of the ERNIE of `master` under
+    `hcg`: `grid` = (dp, mp, pp, sharding, zero stage, sequence
+    parallel); the hybrid engine (MLM loss, ``accumulate_steps`` 2 pp
+    under pp) or the meshed `Engine` (MLM loss; extra inputs after the
+    ids), `features` forwarded to the engine; ``use_parallel=False``
+    builds the dense ERNIE (its fused LM-head loss on)."""
+    from paddle_tpu_torch import optimizer, weights
+    from paddle_tpu_torch.distributed.hybrid import make_ernie_hybrid_engine
+    from paddle_tpu_torch.engine import Engine
+
+    dp, mp, pp, sh, zero, sp = grid
+    model, crit = _ernie(sp, dropout, dropout, use_parallel)
+    weights.shard_values(master, model, hcg)
+    kw = {} if grad_clip is None else {"grad_clip": grad_clip}
+    opt = getattr(optimizer, opt_cls)(learning_rate=lr,
+                                      parameters=model.parameters(), **kw)
+    if hybrid:
+        eng = make_ernie_hybrid_engine(
+            model, crit, opt, hcg, accumulate_steps=2 * pp if pp > 1 else 1,
+            zero_stage=zero, device="cpu", **features)
+        return model, eng, lambda ids, lbl: eng.train_batch(ids, lbl)
+    # a grid of one rank in a larger world has no DeviceMesh (torch's
+    # takes a group of the grid's ranks); the engine reads the hybrid
+    # group, so the group stands for it
+    mesh = hcg.get_mesh() if dp * mp * pp * sh > 1 else hcg
+    eng = Engine(model, opt, lambda out, y: crit(out[0], out[1], y),
+                 device="cpu", seed=0, mesh=mesh,
+                 batch_spec=("dp",), zero_stage=zero,
+                 sharding_axis="sharding" if sh > 1 else None, **features)
+    return model, eng, lambda ids, lbl, *inp: eng.train_batch(
+        (ids, *inp), (lbl,))
+
+
+def _agree(name, values):
+    from paddle_tpu_torch.distributed import all_gather_object
+
+    every = all_gather_object([], values)
+    # by repr: a NaN loss equals itself there
+    if any(repr(v) != repr(every[0]) for v in every):
+        raise AssertionError(f"{name}: ranks disagree {every}")
+    return values
+
+
+def _run_grids(master, ids, labels, grids, steps, **kw):
+    """Each named grid's losses (every rank's alike) and its parameters
+    gathered back after the steps (a grid named "dense.*" trains the
+    dense ERNIE)."""
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.distributed.topology import (
+        set_hybrid_communicate_group,
+    )
+
+    losses, params = {}, {}
+    for name, grid, hybrid in grids:
+        hcg = _fleet(grid[0], grid[1], grid[2], grid[3])
+        model, eng, step = ernie_engine(master, hcg, grid, hybrid=hybrid,
+                                        use_parallel=not name.startswith(
+                                            "dense."), **kw)
+        losses[name] = _agree(name, [float(step(ids, labels))
+                                     for _ in range(steps)])
+        eng.sync_to_layer()
+        params[name] = weights.gather_values(model, hcg)
+        set_hybrid_communicate_group(None)
+    return losses, params
+
+
+def _smm_recorder():
+    """Wrap `ops.lowp.scaled_matmul` to record each call's operands and
+    scales (the quantised codes follow from them)."""
+    from paddle_tpu_torch.ops import lowp
+
+    calls, real = [], lowp.scaled_matmul
+
+    def rec(a, b, a_scale=None, b_scale=None, **kw):
+        calls.append(tuple(t.detach().float().numpy().copy()
+                           for t in (a, b, a_scale, b_scale)))
+        return real(a, b, a_scale, b_scale, **kw)
+
+    rec.launches = 0        # a CUDA wrapper counts on the name it calls
+    return calls, rec
+
+
+def ernie_parallel(rank, nranks, master, ids, labels, grids, steps,
+                   lowp_grids, layer_case):
+    """ERNIE's use_parallel through the hybrid engine at each of
+    `grids` (dropout 0), then the meshed `Engine` under
+    FLAGS_lowp_matmul int8 at each of `lowp_grids`, then one column- and
+    one row-parallel product at mp2 under int8 with their B9 operands
+    recorded."""
+    import torch
+
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as mpp
+    from paddle_tpu_torch.distributed.topology import (
+        set_hybrid_communicate_group,
+    )
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.ops import lowp
+
+    losses, params = _run_grids(master, ids, labels, grids, steps)
+    set_flags({"FLAGS_lowp_matmul": "int8"})
+    try:
+        lowp_losses, _ = _run_grids(master, ids, labels, lowp_grids, steps)
+        hcg = _fleet(mp=2)
+        x, w_col, w_row = layer_case
+        col = mpp.ColumnParallelLinear(w_col.shape[0], w_col.shape[1],
+                                       gather_output=False, has_bias=False)
+        row = mpp.RowParallelLinear(w_row.shape[0], w_row.shape[1],
+                                    input_is_parallel=True, has_bias=False)
+        weights.shard_values({"weight": w_col}, col, hcg)
+        weights.shard_values({"weight": w_row}, row, hcg)
+        calls, rec = _smm_recorder()
+        real = lowp.scaled_matmul
+        lowp.scaled_matmul = rec
+        try:
+            with torch.no_grad():
+                h = col(torch.tensor(x))
+                y = row(h)
+        finally:
+            lowp.scaled_matmul = real
+        layers = {"calls": calls, "col_out": h.numpy(), "row_out": y.numpy()}
+        set_hybrid_communicate_group(None)
+    finally:
+        set_flags({"FLAGS_lowp_matmul": "off"})
+    return {"losses": losses, "params": params if rank == 0 else None,
+            "lowp": lowp_losses, "layers": layers}
+
+
+def dropout_layout(rank, nranks, master, ids, labels, grids, steps, p):
+    """The grids at dropout and attention dropout `p`: losses and
+    gathered parameters."""
+    losses, params = _run_grids(master, ids, labels, grids, steps,
+                                dropout=p)
+    return {"losses": losses, "params": params if rank == 0 else None}
+
+
+def _plant_inf(model, name, rank, at_rank, at_step, counter):
+    """A hook on parameter `name` that makes its gradient inf on rank
+    `at_rank` (every rank when None) at step `at_step` (counter[0]
+    counts the backward passes)."""
+    import torch
+
+    p = dict(model.named_parameters())[name]
+
+    def hook(g):
+        counter[0] += 1
+        if at_rank in (None, rank) and counter[0] == at_step:
+            return torch.full_like(g, float("inf"))
+        return g
+
+    p.register_hook(hook)
+
+
+def mesh_features(rank, nranks, master, ids, labels, mask_batches, grids,
+                  steps, plant):
+    """The step features across ranks. `grids`: (name, grid, hybrid,
+    features) run for `steps` steps with FLAGS_record_grad_norm on:
+    losses and the recorded global norms (features: grad_clip (a
+    (class, arg) pair), comm_dtype, ...). `mask_batches`: ERNIE inputs
+    with a float attention mask per step (NaN rows on one rank's slice
+    at some step) run under dynamic loss scaling and under the guard at
+    each of their grids: losses, the scale buffers and the guard's
+    counter after every step. `plant`: (name, grid, parameter, step,
+    only_last): an inf gradient at that step on the last rank's shard
+    only (or on every rank), under dynamic scaling."""
+    import torch
+
+    from paddle_tpu_torch import clip as tclip
+    from paddle_tpu_torch import engine as teng
+    from paddle_tpu_torch.distributed import sharding
+    from paddle_tpu_torch.distributed.topology import (
+        set_hybrid_communicate_group,
+    )
+    from paddle_tpu_torch.framework.flags import set_flags
+
+    out = {"norms": {}, "losses": {}, "scaled": {}, "planted": {},
+           "comm_dtypes": {}}
+    set_flags({"FLAGS_record_grad_norm": True})
+    reduced = []
+    real_ar = sharding.all_reduce
+
+    def spy(t, *a, **k):
+        reduced.append(str(t.dtype))
+        return real_ar(t, *a, **k)
+
+    try:
+        for name, grid, hybrid, feats in grids:
+            feats = dict(feats)
+            clip = feats.pop("grad_clip", None)
+            if clip is not None:
+                clip = getattr(tclip, clip[0])(clip[1])
+            hcg = _fleet(*grid[:4])
+            model, eng, step = ernie_engine(master, hcg, grid,
+                                            hybrid=hybrid, grad_clip=clip,
+                                            **feats)
+            bufs = eng.buffers if hybrid else eng.state.buffers
+            del reduced[:]
+            sharding.all_reduce = spy
+            try:
+                losses, norms = [], []
+                for _ in range(steps):
+                    losses.append(float(step(ids, labels)))
+                    norms.append(float(bufs[teng.GRAD_NORM_KEY]))
+            finally:
+                sharding.all_reduce = real_ar
+            out["losses"][name] = _agree(name, losses)
+            out["norms"][name] = _agree(name + " norms", norms)
+            out["comm_dtypes"][name] = sorted(set(reduced))
+            set_hybrid_communicate_group(None)
+    finally:
+        set_flags({"FLAGS_record_grad_norm": False})
+    for name, grid, feats in mask_batches[1]:
+        hcg = _fleet(*grid[:4])
+        model, eng, step = ernie_engine(master, hcg, grid, hybrid=False,
+                                        **feats)
+        bufs = eng.state.buffers
+        rec = []
+        for ids_k, lbl_k, inputs in mask_batches[0]:
+            loss = float(step(ids_k, lbl_k, *inputs))
+            rec.append([loss] + [float(bufs[k]) for k in (
+                teng.LOSS_SCALE_KEY, teng.GOOD_STEPS_KEY,
+                teng.BAD_STEPS_KEY, teng.ANOMALY_BAD_STEPS_KEY)
+                if k in bufs])
+        out["scaled"][name] = _agree(name, rec)
+        set_hybrid_communicate_group(None)
+    for name, grid, pname, at, only_last in plant:
+        hcg = _fleet(*grid[:4])
+        model, eng, step = ernie_engine(master, hcg, grid, hybrid=False,
+                                        loss_scale=dict(
+                                            init_loss_scaling=1024.0,
+                                            decr_every_n_nan_or_inf=1,
+                                            incr_every_n_steps=2))
+        _plant_inf(model, pname, rank, nranks - 1 if only_last else None,
+                   at, [0])
+        rec = []
+        for _ in range(steps + 1):
+            loss = float(step(ids, labels))
+            rec.append([loss] + [float(eng.state.buffers[k]) for k in (
+                teng.LOSS_SCALE_KEY, teng.GOOD_STEPS_KEY,
+                teng.BAD_STEPS_KEY)])
+        out["planted"][name] = _agree(name, rec)
+        set_hybrid_communicate_group(None)
+    return out
+
+
+def hetero_cases(rank, nranks, master, x, y, steps):
+    """tests/test_torch_pipeline_hetero.py: pp2.hetero, the Lamb
+    fallback, and `fleet.distributed_model` of the layer trained through
+    its `PipelineParallel`."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.topology import (
+        set_hybrid_communicate_group,
+    )
+
+    out = {"hetero": hetero(rank, nranks, master, x, y, 2, steps)}
+    set_hybrid_communicate_group(None)
+    out["fallback"] = hetero(rank, nranks, master, x, y, 2, steps, "Lamb")
+    set_hybrid_communicate_group(None)
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 1,
+                               "pp_degree": 2}
+    strategy.pipeline_configs = {"accumulate_steps": 4,
+                                 "micro_batch_size": len(x) // 4}
+    fleet.init(is_collective=True, strategy=strategy, device="cpu")
+    pl = hetero_layer(2, master)
+    model = fleet.distributed_model(pl)
+    opt = optimizer.SGD(learning_rate=SWEEP_LR, parameters=pl.parameters())
+    losses = [float(model.train_batch((x, y), opt, device="cpu"))
+              for _ in range(steps)]
+    out["wrapped"] = {"type": type(model).__name__, "losses": losses}
+    set_hybrid_communicate_group(None)
     return out
