@@ -360,6 +360,33 @@ read just after it:
     launches exactly as derived (8 a step; 16 under pp2), and the bytes
     a step each rank staged through the host.
 
+50-51: ERNIE-1.0 pretraining across ranks (`phase_ernie_hybrid`,
+`phase_ernie_multirank`).
+52. ERNIE-1.0 across ranks surviving a planted rank death: the launcher's
+    gang supervisor (`distributed.launch`) starts 2 gloo ranks on this
+    card (this script with ``--gang-rank``) at ERNIE's widths with 2
+    layers, b8 x s512, `Engine(mesh=)` at dp2 with ZeRO 2 over dp, bf16
+    O1, dropout 0.1, AdamW with the global-norm clip, dynamic loss
+    scaling and the guard; a `GangWorker` beat a step and a
+    `GangCheckpointManager` commit every 2 steps. A clean leg of 6 steps
+    and, at the same time, a kill leg: ``PADDLE_TPU_FAULTS`` crashes rank
+    1 on the first attempt inside step 5's gradient all-reduce. Rank 0
+    must leave it with a typed retriable error within
+    FLAGS_dist_timeout_s, the supervisor restarts the gang once, both
+    ranks restore step 4 from the GANG marker (digest-checked) and steps
+    5-6 equal the clean leg's bit for bit; 1 restart, generation 2, the
+    gang stats, each rank's B1-B3 launches (2 a step) and, on the
+    restarted ranks, B1-B3 against their plain versions.
+53. In this process, NCCL at world size 1: (a) 52's step-4 checkpoint
+    (dp2, ZeRO 2) restored into `Engine(mesh=)` at world size 1, step 5
+    within `GANG53_RTOL` of 52's; (b) `save_hybrid_state` /
+    `load_hybrid_state` of 50's 12-layer hybrid ERNIE (run inside 50,
+    before it is freed): a fresh engine restored takes the next step bit
+    for bit, with the save and load times and bytes; (c) the guard's
+    rollback of the meshed engine: 3 NaN steps (``train.batch``'s nan
+    action on the batch's loss weights) roll it back to its newest
+    checkpoint and the replay equals the clean steps bit for bit.
+
 The last lines are the card line, one ``{"kernels": [...]}`` JSON line
 and ``{"ok": true, "device": {...}}``. Without a CUDA card, or outside a
 checkout of the repository, it exits with status 2 and prints no result.
@@ -6915,7 +6942,7 @@ def _ernie51_legs(rank, world, store, init_dir, legs, device):
     return out
 
 
-def phase_ernie_hybrid(card, device="cuda:0", n=8, sizes=None):
+def phase_ernie_hybrid(card, device="cuda:0", n=8, sizes=None, tmp=None):
     """Phase 50: ERNIE-1.0 at full width through
     `make_ernie_hybrid_engine` at world size 1 (`fleet.init` over the
     open NCCL world): vocab 18000, hidden 768, 12 layers, 12 heads, seq
@@ -7077,6 +7104,20 @@ def phase_ernie_hybrid(card, device="cuda:0", n=8, sizes=None):
         sync()
         rep["hidden_dropout_hash_ms"] = e0.elapsed_time(e1) / 10
         rep["hidden_dropout_sites_per_step"] = 1 + 2 * L
+    if tmp is not None:
+        # phase 53 (b): the hybrid checkpoint of this engine, before it
+        # is freed
+        def make():
+            m = ErnieForPretraining(
+                cfg, device=device,
+                generator=torch.Generator().manual_seed(1))
+            return make_ernie_hybrid_engine(
+                m, ErniePretrainingCriterion(cfg), adamw(m), hcg,
+                device=device, seed=0, loss_scale="dynamic",
+                anomaly_guard=True)
+
+        rep["hybrid_ckpt_53"] = phase_hybrid_ckpt(eng, make, ids, labels,
+                                                  tmp, bf16, on_card)
     print(json.dumps(rep), flush=True)
     del eng, model
     if on_card:
@@ -7289,7 +7330,519 @@ def _check_ernie51(results, refs, fault, sizes, on_card):
     return report
 
 
+# -- resilience across ranks (phases 52-53) ----------------------------------
+
+# phase 52: ERNIE's widths at 2 layers (ERNIE51), b8 x s512 over dp2
+GANG52_STEPS = 6
+GANG52_SEED = 21            # the weights, the same on every rank
+# rank 0 leaves a collective whose peer died within this (its typed
+# error); the commit barrier waits on the slower rank's save, so it has
+# a deadline of its own
+GANG52_DEADLINE_S = 10.0
+GANG52_BARRIER_S = 120.0
+# rank 1's death on its first attempt: inside step 5's gradient
+# all-reduce (after step 4 was committed) ...
+GANG52_KILL = "dist.allreduce[grads]@5:crash"
+# ... or, for the rehearsal's "newest local step" fault, before the
+# rename of its step-6 checkpoint (rank 0 then holds a local step 6 that
+# the gang never committed)
+GANG52_COMMIT_KILL = "checkpoint.before_commit@3:crash"
+# phase 53 (a): step 5 at world size 1 from 52's step-4 checkpoint
+# against 52's step 5 (dp2): bf16 O1 forwards of b8 against two b4
+# halves, the same kernels; cuBLAS may pick other bf16 GEMMs at the two
+# row counts and the loss sums its rows in another order (phase 50's
+# rule for a few bf16 roundings)
+GANG53_RTOL = 1e-3
+GANG53_BAD = 3              # FLAGS_anomaly_max_bad_steps of 53 (c)
+
+
+def _gang_batch(sizes, step):
+    """Step `step`'s global batch of phases 52-53."""
+    return _ernie_batch(sizes["vocab_size"], sizes["batch"], sizes["seq"],
+                        seed=100 + step)
+
+
+def _gang_engine(cfg, hcg, device, weights_seed, mesh, loss_fn, **kw):
+    """Phase 52's engine: `Engine(mesh=)` with AdamW (lr 1e-4, wd 0.01),
+    the global-norm clip 1.0, dynamic loss scaling and the guard."""
+    import torch
+
+    from paddle_tpu_torch import clip, optimizer
+    from paddle_tpu_torch.engine import Engine
+    from paddle_tpu_torch.nlp.transformers import ErnieForPretraining
+
+    model = ErnieForPretraining(
+        cfg, device=device,
+        generator=torch.Generator().manual_seed(weights_seed))
+    opt = optimizer.AdamW(learning_rate=ERNIE50_LR,
+                          parameters=model.parameters(), weight_decay=0.01,
+                          grad_clip=clip.ClipGradByGlobalNorm(ERNIE50_CLIP))
+    return Engine(model, opt, loss_fn, device=device, seed=0, mesh=mesh,
+                  batch_spec=("dp",), loss_scale="dynamic",
+                  anomaly_guard=True, **kw)
+
+
+def _gang_plant(name, mgr, ckpt):
+    """A planted fault of the rehearsal in a rank of phase 52:
+    "newest_local" restores this rank's newest local step instead of the
+    newest globally committed one; "skip_rng" restores everything but
+    the engine's RngState."""
+    if name == "newest_local":
+        def restore(engine):
+            step = mgr.local.latest_step()
+            ckpt.load_train_state(mgr.local._path(step), engine)
+            return step
+
+        mgr.latest_committed_step = mgr.local.latest_step
+        mgr.restore_engine = restore
+    elif name == "skip_rng":
+        real = ckpt.load_train_state
+
+        def load(path, engine):
+            keep = engine.rng.state_dict()
+            real(path, engine)
+            engine.rng.set_state_dict(keep)
+            return engine
+
+        ckpt.load_train_state = load
+
+
+def _gang_rank_main():
+    """One rank of phase 52, started by the gang supervisor (this script
+    with ``--gang-rank``; the launcher's env contract and GANG_* below).
+    Writes ``rank<r>.a<attempt>.json`` (its steps, commits, restore,
+    launches, gang stats) after every step, ``losses.r<r>.log`` and, on
+    a typed collective error, ``typed.r<r>.log`` (then exits 13)."""
+    import os
+
+    env = os.environ
+    rank = int(env["PADDLE_TRAINER_ID"])
+    attempt = int(env.get("PADDLE_GANG_ATTEMPT", "1"))
+    if rank == 1 and attempt == 1 and env.get("GANG_KILL_FAULTS"):
+        env["PADDLE_TPU_FAULTS"] = env["GANG_KILL_FAULTS"]
+    sys.path.insert(0, str(ROOT))
+    from paddle_tpu_torch.distributed import gang
+
+    out = Path(env["GANG_OUT"])
+    res = {"rank": rank, "attempt": attempt, "steps": [], "commits": []}
+    t_step = [None]
+    try:
+        _gang_rank(rank, attempt, out, res, t_step)
+    except (gang.CollectiveTimeoutError, gang.PeerGoneError) as e:
+        took = time.perf_counter() - t_step[0] if t_step[0] else None
+        with open(out / f"typed.r{rank}.log", "a") as f:
+            f.write(json.dumps({"error": type(e).__name__,
+                                "retriable": e.retriable,
+                                "step_s": took, "message": str(e)[:400]})
+                    + "\n")
+        os._exit(13)
+    # leave at once: the gloo world needs no teardown after the last step
+    os._exit(0)
+
+
+def _gang_rank(rank, attempt, out, res, t_step):
+    import os
+
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed import checkpoint as ckpt, gang
+    from paddle_tpu_torch.distributed.parallel import init_parallel_env
+    from paddle_tpu_torch.framework import monitor
+    from paddle_tpu_torch.nlp.transformers import ErniePretrainingCriterion
+
+    env = os.environ
+    device = env.get("GANG_DEVICE", "cuda:0")
+    sizes = json.loads(env["GANG_SIZES"])
+    steps = int(env["GANG_STEPS"])
+    on_card = torch.device(device).type == "cuda"
+    if not on_card:
+        torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    penv = init_parallel_env(backend="gloo", device=device)
+    world = penv.world_size
+    worker = gang.GangWorker()
+    hcg = _fleet_init(dp=world, device=device)
+    cfg = _ernie51_cfg(sizes, "adamw")
+    crit = ErniePretrainingCriterion(cfg)
+    eng = _gang_engine(cfg, hcg, device, GANG52_SEED, hcg.get_mesh(),
+                       lambda o, y: crit(o[0], o[1], y), zero_stage=2,
+                       sharding_axis="dp")
+    mgr = ckpt.GangCheckpointManager(out / "ckpt", rank, world,
+                                     barrier_timeout_s=GANG52_BARRIER_S)
+    if env.get("GANG_PLANT"):
+        _gang_plant(env["GANG_PLANT"], mgr, ckpt)
+    res["setup_s"] = time.perf_counter() - t0
+    if mgr.latest_committed_step() is not None:
+        t1 = time.perf_counter()
+        res["restored"] = mgr.restore_engine(eng)
+        res["restore_s"] = time.perf_counter() - t1
+    path = out / f"rank{rank}.a{attempt}.json"
+    _zero_flash()
+    lossf = open(out / f"losses.r{rank}.log", "a")
+    while eng.state.step < steps:
+        step = eng.state.step + 1
+        worker.beat(step=step)
+        ids, labels = _gang_batch(sizes, step)
+        t_step[0] = time.perf_counter()
+        with amp.auto_cast(enable=True, dtype="bfloat16"):
+            loss = float(eng.train_batch((ids,), (labels,)))
+        ms = (time.perf_counter() - t_step[0]) * 1e3
+        lossf.write(f"{step} {loss.hex()}\n")
+        lossf.flush()
+        res["steps"].append({"step": step, "loss": loss.hex(), "ms": ms})
+        if step % 2 == 0:
+            t1 = time.perf_counter()
+            mgr.save_engine(step, eng)
+            res["commits"].append({"step": step, "ms": (
+                time.perf_counter() - t1) * 1e3})
+        res["launches"] = _flash_counts()
+        res["stats"] = {k: monitor.stat_get(f"gang.{k}") for k in (
+            "commits", "restores", "heartbeats", "collective_timeouts",
+            "peer_gone")}
+        path.write_text(json.dumps(res))
+    if attempt > 1 and on_card:
+        # a restarted rank's kernels against their plain versions at its
+        # step's shape (dp slice, ERNIE's heads, seq 512, bf16, dropout
+        # 0.1 at its global rows); these launches are not the path's
+        rows = sizes["batch"] // world
+        heads = sizes["num_heads"]
+        d = sizes["hidden_size"] // heads
+        gen = torch.Generator().manual_seed(52 + rank)
+        q, k, v = _packed_qkv(rows, heads, sizes["seq"], d, torch.bfloat16,
+                              gen)
+        do = torch.randn((rows, sizes["seq"], heads, d), generator=gen).to(
+            torch.bfloat16).cuda().transpose(1, 2)
+        seed = torch.tensor(52, device=device)
+        got, want = _flash_vs_plain(q, k, v, do, False, 0.1, seed,
+                                    (rank * rows, 0, heads))
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=2e-2, atol=2e-2)
+        e = [(g - w).abs().max().item() for g, w in zip(got, want)]
+        res["kernel_check_max_abs_err"] = {"B1": e[0], "B2": e[1],
+                                           "B3": max(e[2], e[3])}
+        path.write_text(json.dumps(res))
+    lossf.close()
+
+
+def _gang_results(out):
+    """{(rank, attempt): result} of a leg's ranks."""
+    got = {}
+    for p in Path(out).glob("rank*.a*.json"):
+        r = json.loads(p.read_text())
+        got[(r["rank"], r["attempt"])] = r
+    return got
+
+
+def _gang_losses(out, rank=0):
+    """{step: loss hex} of `rank` (the last execution of a step wins)."""
+    got = {}
+    p = Path(out) / f"losses.r{rank}.log"
+    if p.exists():
+        for line in p.read_text().split("\n"):
+            if line.strip():
+                step, val = line.split()
+                got[int(step)] = val
+    return got
+
+
+def _check_gang_leg(name, leg, clean, layers, on_card, killed):
+    """Phase 52's checks of one leg (`leg`: its code, snapshot, results,
+    losses); raises on the first that fails."""
+    _check(leg["code"] == 0, f"{name}: the gang exited {leg['code']}: "
+           f"{leg['stderr'][-1500:]}")
+    for rank in (0, 1):
+        got = _gang_losses(leg["out"], rank)
+        _check(got == clean[rank], f"{name}: rank {rank}'s losses "
+               f"{got} differ from the clean leg's {clean[rank]}")
+    res = leg["results"]
+    for (rank, attempt), r in res.items():
+        # 2 of each a step a rank (the steps it finished: its results
+        # are written after each one)
+        want = {k: layers * len(r["steps"]) if on_card else 0
+                for k in ("B1", "B2", "B3")}
+        _check(r["launches"] == want, f"{name}: rank {rank} attempt "
+               f"{attempt} launches {r['launches']}, want {want}")
+    if not killed:
+        _check(leg["snapshot"]["restarts"] == 0,
+               f"{name}: restarts {leg['snapshot']}")
+        return
+    snap = leg["snapshot"]
+    _check(snap["restarts"] == 1 and snap["generation"] == 2,
+           f"{name}: snapshot {snap}, want 1 restart and generation 2")
+    typed = leg["typed"]
+    _check(typed and typed[0]["error"] in ("PeerGoneError",
+                                           "CollectiveTimeoutError")
+           and typed[0]["retriable"]
+           and typed[0]["step_s"] <= GANG52_DEADLINE_S,
+           f"{name}: rank 0's error {typed} (want a typed retriable error "
+           f"within {GANG52_DEADLINE_S} s)")
+    for rank in (0, 1):
+        r1, r2 = res.get((rank, 1)), res.get((rank, 2))
+        _check(r1 is not None and r2 is not None,
+               f"{name}: rank {rank} ran attempts {sorted(res)}")
+        _check(r2.get("restored") == 4 and [s["step"] for s in r2["steps"]]
+               == [5, 6], f"{name}: rank {rank} restored "
+               f"{r2.get('restored')} and ran {[s['step'] for s in r2['steps']]}")
+        _check(r1["stats"]["commits"] == 2 and r2["stats"]["commits"] == 1
+               and r2["stats"]["restores"] == 1,
+               f"{name}: rank {rank}'s gang stats {r1['stats']} / "
+               f"{r2['stats']}")
+        if on_card:
+            _check("kernel_check_max_abs_err" in r2,
+                   f"{name}: rank {rank}'s restarted kernels unchecked")
+
+
+def phase_gang(card, tmp, device="cuda:0", sizes=None, plants=()):
+    """Phase 52 (see the module docstring): the clean and the kill leg,
+    and with `plants` a leg under each planted fault (`_gang_plant`;
+    "newest_local" with `GANG52_COMMIT_KILL`), all gangs at once through
+    the launcher's supervisor in this process. `sizes` shrinks the model
+    for a CPU rehearsal (no launches or kernel checks there). Returns
+    (report, B1-B3 launches, {plant: failure or None}, the clean leg's
+    output directory)."""
+    import os
+    import threading
+
+    import torch
+
+    from paddle_tpu_torch.distributed import launch
+    from paddle_tpu_torch.framework import monitor
+
+    sizes = dict(ERNIE51, **(sizes or {}))
+    on_card = torch.device(device).type == "cuda"
+    legs = {"clean": {}, "kill": {"GANG_KILL_FAULTS": GANG52_KILL}}
+    for plant in plants:
+        legs[f"kill.{plant}"] = {
+            "GANG_PLANT": plant, "GANG_KILL_FAULTS": GANG52_COMMIT_KILL
+            if plant == "newest_local" else GANG52_KILL}
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("PADDLE_", "FLAGS_"))}
+    lost0 = monitor.stat_get("gang.restart_lost_ms")
+    runs, threads = {}, []
+    t0 = time.monotonic()
+    for name, extra in legs.items():
+        out = Path(tmp) / f"gang52_{name}"
+        out.mkdir(parents=True)
+        env = dict(base, GANG_OUT=str(out), GANG_STEPS=str(GANG52_STEPS),
+                   GANG_DEVICE=device, GANG_SIZES=json.dumps(sizes),
+                   FLAGS_dist_timeout_s=str(GANG52_DEADLINE_S), **extra)
+        args = launch.parse_args([
+            "--nproc_per_node", "2", "--elastic_retries", "1",
+            "--gang_dir", str(out / "gang"), "--log_dir", str(out / "logs"),
+            "--poll_interval", "0.1", str(ROOT / "chip_smoke.py"),
+            "--gang-rank"])
+        sup = launch._supervisor(args, base_env=env)
+        sup.stderr = open(out / "supervisor.log", "w")
+        run = runs[name] = {"out": out, "sup": sup, "code": None}
+        sup._spawn_all()
+
+        def go(run=run):
+            run["code"] = run["sup"].run()
+            run["wall_s"] = time.monotonic() - t0
+
+        threads.append(threading.Thread(target=go, daemon=True))
+        threads[-1].start()
+    for t in threads:
+        t.join(max(600 - (time.monotonic() - t0), 1))
+    wall = time.monotonic() - t0
+    for run in runs.values():
+        if run["code"] is None:
+            run["sup"].terminate()
+            run["code"] = "timed out"
+        run["sup"].stderr.close()
+        run["stderr"] = (run["out"] / "supervisor.log").read_text()
+        run["snapshot"] = run["sup"].snapshot()
+        run["results"] = _gang_results(run["out"])
+        typed = run["out"] / "typed.r0.log"
+        run["typed"] = [json.loads(x) for x in typed.read_text().split(
+            "\n") if x.strip()] if typed.exists() else []
+    layers = sizes["num_layers"]
+    clean = {r: _gang_losses(runs["clean"]["out"], r) for r in (0, 1)}
+    _check(sorted(clean[0]) == list(range(1, GANG52_STEPS + 1)) and
+           clean[0] == clean[1], f"phase 52: the clean leg's losses "
+           f"{clean} ({runs['clean']['stderr'][-1500:]})")
+    _check_gang_leg("phase 52 clean", runs["clean"], clean, layers, on_card,
+                    False)
+    _check_gang_leg("phase 52 kill", runs["kill"], clean, layers, on_card,
+                    True)
+    verdicts = {}
+    for plant in plants:
+        try:
+            _check_gang_leg(f"phase 52 {plant}", runs[f"kill.{plant}"],
+                            clean, layers, on_card, True)
+            verdicts[plant] = None
+        except RuntimeError as e:
+            verdicts[plant] = str(e)
+    totals = {"B1": 0, "B2": 0, "B3": 0}
+    for name in ("clean", "kill"):
+        for r in runs[name]["results"].values():
+            for k in totals:
+                totals[k] += r.get("launches", {}).get(k, 0)
+    kill = runs["kill"]["results"]
+    rep = {"phase": 52, "card": card, "wall_s": wall,
+           "train": f"ernie-1.0 {layers} layers hidden "
+           f"{sizes['hidden_size']} b{sizes['batch']} s{sizes['seq']} dp2 "
+           "gloo ranks on one card, Engine(mesh=) ZeRO 2 over dp, bf16 O1, "
+           "dropout 0.1, AdamW + global-norm clip, dynamic scaling, guard",
+           "legs_wall_s": {n: r.get("wall_s") for n, r in runs.items()},
+           "kill_snapshot": {k: runs["kill"]["snapshot"][k] for k in (
+               "generation", "restarts", "world")},
+           "restart_lost_ms": monitor.stat_get("gang.restart_lost_ms")
+           - lost0,
+           "rank0_typed_error": runs["kill"]["typed"][:1],
+           "losses": [float.fromhex(clean[0][s]) for s in sorted(clean[0])],
+           "step_ms": {f"rank{r}.a{a}": [s["ms"] for s in v["steps"]]
+                       for (r, a), v in sorted(kill.items())},
+           "commit_ms": {f"rank{r}.a{a}": [c["ms"] for c in v["commits"]]
+                         for (r, a), v in sorted(kill.items())},
+           "restore_s": {f"rank{r}": kill[(r, 2)].get("restore_s")
+                         for r in (0, 1) if (r, 2) in kill},
+           "setup_s": {f"rank{r}.a{a}": v["setup_s"]
+                       for (r, a), v in sorted(kill.items())},
+           "restarted_kernel_check": {
+               f"rank{r}": kill[(r, 2)].get("kernel_check_max_abs_err")
+               for r in (0, 1) if (r, 2) in kill},
+           "launches": totals}
+    print(json.dumps(rep), flush=True)
+    return rep, totals, verdicts, runs["clean"]["out"]
+
+
+def phase_reshard_rollback(card, clean_out, clean_losses, tmp,
+                           device="cuda:0", sizes=None):
+    """Phase 53 (a) and (c) in this process (NCCL at world size 1, or
+    the rehearsal's gloo world of one): 52's clean step-4 checkpoint
+    (rank 0's, written at dp2 with ZeRO 2) restored into `Engine(mesh=)`
+    at world size 1 from other weights; step 5 against 52's
+    (`GANG53_RTOL`), step 6; then back to step 4 from a checkpoint of
+    this engine, `GANG53_BAD` NaN steps (the ``train.batch`` nan action
+    on the batch's per-row loss weights) roll it back, and the replayed
+    steps 5-6 equal the clean ones bit for bit. Returns (report, B1-B3
+    launches)."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.engine import ANOMALY_BAD_STEPS_KEY
+    from paddle_tpu_torch.framework import faults
+    from paddle_tpu_torch.framework.flags import get_flags, set_flags
+    from paddle_tpu_torch.nlp.transformers import ErniePretrainingCriterion
+
+    sizes = dict(ERNIE51, **(sizes or {}))
+    on_card = torch.device(device).type == "cuda"
+    hcg = _fleet_init(device=device)
+    cfg = _ernie51_cfg(sizes, "adamw")
+    crit = ErniePretrainingCriterion(cfg)
+    # a loss weight a row (ones: the loss itself), the float leaf the
+    # nan action poisons
+    eng = _gang_engine(cfg, hcg, device, GANG52_SEED + 1, hcg,
+                       lambda o, y, w: crit(o[0], o[1], y) * w.mean())
+
+    def step(n):
+        ids, labels = _gang_batch(sizes, n)
+        w = np.ones(len(ids), np.float32)
+        with amp.auto_cast(enable=True, dtype="bfloat16"):
+            return float(eng.train_batch((ids,), (labels, w)))
+
+    t0 = time.perf_counter()
+    ckpt.load_train_state(Path(clean_out) / "ckpt" / "rank-0" / "ckpt-4",
+                          eng)
+    restore_s = time.perf_counter() - t0
+    mgr = ckpt.CheckpointManager(Path(tmp) / "rollback53")
+    mgr.save_engine(4, eng)
+    _zero_flash()
+    clean = [step(5), step(6)]
+    want5 = float.fromhex(clean_losses[5])
+    rel = abs(clean[0] - want5) / abs(want5)
+    _check(eng.state.step == 6 and rel <= GANG53_RTOL,
+           f"phase 53 (a): step 5 at world size 1 from 52's dp2 ZeRO-2 "
+           f"checkpoint {clean[0]} vs 52's {want5} (rel {rel:.3g} > "
+           f"{GANG53_RTOL})")
+    mgr.restore_with(lambda p: ckpt.load_train_state(p, eng))
+    eng.attach_checkpoint_manager(mgr)
+    prev = get_flags(["FLAGS_anomaly_max_bad_steps",
+                      "FLAGS_anomaly_check_interval"])
+    set_flags({"FLAGS_anomaly_max_bad_steps": GANG53_BAD,
+               "FLAGS_anomaly_check_interval": 1})
+    try:
+        with warnings.catch_warnings(record=True) as seen, \
+                faults.inject(f"train.batch@1-{GANG53_BAD}:nan"):
+            warnings.simplefilter("always")
+            bad = [step(5 + i) for i in range(GANG53_BAD)]
+        rolled = [str(w.message) for w in seen
+                  if "anomaly guard" in str(w.message)]
+        _check(all(np.isnan(bad)) and eng.state.step == 4 and
+               int(eng.state.buffers[ANOMALY_BAD_STEPS_KEY]) == 0 and
+               len(rolled) == 1,
+               f"phase 53 (c): bad losses {bad}, engine step "
+               f"{eng.state.step}, warnings {rolled}")
+        replay = [step(5), step(6)]
+    finally:
+        set_flags(prev)
+    _check(replay == clean, f"phase 53 (c): the replay {replay} after the "
+           f"rollback differs from the clean steps {clean}")
+    launches = _flash_counts()
+    per = sizes["num_layers"] * (4 + GANG53_BAD) if on_card else 0
+    _check(launches == {k: per for k in ("B1", "B2", "B3")},
+           f"phase 53: launches {launches}, want {per} each")
+    rep = {"phase": 53, "card": card,
+           "reshard": {"from": "dp2 ZeRO 2 (52's step 4)",
+                       "to": "Engine(mesh=) world size 1",
+                       "restore_s": restore_s, "step5": clean[0],
+                       "step5_dp2": want5, "rel_err": rel},
+           "rollback": {"bad_losses": bad, "warning": rolled[0],
+                        "clean": clean, "replay": replay},
+           "launches": launches}
+    print(json.dumps(rep), flush=True)
+    del eng
+    if on_card:
+        torch.cuda.empty_cache()
+    return rep, launches
+
+
+def phase_hybrid_ckpt(eng, make, ids, labels, tmp, bf16, on_card):
+    """Phase 53 (b), inside 50: `save_hybrid_state` of 50's hybrid
+    engine, its next step, then a fresh engine (`make()`: other weights)
+    restored with `load_hybrid_state` takes that step bit for bit. The
+    save's and the load's wall time (synchronised) and bytes. Returns
+    the report (with the two steps' B1-B3 launches)."""
+    import torch
+
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    path = Path(tmp) / "hybrid53"
+    sync()
+    t0 = time.perf_counter()
+    ckpt.save_hybrid_state(path, eng)
+    save_s = time.perf_counter() - t0
+    _zero_flash()
+    with bf16():
+        nxt = float(eng.train_batch(ids, labels))
+    fresh = make()
+    sync()
+    t0 = time.perf_counter()
+    ckpt.load_hybrid_state(path, fresh)
+    sync()
+    load_s = time.perf_counter() - t0
+    with bf16():
+        resumed = float(fresh.train_batch(ids, labels))
+    _check(resumed == nxt, f"phase 53 (b): the restored hybrid engine's "
+           f"step {resumed} != the original's {nxt}")
+    rep = {"save_s": save_s, "load_s": load_s,
+           "bytes": _dir_bytes(path), "next_loss": nxt,
+           "resumed_loss": resumed, "launches": _flash_counts()}
+    shutil.rmtree(path, ignore_errors=True)
+    del fresh
+    return rep
+
+
 def main():
+    if sys.argv[1:2] == ["--gang-rank"]:
+        return _gang_rank_main()      # a rank of phase 52's gang
     try:
         import torch
     except ImportError:
@@ -7540,9 +8093,18 @@ def main():
         # ERNIE-1.0 pretraining across ranks (phases 50-51): the hybrid
         # ERNIE at full width at world size 1 with every step feature,
         # then its factorizations on 2 and 4 gloo ranks at 2 layers
-        _, ernie50 = timed("ernie_hybrid_50", phase_ernie_hybrid, card)
+        rep50, ernie50 = timed("ernie_hybrid_50", phase_ernie_hybrid,
+                               card, tmp=dist_tmp)
         _, ernie51, _ = timed("ernie_multirank_51", phase_ernie_multirank,
                               card, dist_tmp)
+        # resilience across ranks (phases 52-53): the gang surviving a
+        # planted rank death, then the resharded restore and the meshed
+        # guard's rollback here (53 (b) ran inside 50)
+        _, gang52, _, clean_out = timed("gang_52", phase_gang, card,
+                                        dist_tmp)
+        _, reshard53 = timed("reshard_rollback_53", phase_reshard_rollback,
+                             card, clean_out, _gang_losses(clean_out),
+                             dist_tmp)
     finally:
         # the NCCL world first: its watchdog reads the store in dist_tmp
         import torch.distributed as dist
@@ -7561,6 +8123,12 @@ def main():
     for key in ("B1", "B2", "B3", "B9"):
         rows[key]["ernie_multirank_51_launches"] = ernie51[key]
         rows[key]["launches"] += ernie51[key]
+    hybrid53 = rep50["hybrid_ckpt_53"]["launches"]
+    for key in ("B1", "B2", "B3"):
+        rows[key]["gang_52_launches"] = gang52[key]
+        rows[key]["phase_53_launches"] = reshard53[key] + hybrid53[key]
+        rows[key]["launches"] += gang52[key] + reshard53[key] + \
+            hybrid53[key]
     for key, row in rows.items():
         _check(row["launches"] > 0, f"{key} never ran on the path")
     print(json.dumps({"total_s": time.monotonic() - t_start}), flush=True)

@@ -152,12 +152,12 @@ def binary(op_name, x, y):
     return _BINARY[op_name](x, y)
 
 
-def all_finite(tensors):
+def all_finite(tree):
     """One device bool: every element of every tensor is finite. A
     nested list / tuple / dict of tensors (None entries skipped), fused
     into one reduction over per-tensor bits, with no host
     synchronisation (the reference's ``all_finite``; True for none)."""
-    leaves = [t for t in _leaves(tensors) if t is not None]
+    leaves = [t for t in _leaves(tree) if t is not None]
     if not leaves:
         return torch.ones((), dtype=torch.bool)
     return torch.stack([torch.isfinite(t).all() for t in leaves]).all()

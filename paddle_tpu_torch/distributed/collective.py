@@ -16,6 +16,15 @@ the same order, so none waits on a group the others skip.
 The calls are synchronous; ``sync_op`` / ``use_calc_stream`` are taken
 for the reference's signatures. `reduce` leaves the result on every
 rank, as the reference's (``collective.py:243``) does.
+
+`all_reduce` and `barrier` are deadline-scoped, as the reference's
+eager ones: each passes `gang.deadline_guard` (the ``dist.allreduce`` /
+``dist.barrier`` fault sites) and runs its transport under
+`gang.call_with_deadline` (FLAGS_dist_timeout_s), so a peer that died
+mid-collective becomes a typed retriable `gang.CollectiveTimeoutError`
+(the deadline expired) or `gang.PeerGoneError` (the transport reported
+the connection closed), never a hang. The transport then runs on a
+worker thread, on the caller's card.
 """
 
 from __future__ import annotations
@@ -178,14 +187,37 @@ def _staged(group, fn, reads=(), writes=()):
 # -- collectives -----------------------------------------------------------
 
 
-def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True):
-    """Reduce `tensor` over the group, in place on every rank."""
+def _deadline(site, fn=None, tag=None):
+    """`fn()` under the gang deadline of `site` (the fault site fired
+    first), on the caller's card; with no `fn` (an identity collective)
+    only the fault site."""
+    from .gang import call_with_deadline, deadline_guard
+
+    remaining = deadline_guard(site, tag=tag)
+    if fn is None:
+        return None
+    if remaining is not None and torch.cuda.is_available() and \
+            torch.cuda.is_initialized():
+        dev, inner = torch.cuda.current_device(), fn
+
+        def fn():
+            torch.cuda.set_device(dev)
+            return inner()
+    return call_with_deadline(fn, remaining, site)
+
+
+def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True,
+               tag=None):
+    """Reduce `tensor` over the group, in place on every rank.
+    Deadline-scoped (the module docstring); `tag` tags the
+    ``dist.allreduce`` fault site."""
     g = _group(group)
     if g.pg is None:
+        _deadline("dist.allreduce", tag=tag)
         return tensor
-    _staged(g, lambda t, _o: dist.all_reduce(t, op=_TORCH_OPS[op],
-                                             group=g.pg),
-            reads=[tensor], writes=[tensor])
+    _deadline("dist.allreduce", lambda: _staged(
+        g, lambda t, _o: dist.all_reduce(t, op=_TORCH_OPS[op], group=g.pg),
+        reads=[tensor], writes=[tensor]), tag)
     if op == ReduceOp.AVG:
         with torch.no_grad():
             tensor.div_(g.nranks)
@@ -324,13 +356,17 @@ def exchange(sends=(), recvs=(), group=None):
 
 
 def barrier(group=None):
+    """Deadline-scoped (the module docstring)."""
     g = _group(group)
     if g.pg is None:
+        _deadline("dist.barrier")
         return
     if g.backend == "nccl":
-        dist.barrier(group=g.pg, device_ids=[torch.cuda.current_device()])
+        dev = torch.cuda.current_device()
+        _deadline("dist.barrier", lambda: dist.barrier(
+            group=g.pg, device_ids=[dev]))
     else:
-        dist.barrier(group=g.pg)
+        _deadline("dist.barrier", lambda: dist.barrier(group=g.pg))
 
 
 def wait(tensor, group=None, use_calc_stream=True):

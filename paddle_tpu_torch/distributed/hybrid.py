@@ -114,8 +114,10 @@ class HybridParallelEngine:
     ``comm_dtype`` as `engine.Engine` takes them (their state in
     `buffers` under the reference's names); clipping is the optimizer's
     ``grad_clip``. The guard counts consecutive bad steps and, after
-    ``FLAGS_anomaly_max_bad_steps`` of them, raises: the rollback waits
-    with the hybrid checkpoints (ROADMAP queue A item 4)."""
+    ``FLAGS_anomaly_max_bad_steps`` of them, raises: the reference's
+    hybrid engine has no guard and so no rollback; its state is saved
+    and restored by `checkpoint.save_hybrid_state` /
+    `load_hybrid_state`."""
 
     def __init__(self, model, criterion, optimizer, hcg, *, block_regex,
                  blocks, embed_fn, head_fn, act_shape,
@@ -332,7 +334,8 @@ class HybridParallelEngine:
     def _check_anomaly(self):
         """The guard's host read, every ``FLAGS_anomaly_check_interval``
         steps: past ``FLAGS_anomaly_max_bad_steps`` consecutive bad
-        steps it raises (no rollback target under a mesh yet)."""
+        steps it raises (the reference's hybrid engine has no rollback
+        to port)."""
         interval = _flags.flag("FLAGS_anomaly_check_interval")
         if interval > 1 and self.step % interval:
             return
@@ -343,8 +346,10 @@ class HybridParallelEngine:
 
             raise PreconditionNotMetError(
                 f"anomaly guard: {bad} consecutive non-finite steps; the "
-                "rollback of a meshed engine (hybrid checkpoints) waits "
-                "in ROADMAP queue A item 4")
+                "hybrid engine has no rollback (the reference's "
+                "HybridParallelEngine has no guard and no rollback): "
+                "restore a checkpoint of distributed.checkpoint."
+                "save_hybrid_state with load_hybrid_state")
 
     def sync_to_layer(self):
         """ZeRO-3: all-gather the parameters into the model (they rest as

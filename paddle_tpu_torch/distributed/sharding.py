@@ -18,7 +18,9 @@ in this order (`meshed_update`):
    gradient its own uses gave;
 3. every gradient is averaged over dp;
 4. ZeRO, over the ``sharding`` group (whose ranks see the same batch, as
-   the reference's ``P("dp")`` batch spec gives them): stage 1 updates
+   the reference's ``P("dp")`` batch spec gives them), or over dp (the
+   reference's ``sharding_axis="dp"``; the dp-averaged gradients are
+   sliced rather than reduce-scattered): stage 1 updates
    each rank's slice of a sharded leaf from its slice of the optimizer
    state and all-gathers the parameter; stage 2 first reduce-scatters
    the gradient (averaged: the ranks' gradients agree); stage 3 also
@@ -165,10 +167,10 @@ def zero_dim(shape, split_axis, degree):
     return None
 
 
-def _all_reduce_coalesced(tensors, group, scale=None, dtype=None):
+def _all_reduce_coalesced(tensors, group, scale=None, dtype=None, tag=None):
     """Sum `tensors` over `group` in one collective (in place; in
     `dtype` when given, else float32), then multiply by `scale` when
-    given (in float32)."""
+    given (in float32). `tag` tags its ``dist.allreduce`` fault site."""
     tensors = [t for t in tensors if t is not None]
     if not tensors or group.pg is None:
         if scale is not None:
@@ -177,7 +179,7 @@ def _all_reduce_coalesced(tensors, group, scale=None, dtype=None):
         return
     flat = torch.cat([t.reshape(-1).to(dtype or torch.float32)
                       for t in tensors])
-    all_reduce(flat, group=group)
+    all_reduce(flat, group=group, tag=tag)
     flat = flat.float()
     if scale is not None:
         flat.mul_(scale)
@@ -202,7 +204,9 @@ def sync_sequence_parallel_grads(grads, params, hcg):
 def sync_grads(grads, params, hcg, pipeline_shared=(), comm_dtype=None):
     """Steps 1-3 of the module docstring, in place on the ``{name:
     grad}`` dict; `pipeline_shared` names the parameters to sum over
-    pp; the dp reduction runs in `comm_dtype` when given."""
+    pp; the dp reduction runs in `comm_dtype` when given and passes the
+    ``dist.allreduce`` fault site under the tag ``grads`` (one a step:
+    ``dist.allreduce[grads]@N`` is step N's gradient all-reduce)."""
     sync_sequence_parallel_grads(grads, params, hcg)
     if hcg.get_pipe_parallel_world_size() > 1 and pipeline_shared:
         _all_reduce_coalesced([grads[k] for k in pipeline_shared],
@@ -212,7 +216,8 @@ def sync_grads(grads, params, hcg, pipeline_shared=(), comm_dtype=None):
         _all_reduce_coalesced(
             list(grads.values()), hcg.get_data_parallel_group(), 1.0 / dp,
             dtype=None if comm_dtype is None else getattr(torch,
-                                                          comm_dtype))
+                                                          comm_dtype),
+            tag="grads")
 
 
 def grid_groups(hcg):
@@ -331,17 +336,33 @@ class ZeroSharding:
     over the hybrid group's sharding axis at `stage` (0 replicates
     everything), and the update that goes with it."""
 
-    def __init__(self, params, optimizer, hcg, stage=0, offload=False):
+    def __init__(self, params, optimizer, hcg, stage=0, offload=False,
+                 axis="sharding"):
         self.optimizer = optimizer
         self.hcg = hcg
         self.stage = int(stage)
         if self.stage not in (0, 1, 2, 3):
             raise ValueError(f"zero_stage must be 0-3, got {stage}")
+        if axis not in ("sharding", "dp"):
+            raise ValueError(f"ZeRO axis must be 'sharding' or 'dp', got "
+                             f"{axis!r}")
         self.offload = bool(offload)
-        self.group = hcg.get_sharding_parallel_group()
-        self.degree = hcg.get_sharding_parallel_world_size() \
-            if self.stage else 1
-        self.rank = hcg.get_sharding_parallel_rank()
+        if axis == "dp":
+            # ZeRO over dp (the reference's sharding_axis="dp"): the
+            # gradients are already averaged over dp, so stage 2 slices
+            # them instead of reduce-scattering
+            self.group = hcg.get_data_parallel_group()
+            size = hcg.get_data_parallel_world_size()
+            self.rank = hcg.get_data_parallel_rank()
+        else:
+            self.group = hcg.get_sharding_parallel_group()
+            size = hcg.get_sharding_parallel_world_size()
+            self.rank = hcg.get_sharding_parallel_rank()
+        self.degree = size if self.stage else 1
+        # stage 2+ over the sharding axis reduce-scatters the gradients;
+        # otherwise each rank slices its own (they agree)
+        self._scatters = self.stage >= 2 and self.degree > 1 and \
+            axis == "sharding"
         self.params = dict(params)
         self.dims = {}
         self.warned = set()
@@ -404,7 +425,7 @@ class ZeroSharding:
     def reduce_scatter(self, grads):
         """Stage 2+: each sharded leaf's gradient becomes this rank's
         slice of the average over the sharding group."""
-        if self.stage < 2 or self.degree <= 1:
+        if not self._scatters:
             return grads
         out = dict(grads)
         for k, g in grads.items():
@@ -424,7 +445,7 @@ class ZeroSharding:
         for k in self.params:
             g = grads[k]
             d = self.dims[k]
-            if d is not None and (self.stage < 2 or self.degree <= 1):
+            if d is not None and not self._scatters:
                 g = self._slice(k, g)
             own[k] = self._own(k)
             own_grads[k] = g

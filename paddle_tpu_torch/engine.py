@@ -66,8 +66,9 @@ does: `train_batch` takes the GLOBAL batch and, with ``batch_spec``
 naming "dp" (``"dp"`` or ``("dp",)``), each rank its dp
 slice of it; after the backward the gradients are synchronised and
 the update runs under ZeRO ``zero_stage`` over ``sharding_axis``
-("sharding"), with ``offload`` keeping the optimizer state in pinned
-host memory (`distributed.sharding`); the loss returned is the mean
+("sharding", or "dp" as the reference allows), with ``offload``
+keeping the optimizer state in pinned host memory
+(`distributed.sharding`); the loss returned is the mean
 over the global batch, a masked loss's too (`sharding.global_batch`).
 Every step feature works under a mesh as on one card, over the whole
 grid (`sharding.meshed_update`): loss scaling (static, "dynamic" or a
@@ -80,8 +81,11 @@ engine takes float16) with the dp gradients reduced in that dtype.
 Each step's dropout masks are hashes of the elements' global
 coordinates (`framework.random.DropoutLayout`), so a factorization
 drops the same elements as the same engine at world size 1. The
-guard's rollback under a mesh waits with the hybrid checkpoints
-(ROADMAP queue A item 4).
+guard rolls a meshed engine back as one: every rank reaches the same
+verdict at the same step, restores the same step (the newest step every
+rank can read, agreed over the world, or a `GangCheckpointManager`'s
+newest globally committed one) and keeps its slice of the checkpoint's
+global leaves (`distributed.checkpoint.load_train_state`).
 
 ``engine.state`` exposes the trainable parameters (the layer's own,
 updated in place) and the optimizer state under the reference's names,
@@ -165,12 +169,13 @@ def _leaves(tree):
             yield from _leaves(v)
 
 
-def make_eval_step(layer):
+def make_eval_step(layer, mesh=None):
     """``eval_fn(values, *inputs)``: the layer's forward with its
     parameters and buffers taken from `values` (``{structured name:
     tensor}``; names left out keep the layer's own), in eval mode and
     without autograd; the layer's training flag is restored
-    afterwards."""
+    afterwards. `mesh` is taken and unused, as in the reference (each
+    rank evaluates its own shards)."""
     def eval_fn(values, *inputs):
         was_training = layer.training
         layer.eval()
@@ -347,9 +352,11 @@ class Engine:
         if self.hcg is not None:
             from .distributed.sharding import ZeroSharding
 
-            stage = zero_stage if sharding_axis == "sharding" else 0
+            stage = zero_stage if sharding_axis in ("sharding", "dp") \
+                else 0
             self._zero = ZeroSharding(params, optimizer, self.hcg, stage,
-                                      offload)
+                                      offload, axis=sharding_axis or
+                                      "sharding")
             self._dp_slice = _dp_sliced(batch_spec)
             self._heads_split = heads_split(layer)
             opt_state = self._zero.states
@@ -686,19 +693,27 @@ class Engine:
         FLAGS_anomaly_max_bad_steps consecutive steps go non-finite, the
         engine restores the newest readable checkpoint from this
         `distributed.checkpoint.CheckpointManager`
-        (`train_epoch_range` attaches its own manager). A meshed
-        engine's rollback waits with the hybrid checkpoints (ROADMAP
-        queue A item 4)."""
-        if self.hcg is not None:
-            raise NotImplementedError(
-                "the guard's rollback of a meshed engine (hybrid "
-                "checkpoints) waits in ROADMAP queue A item 4")
+        (`train_epoch_range` attaches its own manager), or the newest
+        globally committed step of a `GangCheckpointManager`."""
         self._ckpt_manager = manager
+
+    def _agreed_step(self, manager):
+        """The newest step every rank of the world can read from its own
+        manager (a collective; None when some rank has none)."""
+        from .distributed.collective import ReduceOp, all_reduce
+
+        steps = manager.readable_steps()
+        t = torch.tensor([steps[-1] if steps else -1], dtype=torch.int64,
+                         device=self.device)
+        all_reduce(t, ReduceOp.MIN)
+        step = int(t[0])
+        return None if step < 0 else step
 
     def _check_anomaly(self):
         """Step-boundary policy of the guard: ONE host read of the
         consecutive-bad-step counter, then a rollback once the budget
-        is spent."""
+        is spent (under a mesh every rank reads the same counter, so the
+        rollback is a collective decision)."""
         bufs = self.state.buffers
         bad = int(bufs[ANOMALY_BAD_STEPS_KEY])
         if bad == 0:
@@ -724,11 +739,23 @@ class Engine:
         _observe.flight.note("anomaly_rollback", bad_steps=bad,
                              engine_step=self.state.step)
         _observe.flight.dump("anomaly-rollback")
-        self._ckpt_manager.wait_until_finished()
-        step, _ = self._ckpt_manager.restore_with(
-            lambda p: _ckpt.load_train_state(p, self))
+        mgr = self._ckpt_manager
+        if isinstance(mgr, _ckpt.GangCheckpointManager):
+            step = mgr.restore_engine(self)
+        else:
+            mgr.wait_until_finished()
+            at = None
+            if self.hcg is not None:
+                at = self._agreed_step(mgr)
+                if at is None:
+                    raise FileNotFoundError(
+                        "anomaly guard: no checkpoint step that every "
+                        "rank can read")
+            step, _ = mgr.restore_with(
+                lambda p: _ckpt.load_train_state(p, self), step=at)
         # the restored snapshot predates the anomaly: the guard re-arms
         # from zero
+        bufs = self.state.buffers
         bufs[ANOMALY_BAD_STEPS_KEY] = torch.zeros(
             (), dtype=torch.int32, device=self.device)
         _monitor.stat_add("anomaly_rollbacks")
@@ -736,4 +763,3 @@ class Engine:
             f"anomaly guard: {bad} consecutive non-finite steps; rolled "
             f"back to checkpoint ckpt-{step} (engine step "
             f"{self.state.step})")
-

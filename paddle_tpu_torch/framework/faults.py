@@ -14,14 +14,24 @@ restarts". The port fires these sites:
     train.batch               each Engine.train_batch; payload = the
                               host batch {"inputs": ..., "labels": ...}
     preempt.poll              each preemption poll (step boundary)
+    elastic.beat              each heartbeat write (drop target)
+    dist.allreduce            each eager all-reduce, before the transport
+                              (delay past FLAGS_dist_timeout_s = the
+                              deterministic CollectiveTimeoutError path)
+    dist.barrier              each eager barrier, including the gang
+                              checkpoint commit barrier
+    gang.heartbeat            each gang worker heartbeat+watermark write
+                              (drop = supervisor sees the rank stall)
+    gang.restart              each coordinated gang restart, after the
+                              teardown and before the respawn
     serving.*                 the serving sites, fired by
                               serving/queueing.py, batcher.py,
                               paging.py, kvstore.py, engine.py,
                               fleet.py and rollout.py (see `SITES` for
                               each)
 
-The reference's other sites (elastic, ``serving.shard_step``, dist,
-gang, ps, rec) join `SITES` as their modules are ported.
+The reference's other sites (``serving.shard_step``, the p2p mailbox's
+``dist.p2p_*``, ps, rec) join `SITES` as their modules are ported.
 `fault_point` refuses to fire for an unregistered site that no active
 spec names.
 
@@ -74,6 +84,14 @@ SITES = {
     "checkpoint.after_commit": "after the rename; payload = ckpt dir",
     "train.batch": "each Engine.train_batch",
     "preempt.poll": "each preemption poll (step boundary)",
+    "elastic.beat": "each elastic heartbeat write",
+    "dist.allreduce": "each eager all-reduce before the transport "
+                      "(delay eats the FLAGS_dist_timeout_s budget)",
+    "dist.barrier": "each eager barrier / gang ckpt commit barrier",
+    "gang.heartbeat": "each gang worker heartbeat+watermark write "
+                      "(drop = the supervisor sees this rank stall)",
+    "gang.restart": "each coordinated gang restart, after teardown "
+                    "and before the respawn",
     "serving.submit": "each admission attempt (drop = shed as a full "
                       "queue would)",
     "serving.dequeue": "each queue pop by the batcher or decode engine",

@@ -5,8 +5,9 @@ fleet's, the rollout's and tenancy's flags) plus the ERNIE head's
 `FLAGS_use_fused_lm_loss`, the ResNet convs' `FLAGS_use_pallas_conv`,
 the low-precision training flags (`FLAGS_lowp_*`), and those of the
 anomaly guard's rollback, checkpointing, simulated preemption, the
-flight recorder and `FLAGS_remat_policy`, with the same names and
-defaults. Unknown flags
+flight recorder and `FLAGS_remat_policy`, and the gang's deadlines and
+supervisor (`FLAGS_dist_timeout_s`, `FLAGS_gang_*`), with the same names
+and defaults. Unknown flags
 raise.
 """
 
@@ -213,6 +214,27 @@ _DEFS = {
         True, bool,
         "verify the per-leaf sha256 manifest when restoring a "
         "checkpoint (detects truncated/corrupted leaves)"),
+    "FLAGS_dist_timeout_s": (
+        60.0, float,
+        "distributed: per-call deadline (seconds) for eager collectives, "
+        "barriers and the gang checkpoint commit barrier. A peer that "
+        "does not answer within the deadline raises typed retriable "
+        "CollectiveTimeoutError/PeerGoneError instead of blocking the "
+        "rank forever (0 disables: the transport's own blocking)"),
+    "FLAGS_gang_max_restarts": (
+        3, int,
+        "gang supervisor: coordinated gang restarts allowed before the "
+        "job fails with the last rank's exit code (each restart tears "
+        "down ALL ranks and re-forms the world from the newest "
+        "globally committed checkpoint)"),
+    "FLAGS_gang_hang_secs": (
+        30.0, float,
+        "gang supervisor: a rank whose heartbeat or step-progress "
+        "watermark stalls this long (while its process is still alive) "
+        "is declared hung and the whole gang is restarted (0 disables "
+        "hang detection; keep this above FLAGS_dist_timeout_s so "
+        "collective-blocked victims unblock via their deadline and the "
+        "stall is attributed to the rank that actually died)"),
     "FLAGS_simulate_preempt_at_step": (
         0, int,
         "testing: report a preemption at the Nth preemption poll "

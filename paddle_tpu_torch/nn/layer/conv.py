@@ -63,9 +63,8 @@ class Conv2D(_ConvNd):
                  padding=0, dilation=1, groups=1, padding_mode="zeros",
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  generator=None):
-        if padding_mode != "zeros":
-            raise NotImplementedError(
-                f"padding_mode={padding_mode!r} is not ported yet")
+        # padding_mode is taken and unused: zero padding, as the
+        # reference's Conv2D (and this module's Conv1D / Conv3D)
         super().__init__(in_channels, out_channels, kernel_size, stride,
                          padding, dilation, groups, weight_attr, bias_attr,
                          data_format, 2, generator)

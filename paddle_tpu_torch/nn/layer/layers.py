@@ -87,12 +87,20 @@ class Parameter(torch.nn.Parameter):
         return out
 
 
+def _torch_sublayers(module, prefix):
+    """`named_sublayers` of a plain torch module inside a Layer."""
+    yield prefix, module
+    for name, child in module.named_children():
+        yield from _torch_sublayers(child, f"{prefix}.{name}")
+
+
 class Layer(torch.nn.Module):
     """paddle's Layer on torch's Module."""
 
     def __init__(self, name_scope=None, dtype="float32"):
         super().__init__()
         self._dtype = dtype
+        self._full_name = name_scope or type(self).__name__.lower()
 
     def __setattr__(self, name, value):
         if isinstance(value, Parameter) and value.name is None:
@@ -163,6 +171,33 @@ class Layer(torch.nn.Module):
     def add_sublayer(self, name, sublayer):
         self.add_module(str(name), sublayer)
         return sublayer
+
+    def full_name(self):
+        """`name_scope`, or the class name in lower case."""
+        return getattr(self, "_full_name", type(self).__name__.lower())
+
+    def sublayers(self, include_self=False):
+        return [m for _, m in self.named_sublayers(include_self=include_self)]
+
+    def named_sublayers(self, prefix="", include_self=False):
+        """``(structured name, layer)`` of every sublayer, depth first in
+        registration order (this layer first under `include_self`), as
+        the reference's."""
+        if include_self:
+            yield prefix, self
+        for name, child in self.named_children():
+            yield from child.named_sublayers(
+                prefix=f"{prefix}.{name}" if prefix else name,
+                include_self=True) if isinstance(child, Layer) else \
+                _torch_sublayers(child, f"{prefix}.{name}" if prefix
+                                 else name)
+
+    def register_forward_post_hook(self, hook):
+        """``hook(layer, inputs, outputs)`` after each forward (a non-None
+        return replaces the outputs); returns a handle whose ``remove()``
+        undoes it. The hook is torch's forward hook, so the fusion
+        predicates that read ``_forward_hooks`` see it."""
+        return self.register_forward_hook(hook)
 
     @torch.no_grad()
     def set_state_dict(self, state_dict, use_structured_name=True):

@@ -115,7 +115,7 @@ def snapshot(serving=None):
              for stat in _GANG_METRICS},
             restart_lost_seconds=(
                 monitor.stat_get("gang.restart_lost_ms") / 1e3),
-            heartbeat_ages=_gang_heartbeat_ages()),
+            heartbeat_ages=_gang().heartbeat_ages()),
         # mesh-sharded serving view mirrors paddle_serving_mesh_*: the
         # KV-migration counters (every ServingMetrics.inc also lands in
         # the monitor registry; an engine's role detail lives in
@@ -343,15 +343,16 @@ _LOWP_METRICS = {
         "fell back to dynamic scaling"),
 }
 
+def _gang():
+    """`distributed.gang` (imported on use: observe is imported by the
+    modules gang builds on)."""
+    from ..distributed import gang
+
+    return gang
+
+
 #: disaggregation role encodings for the mesh-family role gauge
 MESH_ROLE_CODES = {"any": 0, "prefill": 1, "decode": 2}
-
-
-def _gang_heartbeat_ages():
-    """{rank slot: seconds since its last heartbeat} across live gang
-    supervisors. Empty: the port has no gang supervisor until
-    `distributed/gang.py` is ported."""
-    return {}
 
 
 def _rec_gauges():
@@ -459,7 +460,7 @@ def prometheus_text(serving=None, queue_depth=None, fleet=None):
           mtype="counter",
           help_="wall time lost to coordinated gang restarts "
                 "(detection -> teardown -> backoff -> respawn)")
-    for slot, age in sorted(_gang_heartbeat_ages().items()):
+    for slot, age in sorted(_gang().heartbeat_ages().items()):
         L.add("paddle_gang_rank_heartbeat_age_seconds", age,
               labels={"rank": slot},
               help_="age of this rank's last gang heartbeat")

@@ -217,6 +217,12 @@ def test_all_finite_and_amp_guard():
     assert not bool(tamp.all_finite(ok + [torch.tensor([1.0, np.nan])]))
     assert not bool(tamp.all_finite({"a": {"b": torch.tensor([np.inf])}}))
     assert bool(tamp.all_finite([]))
+    # queue C, C10: the parameter is named `tree`, as the reference's
+    bad = {"x": torch.tensor([1.0, np.inf])}
+    assert bool(tamp.all_finite(tree=bad)) == bool(
+        jamp.all_finite(tree={"x": np.array([1.0, np.inf])})) is False
+    assert bool(tamp.all_finite(tree=ok)) == bool(
+        jamp.all_finite(tree=[np.ones(3)])) is True
     assert tamp.amp_guard is tamp.auto_cast
     with tamp.amp_guard(level="O2", dtype="float16"):
         assert tamp.policy()[0] == torch.float16

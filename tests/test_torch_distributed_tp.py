@@ -289,11 +289,12 @@ def test_waiting_distributed_features_raise_naming_the_roadmap_item():
         finally:
             set_flags({"FLAGS_mp_overlap": False})
         # the step features no longer wait: the engine builds, and its
-        # guard's rollback (the hybrid checkpoints) waits
+        # guard takes a rollback target (the meshed rollback is ported)
         eng = engine(comm_dtype="bfloat16", loss_scale="dynamic",
                      anomaly_guard=True)
-        with pytest.raises(NotImplementedError, match="item 4"):
-            eng.attach_checkpoint_manager(object())
+        target = object()
+        eng.attach_checkpoint_manager(target)
+        assert eng._ckpt_manager is target
         assert callable(hybrid.make_ernie_hybrid_engine)
         assert callable(tmp.PipelineParallel)
     finally:

@@ -201,6 +201,22 @@ def test_make_eval_step_matches_reference():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+def test_make_eval_step_takes_and_ignores_mesh():
+    """Queue C, C10: both packages take ``mesh=`` and ignore it (each
+    rank evaluates its own values): the same logits as without it, and
+    the reference's, within this file's 1e-5."""
+    jm, tm, _ = build_pair(seed=1, **TINY_TRAIN)
+    ids, _ = _batch(5, n=2)
+    mesh = object()
+    want = np.asarray(j_make_eval_step(jm, mesh=mesh)(state_values(jm),
+                                                      ids))
+    values = {k: v.detach().clone() for k, v in tm.state_dict().items()}
+    got = t_make_eval_step(tm, mesh=mesh)(values, torch.from_numpy(ids))
+    plain = t_make_eval_step(tm)(values, torch.from_numpy(ids))
+    assert torch.equal(got, plain)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
 def test_memory_analysis_raises_before_a_step_and_off_the_card():
     _, tm, _ = build_pair(seed=0, **TINY_TRAIN)
     cfg = tgpt.GPTConfig(**dict(TINY_TRAIN, use_parallel=False))

@@ -205,3 +205,113 @@ def test_spectral_norm_layer_state_crosses_the_boundary():
         tm(torch.tensor(w)).numpy(),
         to_np(jm(paddle.to_tensor(w))), rtol=1e-5, atol=1e-6)
     assert not tm.weight_u.requires_grad and not tm.weight_v.requires_grad
+
+
+# -- Layer's hooks, sublayers and names (queue C, C9) ------------------------
+
+
+def _nested(nn):
+    return nn.Sequential(nn.Linear(4, 6), nn.Sequential(
+        nn.Linear(6, 6), nn.ReLU(), nn.Sequential(nn.LayerNorm(6))),
+        nn.Linear(6, 2))
+
+
+def test_forward_post_hook_matches_the_reference_and_removes():
+    vals = {"weight": np.random.RandomState(0).randn(3, 2).astype(
+        np.float32), "bias": np.arange(2, dtype=np.float32)}
+    x = np.random.RandomState(1).randn(4, 3).astype(np.float32)
+    jl, tl = jnn.Linear(3, 2), tnn.Linear(3, 2)
+    jl.set_state_dict({k: paddle.to_tensor(v) for k, v in vals.items()})
+    tl.set_state_dict(vals)
+    seen = []
+
+    def hook(layer, inputs, outputs):
+        seen.append(type(layer).__name__)
+        return outputs * 2 + 1
+
+    jh = jl.register_forward_post_hook(hook)
+    th = tl.register_forward_post_hook(hook)
+    got = tl(torch.from_numpy(x)).detach().numpy()
+    want = np.asarray(jl(paddle.to_tensor(x)).numpy())
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    assert seen == ["Linear", "Linear"]
+    jh.remove()
+    th.remove()
+    np.testing.assert_allclose(tl(torch.from_numpy(x)).detach().numpy(),
+                               np.asarray(jl(paddle.to_tensor(x)).numpy()),
+                               rtol=1e-6, atol=1e-6)
+    assert len(seen) == 2
+
+
+@pytest.mark.parametrize("include_self", [False, True])
+def test_sublayers_and_names_match_the_reference(include_self):
+    jm, tm = _nested(jnn), _nested(tnn)
+    jn = [n for n, _ in jm.named_sublayers(include_self=include_self)]
+    tn = [n for n, _ in tm.named_sublayers(include_self=include_self)]
+    assert tn == jn
+    assert [type(m).__name__ for m in tm.sublayers(include_self)] == \
+        [type(m).__name__ for m in jm.sublayers(include_self)]
+    jp = [n for n, _ in jm.named_sublayers(prefix="m", include_self=True)]
+    tp = [n for n, _ in tm.named_sublayers(prefix="m", include_self=True)]
+    assert tp == jp
+    for cls in ("Linear", "LayerNorm", "ReLU", "Sequential"):
+        assert getattr(tnn, cls).__name__.lower() == \
+            getattr(jnn, cls).__name__.lower()
+    assert tm.full_name() == jm.full_name()
+    assert tm[0].full_name() == jm[0].full_name()
+    assert tnn.Layer(name_scope="block").full_name() == \
+        jnn.Layer(name_scope="block").full_name()
+
+
+def test_a_post_hooked_resnet_conv_keeps_the_composed_path(monkeypatch):
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.vision.models import resnet
+
+    block = resnet.BasicBlock(4, 4).eval()
+    fused = []
+    real = F.fused_conv2d_bn_act
+
+    def spy(x, w, *a, **kw):
+        fused.append(w)
+        return real(x, w, *a, **kw)
+
+    monkeypatch.setattr(F, "fused_conv2d_bn_act", spy)
+    x = torch.randn(1, 4, 6, 6, generator=torch.Generator().manual_seed(0))
+    block(x)
+    assert any(w is block.conv1.weight for w in fused)
+    fused.clear()
+    ran = []
+    handle = block.conv1.register_forward_post_hook(
+        lambda layer, i, o: ran.append(1))
+    assert not block.conv1._is_plain_for_fusion()
+    block(x)
+    assert ran == [1]
+    assert not any(w is block.conv1.weight for w in fused)
+    assert any(w is block.conv2.weight for w in fused)
+    handle.remove()
+    assert block.conv1._is_plain_for_fusion()
+
+
+# -- signatures the reference takes (queue C, C10) ---------------------------
+
+
+def test_conv2d_takes_padding_mode_and_pads_with_zeros():
+    """The reference accepts ``padding_mode`` and ignores it (zero
+    padding); so does the port, within the layer cases' rtol 1e-5 /
+    atol 1e-5 (27 terms a sum)."""
+    rng = np.random.RandomState(0)
+    w = rng.randn(4, 3, 3, 3).astype(np.float32)
+    b = rng.randn(4).astype(np.float32)
+    x = rng.randn(2, 3, 5, 5).astype(np.float32)
+    outs = []
+    for mode in ("reflect", "zeros"):
+        jc = jnn.Conv2D(3, 4, 3, padding=1, padding_mode=mode)
+        tc = tnn.Conv2D(3, 4, 3, padding=1, padding_mode=mode)
+        jc.set_state_dict({"weight": paddle.to_tensor(w),
+                           "bias": paddle.to_tensor(b)})
+        tc.set_state_dict({"weight": w, "bias": b})
+        got = tc(torch.from_numpy(x)).detach().numpy()
+        want = np.asarray(jc(paddle.to_tensor(x)).numpy())
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        outs.append(got)
+    np.testing.assert_array_equal(outs[0], outs[1])

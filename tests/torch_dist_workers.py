@@ -26,10 +26,13 @@ SWEEP_LR = 0.05
 SWEEP_STEPS = 2
 
 
-def run_ranks(nranks, job, args, workdir, timeout=240):
-    """Run ``job(rank, nranks, *args)`` on `nranks` gloo ranks; returns
-    the list of their results (rank order). Raises with the failing
-    ranks' tracebacks."""
+def run_ranks(nranks, job, args, workdir, timeout=240, hard_exit=False):
+    """Run ``job(rank, nranks, *args)`` on `nranks` gloo ranks (`job`: a
+    function of this module, or ``"module:function"`` of a module beside
+    it); returns the list of their results (rank order). Raises with the
+    failing ranks' tracebacks. `hard_exit`: each rank leaves with
+    ``os._exit`` once its result is written, skipping the teardown of a
+    gloo world that a rank left mid-collective on purpose."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
@@ -38,7 +41,8 @@ def run_ranks(nranks, job, args, workdir, timeout=240):
     for rank in range(nranks):
         out = os.path.join(workdir, f"rank{rank}.pkl")
         p = ctx.Process(target=_entry,
-                        args=(rank, nranks, store, job, args, out))
+                        args=(rank, nranks, store, job, args, out,
+                              hard_exit))
         p.start()
         procs.append(p)
     for p in procs:
@@ -66,7 +70,16 @@ def run_ranks(nranks, job, args, workdir, timeout=240):
     return results
 
 
-def _entry(rank, nranks, store, job, args, out):
+def _job(job):
+    if ":" in job:
+        import importlib
+
+        module, name = job.split(":")
+        return getattr(importlib.import_module(module), name)
+    return globals()[job]
+
+
+def _entry(rank, nranks, store, job, args, out, hard_exit=False):
     import torch
 
     torch.set_num_threads(1)
@@ -76,14 +89,18 @@ def _entry(rank, nranks, store, job, args, out):
         parallel.init_parallel_env(backend="gloo", device="cpu",
                                    init_method=f"file://{store}",
                                    rank=rank, world_size=nranks)
-        value = (True, globals()[job](rank, nranks, *args))
+        value = (True, _job(job)(rank, nranks, *args))
     except BaseException:      # reported to the parent, then re-raised
         value = (False, traceback.format_exc())
         with open(out, "wb") as f:
             pickle.dump(value, f)
+        if hard_exit:
+            os._exit(1)
         raise
     with open(out, "wb") as f:
         pickle.dump(value, f)
+    if hard_exit:
+        os._exit(0)
 
 
 def _fleet(dp=1, mp=1, pp=1, sharding=1):
